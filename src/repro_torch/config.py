@@ -1,0 +1,91 @@
+"""Model configuration + the arch registry (port of ``repro/config.py``).
+
+Only the fields the decoder serving path reads are kept; their names and
+defaults equal ``repro.config.ModelConfig`` so configs convert one for one.
+``use_pallas`` stays a field for that reason alone: kernel choice in the
+port follows the tensors' device, not this flag (``kernels/ops.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str              # decoder (the one family ported so far)
+    num_layers: int
+    d_model: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    mlp_type: str = "swiglu"         # swiglu | geglu | gelu
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    embed_scale: bool = False
+    logit_softcap: float = 0.0
+
+    dtype: str = "bf16"
+    param_dtype: str = "bf16"
+    use_pallas: bool = False         # kept for one-for-one conversion; unread
+    remat: str = "full"              # training only; unread by serving
+    attn_chunk: int = 1024
+
+    source: str = ""
+
+    @property
+    def d_head(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return DTYPES[self.param_dtype]
+
+    def padded_vocab(self, multiple: int = 16) -> int:
+        v = self.vocab_size
+        return ((v + multiple - 1) // multiple) * multiple
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+_SMOKE: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    _SMOKE[cfg.name] = smoke
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch '{name}'; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    _load_all()
+    if name not in _SMOKE:
+        raise KeyError(f"unknown arch '{name}'; have {sorted(_SMOKE)}")
+    return _SMOKE[name]
+
+
+def _load_all() -> None:
+    from repro_torch import configs  # noqa: F401  (registers everything)

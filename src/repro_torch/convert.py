@@ -1,0 +1,47 @@
+"""Carry trees from the JAX package into the port.
+
+A JAX param or adapter tree, handed over as numpy arrays (``np.asarray`` of
+each leaf, e.g. via ``jax.tree.map``), becomes the port's nested dict of
+tensors with the same keys, so ``/``-joined paths match leaf for leaf and
+both packages compute the same thing. bf16 leaves arrive as numpy's
+``ml_dtypes`` bfloat16, which torch cannot read directly; they pass through
+float32 exactly.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))     # a writable copy
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _convert(tree: Any, device: torch.device, dtype) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    return _leaf(tree, device, dtype)
+
+
+def params_from_numpy(tree: Mapping, device: DeviceLike = "cuda",
+                      dtype: Optional[torch.dtype] = None) -> dict:
+    """Model params (nested dicts of arrays, as ``repro`` ``init_lm``
+    returns them) -> the port's tree on ``device``; ``dtype`` casts every
+    leaf (None keeps each leaf's own dtype)."""
+    return _convert(tree, resolve_device(device), dtype)
+
+
+def adapters_from_numpy(tree: Mapping, device: DeviceLike = "cuda",
+                        dtype: Optional[torch.dtype] = None) -> dict:
+    """Adapter trees — ``{path: {"L", "R"}}`` from ``init_peft`` or
+    ``{name: {path: ...}}`` for a bank — -> the port's trees on
+    ``device``, paths unchanged."""
+    return _convert(tree, resolve_device(device), dtype)

@@ -1,0 +1,121 @@
+// Shared pieces of the fused GSOFT rotation kernels (gs_fused_T.cu,
+// gs_fused.cu): constants, type conversion, the register-tiled block product
+// and the launch helper. Each including .cu file is its own shared library.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace gs {
+
+constexpr int kThreads = 1024;
+constexpr int kPerThread = 32;                        // fp32 sums a thread keeps
+constexpr int kMaxTileElems = kThreads * kPerThread;  // tt * d must not exceed this
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Register layout shared by both kernels: thread `tid` owns the feature
+// columns k = tid + p * kThreads (p < KP) of all TT tokens of the tile, so a
+// factor element loaded once from L1/L2 feeds TT fused multiply-adds, and the
+// factor loads of a warp (32 consecutive columns of one b x b block row) are
+// coalesced. The TT * KP sums stay in registers across one __syncthreads,
+// which is what lets every stage overwrite the tile in place.
+//
+// Block product over the tile: acc[p][t] = sum_i F[g][i][j] * buf[t*d + in(g, i)]
+// for column k = g*b + j, with F read as F[(g*b + i)*b + j] (row i of block g),
+// and `in` the stage's shuffled input position.
+template <typename T, int TT, bool kShuffledIn>
+__device__ __forceinline__ void block_stage(const T* __restrict__ F,
+                                            const float* buf, int d, int r, int b,
+                                            int kbeg, int kend,
+                                            float (&acc)[kPerThread / TT][TT]) {
+  constexpr int KP = kPerThread / TT;
+#pragma unroll
+  for (int p = 0; p < KP; ++p) {
+#pragma unroll
+    for (int t = 0; t < TT; ++t) acc[p][t] = 0.f;
+    const int k = kbeg + threadIdx.x + p * kThreads;
+    if (k < kend) {
+      const int g = k / b, j = k - g * b;
+      const T* Fg = F + (size_t)g * b * b + j;
+      // input position of row i of block g: g*b + i (in place) or
+      // i*r + g (reading the P^T-shuffled intermediate)
+      const float* in = kShuffledIn ? buf + g : buf + g * b;
+      const int step = kShuffledIn ? r : 1;
+#pragma unroll 4
+      for (int i = 0; i < b; ++i) {
+        const float w = to_f32(Fg[(size_t)i * b]);
+#pragma unroll
+        for (int t = 0; t < TT; ++t) acc[p][t] += w * in[t * d + i * step];
+      }
+    }
+  }
+}
+
+template <int TT>
+__device__ __forceinline__ void store_tile(float* buf, int d, int kbeg, int kend,
+                                           const float (&acc)[kPerThread / TT][TT]) {
+  constexpr int KP = kPerThread / TT;
+#pragma unroll
+  for (int p = 0; p < KP; ++p) {
+    const int k = kbeg + threadIdx.x + p * kThreads;
+    if (k < kend) {
+#pragma unroll
+      for (int t = 0; t < TT; ++t) buf[t * d + k] = acc[p][t];
+    }
+  }
+}
+
+template <typename Kernel, typename T>
+cudaError_t launch_kernel(Kernel kernel, int cluster, dim3 grid, size_t smem,
+                          cudaStream_t stream, const void* x, const void* L,
+                          const void* R, void* y, int n_tokens, int r, int b) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const T*)x, (const T*)L, (const T*)R,
+                           (T*)y, n_tokens, r, b);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Tokens per tile TT: a power of two with TT * d <= kMaxTileElems (the wrapper
+// picks it); one instantiation per TT.
+#define GS_DISPATCH_TT(tt, CALL)                       \
+  switch (tt) {                                        \
+    case 1: { constexpr int TT = 1; return CALL; }     \
+    case 2: { constexpr int TT = 2; return CALL; }     \
+    case 4: { constexpr int TT = 4; return CALL; }     \
+    case 8: { constexpr int TT = 8; return CALL; }     \
+    default: return (int)cudaErrorInvalidValue;        \
+  }
+
+inline bool bad_shape(int B, int n_tokens, int r, int b, int tt) {
+  return B <= 0 || n_tokens <= 0 || r <= 0 || b <= 0 || B > 65535 ||
+         (long long)tt * r * b > kMaxTileElems;
+}
+
+}  // namespace gs

@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the GS kernels (port of the GS part of
+``repro/kernels/ref.py``).
+
+Each function is the semantic definition the CUDA kernels are held against,
+and what a wrapper runs for a tensor that lies on the CPU. Like the JAX
+oracles, they accumulate each block matmul in fp32 and cast the result to
+``x.dtype`` between the two stages.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def bdmm_ref(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal matmul.
+
+    blocks: (r, b_out, b_in);  x: (T, r * b_in)  ->  (T, r * b_out)
+    y[t, g*b_out : (g+1)*b_out] = blocks[g] @ x[t, g*b_in : (g+1)*b_in]
+    """
+    r, b_out, b_in = blocks.shape
+    t = x.shape[0]
+    xg = x.reshape(t, r, b_in)
+    yg = torch.einsum("gij,tgj->tgi", blocks.to(torch.float32),
+                      xg.to(torch.float32))
+    return yg.reshape(t, r * b_out).to(x.dtype)
+
+
+def bdmm_banked_ref(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-row block-diagonal matmul.
+
+    blocks: (B, r, b_out, b_in);  x: (B, T, r * b_in)  ->  (B, T, r * b_out)
+    """
+    bsz, r, b_out, b_in = blocks.shape
+    t = x.shape[1]
+    xg = x.reshape(bsz, t, r, b_in)
+    yg = torch.einsum("zgij,ztgj->ztgi", blocks.to(torch.float32),
+                      xg.to(torch.float32))
+    return yg.reshape(bsz, t, r * b_out).to(x.dtype)
+
+
+def _shuffle(y: torch.Tensor, k: int) -> torch.Tensor:
+    """P_(k, d) over the last axis: reshape(k, d/k) -> transpose -> flatten."""
+    lead, d = y.shape[:-1], y.shape[-1]
+    return y.reshape(lead + (k, d // k)).transpose(-1, -2).reshape(lead + (d,))
+
+
+def gs_banked_T_ref(L: torch.Tensor, R: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Per-row transpose GSOFT rotation  y[i] = R_i^T P^T L_i^T P x[i].
+
+    L, R: (B, r, b, b); x: (B, T, d) with d = r*b. Row i computes x[i] Q_i
+    with Q_i = P^T L_i P R_i (activation-side adapter, one per request).
+    """
+    r, b = L.shape[1], L.shape[2]
+    y = _shuffle(x, r)                                    # P
+    y = bdmm_banked_ref(L.transpose(-1, -2), y)           # L^T .
+    y = _shuffle(y, b)                                    # P^T
+    return bdmm_banked_ref(R.transpose(-1, -2), y)        # R^T .
+
+
+def gs_fused_ref(L: torch.Tensor, R: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Fused GSOFT transform  y = P^T L P R x  with P = P_(r, d).
+
+    L, R: (r, b, b); x: (T, d) with d = r*b.
+    """
+    r, b = L.shape[0], L.shape[1]
+    y = bdmm_ref(R, x)                  # R x
+    y = _shuffle(y, r)                  # P
+    y = bdmm_ref(L, y)                  # L .
+    return _shuffle(y, b)               # P^T
+
+
+def gs_fused_T_ref(L: torch.Tensor, R: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Transpose GSOFT rotation  y = Q^T x = R^T P^T L^T P x."""
+    r, b = L.shape[0], L.shape[1]
+    y = _shuffle(x, r)                                # P
+    y = bdmm_ref(L.transpose(-1, -2), y)              # L^T .
+    y = _shuffle(y, b)                                # P^T
+    return bdmm_ref(R.transpose(-1, -2), y)           # R^T .

@@ -1,0 +1,17 @@
+"""Family-dispatched model API — a thin lookup over the family registry
+(port of ``repro/models/api.py``)."""
+from __future__ import annotations
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import DeviceLike
+from . import registry, transformer  # noqa: F401  (registers FamilyOps)
+
+
+def family_ops(cfg: ModelConfig) -> registry.FamilyOps:
+    """The FamilyOps record for ``cfg.family`` (KeyError on unknown family)."""
+    return registry.get(cfg.family)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda"):
+    return family_ops(cfg).init_params(cfg, seed, device)
+

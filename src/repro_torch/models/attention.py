@@ -1,0 +1,149 @@
+"""Attention with GQA, RoPE and a contiguous KV cache (port of
+``repro/models/attention.py``: ``init_attention``, ``online_attention``,
+``init_cache``, ``attention_block``). Plain torch: no kernel carries
+attention on this path.
+
+The KV sequence is processed in ``attn_chunk`` slices with running
+(max, denom, acc) statistics, as in the JAX package; GQA never repeats KV
+heads. The decode path writes this step's K/V into the cache IN PLACE (the
+JAX package returns a new cache; the port saves the copy).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from .layers import Rot, apply_rope, qlinear, stacked_dense_init
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, stacked: int,
+                   device, dtype=None) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    dtype = dtype or cfg.weight_dtype
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    mk = lambda di, do: stacked_dense_init(gen, stacked, di, do, dtype, device)
+    p = {"wq": mk(d, H * hd), "wk": mk(d, K * hd), "wv": mk(d, K * hd),
+         "wo": mk(H * hd, d)}
+    if cfg.qkv_bias:
+        zeros = lambda do: torch.zeros((stacked, do), dtype=dtype, device=device)
+        p["bq"], p["bk"], p["bv"] = zeros(H * hd), zeros(K * hd), zeros(K * hd)
+    return p
+
+
+def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, kv_len, *, causal: bool, chunk: int,
+                     scale: float) -> torch.Tensor:
+    """Chunked-softmax attention.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, K, D); q_pos: (B, Sq) absolute positions;
+    key positions are arange(Sk); kv_len (int or (B,) tensor) bounds the
+    valid KV region. Returns (B, Sq, H, D) in q.dtype.
+    """
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qg = (q * scale).reshape(b, sq, kh, g, dh)
+    nchunks = max(1, math.ceil(sk / chunk))
+    c = math.ceil(sk / nchunks)
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1)
+    kv_len = kv_len.expand(b) if kv_len.numel() == 1 else kv_len
+
+    m = torch.full((b, sq, kh, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, sq, kh, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, kh, g, dh), dtype=torch.float32, device=q.device)
+    for ci in range(nchunks):
+        kj = k[:, ci * c:(ci + 1) * c]
+        vj = v[:, ci * c:(ci + 1) * c]
+        kpos = ci * c + torch.arange(kj.shape[1], device=q.device)
+        # model-dtype operands, fp32 products and sums (the JAX einsums'
+        # preferred_element_type=f32)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg.to(torch.float32),
+                         kj.to(torch.float32))
+        valid = kpos[None, None, :] < kv_len[:, None, None]          # (B,1,c)
+        if causal:
+            valid = valid & (kpos[None, None, :] <= q_pos[:, :, None])
+        s = torch.where(valid[:, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(vj.dtype).to(torch.float32),
+            vj.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int64, device=device)[None, :].expand(b, s)
+
+
+def _proj(x, w, bias=None, rot: Rot = None, name=""):
+    y = qlinear(x, w, rot, name)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    cfg: ModelConfig, *,
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    cache_pos: Optional[torch.Tensor] = None,
+                    causal: bool = True, rot: Rot = None
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Self-attention with an optional contiguous KV cache.
+
+    ``rot(name, x)`` rotates the inputs of wq/wk/wv/wo (per-request GSOFT).
+    * prefill: ``cache`` given, ``cache_pos`` None — K/V written at [0, S)
+    * decode: x (B, 1, D), ``cache_pos`` a (B,) tensor of per-row write
+      positions (or a scalar); this step's K/V are written there in place
+      and the step attends over [0, cache_pos].
+    Returns (output, cache).
+    """
+    b, sq, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, sq, H, hd)
+    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, sq, K, hd)
+    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, sq, K, hd)
+
+    positions = _positions(b, sq, x.device)
+    if cache_pos is not None:
+        cache_pos = torch.as_tensor(cache_pos, dtype=torch.int64,
+                                    device=x.device).reshape(-1).expand(b)
+        positions = positions + cache_pos[:, None]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    scale = 1.0 / math.sqrt(hd)
+    if cache is not None and cache_pos is not None and sq == 1:
+        # clamp like the JAX dynamic_update_slice does for an out-of-range row
+        idx = cache_pos.clamp(max=cache["k"].shape[1] - 1)
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
+        out = online_attention(q, cache["k"], cache["v"], positions,
+                               cache_pos + 1, causal=False,
+                               chunk=cfg.attn_chunk, scale=scale)
+    else:
+        if cache is not None:
+            cache["k"][:, :sq] = k.to(cache["k"].dtype)
+            cache["v"][:, :sq] = v.to(cache["v"].dtype)
+        out = online_attention(q, k, v, positions, sq, causal=causal,
+                               chunk=cfg.attn_chunk, scale=scale)
+    out = out.reshape(b, sq, H * hd)
+    return qlinear(out, p["wo"], rot, "wo"), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               dtype=None) -> Dict[str, torch.Tensor]:
+    dtype = dtype or cfg.act_dtype
+    K, hd = cfg.num_kv_heads, cfg.d_head
+    return {"k": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device)}

@@ -1,0 +1,115 @@
+"""Shared building blocks (port of ``repro/models/layers.py``, the parts the
+decoder serving path uses).
+
+Conventions as in the JAX package: activations (B, S, D); weights
+(d_in, d_out) used as y = x @ W, layer-stacked weights with a leading layer
+dim; params are plain dicts of tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Rot = Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+
+
+def qlinear(x: torch.Tensor, w: torch.Tensor, rot: Rot = None, name: str = "",
+            cast: bool = False) -> torch.Tensor:
+    """Every base-weight projection routes through here. ``rot(name, x)`` is
+    the optional per-request adapter rotation applied to the inputs of
+    projection ``name``. ``cast=True`` casts the weight to the activation
+    dtype first (the lm_head call site). Quantized weights are a later slice.
+    """
+    if rot is not None:
+        x = rot(name, x)
+    return x @ (w.to(x.dtype) if cast else w)
+
+
+# ---------------------------------------------------------------------------
+# init helpers (seeded torch.Generator on the target device)
+# ---------------------------------------------------------------------------
+
+def _normal(shape, gen: torch.Generator, device, scale: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def stacked_dense_init(gen: torch.Generator, n: int, d_in: int, d_out: int,
+                       dtype, device, scale: Optional[float] = None):
+    """(n, d_in, d_out), drawn one slice at a time so the fp32 draw never
+    holds more than one layer (full-width weights are GBs)."""
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.empty((n, d_in, d_out), dtype=dtype, device=device)
+    for i in range(n):
+        w[i] = _normal((d_in, d_out), gen, device, s, dtype)
+    return w
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device):
+    return _normal((vocab, d), gen, device, 1.0, dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms + RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """fp32 statistics; the normalized tensor drops to the input dtype before
+    the (1 + scale) multiply. Scales are zero-initialized."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = (x32 * torch.rsqrt(var + eps)).to(dt)
+    return y * (1.0 + scale).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S). Rotates the two halves of D."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                     # (D/2,)
+    ang = positions[..., None].to(torch.float32) * freqs       # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_stacked_mlp(gen: torch.Generator, n: int, d: int, f: int,
+                     mlp_type: str, dtype, device) -> Dict[str, torch.Tensor]:
+    if mlp_type != "swiglu":
+        raise ValueError(f"mlp_type {mlp_type!r} is not ported yet (swiglu)")
+    return {"wi": stacked_dense_init(gen, n, d, f, dtype, device),
+            "wo": stacked_dense_init(gen, n, f, d, dtype, device),
+            "wg": stacked_dense_init(gen, n, d, f, dtype, device)}
+
+
+def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, mlp_type: str,
+              rot: Rot = None) -> torch.Tensor:
+    """SwiGLU MLP; ``rot(name, x)`` optionally rotates the inputs of
+    wi / wg / wo."""
+    if mlp_type != "swiglu":
+        raise ValueError(f"mlp_type {mlp_type!r} is not ported yet (swiglu)")
+    h = F.silu(qlinear(x, p["wg"], rot, "wg")) * qlinear(x, p["wi"], rot, "wi")
+    return qlinear(h, p["wo"], rot, "wo")
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return torch.tanh(logits / cap) * cap

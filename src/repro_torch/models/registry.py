@@ -1,0 +1,41 @@
+"""Family registry (port of ``repro/models/registry.py``): each model family
+registers a ``FamilyOps`` record; ``models.api`` and ``ModelRuntime``
+dispatch on ``ModelConfig.family``. This slice registers ``decoder`` only.
+
+Uniform signatures:
+
+* ``init_params(cfg, seed=0, device="cuda") -> params``
+* ``forward(cfg, params, batch) -> (logits, aux)``
+* ``init_decode_state(cfg, batch, max_len, device="cuda") -> state``
+* ``prefill(cfg, params, req: PrefillRequest, state) -> (last_logits, state)``
+* ``decode_step(cfg, params, tokens, state, pos, ctx=None) -> (logits, state)``
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyOps:
+    family: str
+    init_params: Callable
+    forward: Callable
+    init_decode_state: Callable
+    prefill: Callable
+    decode_step: Callable
+
+
+_FAMILIES: Dict[str, FamilyOps] = {}
+
+
+def register(ops: FamilyOps) -> FamilyOps:
+    _FAMILIES[ops.family] = ops
+    return ops
+
+
+def get(family: str) -> FamilyOps:
+    if family not in _FAMILIES:
+        raise KeyError(f"unknown model family {family!r}; registered "
+                       f"families: {sorted(_FAMILIES)}")
+    return _FAMILIES[family]

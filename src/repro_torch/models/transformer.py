@@ -1,0 +1,153 @@
+"""Decoder-only language model (port of the decoder family of
+``repro/models/transformer.py``): ``init_lm``, ``forward``,
+``init_decode_state``, ``decode_step``, ``prefill``.
+
+Layer weights stay stacked (L, d_in, d_out) as in the JAX tree; the JAX
+``lax.scan`` over layers is a Python loop over slices of the stacked
+tensors. The KV cache is {"kv": {"k", "v": (L, B, S, K, D)}} and is updated
+in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.peft import AdapterContext, PrefillRequest
+from repro_torch.device import DeviceLike, resolve_device
+from . import registry
+from .attention import attention_block, init_attention, init_cache
+from .layers import (apply_mlp, embed_init, init_stacked_mlp, qlinear,
+                     rms_norm, softcap, stacked_dense_init)
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0,
+            device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Random weights drawn on ``device`` from a seeded torch.Generator
+    (same tree, shapes and scales as the JAX ``init_lm``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    wd = cfg.weight_dtype
+    vp = cfg.padded_vocab()
+    L = cfg.num_layers
+    params: Dict[str, Any] = {
+        "embed": {"table": embed_init(gen, vp, cfg.d_model, wd, dev)},
+        "final_norm": torch.zeros((cfg.d_model,), dtype=wd, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": stacked_dense_init(
+            gen, 1, cfg.d_model, vp, wd, dev)[0]}
+    params["layers"] = {
+        "attn_norm": torch.zeros((L, cfg.d_model), dtype=wd, device=dev),
+        "attn": init_attention(gen, cfg, L, dev),
+        "mlp_norm": torch.zeros((L, cfg.d_model), dtype=wd, device=dev),
+        "mlp": init_stacked_mlp(gen, L, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                                wd, dev),
+    }
+    return params
+
+
+def _slice(tree: Any, i: int) -> Any:
+    """Layer i of a layer-stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, cache=None,
+                   cache_pos=None, rot_attn=None, rot_mlp=None):
+    a, cache = attention_block(
+        lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
+        cache=cache, cache_pos=cache_pos, causal=True, rot=rot_attn)
+    h = h + a
+    m = apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
+                  cfg.mlp_type, rot=rot_mlp)
+    return h + m
+
+
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    h = params["embed"]["table"][tokens].to(cfg.act_dtype)
+    if cfg.embed_scale:
+        h = h * math.sqrt(cfg.d_model)
+    return h
+
+
+def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["table"].T.to(h.dtype)
+    else:
+        logits = qlinear(h, params["lm_head"]["w"], cast=True)
+    return softcap(logits, cfg.logit_softcap)
+
+
+def _run_layers(cfg: ModelConfig, params, h: torch.Tensor, kv=None,
+                cache_pos=None, ctx: Optional[AdapterContext] = None):
+    bl_tree = ctx.group("layers") if ctx is not None else None
+    for i in range(cfg.num_layers):
+        lp = _slice(params["layers"], i)
+        cache = _slice(kv, i) if kv is not None else None
+        rot_attn = rot_mlp = None
+        if bl_tree is not None:
+            bl = _slice(bl_tree, i)
+            rot_attn = ctx.rotator(bl.get("attn"))
+            rot_mlp = ctx.rotator(bl.get("mlp"))
+        h = _decoder_layer(cfg, lp, h, cache, cache_pos, rot_attn, rot_mlp)
+    return h
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, Vp), moe_aux = 0). batch["tokens"]: (B, S)."""
+    h = _run_layers(cfg, params, _embed(cfg, params, batch["tokens"]))
+    return _unembed(cfg, params, h), torch.zeros((), device=h.device)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device: DeviceLike = "cuda"):
+    dev = resolve_device(device)
+    c = init_cache(cfg, batch, max_len, dev)
+    return {"kv": {k: v[None].repeat((cfg.num_layers,) + (1,) * v.dim())
+                   for k, v in c.items()}}
+
+
+def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state, pos,
+                ctx: Optional[AdapterContext] = None):
+    """One token for the whole batch. tokens: (B, 1); pos: scalar or (B,)
+    per-slot write positions. ``ctx`` rotates row i with adapter
+    ``ctx.slots[i]`` before every adapted projection. The state is updated
+    in place. Returns (logits (B, 1, Vp), state)."""
+    h = _embed(cfg, params, tokens)
+    h = _run_layers(cfg, params, h, state["kv"], cache_pos=pos, ctx=ctx)
+    return _unembed(cfg, params, h), state
+
+
+def _gather_last(h: torch.Tensor, last_idx) -> torch.Tensor:
+    """h[:, last_idx[i]] per row, keepdims: each row's logits come from its
+    own last valid prompt position."""
+    if last_idx is None:
+        return h[:, -1:]
+    idx = torch.as_tensor(last_idx, dtype=torch.int64, device=h.device)
+    idx = idx.reshape(-1).expand(h.shape[0])
+    return h[torch.arange(h.shape[0], device=h.device), idx][:, None]
+
+
+def prefill(cfg: ModelConfig, params, req: PrefillRequest, state):
+    """Full-prompt forward that fills the KV cache; returns (last_logits,
+    state) with logits gathered at ``req.last_idx``."""
+    h = _embed(cfg, params, req.batch["tokens"])
+    h = _run_layers(cfg, params, h, state["kv"], ctx=req.ctx)
+    return _unembed(cfg, params, _gather_last(h, req.last_idx)), state
+
+
+registry.register(registry.FamilyOps(
+    family="decoder",
+    init_params=init_lm,
+    forward=forward,
+    init_decode_state=init_decode_state,
+    prefill=prefill,
+    decode_step=decode_step,
+))

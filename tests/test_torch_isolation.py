@@ -1,0 +1,47 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``repro``."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+# `import jax`, `from jax...`, `import repro` / `from repro.` / `from repro `
+# — but not the port's own `repro_torch` prefix
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro\b(?!_torch))", re.MULTILINE)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.serve.engine, repro_torch.convert, "
+            "repro_torch.kernels.build; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
+def test_sources_import_neither_jax_nor_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from repro.core import gs")
+    assert FORBIDDEN.search("    import repro")
+    assert not FORBIDDEN.search("from repro_torch.core import gs")
+    assert not FORBIDDEN.search("import repro_torch")
