@@ -12,13 +12,26 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    for the kernel, the plain version and a library yardstick (one dense
    matmul); the transpose kernel's launch variants (split over a cluster or
    not, one or several tokens per tile) must each be checked
+3b. backward kernels — ``gs_fused_bwd`` and ``gs_fused_grads`` against their
+   plain versions at every (T, d) the training path gives them (the weight
+   slabs of the seven projections), bf16 and f32, with times, bounds and a
+   partial library yardstick
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
    the ``gs_fused_T`` kernel must have run
 5. banked vs merged — full width at 2 layers in f32 (TF32 off): one adapter
    merged through ``gs_fused``, one prompt served both ways, equal greedy
    tokens and decode logits within tolerance
-6. report — one JSON line of kernels, then the ``{"ok": true, ...}`` line
+7. train  — full-width qwen2-72b, depth cut to 4 layers, bf16, remat
+   "full": GSOFT (b = 32) on all seven projections, AdamW, steps of
+   ``build_train_step`` on one fixed batch (the loss must fall), then 3
+   steps of ``train()``; the forward and backward GS kernels must have run
+   once per adapted weight slice and step
+8. gradients — full width, 2 layers, f32, TF32 off: for GSOFT and Double
+   GSOFT, the adapter gradients of one train step against a central
+   difference of the loss along a seeded random direction (all four GS
+   kernels run in these backward passes)
+9. report — one JSON line of kernels, then the ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
 """
@@ -39,12 +52,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch import optim  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core import peft as peft_lib  # noqa: E402
 from repro_torch.core.runtime import ModelRuntime  # noqa: E402
+from repro_torch.data import DataConfig, LMDataSource  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import gs_fused as gk  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, prompt_bucket  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
@@ -60,6 +76,26 @@ F32_TOL = 1e-4
 # and orthogonal Q, where one bf16 ulp is at most 2^-5.
 BF16_TOL = 2.0 ** -4
 LOGIT_TOL = 1e-3                    # f32 banked vs merged, relative to max|logit|
+# backward dL, dR against the plain version, relative to max|ref|, in both
+# dtypes: kernel and plain version compute every intermediate and sum in fp32
+# from the same inputs (bf16 inputs are exact in fp32), so only the
+# summation order differs; dx is held to F32_TOL / BF16_TOL as y is
+GRAD_REL = 1e-4
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 2, 256
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-3
+GRAD_LAYERS = 2
+GRAD_BATCH, GRAD_SEQ = 2, 64
+# central difference of an f32 loss, Richardson-extrapolated from steps h and
+# h/2: h is set so that the loss moves by about FD_TARGET (1e4 f32 ulps of a
+# loss near 12, so the rounding of the four losses adds a few 1e-4
+# relative), with no adapter element moved by more than FD_MAX_STEP; the
+# extrapolation removes the h^2 term (1-2 % at these steps in a reduced-width
+# rehearsal), so 1e-2 leaves a margin over what remains
+FD_TARGET = 1e-2
+FD_MAX_STEP = 1e-2
+FD_REL = 1e-2
 
 KERNELS = {
     "gs_fused_T": dict(fn=gk.gs_fused_T, plain=gk.gs_fused_T_plain,
@@ -68,6 +104,12 @@ KERNELS = {
     "gs_fused": dict(fn=gk.gs_fused, plain=gk.gs_fused_plain,
                      replaces="src/repro/kernels/gs_fused.py:157",
                      source="src/repro_torch/kernels/csrc/gs_fused.cu"),
+    "gs_fused_bwd": dict(fn=gk.gs_fused_bwd, plain=gk.gs_fused_bwd_plain,
+                         replaces="src/repro/kernels/gs_fused.py:206",
+                         source="src/repro_torch/kernels/csrc/gs_fused_bwd.cu"),
+    "gs_fused_grads": dict(fn=gk.gs_fused_grads, plain=gk.gs_fused_grads_plain,
+                           replaces="src/repro/kernels/gs_fused.py:221",
+                           source="src/repro_torch/kernels/csrc/gs_fused_bwd.cu"),
 }
 
 
@@ -200,6 +242,83 @@ def check_variants(cases) -> None:
                                  f"{sorted(missing)}")
 
 
+def bwd_bound(T: int, d: int, b: int, dtype, with_dx: bool) -> tuple:
+    """Least time for the backward of one row: x and dy read, dx written
+    (with_dx), the factors read and dL, dR written (fp32) once; 10*T*d*b
+    operations with dx (u, dv, dx stages and the two factor sums, 2*d*b
+    each per token), 8*T*d*b without, at the input dtype's peak rate."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = ((3 if with_dx else 2) * T * d + 2 * d * b) * es + 2 * d * b * 4
+    flops = (10 if with_dx else 8) * T * d * b
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_cases(cfg):
+    """(kernel, T, d) the training path gives the backward kernels, b = 32:
+    the weight-side GSOFT rotation treats the columns of W (d_in, d_out) as
+    tokens (T = d_out, d = d_in, gs_fused_bwd); Double GSOFT's output side
+    treats its rows as tokens (T = d_in, d = d_out, gs_fused_grads). Slabs:
+    wq / attn wo, wk / wv, wi / wg, MLP wo."""
+    D, F = cfg.d_model, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.d_head
+    w = [(D, cfg.num_heads * cfg.d_head), (D, kv), (D, F), (F, D)]
+    return ([("gs_fused_bwd", d_out, d_in) for d_in, d_out in w] +
+            [("gs_fused_grads", d_in, d_out) for d_in, d_out in w])
+
+
+def check_bwd_case(kernel, T, d, b, dtype, gen, device) -> dict:
+    r = d // b
+    spec = KERNELS[kernel]
+    with_dx = kernel == "gs_fused_bwd"
+    L, R = _orth_factors(gen, 1, r, b, dtype, device)
+    x = torch.randn((1, T, d), generator=gen, device=device).to(dtype)
+    dy = torch.randn((1, T, d), generator=gen, device=device).to(dtype)
+    out = spec["fn"](x, dy, L, R)
+    torch.cuda.synchronize()
+    want = spec["plain"](x, dy, L, R)
+    grad_abs = [(g - w).abs().max().item() for g, w in zip(out[-2:], want[-2:])]
+    grad_err = max(e / max(1.0, w.abs().max().item())
+                   for e, w in zip(grad_abs, want[-2:]))
+    dx_err = ((out[0].float() - want[0].float()).abs().max().item()
+              if with_dx else 0.0)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    if not (math.isfinite(grad_err) and grad_err <= GRAD_REL
+            and math.isfinite(dx_err) and dx_err <= tol):
+        raise AssertionError(f"{kernel} T={T} d={d} b={b} {dtype}: dL/dR "
+                             f"rel err {grad_err} (tol {GRAD_REL}), dx err "
+                             f"{dx_err} (tol {tol})")
+    del out, want
+    args = [(x, dy, L, R)]
+    ms = time_ms(spec["fn"], args)
+    plain_ms = time_ms(spec["plain"], args)
+    if with_dx:
+        # partial yardstick: dx alone, as one dense bmm (x @ M == x Q)
+        M = _dense("gs_fused_T", L, R, device)
+        lib_ms = time_ms(torch.bmm, [(dy, M)])
+        lib_what = "bmm(dy, dense Q): dx only"
+        del M
+    else:
+        # partial yardstick: the two b x b factor sums over prepared, already
+        # shuffled fp32 operands, as two batched GEMMs
+        a = torch.randn((r, b, T), generator=gen, device=device)
+        c = torch.randn((r, T, b), generator=gen, device=device)
+        lib_ms = time_ms(lambda p, q: (torch.bmm(p, q), torch.bmm(p, q)),
+                         [(a, c)])
+        lib_what = "2 x bmm over r blocks (b, T) @ (T, b), fp32: the sums only"
+        del a, c
+    bound_ms, bound_by = bwd_bound(T, d, b, dtype, with_dx)
+    tt, splits = gk.launch_geometry("gs_fused_bwd", 1, T, d, b)
+    return dict(kernel=kernel, B=1, T=T, d=d, b=b, tt=tt, splits=splits,
+                dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=max([dx_err] + grad_abs), dx_abs_err=dx_err,
+                grad_rel_err=grad_err, tol=tol,
+                grad_tol=GRAD_REL, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_what=lib_what, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 # ---------------------------------------------------------------------------
 # main-path phases
 # ---------------------------------------------------------------------------
@@ -236,10 +355,16 @@ def _profile(run) -> dict:
                                 count=e.count))
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels) / 1e3
-    gs = sum(k["device_ms"] for k in kernels if "gs_fused" in k["name"]) / 1e3
+    # the port's kernels live in namespace gs::; sum them by kernel function
+    by_kernel = {}
+    for k in kernels:
+        if "gs::" in k["name"]:
+            fam = k["name"].split("gs::", 1)[1].split("<", 1)[0].split("(", 1)[0]
+            by_kernel[fam] = by_kernel.get(fam, 0.0) + k["device_ms"]
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=1.0 - busy / wall if wall > 0 else None,
-                gs_fused_device_s=gs, top=kernels[:12])
+                gs_kernels_device_s=sum(by_kernel.values()) / 1e3,
+                gs_device_ms_by_kernel=by_kernel, top=kernels[:16])
 
 
 def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
@@ -358,6 +483,159 @@ def merged_phase(cfg, seed: int, device) -> dict:
                 allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
+def _reset_launches() -> None:
+    for name in KERNELS:
+        KERNELS[name]["fn"].launches = 0
+
+
+def _launches() -> dict:
+    return {name: KERNELS[name]["fn"].launches for name in KERNELS}
+
+
+def _slices(pcfg, params) -> int:
+    """Adapted weight slices: one rotation (one kernel launch) each."""
+    return sum(math.prod(spec.batch)
+               for spec in peft_lib.adapted_paths(pcfg, params).values())
+
+
+def train_phase(cfg, seed: int, device, steps_n: int = TRAIN_STEPS) -> dict:
+    """GSOFT fine-tuning of the depth-cut model: ``steps_n`` steps of
+    ``build_train_step`` on one fixed batch (the counted main-path run; the
+    loss must fall), one more under the profiler, then 3 steps of
+    ``train()`` on ``batch_at(step)``."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    tcfg = steps.TrainStepConfig(
+        peft=pcfg, opt=optim.OptimizerConfig(learning_rate=TRAIN_LR))
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed,
+                      vocab_size=min(cfg.vocab_size, 256))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ModelRuntime(cfg, seed=seed, device=device).params
+    adapters = peft_lib.init_peft(pcfg, params, device=device)
+    trainable, frozen = peft_lib.trainable_and_frozen(pcfg, params, adapters)
+    opt_state = optim.init(tcfg.opt, trainable)
+    step = steps.build_train_step(cfg, tcfg)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in LMDataSource(dcfg).batch_at(0).items()}
+    n_slices = _slices(pcfg, frozen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    _reset_launches()
+    losses, gnorms, times = [], [], []
+    for _ in range(steps_n):
+        t = time.perf_counter()
+        trainable, opt_state, m = step(frozen, trainable, opt_state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = _launches()
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {gnorms}")
+    if not min(gnorms) > 0:
+        raise AssertionError(f"zero gradient norm: {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the fixed-batch loss did not fall: {losses}")
+    want = {"gs_fused": steps_n * n_slices, "gs_fused_bwd": steps_n * n_slices,
+            "gs_fused_T": 0, "gs_fused_grads": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != the design's {want} "
+                             f"({n_slices} adapted slices x {steps_n} steps)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile(lambda: step(frozen, trainable, opt_state, batch))
+    step_s = float(np.median(times))
+    del params, adapters, trainable, frozen, opt_state, step
+    torch.cuda.empty_cache()
+
+    _reset_launches()
+    hist = []
+    out = train_loop.train(cfg, tcfg, dcfg,
+                           train_loop.LoopConfig(steps=3, log_every=1),
+                           log_fn=lambda msg: log(f"  train(): {msg}"),
+                           device=device)
+    hist = out["history"]
+    loop_launches = _launches()
+    del out
+    torch.cuda.empty_cache()
+    if len(hist) != 3 or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"train() history {hist}")
+    if loop_launches["gs_fused_bwd"] != 3 * n_slices:
+        raise AssertionError(f"train() launches {loop_launches}")
+    return dict(layers=cfg.num_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=TRAIN_LR, remat=cfg.remat, adapted_slices=n_slices,
+                losses=losses, grad_norms=gnorms, step_s=times,
+                step_median_s=step_s,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                launches=launches,
+                launches_per_step={k: v / steps_n for k, v in launches.items()},
+                peak_mem_gb=peak_gb, setup_s=setup_s, profile=prof,
+                train_loop=dict(history=hist, launches=loop_launches))
+
+
+def grad_phase(cfg, seed: int, device, method: str) -> dict:
+    """One train step's adapter gradients (autograd through the GS kernels)
+    against a central difference of the loss along a seeded random
+    direction, in f32 at a perturbed (non-identity) adapter point."""
+    pcfg = peft_lib.PEFTConfig(method=method, block_size=32)
+    tcfg = steps.TrainStepConfig(peft=pcfg)
+    params = ModelRuntime(cfg, seed=seed, device=device).params
+    adapters = perturbed_adapters(pcfg, params, seed + 11, 0.02, device)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in LMDataSource(
+        DataConfig(seq_len=GRAD_SEQ, global_batch=GRAD_BATCH, seed=seed,
+                   vocab_size=min(cfg.vocab_size, 256))).batch_at(0).items()}
+    n_slices = _slices(pcfg, params)
+    _reset_launches()
+    loss, _, grads = steps.build_grad_fn(cfg, pcfg)(adapters, params, batch)
+    torch.cuda.synchronize()
+    launches = _launches()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 23)
+    direction = {p: {k: torch.randn(v.shape, generator=gen, device=device)
+                     for k, v in e.items()} for p, e in adapters.items()}
+    deriv = sum(float((grads[p][k].double() * direction[p][k].double()).sum())
+                for p in adapters for k in adapters[p])
+    umax = max(float(u.abs().max()) for e in direction.values()
+               for u in e.values())
+    h = min(FD_TARGET / max(abs(deriv), 1e-30), FD_MAX_STEP / umax)
+    del grads
+    evaluate = steps.build_eval_step(cfg, tcfg)
+
+    def central(step: float) -> tuple:
+        lp, lm = (float(evaluate(params, {p: {k: v + sgn * step * direction[p][k]
+                                              for k, v in e.items()}
+                                          for p, e in adapters.items()},
+                                 batch)["loss"])
+                  for sgn in (1.0, -1.0))
+        return (lp - lm) / (2 * step), lp, lm
+
+    # Richardson: (4 D(h/2) - D(h)) / 3 cancels the h^2 term of the central
+    # difference, leaving O(h^4) and the rounding of the four losses
+    fd_h, lp, lm = central(h)
+    fd_h2, _, _ = central(h / 2)
+    fd = (4 * fd_h2 - fd_h) / 3
+    err = abs(fd - deriv)
+    del params, adapters, direction
+    torch.cuda.empty_cache()
+    want_fwd = ("gs_fused",) if method == "gsoft" else ("gs_fused", "gs_fused_T")
+    want_bwd = (("gs_fused_bwd",) if method == "gsoft"
+                else ("gs_fused_bwd", "gs_fused_grads"))
+    for name in want_fwd + want_bwd:
+        if launches[name] == 0:
+            raise AssertionError(f"{method}: {name} never launched in the "
+                                 f"gradient step ({launches})")
+    if not (math.isfinite(fd) and err <= FD_REL * abs(deriv)):
+        raise AssertionError(f"{method}: directional derivative {deriv} vs "
+                             f"central difference {fd} (h {h}): |diff| {err} "
+                             f"> {FD_REL} * |deriv|")
+    return dict(method=method, layers=cfg.num_layers, loss=float(loss),
+                adapted_slices=n_slices, directional_derivative=deriv,
+                central_difference=fd, central_h=fd_h, central_h2=fd_h2,
+                h=h, loss_plus=lp, loss_minus=lm,
+                rel_err=err / abs(deriv), tol=FD_REL, launches=launches,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -411,6 +689,21 @@ def main() -> int:
     check_variants(cases)
     torch.cuda.empty_cache()
 
+    # 3b. backward kernels against their plain versions
+    bwd_cases_run = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for kernel, T, d in bwd_cases(full):
+            c = check_bwd_case(kernel, T, d, 32, dtype, gen, device)
+            bwd_cases_run.append(c)
+            log(f"kernel {kernel:14s} T={T:5d} d={d:5d} b=32 tt={c['tt']} "
+                f"splits={c['splits']} {c['dtype']:8s} dx err "
+                f"{c['dx_abs_err']:.2e} (tol {c['tol']:.0e}) dL/dR rel err "
+                f"{c['grad_rel_err']:.2e} (tol {GRAD_REL:.0e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+
     # 4. serve, bf16, full width, depth cut
     cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
     log(f"serve: qwen2-72b full width, depth cut 80 -> {SERVE_LAYERS} layers, "
@@ -424,7 +717,7 @@ def main() -> int:
         f"launches {serve['launches']}")
     log(f"serve profile: wall {prof['wall_s']:.3f} s, device busy "
         f"{prof['device_busy_s']:.3f} s (idle share {prof['idle_share']}), "
-        f"gs_fused kernels {prof['gs_fused_device_s']:.4f} s")
+        f"GS kernels {prof['gs_kernels_device_s']:.4f} s")
     torch.cuda.empty_cache()
 
     # 5. banked vs merged, f32
@@ -437,26 +730,80 @@ def main() -> int:
         f"{merged['logit_tol']:.1e}); merge launches "
         f"{merged['merge_launches']}")
 
-    # 6. report
+    # 7. train, bf16, full width, depth cut
+    cfg4 = full.with_overrides(num_layers=TRAIN_LAYERS, remat="full")
+    log(f"train: qwen2-72b full width, depth cut 80 -> {TRAIN_LAYERS} "
+        f"layers, bf16, remat full, GSOFT b=32, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, AdamW lr {TRAIN_LR}")
+    train = train_phase(cfg4, args.seed, device)
+    tprof = train["profile"]
+    log(f"train: losses {['%.5f' % v for v in train['losses']]}; grad norms "
+        f"{['%.3e' % v for v in train['grad_norms']]}; step "
+        f"{['%.3f' % v for v in train['step_s']]} s, median "
+        f"{train['step_median_s']:.3f} s, {train['tokens_per_s']:.1f} tok/s; "
+        f"peak {train['peak_mem_gb']:.1f} GB; launches per step "
+        f"{train['launches_per_step']}")
+    log(f"train profile: wall {tprof['wall_s']:.3f} s, device busy "
+        f"{tprof['device_busy_s']:.3f} s (idle share {tprof['idle_share']}), "
+        f"GS kernels {tprof['gs_kernels_device_s']:.4f} s "
+        f"{ {k: round(v, 2) for k, v in tprof['gs_device_ms_by_kernel'].items()} } ms")
+    torch.cuda.empty_cache()
+
+    # 8. gradients against a central difference, f32
+    cfg_g = full.with_overrides(num_layers=GRAD_LAYERS, dtype="f32",
+                                param_dtype="f32", remat="full")
+    log(f"grads: qwen2-72b full width, {GRAD_LAYERS} layers, f32, TF32 off")
+    grads = []
+    for method in ("gsoft", "double_gsoft"):
+        g = grad_phase(cfg_g, args.seed, device, method)
+        grads.append(g)
+        log(f"grads {method}: directional derivative "
+            f"{g['directional_derivative']:.6e}, central difference "
+            f"{g['central_difference']:.6e} (h {g['h']:.2e}), rel err "
+            f"{g['rel_err']:.2e} (tol {FD_REL:.0e}); launches {g['launches']}")
+        torch.cuda.empty_cache()
+
+    # 9. report
+    by_path = {"serve": serve["launches"],
+               "merge": {"gs_fused": merged["merge_launches"]},
+               "train": train["launches"],
+               "grads_double_gsoft": grads[1]["launches"]}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
-                              "float32")}
-    launches = {"gs_fused_T": serve["launches"]["gs_fused_T"],
-                "gs_fused": merged["merge_launches"]}
+                              "float32"),
+                 "gs_fused_bwd": ("gs_fused_bwd", 1, full.d_ff, full.d_model,
+                                  32, "bfloat16"),
+                 "gs_fused_grads": ("gs_fused_grads", 1, full.d_model,
+                                    full.d_ff, 32, "bfloat16")}
+    # launches on the training path: GSOFT training (phase 7) for the
+    # forward rotation and the fused backward; Double GSOFT's gradient step
+    # (phase 8) for the transpose rotation and the grads-only backward
+    launches = {"gs_fused_T": grads[1]["launches"]["gs_fused_T"],
+                "gs_fused": train["launches"]["gs_fused"],
+                "gs_fused_bwd": train["launches"]["gs_fused_bwd"],
+                "gs_fused_grads": grads[1]["launches"]["gs_fused_grads"]}
+    all_cases = cases + bwd_cases_run
     kernels = []
     for name, key in main_case.items():
-        c = next(c for c in cases
+        c = next(c for c in all_cases
                  if (c["kernel"], c["B"], c["T"], c["d"], c["b"],
                      c["dtype"]) == key)
+        mine = [x for x in all_cases if x["kernel"] == name]
+        extra = {f"max_abs_err_{dt}": max(x["max_abs_err"] for x in mine
+                                          if x["dtype"] == dt)
+                 for dt in ("bfloat16", "float32")}
+        if name in ("gs_fused_bwd", "gs_fused_grads"):
+            extra.update({f"max_grad_rel_err_{dt}": max(
+                x["grad_rel_err"] for x in mine if x["dtype"] == dt)
+                for dt in ("bfloat16", "float32")})
+            extra["library_what"] = c["library_what"]
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=launches[name],
-            max_abs_err=c["max_abs_err"],
-            **{f"max_abs_err_{dt}": max(x["max_abs_err"] for x in cases
-                                        if x["kernel"] == name
-                                        and x["dtype"] == dt)
-               for dt in ("bfloat16", "float32")},
+            launches_by_path={p: v[name] for p, v in by_path.items()
+                              if name in v},
+            max_abs_err=c["max_abs_err"], **extra,
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             shape=dict(B=c["B"], T=c["T"], d=c["d"], b=c["b"],
@@ -464,7 +811,8 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, build_s=build_s, cases=cases,
-                                   serve=serve, merged=merged,
+                                   bwd_cases=bwd_cases_run, serve=serve,
+                                   merged=merged, train=train, grads=grads,
                                    kernels=kernels), indent=1))
     log(f"details: {out}")
     print(card)

@@ -1,6 +1,6 @@
 """Model configuration + the arch registry (port of ``repro/config.py``).
 
-Only the fields the decoder serving path reads are kept; their names and
+Only the fields the decoder's serving and training paths read are kept; their names and
 defaults equal ``repro.config.ModelConfig`` so configs convert one for one.
 ``use_pallas`` stays a field for that reason alone: kernel choice in the
 port follows the tensors' device, not this flag (``kernels/ops.py``).
@@ -38,7 +38,7 @@ class ModelConfig:
     dtype: str = "bf16"
     param_dtype: str = "bf16"
     use_pallas: bool = False         # kept for one-for-one conversion; unread
-    remat: str = "full"              # training only; unread by serving
+    remat: str = "full"              # full | dots | none (training forward)
     attn_chunk: int = 1024
 
     source: str = ""
@@ -89,3 +89,19 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def _load_all() -> None:
     from repro_torch import configs  # noqa: F401  (registers everything)
+
+
+def parse_overrides(pairs) -> dict:
+    """--set key=value CLI overrides with literal-ish parsing."""
+    out = {}
+    for p in pairs or []:
+        k, v = p.split("=", 1)
+        for cast in (int, float):
+            try:
+                out[k] = cast(v)
+                break
+            except ValueError:
+                continue
+        else:
+            out[k] = {"true": True, "false": False}.get(v.lower(), v)
+    return out

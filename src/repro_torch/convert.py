@@ -1,11 +1,12 @@
-"""Carry trees from the JAX package into the port.
+"""Carry trees between the JAX package and the port.
 
 A JAX param or adapter tree, handed over as numpy arrays (``np.asarray`` of
 each leaf, e.g. via ``jax.tree.map``), becomes the port's nested dict of
 tensors with the same keys, so ``/``-joined paths match leaf for leaf and
 both packages compute the same thing. bf16 leaves arrive as numpy's
 ``ml_dtypes`` bfloat16, which torch cannot read directly; they pass through
-float32 exactly.
+float32 exactly. ``to_numpy`` carries a port tree back as numpy arrays, so
+tests compare the two packages' trees leaf by leaf.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+
 
 def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     arr = np.asarray(a)
@@ -45,3 +47,22 @@ def adapters_from_numpy(tree: Mapping, device: DeviceLike = "cuda",
     ``{name: {path: ...}}`` for a bank — -> the port's trees on
     ``device``, paths unchanged."""
     return _convert(tree, resolve_device(device), dtype)
+
+
+def opt_state_from_numpy(state: Mapping, device: DeviceLike = "cuda") -> dict:
+    """An optimizer state of ``repro.optim`` — {"mu": tree, "nu": tree,
+    "step": int32 scalar} for AdamW, {"mu", "step"} for SGD — handed over
+    as numpy arrays -> the port's state (``repro_torch.optim``), dtypes
+    kept."""
+    return _convert(state, resolve_device(device), None)
+
+
+def to_numpy(tree: Any) -> Any:
+    """A port tree (nested dicts of tensors) -> the same nesting of numpy
+    arrays; bf16 leaves become float32 (exact), which numpy can hold."""
+    if isinstance(tree, Mapping):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()

@@ -1,7 +1,7 @@
-"""MethodOps registry (port of ``repro/core/methods.py``), holding the one
-method this slice ports: ``gsoft``. ``core.adapters`` and ``core.peft``
-dispatch only through ``get(name)``; an unknown method raises a KeyError
-listing what is registered.
+"""MethodOps registry (port of ``repro/core/methods.py``), holding the
+methods ported so far: ``gsoft`` and ``double_gsoft``. ``core.adapters`` and
+``core.peft`` dispatch only through ``get(name)``; an unknown method raises
+a KeyError listing what is registered.
 """
 from __future__ import annotations
 
@@ -50,8 +50,23 @@ def get(method: str) -> MethodOps:
     return _METHODS[method]
 
 
+def registered():
+    return sorted(_METHODS)
+
+
 def is_adapter_method(method: str) -> bool:
     return method not in NON_ADAPTER_METHODS
+
+
+def trainable_split(method: str, params, adapters):
+    """(trainable, frozen) for the optimizer — the one place the
+    ``full``/``none`` pseudo-methods are interpreted."""
+    if method == "full":
+        return params, adapters      # adapters empty; everything trains
+    if method == "none":
+        return {}, params
+    get(method)                      # fail fast on unknown methods
+    return adapters, params
 
 
 register(MethodOps(
@@ -62,4 +77,14 @@ register(MethodOps(
     apply_activation_side=_ad.gsoft_apply_T,
     bank_build=_ad.gsoft_bank_build,
     bank_rotator=_ad.gs_rotate_banked,
+))
+
+register(MethodOps(
+    method="double_gsoft",           # W_eff = Q_U W Q_V (paper §4)
+    init_params=_ad.double_gsoft_init,
+    materialize=_ad.double_gsoft_materialize,
+    param_count=_ad.double_gsoft_param_count,
+    bank_unsupported=("its output-side factor Q_V rotates AFTER the base "
+                      "matmul, which the per-request serving hook does not "
+                      "carry yet — merge it offline instead"),
 ))

@@ -1,8 +1,10 @@
-"""PEFT engine (port of ``repro/core/peft.py``, serving part).
+"""PEFT engine (port of ``repro/core/peft.py``).
 
 Frozen base params and adapter params are separate nested dicts whose
 ``/``-joined paths equal ``repro.core.peft.flatten_paths`` of the JAX trees.
-``materialize_tree`` merges adapters weight-side (offline serving merge);
+``trainable_and_frozen`` splits them for the train step, and
+``materialize_tree`` applies adapters weight-side — differentiably, in every
+training step, and once for the offline serving merge;
 ``AdapterBank`` stacks named adapters for per-request, activation-side
 serving, and ``AdapterContext`` / ``BankRotator`` carry a batch's slot ids
 through the model.
@@ -33,11 +35,12 @@ DEFAULT_TARGETS: Tuple[str, ...] = (
 
 @dataclasses.dataclass(frozen=True)
 class PEFTConfig:
-    """The GSOFT fields of ``repro.core.peft.PEFTConfig`` (same names and
-    defaults). ``use_pallas`` is kept for one-for-one conversion; kernel
+    """The GSOFT / Double GSOFT fields of ``repro.core.peft.PEFTConfig``
+    (same names and defaults). ``use_pallas`` is kept for one-for-one conversion; kernel
     choice follows the device."""
     method: str = "gsoft"
     block_size: int = 32
+    block_size_out: int = 0
     neumann_order: Optional[int] = None
     use_scale: bool = False
     use_pallas: bool = False
@@ -79,7 +82,8 @@ def spec_for(cfg: PEFTConfig, shape: Tuple[int, ...]) -> AdapterSpec:
         raise ValueError(f"cannot adapt weight of shape {shape}")
     return AdapterSpec(
         method=cfg.method, d_in=int(shape[-2]), d_out=int(shape[-1]),
-        block_size=cfg.block_size, neumann_order=cfg.neumann_order,
+        block_size=cfg.block_size, block_size_out=cfg.block_size_out,
+        neumann_order=cfg.neumann_order,
         use_scale=cfg.use_scale, use_pallas=cfg.use_pallas,
         batch=tuple(int(s) for s in shape[:-2]))
 
@@ -112,8 +116,10 @@ def _map_paths(tree: Tree, fn, prefix: str = "") -> Tree:
 def materialize_tree(cfg: PEFTConfig, params: Tree,
                      adapters: Dict[str, Dict[str, torch.Tensor]],
                      merged: bool = False) -> Tree:
-    """Effective parameter tree with adapters applied weight-side.
-    ``merged=True`` marks the offline single-merge call sites; same math."""
+    """Effective parameter tree with adapters applied weight-side,
+    differentiable w.r.t. the adapters (the train step calls it under
+    autograd; keep it out of ``no_grad`` there). ``merged=True`` marks the
+    offline single-merge call sites; same math."""
     del merged
     if not adapters:
         return params
@@ -125,6 +131,18 @@ def materialize_tree(cfg: PEFTConfig, params: Tree,
         return leaf
 
     return _map_paths(params, visit)
+
+
+def count_params(tree: Tree) -> int:
+    return sum(int(v.numel()) for v in flatten_paths(tree).values()
+               if isinstance(v, torch.Tensor))
+
+
+def trainable_and_frozen(cfg: PEFTConfig, params: Tree, adapters: Tree):
+    """(trainable, frozen) split for the optimizer / train step (the
+    ``full``/``none`` pseudo-methods are interpreted by the registry
+    module)."""
+    return methods_lib.trainable_split(cfg.method, params, adapters)
 
 
 # ---------------------------------------------------------------------------

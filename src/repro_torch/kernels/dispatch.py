@@ -1,0 +1,68 @@
+"""Differentiable GS rotations (port of the ``gs_diff`` / ``gs_T_diff``
+custom-VJP rules of ``repro/kernels/dispatch.py``).
+
+Each is a ``torch.autograd.Function`` whose forward and backward are the GS
+kernels, as in the JAX rules:
+
+* ``gs_diff(L, R, x)``: y = P^T L P R x (``gs_fused``); the backward is the
+  fused ``gs_fused_bwd`` -> (dx, dL, dR).
+* ``gs_T_diff(L, R, x)``: y = Q^T x = R^T P^T L^T P x (``gs_fused_T``).
+  Since <dy, Q^T x> = <x, Q dy>, dx is the forward rotation ``gs_fused`` of
+  dy, and (dL, dR) come from ``gs_fused_grads`` with input and cotangent
+  swapped.
+
+L, R: (r, b, b); x: (T, d). dL and dR are cast to L's dtype. As in the JAX
+rules the dx slab is always computed, even for a frozen x (skipping it when
+``needs_input_grad`` is false is a later optimization). A CUDA tensor runs
+the kernels, a CPU tensor their plain versions, both ways. The tuning
+registry of the JAX module is not ported: the kernels pick their own launch
+geometry.
+"""
+from __future__ import annotations
+
+import torch
+
+from .gs_fused import gs_fused, gs_fused_bwd, gs_fused_grads, gs_fused_T
+
+
+def _row(a: torch.Tensor) -> torch.Tensor:
+    """The kernels' one-row batch: (...) -> (1, ...), contiguous."""
+    return a.unsqueeze(0).contiguous()
+
+
+class _GSDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, L, R, x):
+        ctx.save_for_backward(L, R, x)
+        return gs_fused(_row(x), _row(L), _row(R))[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        L, R, x = ctx.saved_tensors
+        dx, dL, dR = gs_fused_bwd(_row(x), _row(dy), _row(L), _row(R))
+        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx[0].to(x.dtype)
+
+
+class _GSTDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, L, R, x):
+        ctx.save_for_backward(L, R, x)
+        return gs_fused_T(_row(x), _row(L), _row(R))[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        L, R, x = ctx.saved_tensors
+        dy1 = _row(dy)
+        dx = gs_fused(dy1, _row(L), _row(R))[0]
+        dL, dR = gs_fused_grads(dy1, _row(x), _row(L), _row(R))
+        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx.to(x.dtype)
+
+
+def gs_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused GSOFT rotation y = P^T L P R x."""
+    return _GSDiff.apply(L, R, x)
+
+
+def gs_T_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable transpose rotation y = Q^T x = R^T P^T L^T P x."""
+    return _GSTDiff.apply(L, R, x)

@@ -29,10 +29,24 @@ Numerics: the kernel keeps the intermediate in fp32, the plain version (like
 the JAX oracle) rounds it to x.dtype. In f32 the two agree to rounding
 order; in bf16 they differ by that one rounding of the intermediate, at most
 about 2^-8 of its magnitude, carried through an orthogonal second factor.
+
+The backward, ``csrc/gs_fused_bwd.cu``:
+
+* ``gs_fused_bwd(x, dy, L, R) -> (dx, dL, dR)`` replaces
+  ``gs_fused_bwd_pallas``: the gradients of <dy, gs_fused(x, L, R)>, dx in
+  x.dtype and dL, dR (B, r, b, b) in fp32;
+* ``gs_fused_grads(x, dy, L, R) -> (dL, dR)`` replaces
+  ``gs_fused_grads_pallas``: the same without dx.
+
+Both keep every intermediate in fp32, as does their plain version, so the
+two differ by summation order only, in bf16 as in f32 (dx is then rounded
+to bf16 by both). One call launches the kernel's two passes (and, with
+several token splits, the partial-sum reduction) and counts one launch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,22 +55,33 @@ from . import build, ref
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # x, L, R, y, B, T, r, b, tokens per tile[, cluster], stream
-_ARGTYPES = {"gs_fused_T": [_PTR] * 4 + [_INT] * 6 + [_PTR],
-             "gs_fused": [_PTR] * 4 + [_INT] * 5 + [_PTR]}
+_FWD_ARGTYPES = {"gs_fused_T": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+                 "gs_fused": [_PTR] * 4 + [_INT] * 5 + [_PTR]}
+# x, dy, L, R, R^T, dx, workspace, partial sums, dL, dR, B, T, r, b,
+# tokens per tile, token splits, stream
+_BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 6 + [_PTR]
+# the C functions of each source
+_ENTRIES = {"gs_fused_T": {"gs_fused_T": _FWD_ARGTYPES["gs_fused_T"]},
+            "gs_fused": {"gs_fused": _FWD_ARGTYPES["gs_fused"]},
+            "gs_fused_bwd": {"gs_fused_bwd": _BWD_ARGTYPES,
+                             "gs_fused_grads": _BWD_ARGTYPES}}
 _LIBS = {}
 _SMS = {}
+# largest block size of the backward kernel's b x b sums (csrc/gs_fused_bwd.cu)
+BWD_MAX_BLOCK = 128
 
 
 def _lib(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its C signatures bound
-    (and its constants read once: ``tile`` and, for the transpose kernel,
-    ``cluster``)."""
+    (and its constants read once: ``tile``, for the transpose kernel
+    ``cluster``, for the backward ``reduce_tokens``)."""
     if name not in _LIBS:
         lib = build.load(name)
-        for dt in _DTYPES.values():
-            fn = getattr(lib, f"{name}_{dt}")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+        for entry, argtypes in _ENTRIES[name].items():
+            for dt in _DTYPES.values():
+                fn = getattr(lib, f"{entry}_{dt}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         lib.gs_error_string.argtypes = [ctypes.c_int]
         lib.gs_error_string.restype = ctypes.c_char_p
         lib.gs_max_tile_elems.restype = ctypes.c_int
@@ -64,6 +89,9 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "gs_fused_T":
             lib.gs_cluster_size.restype = ctypes.c_int
             lib.cluster = int(lib.gs_cluster_size())
+        if name == "gs_fused_bwd":
+            lib.gs_reduce_tokens.restype = ctypes.c_int
+            lib.reduce_tokens = int(lib.gs_reduce_tokens())
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -75,7 +103,8 @@ def _num_sms(device: torch.device) -> int:
     return _SMS[device.index]
 
 
-def _check(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor) -> None:
+def _check(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
+           dy: Optional[torch.Tensor] = None) -> None:
     if x.dim() != 3 or L.dim() != 4 or R.shape != L.shape:
         raise ValueError(f"expected x (B, T, d) and L, R (B, r, b, b); got "
                          f"x {tuple(x.shape)}, L {tuple(L.shape)}, "
@@ -89,6 +118,11 @@ def _check(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor) -> None:
                         f"{L.dtype}, {R.dtype}")
     if not (x.device == L.device == R.device):
         raise ValueError("x, L, R must lie on one device")
+    if dy is not None:
+        if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+            raise ValueError(f"dy must match x in shape, dtype and device; got "
+                             f"dy {tuple(dy.shape)} {dy.dtype} {dy.device}, x "
+                             f"{tuple(x.shape)} {x.dtype} {x.device}")
 
 
 def _tile_tokens(t: int, d: int, max_tile: int) -> int:
@@ -100,11 +134,14 @@ def _tile_tokens(t: int, d: int, max_tile: int) -> int:
     return tt
 
 
-def launch_geometry(name: str, bsz: int, t: int, d: int) -> tuple:
+def launch_geometry(name: str, bsz: int, t: int, d: int, b: int = 0) -> tuple:
     """(tokens per tile, CTAs per tile) that ``name``'s kernel is launched
-    with for x (bsz, t, d)."""
+    with for x (bsz, t, d); for the backward (``gs_fused_bwd``, block size
+    ``b``), (tokens per tile of pass 1, token splits of pass 2)."""
     lib = _lib(name)
     tt = _tile_tokens(t, d, lib.tile)
+    if name == "gs_fused_bwd":
+        return tt, _reduce_splits(bsz, t, d // b, lib.reduce_tokens)
     if name != "gs_fused_T":
         return tt, 1
     # split each tile over a cluster of CTAs when the split grid still fits
@@ -114,6 +151,14 @@ def launch_geometry(name: str, bsz: int, t: int, d: int) -> tuple:
     split = lib.cluster
     sms = _num_sms(torch.device("cuda", torch.cuda.current_device()))
     return tt, split if bsz * -(-t // tt) * split <= sms else 1
+
+
+def _reduce_splits(bsz: int, t: int, r: int, reduce_tokens: int) -> int:
+    """Token splits of the backward's pass 2, whose grid is one CTA per
+    (b x b block, split, row): enough splits for about two CTAs per SM,
+    never more than the chunks of ``reduce_tokens`` tokens there are."""
+    sms = _num_sms(torch.device("cuda", torch.cuda.current_device()))
+    return max(1, min(-(-t // reduce_tokens), -(-2 * sms // (bsz * r))))
 
 
 def _launch(wrapper, x: torch.Tensor, L: torch.Tensor,
@@ -192,3 +237,97 @@ def gs_fused(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
 
 gs_fused_T.launches = 0
 gs_fused.launches = 0
+
+
+def _launch_bwd(wrapper, with_dx: bool, x: torch.Tensor, dy: torch.Tensor,
+                L: torch.Tensor, R: torch.Tensor):
+    """Run the backward kernel (``csrc/gs_fused_bwd.cu``) and count the call
+    on ``wrapper.launches`` once it launched without error. Returns
+    (dx, dL, dR) or (dL, dR)."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes bf16 or f32, got {x.dtype}")
+    if not all(a.is_contiguous() for a in (x, dy, L, R)):
+        raise ValueError("kernel needs contiguous x, dy, L, R")
+    lib = _lib("gs_fused_bwd")
+    bsz, t, d = x.shape
+    r, b = L.shape[1], L.shape[2]
+    if d > lib.tile:
+        raise ValueError(f"d={d} exceeds the kernel's tile limit {lib.tile}")
+    if b > BWD_MAX_BLOCK:
+        raise ValueError(f"block size b={b} exceeds the backward kernel's "
+                         f"limit {BWD_MAX_BLOCK}")
+    f32 = torch.float32
+    dx = torch.empty_like(x) if with_dx else None
+    if t == 0 or bsz == 0:               # no token: zero sums, no launch
+        grads = (torch.zeros(L.shape, dtype=f32, device=x.device),
+                 torch.zeros(L.shape, dtype=f32, device=x.device))
+        return (dx,) + grads if with_dx else grads
+    dL = torch.empty(L.shape, dtype=f32, device=x.device)
+    dR = torch.empty(L.shape, dtype=f32, device=x.device)
+    with torch.cuda.device(x.device):
+        tt, splits = launch_geometry("gs_fused_bwd", bsz, t, d, b)
+        ws = torch.empty((3, bsz, t, d), dtype=f32, device=x.device)
+        part = (torch.empty((2, splits) + tuple(L.shape), dtype=f32,
+                            device=x.device) if splits > 1 else dL)
+        RT = R.transpose(-1, -2).contiguous()
+        entry = "gs_fused_bwd" if with_dx else "gs_fused_grads"
+        err = getattr(lib, f"{entry}_{_DTYPES[x.dtype]}")(
+            x.data_ptr(), dy.data_ptr(), L.data_ptr(), R.data_ptr(),
+            RT.data_ptr(), dx.data_ptr() if with_dx else None, ws.data_ptr(),
+            part.data_ptr(), dL.data_ptr(), dR.data_ptr(), bsz, t, r, b, tt,
+            splits, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        msg = lib.gs_error_string(err).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg} (code {err})")
+    wrapper.launches += 1
+    return (dx, dL, dR) if with_dx else (dL, dR)
+
+
+def gs_fused_bwd_plain(x: torch.Tensor, dy: torch.Tensor, L: torch.Tensor,
+                       R: torch.Tensor):
+    """Plain version of ``gs_fused_bwd``, row by row (``ref.py``)."""
+    dx = torch.empty_like(x)
+    dL = torch.empty(L.shape, dtype=torch.float32, device=x.device)
+    dR = torch.empty_like(dL)
+    for i in range(x.shape[0]):
+        dx[i], dL[i], dR[i] = ref.gs_fused_bwd_ref(L[i], R[i], x[i], dy[i])
+    return dx, dL, dR
+
+
+def gs_fused_grads_plain(x: torch.Tensor, dy: torch.Tensor, L: torch.Tensor,
+                         R: torch.Tensor):
+    """Plain version of ``gs_fused_grads``, row by row (``ref.py``)."""
+    return gs_fused_bwd_plain(x, dy, L, R)[1:]
+
+
+def gs_fused_bwd(x: torch.Tensor, dy: torch.Tensor, L: torch.Tensor,
+                 R: torch.Tensor):
+    """(dx, dL, dR): the gradients of <dy, gs_fused(x, L, R)>, per row.
+
+    x, dy (B, T, d); L, R (B, r, b, b). dx in x.dtype, dL and dR in fp32.
+    CUDA: the kernel (counted in ``gs_fused_bwd.launches``); CPU: the plain
+    version."""
+    _check(x, L, R, dy)
+    if x.device.type == "cpu":
+        return gs_fused_bwd_plain(x, dy, L, R)
+    if x.device.type != "cuda":
+        raise ValueError(f"gs_fused_bwd runs on cuda or cpu, not {x.device}")
+    return _launch_bwd(gs_fused_bwd, True, x, dy, L, R)
+
+
+def gs_fused_grads(x: torch.Tensor, dy: torch.Tensor, L: torch.Tensor,
+                   R: torch.Tensor):
+    """(dL, dR) of <dy, gs_fused(x, L, R)>, per row, fp32; no dx.
+
+    CUDA: the kernel (counted in ``gs_fused_grads.launches``); CPU: the
+    plain version."""
+    _check(x, L, R, dy)
+    if x.device.type == "cpu":
+        return gs_fused_grads_plain(x, dy, L, R)
+    if x.device.type != "cuda":
+        raise ValueError(f"gs_fused_grads runs on cuda or cpu, not {x.device}")
+    return _launch_bwd(gs_fused_grads, False, x, dy, L, R)
+
+
+gs_fused_bwd.launches = 0
+gs_fused_grads.launches = 0

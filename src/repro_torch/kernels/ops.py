@@ -4,7 +4,9 @@
 Kernel choice follows the device, not a flag: a CUDA tensor always goes
 through the CUDA kernel (or the wrapper raises), a CPU tensor through the
 plain version. ``use_pallas`` is accepted so configs and call sites convert
-one for one from the JAX package, and is ignored. The kernels pick their own
+one for one from the JAX package, and is ignored. ``gs_transform`` and
+``gs_transform_T`` are differentiable through the autograd rules of
+``dispatch.py`` (kernels both ways on the card). The kernels pick their own
 launch geometry; the tuning registry of ``repro.kernels.dispatch`` is not
 ported yet.
 """
@@ -12,12 +14,13 @@ from __future__ import annotations
 
 import torch
 
-from .gs_fused import gs_fused, gs_fused_T
+from .dispatch import gs_diff, gs_T_diff
+from .gs_fused import gs_fused_T
 
 
-def _rows(x: torch.Tensor) -> torch.Tensor:
-    """(..., d) -> (1, N, d), the kernel's one-row batch."""
-    return x.reshape(1, -1, x.shape[-1]).contiguous()
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (N, d), contiguous: the rows are the rotation's tokens."""
+    return x.reshape(-1, x.shape[-1]).contiguous()
 
 
 def gs_transform(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
@@ -25,9 +28,7 @@ def gs_transform(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
     """y = P^T L P R x (GSOFT rotation) over the last dim of x.
     ``use_pallas`` is ignored (see module docstring)."""
     del use_pallas
-    y = gs_fused(_rows(x), L.unsqueeze(0).contiguous(),
-                 R.unsqueeze(0).contiguous())
-    return y.reshape(x.shape)
+    return gs_diff(L, R, _tokens(x)).reshape(x.shape)
 
 
 def gs_transform_T(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
@@ -35,9 +36,7 @@ def gs_transform_T(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
     """y = R^T P^T L^T P x (transpose rotation Q^T x, i.e. x Q for row
     vectors) over the last dim of x. ``use_pallas`` is ignored."""
     del use_pallas
-    y = gs_fused_T(_rows(x), L.unsqueeze(0).contiguous(),
-                   R.unsqueeze(0).contiguous())
-    return y.reshape(x.shape)
+    return gs_T_diff(L, R, _tokens(x)).reshape(x.shape)
 
 
 def gs_banked_transform_T(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,

@@ -79,3 +79,47 @@ def gs_fused_T_ref(L: torch.Tensor, R: torch.Tensor,
     y = bdmm_ref(L.transpose(-1, -2), y)              # L^T .
     y = _shuffle(y, b)                                # P^T
     return bdmm_ref(R.transpose(-1, -2), y)           # R^T .
+
+
+def _p_gather(y: torch.Tensor, r: int) -> torch.Tensor:
+    """P = P_(r, d) over the last axis: (P y)[i*r + g] = y[g*b + i]."""
+    return _shuffle(y, r)
+
+
+def _gs_bwd_fp32(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
+                 dy: torch.Tensor, with_dx: bool):
+    """Backward of y = P^T L P R x with every intermediate in fp32 (the
+    formulas of ``repro/kernels/gs_fused.py`` ``_gs_fused_bwd_kernel``)."""
+    r, b = L.shape[0], L.shape[1]
+    t, d = x.shape
+    f32 = torch.float32
+    L32, R32 = L.to(f32), R.to(f32)
+    xg = x.to(f32).reshape(t, r, b)
+    u = torch.einsum("gij,tgj->tgi", R32, xg).reshape(t, d)    # u = R x
+    v = _p_gather(u, r).reshape(t, r, b)                      # v = P u
+    dw = _p_gather(dy.to(f32), r).reshape(t, r, b)            # dw = P dy
+    dL = torch.einsum("tgi,tgj->gij", dw, v)
+    dv = torch.einsum("gij,tgi->tgj", L32, dw).reshape(t, d)  # dv = L^T dw
+    du = _shuffle(dv, b).reshape(t, r, b)                     # du = P^T dv
+    dR = torch.einsum("tgi,tgj->gij", du, xg)
+    if not with_dx:
+        return dL, dR
+    dx = torch.einsum("gij,tgi->tgj", R32, du).reshape(t, d)  # dx = R^T du
+    return dx.to(x.dtype), dL, dR
+
+
+def gs_fused_bwd_ref(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
+                     dy: torch.Tensor):
+    """Fused backward of y = P^T L P R x for one row.
+
+    L, R: (r, b, b); x, dy: (T, d). Returns (dx, dL, dR): dx = Q^T dy in
+    x.dtype, dL[g] = sum_t (P dy)_g (P R x)_g^T and
+    dR[g] = sum_t (P^T L^T P dy)_g x_g^T in fp32. Every intermediate stays
+    in fp32, as in the Pallas kernel."""
+    return _gs_bwd_fp32(L, R, x, dy, with_dx=True)
+
+
+def gs_fused_grads_ref(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
+                       dy: torch.Tensor):
+    """(dL, dR) of <dy, P^T L P R x> for one row, fp32 (no dx)."""
+    return _gs_bwd_fp32(L, R, x, dy, with_dx=False)

@@ -1,0 +1,81 @@
+"""Training launcher (port of ``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen2-72b --smoke --peft gsoft --steps 3 --device cpu
+
+Same flags as the JAX launcher plus ``--device`` (default ``cuda``: without
+a card it raises unless ``--device cpu`` is given). ``--mesh`` and
+``--ckpt-dir`` raise NotImplementedError until the scale-out slice and the
+checkpoint manager are ported.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from repro_torch import optim
+from repro_torch.config import get_config, get_smoke_config, parse_overrides
+from repro_torch.core import methods as methods_lib
+from repro_torch.core import peft as peft_lib
+from repro_torch.data import DataConfig
+from repro_torch.optim import schedules
+from repro_torch.train.loop import LoopConfig, train
+from repro_torch.train.steps import TrainStepConfig
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--peft", default="gsoft",
+                    choices=methods_lib.registered() + ["full"])
+    ap.add_argument("--block-size", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--mesh", default=None, help="e.g. 4,2 for (data, model)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--corpus", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--set", nargs="*", default=[])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh is not ported yet (scale-out slice)")
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = cfg.with_overrides(**parse_overrides(args.set))
+
+    tcfg = TrainStepConfig(
+        peft=peft_lib.PEFTConfig(method=args.peft, block_size=args.block_size,
+                                 use_pallas=cfg.use_pallas),
+        opt=optim.OptimizerConfig(learning_rate=args.lr),
+        num_microbatches=args.microbatches,
+        schedule=schedules.warmup_cosine(args.warmup, args.steps),
+    )
+    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
+                      seed=args.seed, corpus_path=args.corpus,
+                      vocab_size=min(cfg.vocab_size, 256))
+    loop = LoopConfig(steps=args.steps, ckpt_every=args.ckpt_every,
+                      ckpt_dir=args.ckpt_dir,
+                      heartbeat_path=(os.path.join(args.ckpt_dir, "heartbeat")
+                                      if args.ckpt_dir else None))
+    out = train(cfg, tcfg, dcfg, loop, resume=not args.no_resume,
+                device=args.device)
+    hist = out["history"]
+    if hist:
+        print(f"final loss {hist[-1]['loss']:.4f} "
+              f"(from {hist[0]['loss']:.4f} @ step {hist[0]['step']})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

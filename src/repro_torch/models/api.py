@@ -15,3 +15,12 @@ def family_ops(cfg: ModelConfig) -> registry.FamilyOps:
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda"):
     return family_ops(cfg).init_params(cfg, seed, device)
 
+
+
+def forward(cfg: ModelConfig, params, batch):
+    return family_ops(cfg).forward(cfg, params, batch)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """(loss, metrics) of the family's training objective."""
+    return family_ops(cfg).loss(cfg, params, batch)

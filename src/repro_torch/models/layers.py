@@ -1,5 +1,5 @@
 """Shared building blocks (port of ``repro/models/layers.py``, the parts the
-decoder serving path uses).
+decoder's serving and training paths use).
 
 Conventions as in the JAX package: activations (B, S, D); weights
 (d_in, d_out) used as y = x @ W, layer-stacked weights with a leading layer
@@ -8,7 +8,7 @@ dim; params are plain dicts of tensors.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +26,52 @@ def qlinear(x: torch.Tensor, w: torch.Tensor, rot: Rot = None, name: str = "",
     if rot is not None:
         x = rot(name, x)
     return x @ (w.to(x.dtype) if cast else w)
+
+
+# ---------------------------------------------------------------------------
+# layer stacks: one tensor (L, ...) per weight, used one layer at a time
+# ---------------------------------------------------------------------------
+
+def stack_layers(slices) -> torch.Tensor:
+    """torch.stack of per-layer matrices, keeping their memory layout: when
+    every slice is the transpose of a contiguous matrix (as the weight-side
+    GS rotation and the matmul gradients of such a weight produce them),
+    stack the contiguous matrices and transpose the stack (a view), instead
+    of copying across strides."""
+    if all(s.dim() >= 2 and s.transpose(-1, -2).is_contiguous() for s in slices):
+        return torch.stack([s.transpose(-1, -2) for s in slices]).transpose(-1, -2)
+    return torch.stack(slices)
+
+
+class _UnbindLayers(torch.autograd.Function):
+    """torch.unbind over the layer dim whose backward stacks the layer
+    gradients with ``stack_layers`` (autograd's own stacks them contiguous,
+    a strided copy when they come transposed)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.shape, ctx.dtype, ctx.device = t.shape, t.dtype, t.device
+        return tuple(t.unbind(0))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        zero = None
+        full = []
+        for g in grads:
+            if g is None:
+                if zero is None:
+                    zero = torch.zeros(ctx.shape[1:], dtype=ctx.dtype,
+                                       device=ctx.device)
+                g = zero
+            full.append(g)
+        return stack_layers(full)
+
+
+def unbind_layers(t: torch.Tensor):
+    """The layers of a layer-stacked tensor as views (see _UnbindLayers)."""
+    if t.requires_grad:
+        return _UnbindLayers.apply(t)
+    return t.unbind(0)
 
 
 # ---------------------------------------------------------------------------
@@ -113,3 +159,25 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return logits
     return torch.tanh(logits / cap) * cap
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None,
+                  vocab_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over valid tokens; logits (B, S, Vp) may be vocab-padded (the
+    padded columns are masked out). The max subtracted for stability is taken
+    without gradient, as in the JAX package. Returns (loss, accuracy)."""
+    vp = logits.shape[-1]
+    l32 = logits.to(torch.float32)
+    if vocab_size and vocab_size < vp:
+        pad = torch.arange(vp, device=logits.device) >= vocab_size
+        l32 = l32.masked_fill(pad, -1e30)
+    m = torch.amax(l32, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(l32 - m), dim=-1)) + m[..., 0]
+    gold = torch.gather(l32, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    correct = (torch.argmax(l32, dim=-1) == labels).to(torch.float32)
+    valid = (torch.ones_like(nll) if valid is None
+             else valid.to(torch.float32))
+    denom = torch.clamp(valid.sum(), min=1.0)
+    return (nll * valid).sum() / denom, (correct * valid).sum() / denom

@@ -6,6 +6,7 @@ Uniform signatures:
 
 * ``init_params(cfg, seed=0, device="cuda") -> params``
 * ``forward(cfg, params, batch) -> (logits, aux)``
+* ``loss(cfg, params, batch) -> (loss, metrics)``
 * ``init_decode_state(cfg, batch, max_len, device="cuda") -> state``
 * ``prefill(cfg, params, req: PrefillRequest, state) -> (last_logits, state)``
 * ``decode_step(cfg, params, tokens, state, pos, ctx=None) -> (logits, state)``
@@ -21,6 +22,7 @@ class FamilyOps:
     family: str
     init_params: Callable
     forward: Callable
+    loss: Callable
     init_decode_state: Callable
     prefill: Callable
     decode_step: Callable

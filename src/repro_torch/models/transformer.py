@@ -1,11 +1,13 @@
 """Decoder-only language model (port of the decoder family of
-``repro/models/transformer.py``): ``init_lm``, ``forward``,
+``repro/models/transformer.py``): ``init_lm``, ``forward``, ``lm_loss``,
 ``init_decode_state``, ``decode_step``, ``prefill``.
 
 Layer weights stay stacked (L, d_in, d_out) as in the JAX tree; the JAX
 ``lax.scan`` over layers is a Python loop over slices of the stacked
 tensors. The KV cache is {"kv": {"k", "v": (L, B, S, K, D)}} and is updated
-in place.
+in place. ``cfg.remat`` applies to ``forward`` under autograd: "full"
+recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
+``jax.checkpoint`` per scanned layer), "none" keeps every activation.
 """
 from __future__ import annotations
 
@@ -13,14 +15,16 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.peft import AdapterContext, PrefillRequest
 from repro_torch.device import DeviceLike, resolve_device
 from . import registry
 from .attention import attention_block, init_attention, init_cache
-from .layers import (apply_mlp, embed_init, init_stacked_mlp, qlinear,
-                     rms_norm, softcap, stacked_dense_init)
+from .layers import (apply_mlp, cross_entropy, embed_init, init_stacked_mlp,
+                     qlinear, rms_norm, softcap, stacked_dense_init,
+                     unbind_layers)
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
@@ -57,6 +61,17 @@ def _slice(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _unbind(tree: Any, n: int) -> list:
+    """The n layers of a layer-stacked tree as views. Under autograd one
+    unbind per leaf backs into one stack of the layer gradients, where n
+    separate slices would each scatter into a zero tensor of the whole
+    stack."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(unbind_layers(tree))
+
+
 def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, cache=None,
                    cache_pos=None, rot_attn=None, rot_mlp=None):
     a, cache = attention_block(
@@ -84,6 +99,20 @@ def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     return softcap(logits, cfg.logit_softcap)
 
 
+def _remat(cfg: ModelConfig, fn):
+    """The layer body under ``cfg.remat``; recomputation only matters (and
+    only happens) when autograd records the forward."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) is "
+            "not ported yet; use 'full' or 'none'")
+    if cfg.remat not in ("full", "none"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def _run_layers(cfg: ModelConfig, params, h: torch.Tensor, kv=None,
                 cache_pos=None, ctx: Optional[AdapterContext] = None):
     bl_tree = ctx.group("layers") if ctx is not None else None
@@ -102,8 +131,25 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor, kv=None,
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, Vp), moe_aux = 0). batch["tokens"]: (B, S)."""
-    h = _run_layers(cfg, params, _embed(cfg, params, batch["tokens"]))
+    h = _embed(cfg, params, batch["tokens"])
+    layer = _remat(cfg, lambda lp, hc: _decoder_layer(cfg, lp, hc))
+    for lp in _unbind(params["layers"], cfg.num_layers):
+        h = layer(lp, h)
     return _unembed(cfg, params, h), torch.zeros((), device=h.device)
+
+
+MOE_AUX_COEF = 0.01
+
+
+def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Contract: batch["labels"][:, t] is the target for logits position t
+    (the next token), with batch["mask"] zeroing padded/final slots.
+    Returns (loss, {"loss", "accuracy", "moe_aux"})."""
+    logits, aux = forward(cfg, params, batch)
+    loss, acc = cross_entropy(logits, batch["labels"], batch.get("mask"),
+                              cfg.vocab_size)
+    loss = loss + MOE_AUX_COEF * aux
+    return loss, {"loss": loss, "accuracy": acc, "moe_aux": aux}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -147,6 +193,7 @@ registry.register(registry.FamilyOps(
     family="decoder",
     init_params=init_lm,
     forward=forward,
+    loss=lm_loss,
     init_decode_state=init_decode_state,
     prefill=prefill,
     decode_step=decode_step,

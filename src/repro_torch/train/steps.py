@@ -1,16 +1,126 @@
-"""Serve step builders (the serving half of ``repro/train/steps.py``; the
-name is kept so the counterpart is easy to find). PyTorch runs eagerly, so
-each builder returns a plain closure; the JAX package jits the same bodies.
-Greedy sampling is ``argmax`` (first index on ties, as ``jnp.argmax``).
+"""Train / eval / serve step builders (port of ``repro/train/steps.py``).
+PyTorch runs eagerly, so each builder returns a plain closure; the JAX
+package jits the same bodies.
+
+train_step (PEFT mode, the paper's setting): frozen base params (no grads),
+adapter params (fp32, trainable), optimizer state (adapters only), batch ->
+microbatches -> mean adapter grads in fp32 -> AdamW update. The adapters are
+materialized weight-side inside the step (``core.peft.materialize_tree``),
+so on the card the GS kernels run forward and backward in every step.
+
+The serving builders run under ``torch.inference_mode``. Greedy sampling is
+``argmax`` (first index on ties, as ``jnp.argmax``).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
 import torch
 
+from repro_torch import optim
 from repro_torch.config import ModelConfig
 from repro_torch.core import peft as peft_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    peft: peft_lib.PEFTConfig = peft_lib.PEFTConfig()
+    opt: optim.OptimizerConfig = optim.OptimizerConfig()
+    num_microbatches: int = 1
+    schedule: Optional[Callable] = None
+
+
+def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
+    """n microbatches along the batch dim (rows [i*B/n, (i+1)*B/n))."""
+    return [{k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
+             for k, v in batch.items()} for i in range(n)]
+
+
+def _params_of(peft_cfg: peft_lib.PEFTConfig, trainable, frozen):
+    if peft_cfg.is_peft:
+        return peft_lib.materialize_tree(peft_cfg, frozen, trainable)
+    return trainable
+
+
+def build_grad_fn(cfg: ModelConfig, peft_cfg: peft_lib.PEFTConfig):
+    """grad_fn(trainable, frozen, batch) -> (loss, metrics, grads): the
+    loss and the gradients w.r.t. the trainable tree (same nesting), as one
+    train step takes them."""
+
+    def grad_fn(trainable, frozen, mb):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
+        with torch.enable_grad():
+            loss, metrics = api.loss_fn(
+                cfg, _params_of(peft_cfg, leaves, frozen), mb)
+            flat = tree_leaves(leaves)
+            grads = torch.autograd.grad(loss, flat) if flat else []
+        gtree = _rebuild(leaves, iter(grads))
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gtree
+
+    return grad_fn
+
+
+def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig):
+    """Returns train_step(frozen, trainable, opt_state, batch) ->
+    (trainable, opt_state, metrics). PEFT: trainable = adapters; full FT:
+    trainable = params and frozen is an empty dict. ``use_pallas`` plays no
+    part: the kernels follow the device of the tensors."""
+    n_micro = tcfg.num_microbatches
+    schedule = tcfg.schedule or optim.constant()
+    grad_fn = build_grad_fn(cfg, tcfg.peft)
+
+    def train_step(frozen: Tree, trainable: Tree, opt_state: Tree,
+                   batch: Dict[str, torch.Tensor]):
+        if n_micro > 1:
+            gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), trainable)
+            lacc = None
+            for mb in _split_microbatches(batch, n_micro):
+                loss, metrics, g = grad_fn(trainable, frozen, mb)
+                gacc = tree_map(lambda a, b: a + b.to(torch.float32) / n_micro,
+                                gacc, g)
+                lacc = (loss / n_micro if lacc is None
+                        else lacc + loss / n_micro)
+            grads = gacc
+            metrics["loss"] = lacc
+        else:
+            loss, metrics, grads = grad_fn(trainable, frozen, batch)
+        lr_scale = schedule(opt_state["step"])
+        with torch.no_grad():
+            new_trainable, new_opt, om = optim.update(
+                tcfg.opt, grads, opt_state, trainable, lr_scale)
+        metrics = dict(metrics)
+        metrics.update(om)
+        return new_trainable, new_opt, metrics
+
+    return train_step
+
+
+def _rebuild(tree: Tree, it) -> Tree:
+    """A tree of ``tree``'s structure filled from ``it`` in sorted-key
+    order (the order of ``tree_leaves``)."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
+def build_eval_step(cfg: ModelConfig, tcfg: TrainStepConfig):
+    """eval_step(frozen, trainable, batch) -> metrics (no gradients)."""
+    peft_cfg = tcfg.peft
+
+    @torch.no_grad()
+    def eval_step(frozen, trainable, batch):
+        _, metrics = api.loss_fn(
+            cfg, _params_of(peft_cfg, trainable, frozen), batch)
+        return metrics
+
+    return eval_step
 
 
 def build_decode_step(cfg: ModelConfig):

@@ -22,7 +22,9 @@ FORBIDDEN = re.compile(
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.convert, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.kernels.dispatch, "
+            "repro_torch.train.loop, repro_torch.launch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.runtime; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
@@ -45,3 +47,24 @@ def test_forbidden_pattern_catches_what_it_should():
     assert FORBIDDEN.search("    import repro")
     assert not FORBIDDEN.search("from repro_torch.core import gs")
     assert not FORBIDDEN.search("import repro_torch")
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    """train() and the launcher default to the card: without one they raise
+    instead of training on the CPU."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.config import get_smoke_config
+    from repro_torch.core import peft
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop, steps
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = steps.TrainStepConfig(peft=peft.PEFTConfig(block_size=8),
+                                 opt=optim.OptimizerConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.train(get_smoke_config("qwen2-72b"), tcfg,
+                   DataConfig(seq_len=8, global_batch=2),
+                   loop.LoopConfig(steps=1), log_fn=lambda s: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--arch", "qwen2-72b", "--smoke", "--steps", "1"])

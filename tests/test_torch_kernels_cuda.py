@@ -114,3 +114,131 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert torch.equal(gk.gs_fused_T(x, L, R), gk.gs_fused_T_plain(x, L, R))
     assert torch.equal(gk.gs_fused(x, L, R), gk.gs_fused_plain(x, L, R))
     assert (gk.gs_fused_T.launches, gk.gs_fused.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (csrc/gs_fused_bwd.cu)
+# ---------------------------------------------------------------------------
+
+# dL, dR: fp32 on both sides from the same inputs (bf16 inputs too), so they
+# agree to summation order: 1e-4 of the largest magnitude
+GRAD_REL = 1e-4
+
+# (B, T, r, b): one and several pass-2 token splits, ragged T, r < b, r > b,
+# r not a power of two, b = 128 (512-thread pass 2), tiny d, and the
+# qwen2-72b MLP width d = 29568 (one token per fp32 tile)
+BWD_CASES = [(1, 64, 256, 32), (2, 130, 32, 32), (1, 7, 6, 4), (3, 5, 3, 16),
+             (1, 33, 24, 8), (1, 40, 8, 128), (1, 300, 2, 32),
+             (1, 9, 924, 32), (2, 3, 5, 5)]
+
+
+def _bwd_inputs(rng, bsz, t, r, b, device, dtype):
+    x, dy = (torch.from_numpy(a.astype(np.float32))
+             for a in rng.normal(size=(2, bsz, t, r * b)))
+    L, R = _factors(rng, bsz, r, b), _factors(rng, bsz, r, b)
+    return [a.to(device, dtype) for a in (x, dy, L, R)]
+
+
+def _assert_grads_close(got, want, what):
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all(), what
+    assert err <= GRAD_REL * scale, f"{what}: {err} > {GRAD_REL} * {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "B%d-T%d-r%d-b%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_kernels_match_plain(cuda, case, dtype):
+    bsz, t, r, b = case
+    rng = np.random.default_rng(bsz * 7 + t * 3 + r + b)
+    x, dy, L, R = _bwd_inputs(rng, bsz, t, r, b, cuda, dtype)
+    before = (gk.gs_fused_bwd.launches, gk.gs_fused_grads.launches)
+    dx, dL, dR = gk.gs_fused_bwd(x, dy, L, R)
+    gL, gR = gk.gs_fused_grads(x, dy, L, R)
+    torch.cuda.synchronize()
+    assert (gk.gs_fused_bwd.launches, gk.gs_fused_grads.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = gk.gs_fused_bwd_plain(x, dy, L, R)
+    assert dx.dtype == dtype and dL.dtype == torch.float32
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert (dx.float() - want[0].float()).abs().max().item() <= tol
+    _assert_grads_close(dL, want[1], "dL")
+    _assert_grads_close(dR, want[2], "dR")
+    # the grads-only variant sums the same terms in the same order
+    assert torch.equal(gL, dL) and torch.equal(gR, dR)
+    # deterministic: a second run is bit-identical
+    again = gk.gs_fused_bwd(x, dy, L, R)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dL, dR)))
+
+
+@pytest.mark.cuda
+def test_backward_splits_follow_the_grid(cuda):
+    # r = 256 blocks of one row: two pass-2 splits; r = 924: one; r = 32: many
+    assert gk.launch_geometry("gs_fused_bwd", 1, 29568, 8192, 32) == (4, 2)
+    assert gk.launch_geometry("gs_fused_bwd", 1, 8192, 29568, 32) == (1, 1)
+    assert gk.launch_geometry("gs_fused_bwd", 1, 8192, 1024, 32)[1] > 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gs_fused_bwd", "gs_fused_grads"])
+def test_backward_of_empty_input_is_zero_and_launches_nothing(cuda, name):
+    fn = getattr(gk, name)
+    x = torch.zeros((1, 0, 64), device=cuda)
+    L = torch.ones((1, 8, 8, 8), device=cuda)
+    before = fn.launches
+    out = fn(x, x, L, L)
+    assert fn.launches == before
+    assert all(float(g.abs().max()) == 0.0 for g in out[-2:])
+
+
+@pytest.mark.cuda
+def test_backward_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 2, 512), device=cuda)
+    L = torch.zeros((1, 2, 256, 256), device=cuda)
+    with pytest.raises(ValueError, match="block size"):
+        gk.gs_fused_bwd(x, x, L, L)
+    L = torch.zeros((1, 8, 8, 8), device=cuda)
+    x = torch.zeros((1, 64, 2), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gs_fused_grads(x, x.contiguous(), L, L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["gs_diff", "gs_T_diff"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_autograd_rules_match_autograd_of_the_plain_versions(cuda, op, dtype):
+    """gs_diff / gs_T_diff gradients (the kernels both ways) against
+    autograd through the plain forward versions on the card."""
+    from repro_torch.kernels import dispatch, ref
+    rng = np.random.default_rng(17)
+    t, r, b = 45, 24, 8
+    x = torch.from_numpy(rng.normal(size=(t, r * b)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(t, r * b)).astype(np.float32))
+    L, R = _factors(rng, 1, r, b)[0], _factors(rng, 1, r, b)[0]
+    fn = getattr(dispatch, op)
+    plain = ref.gs_fused_ref if op == "gs_diff" else ref.gs_fused_T_ref
+    # forward, dx, factor gradients: the kernels each rule must launch
+    used = ((gk.gs_fused, gk.gs_fused_bwd) if op == "gs_diff"
+            else (gk.gs_fused_T, gk.gs_fused, gk.gs_fused_grads))
+    before = [k.launches for k in used]
+    grads = []
+    for f in (fn, plain):
+        args = [a.to(cuda, dtype).requires_grad_() for a in (L, R, x)]
+        y = f(*args)
+        grads.append(torch.autograd.grad((y.float() * cot.to(cuda)).sum(), args))
+    assert [k.launches for k in used] == [n + 1 for n in before]
+    for name, got, want in zip(("dL", "dR", "dx"), *grads):
+        assert got.dtype == want.dtype == dtype
+        if dtype == torch.float32:
+            _assert_grads_close(got, want, f"{op} {name}")
+        else:
+            # the plain forward rounds its intermediate to bf16 and its
+            # autograd rounds every stage's gradient; the kernels keep fp32:
+            # one bf16 rounding (2^-8) of values up to the largest
+            # magnitude, a few times over
+            scale = max(1.0, want.float().abs().max().item())
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 2.0 ** -5 * scale, f"{op} {name} bf16: {err}"

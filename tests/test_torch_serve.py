@@ -186,7 +186,8 @@ def test_eos_frees_slot_and_admits_queued_request(world):
 
 def test_unknown_method_or_adapter_raises(world):
     _, _, rt, tad = world
-    with pytest.raises(KeyError, match="registered methods: \\['gsoft'\\]"):
+    with pytest.raises(KeyError,
+                       match="registered methods: \\['double_gsoft', 'gsoft'\\]"):
         methods.get("oft")
     with pytest.raises(KeyError):
         rt.attach(tad, tpeft.PEFTConfig(method="boft"))

@@ -1,0 +1,450 @@
+"""The port's training path against the JAX package on the CPU: the GS
+backward plain versions against the Pallas backward kernels (interpret mode)
+and ``jax.vjp``; gradients through ``ops`` and the adapters; cross entropy,
+AdamW and the schedules; the data pipeline; ``build_train_step`` at the
+qwen2-72b smoke config in f32; ``train()`` and the launcher. Inputs come
+from numpy and go to both packages; weights are carried across by
+``repro_torch.convert``."""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import optim as joptim  # noqa: E402
+from repro.config import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro.core import adapters as jad  # noqa: E402
+from repro.core import peft as jpeft  # noqa: E402
+from repro.core.runtime import ModelRuntime as JaxRuntime  # noqa: E402
+from repro.data import DataConfig as JDataConfig  # noqa: E402
+from repro.data import LMDataSource as JLMDataSource  # noqa: E402
+from repro.kernels import gs_fused as jgs  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.optim import schedules as jsched  # noqa: E402
+from repro.train import steps as jsteps  # noqa: E402
+from repro_torch import convert, optim  # noqa: E402
+from repro_torch.config import ModelConfig, get_smoke_config  # noqa: E402
+from repro_torch.core import adapters as tad  # noqa: E402
+from repro_torch.core import methods  # noqa: E402
+from repro_torch.core import peft as tpeft  # noqa: E402
+from repro_torch.data import ByteCorpus, DataConfig, LMDataSource  # noqa: E402
+from repro_torch.kernels import gs_fused as tk  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.optim import schedules as tsched  # noqa: E402
+from repro_torch.train import loop as tloop  # noqa: E402
+from repro_torch.train import steps as tsteps  # noqa: E402
+
+CPU = "cpu"
+# (r, b, T) as tests/test_kernel_grads.py GS_GRAD_SHAPES
+GS_GRAD_SHAPES = [(4, 4, 16), (2, 16, 33), (8, 8, 100), (4, 32, 20)]
+# f32: max |diff| within 1e-5 of the reference's largest magnitude (sums
+# over up to 100 tokens in another order)
+F32_REL = 1e-5
+# bf16 inputs: every intermediate and dL, dR are fp32 on both sides, so dL
+# and dR agree as in f32; dx is rounded to bf16 by both from fp32 values
+# that differ by summation order, so it may sit one bf16 ulp apart (2^-8
+# relative): 2^-7 of the largest magnitude
+BF16_DX_REL = 2.0 ** -7
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _j(a, dtype=jnp.float32):
+    return jnp.asarray(np.asarray(a, np.float32)).astype(dtype)
+
+
+def _close(got, want, rel, what=""):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = max(1.0, float(np.abs(want).max()) if want.size else 1.0)
+    err = float(np.abs(got - want).max()) if want.size else 0.0
+    assert err <= rel * scale, f"{what}: max|diff| {err} > {rel} * {scale}"
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return convert.to_numpy(x)
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# kernels 3-4: plain versions against the Pallas kernels and jax.vjp
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r,b,t", GS_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_backward_matches_pallas_and_vjp(r, b, t, dtype):
+    rng = np.random.default_rng(r * 1000 + b * 10 + t)
+    L, R = rng.normal(size=(2, r, b, b)).astype(np.float32)
+    x, dy = rng.normal(size=(2, t, r * b)).astype(np.float32)
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "f32"
+                else (torch.bfloat16, jnp.bfloat16))
+    jargs = [_j(a, jdt) for a in (L, R, x, dy)]
+    targs = [_t(a, tdt) for a in (L, R, x, dy)]
+    dx, dL, dR = tk.gs_fused_bwd(*[a[None] for a in (targs[2], targs[3],
+                                                     targs[0], targs[1])])
+    assert dx.dtype == tdt and dL.dtype == dR.dtype == torch.float32
+    pdx, pdL, pdR = jgs.gs_fused_bwd_pallas(*jargs, token_tile=8,
+                                            interpret=True)
+    dx_rel = F32_REL if dtype == "f32" else BF16_DX_REL
+    _close(_np(dx[0]), _np(pdx), dx_rel, "dx vs pallas")
+    _close(_np(dL[0]), _np(pdL), F32_REL, "dL vs pallas")
+    _close(_np(dR[0]), _np(pdR), F32_REL, "dR vs pallas")
+    gL, gR = tk.gs_fused_grads(*[a[None] for a in (targs[2], targs[3],
+                                                  targs[0], targs[1])])
+    qL, qR = jgs.gs_fused_grads_pallas(*jargs, token_tile=8, interpret=True)
+    _close(_np(gL[0]), _np(qL), F32_REL, "grads dL vs pallas")
+    _close(_np(gR[0]), _np(qR), F32_REL, "grads dR vs pallas")
+    assert torch.equal(gL, dL) and torch.equal(gR, dR)
+    if dtype == "f32":
+        # the JAX oracle rounds to x.dtype between stages, so only f32
+        # compares with its autodiff
+        _, vjp = jax.vjp(jref.gs_fused_ref, *jargs[:3])
+        vL, vR, vx = vjp(jargs[3])
+        _close(_np(dx[0]), _np(vx), F32_REL, "dx vs vjp")
+        _close(_np(dL[0]), _np(vL), F32_REL, "dL vs vjp")
+        _close(_np(dR[0]), _np(vR), F32_REL, "dR vs vjp")
+
+
+def test_plain_backward_takes_rows_and_counts_no_launch():
+    rng = np.random.default_rng(3)
+    x, dy = (_t(a) for a in rng.normal(size=(2, 3, 5, 32)))
+    L, R = (_t(a) for a in rng.normal(size=(2, 3, 4, 8, 8)))
+    before = (tk.gs_fused_bwd.launches, tk.gs_fused_grads.launches)
+    dx, dL, dR = tk.gs_fused_bwd(x, dy, L, R)
+    for i in range(3):
+        want = tk.ref.gs_fused_bwd_ref(L[i], R[i], x[i], dy[i])
+        for got, w in zip((dx[i], dL[i], dR[i]), want):
+            assert torch.equal(got, w)
+    assert (tk.gs_fused_bwd.launches, tk.gs_fused_grads.launches) == before
+    with pytest.raises(ValueError, match="dy must match x"):
+        tk.gs_fused_bwd(x, dy[:, :4], L, R)
+
+
+# ---------------------------------------------------------------------------
+# gradients through ops (the autograd rules of kernels/dispatch.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r,b,t", GS_GRAD_SHAPES)
+@pytest.mark.parametrize("op", ["gs_transform", "gs_transform_T"])
+def test_ops_gradients_match_jax_pallas(r, b, t, op):
+    rng = np.random.default_rng(r + 10 * b + 100 * t)
+    L, R = rng.normal(size=(2, r, b, b)).astype(np.float32)
+    x, cot = rng.normal(size=(2, 3, t, r * b)).astype(np.float32)
+    jfn, tfn = getattr(jops, op), getattr(tops, op)
+
+    def jloss(L_, R_, x_):
+        return jnp.sum(jfn(L_, R_, x_, use_pallas=True) * _j(cot))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(_j(L), _j(R), _j(x))
+    tL, tR, tx = (_t(a).requires_grad_() for a in (L, R, x))
+    y = tfn(tL, tR, tx)
+    assert y.grad_fn is not None
+    tg = torch.autograd.grad((y * _t(cot)).sum(), (tL, tR, tx))
+    for name, got, want in zip(("dL", "dR", "dx"), tg, jg):
+        _close(_np(got), _np(want), F32_REL, f"{op} {name}")
+
+
+@pytest.mark.parametrize("method", ["gsoft", "double_gsoft"])
+def test_adapter_loss_gradients_match_jax(method):
+    """Mirrors tests/test_kernel_grads.py
+    test_gsoft_adapter_loss_grad_matches_reference: the port's gradients
+    through ``materialize`` against jax.grad with use_pallas=True."""
+    jspec = jad.AdapterSpec(method=method, d_in=32, d_out=24, block_size=8,
+                            block_size_out=4, use_pallas=True)
+    tspec = tad.AdapterSpec(method=method, d_in=32, d_out=24, block_size=8,
+                            block_size_out=4)
+    rng = np.random.default_rng(7)
+    params = {k: np.asarray(v) + 0.05 * rng.normal(size=v.shape)
+              for k, v in jad.init_adapter(jspec, jax.random.PRNGKey(0)).items()}
+    tzero = tad.init_adapter(tspec, device=CPU)
+    assert sorted(tzero) == sorted(params)
+    assert all(tuple(tzero[k].shape) == params[k].shape for k in params)
+    assert methods.get(method).param_count(tspec) == jad.num_adapter_params(jspec)
+    W = rng.normal(size=(32, 24)).astype(np.float32)
+    x = rng.normal(size=(16, 32)).astype(np.float32)
+    tgt = rng.normal(size=(16, 24)).astype(np.float32)
+
+    def jloss(p):
+        return jnp.mean((_j(x) @ jad.materialize(jspec, p, _j(W)) - _j(tgt)) ** 2)
+
+    jl, jg = jax.value_and_grad(jloss)({k: _j(v) for k, v in params.items()})
+    tp = {k: _t(v).requires_grad_() for k, v in params.items()}
+    tl = torch.mean((_t(x) @ tad.materialize(tspec, tp, _t(W)) - _t(tgt)) ** 2)
+    tg = torch.autograd.grad(tl, [tp[k] for k in sorted(tp)])
+    _close(float(tl.detach()), float(jl), F32_REL, "loss")
+    for k, g in zip(sorted(tp), tg):
+        _close(_np(g), _np(jg[k]), F32_REL, f"{method} d{k}")
+
+
+def test_double_gsoft_cannot_be_banked():
+    ops = methods.get("double_gsoft")
+    assert ops.bank_build is None and "merge it offline" in ops.bank_unsupported
+    with pytest.raises(ValueError, match="no bank path"):
+        tpeft.bank_capability_check(tpeft.PEFTConfig(method="double_gsoft"))
+
+
+# ---------------------------------------------------------------------------
+# loss, optimizer, schedules, data
+# ---------------------------------------------------------------------------
+
+def test_cross_entropy_with_padded_vocab_matches_jax():
+    rng = np.random.default_rng(11)
+    logits = rng.normal(size=(2, 5, 24)).astype(np.float32) * 3
+    labels = rng.integers(0, 20, size=(2, 5)).astype(np.int32)
+    mask = (rng.random((2, 5)) > 0.3).astype(np.float32)
+
+    def jfn(lg):
+        return jlayers.cross_entropy(lg, jnp.asarray(labels), jnp.asarray(mask),
+                                     20)
+
+    (jl, jacc), jg = jax.value_and_grad(jfn, has_aux=True)(jnp.asarray(logits))
+    tl = _t(logits).requires_grad_()
+    loss, acc = tlayers.cross_entropy(tl, torch.from_numpy(labels),
+                                      _t(mask), 20)
+    (tg,) = torch.autograd.grad(loss, tl)
+    _close(float(loss.detach()), float(jl), 1e-6, "loss")
+    assert float(acc) == pytest.approx(float(jacc), abs=1e-7)
+    _close(_np(tg), np.asarray(jg), 1e-6, "dlogits")
+    # padded columns get no gradient and never win the argmax
+    assert float(tg[..., 20:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["adamw", "sgd"])
+def test_optimizer_and_schedule_match_jax(kind):
+    rng = np.random.default_rng(5)
+    params = {"a": {"L": rng.normal(size=(3, 4, 4)), "scale": rng.normal(size=(6,))},
+              "b": rng.normal(size=(5, 2))}
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    cfg = dict(kind=kind, learning_rate=3e-2, weight_decay=0.1, grad_clip=0.5)
+    jcfg, tcfg = joptim.OptimizerConfig(**cfg), optim.OptimizerConfig(**cfg)
+    jsc, tsc = jsched.warmup_cosine(2, 6), tsched.warmup_cosine(2, 6)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = joptim.init(jcfg, jp)
+    tp = convert.params_from_numpy(params, device=CPU)
+    ts = convert.opt_state_from_numpy(jax.tree.map(np.asarray, js), device=CPU)
+    assert ts["step"].dtype == torch.int32
+    for _ in range(4):
+        g = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32),
+                         params)
+        jp, js, jm = joptim.update(jcfg, jax.tree.map(jnp.asarray, g), js, jp,
+                                   jsc(js["step"]))
+        tp, ts, tm = optim.update(tcfg, convert.params_from_numpy(g, device=CPU),
+                                  ts, tp, tsc(ts["step"]))
+        _close(float(tm["grad_norm"]), float(jm["grad_norm"]), 1e-6, "gnorm")
+        for path, want in tpeft.flatten_paths(jax.tree.map(np.asarray, jp)).items():
+            _close(tpeft.flatten_paths(convert.to_numpy(tp))[path], want, 1e-6,
+                   f"param {path}")
+        for path, want in tpeft.flatten_paths(jax.tree.map(np.asarray, js)).items():
+            _close(tpeft.flatten_paths(convert.to_numpy(ts))[path], want, 1e-6,
+                   f"state {path}")
+    assert int(ts["step"]) == int(js["step"]) == 4
+    for fj, ft in ((jsched.warmup_cosine(3, 20, 0.2), tsched.warmup_cosine(3, 20, 0.2)),
+                   (jsched.warmup_linear(3, 20), tsched.warmup_linear(3, 20))):
+        for s in range(0, 25):
+            assert float(ft(s)) == pytest.approx(float(fj(s)), abs=1e-6)
+            assert float(ft(torch.tensor(s, dtype=torch.int32))) == \
+                pytest.approx(float(fj(s)), abs=1e-6)
+
+
+def test_lm_data_source_matches_jax(tmp_path):
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(bytes(range(256)) * 3 + b"group and shuffle")
+    for kw in (dict(seq_len=16, global_batch=3, seed=5, vocab_size=64),
+               dict(seq_len=9, global_batch=2, seed=1, corpus_path=str(corpus))):
+        jsrc, tsrc = JLMDataSource(JDataConfig(**kw)), LMDataSource(DataConfig(**kw))
+        for step in (0, 1, 7):
+            jb, tb = jsrc.batch_at(step), tsrc.batch_at(step)
+            assert sorted(jb) == sorted(tb)
+            for k in jb:
+                assert jb[k].dtype == tb[k].dtype
+                np.testing.assert_array_equal(jb[k], tb[k])
+        assert tsrc.batch_at(3, lo=1, hi=2)["tokens"].shape == (1, kw["seq_len"])
+    assert len(ByteCorpus(str(corpus)).data) == 256 * 3 + 17
+
+
+# ---------------------------------------------------------------------------
+# build_train_step against JAX's at the qwen2-72b smoke config
+# ---------------------------------------------------------------------------
+
+JCFG = jax_smoke_config("qwen2-72b")
+CFG = get_smoke_config("qwen2-72b")
+
+
+@pytest.fixture(scope="module")
+def base_params():
+    return jax.tree.map(np.asarray,
+                        JaxRuntime(JCFG, key=jax.random.PRNGKey(0)).params)
+
+
+def _perturbed_adapters(pcfg, params, seed, scale=0.05):
+    ad = jpeft.init_peft(pcfg, jax.tree.map(jnp.asarray, params),
+                         jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: np.asarray(a) + scale * rng.normal(size=a.shape).astype(np.float32),
+        ad)
+
+
+def _flat_np(tree):
+    return tpeft.flatten_paths(tree)
+
+
+@pytest.mark.parametrize("method", ["gsoft", "double_gsoft"])
+@pytest.mark.parametrize("n_micro,steps", [(1, 1), (2, 3)])
+def test_train_step_matches_jax(base_params, method, n_micro, steps):
+    kw = dict(method=method, block_size=8)
+    jp_cfg, tp_cfg = jpeft.PEFTConfig(**kw), tpeft.PEFTConfig(**kw)
+    okw = dict(learning_rate=1e-2)
+    sched = (jsched.warmup_cosine(1, 4), tsched.warmup_cosine(1, 4))
+    jt = jsteps.TrainStepConfig(peft=jp_cfg, opt=joptim.OptimizerConfig(**okw),
+                                num_microbatches=n_micro, schedule=sched[0])
+    tt = tsteps.TrainStepConfig(peft=tp_cfg, opt=optim.OptimizerConfig(**okw),
+                                num_microbatches=n_micro, schedule=sched[1])
+    adapters = _perturbed_adapters(jp_cfg, base_params, 3)
+    data = JLMDataSource(JDataConfig(seq_len=12, global_batch=4, seed=2,
+                                     vocab_size=CFG.vocab_size))
+    jstep = jax.jit(jsteps.build_train_step(JCFG, jt))
+    tstep = tsteps.build_train_step(CFG, tt)
+    jtr = jax.tree.map(jnp.asarray, adapters)
+    jfz = jax.tree.map(jnp.asarray, base_params)
+    jopt = joptim.init(jt.opt, jtr)
+    ttr = convert.adapters_from_numpy(adapters, device=CPU)
+    tfz = convert.params_from_numpy(base_params, device=CPU)
+    topt = convert.opt_state_from_numpy(jax.tree.map(np.asarray, jopt),
+                                        device=CPU)
+    for step in range(steps):
+        batch = data.batch_at(step)
+        jtr, jopt, jm = jstep(jfz, jtr, jopt, jax.tree.map(jnp.asarray, batch))
+        ttr, topt, tm = tstep(tfz, ttr, topt,
+                              {k: torch.from_numpy(v) for k, v in batch.items()})
+        for key in ("loss", "grad_norm", "accuracy"):
+            _close(float(tm[key]), float(jm[key]), F32_REL, f"step {step} {key}")
+        for name, tt_, jt_ in (("adapters", ttr, jtr), ("opt", topt, jopt)):
+            want = _flat_np(jax.tree.map(np.asarray, jt_))
+            got = _flat_np(convert.to_numpy(tt_))
+            assert sorted(got) == sorted(want)
+            for path in want:
+                _close(got[path], want[path], F32_REL,
+                       f"step {step} {name} {path}")
+
+
+def test_remat_full_equals_none(base_params):
+    pcfg = tpeft.PEFTConfig(method="double_gsoft", block_size=8)
+    adapters = convert.adapters_from_numpy(
+        _perturbed_adapters(jpeft.PEFTConfig(method="double_gsoft", block_size=8),
+                            base_params, 4), device=CPU)
+    frozen = convert.params_from_numpy(base_params, device=CPU)
+    batch = {k: torch.from_numpy(v) for k, v in LMDataSource(
+        DataConfig(seq_len=10, global_batch=2, seed=9)).batch_at(0).items()}
+    out = {}
+    for remat in ("full", "none"):
+        cfg = CFG.with_overrides(remat=remat)
+        ad = {p: {k: v.clone().requires_grad_() for k, v in e.items()}
+              for p, e in adapters.items()}
+        loss, _ = api.loss_fn(cfg, tpeft.materialize_tree(pcfg, frozen, ad), batch)
+        leaves = [ad[p][k] for p in sorted(ad) for k in sorted(ad[p])]
+        out[remat] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    assert torch.allclose(out["full"][0], out["none"][0], rtol=0, atol=1e-6)
+    for a, b in zip(out["full"][1], out["none"][1]):
+        assert torch.allclose(a, b, rtol=0, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="dots"):
+        api.forward(CFG.with_overrides(remat="dots"), frozen, batch)
+
+
+def test_eval_step_reports_the_train_loss(base_params):
+    tcfg = tsteps.TrainStepConfig(peft=tpeft.PEFTConfig(method="gsoft",
+                                                        block_size=8))
+    frozen = convert.params_from_numpy(base_params, device=CPU)
+    adapters = tpeft.init_peft(tcfg.peft, frozen, device=CPU)
+    assert tpeft.count_params(adapters) == sum(
+        math.prod(s.batch) * methods.get(s.method).param_count(s)
+        for s in tpeft.adapted_paths(tcfg.peft, frozen).values())
+    trainable, fz = tpeft.trainable_and_frozen(tcfg.peft, frozen, adapters)
+    assert trainable is adapters and fz is frozen
+    batch = {k: torch.from_numpy(v) for k, v in LMDataSource(
+        DataConfig(seq_len=8, global_batch=2)).batch_at(0).items()}
+    m = tsteps.build_eval_step(CFG, tcfg)(frozen, adapters, batch)
+    _, _, tm = tsteps.build_train_step(CFG, tcfg)(
+        frozen, adapters, optim.init(tcfg.opt, adapters), batch)
+    assert float(m["loss"]) == pytest.approx(float(tm["loss"]), abs=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# train() and the launcher
+# ---------------------------------------------------------------------------
+
+TINY = ModelConfig(
+    name="tiny-lm", family="decoder", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+    mlp_type="swiglu", dtype="f32", param_dtype="f32", remat="none",
+    attn_chunk=32)
+
+
+def _loop_tcfg():
+    return tsteps.TrainStepConfig(
+        peft=tpeft.PEFTConfig(method="gsoft", block_size=8),
+        opt=optim.OptimizerConfig(learning_rate=3e-3), num_microbatches=2)
+
+
+def test_training_reduces_loss(tmp_path):
+    """As tests/test_train_loop.py test_training_reduces_loss, without
+    checkpoints (not ported yet)."""
+    loop = tloop.LoopConfig(steps=30, log_every=5, ckpt_every=100,
+                            heartbeat_path=str(tmp_path / "hb"))
+    out = tloop.train(TINY, _loop_tcfg(),
+                      DataConfig(seq_len=32, global_batch=8, vocab_size=128),
+                      loop, log_fn=lambda s: None, device=CPU)
+    h = out["history"]
+    assert h[-1]["loss"] < h[0]["loss"] * 0.9
+    assert (tmp_path / "hb").exists()
+    assert sorted(out) == ["frozen", "history", "opt_state", "runtime",
+                           "trainable"]
+    assert int(out["opt_state"]["step"]) == 30
+    # the runtime serves the merged trained weights, not the init
+    merged = out["runtime"].params["layers"]["attn"]["wq"]
+    assert not torch.equal(merged, out["frozen"]["layers"]["attn"]["wq"])
+
+
+def test_train_with_ckpt_dir_raises(tmp_path):
+    loop = tloop.LoopConfig(steps=1, ckpt_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        tloop.train(TINY, _loop_tcfg(), DataConfig(seq_len=8, global_batch=2),
+                    loop, device=CPU)
+
+
+@pytest.mark.parametrize("peft", ["gsoft", "double_gsoft"])
+def test_launcher_trains_on_the_cpu(capsys, peft):
+    assert tlaunch.main(["--arch", "qwen2-72b", "--smoke", "--device", "cpu",
+                         "--steps", "3", "--batch", "2", "--seq", "16",
+                         "--peft", peft, "--block-size", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "final loss" in out and out.count("step ") >= 2
+
+
+def test_launcher_refuses_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tlaunch.main(["--arch", "qwen2-72b", "--smoke", "--device", "cpu",
+                      "--mesh", "2,1"])
+
+
+def test_train_step_config_defaults_equal_jax():
+    jt, tt = jsteps.TrainStepConfig(), tsteps.TrainStepConfig()
+    assert dataclasses.asdict(jt.opt) == dataclasses.asdict(tt.opt)
+    assert jt.num_microbatches == tt.num_microbatches
+    shared = {f.name for f in dataclasses.fields(tt.peft)}
+    assert {k: v for k, v in dataclasses.asdict(jt.peft).items()
+            if k in shared} == dataclasses.asdict(tt.peft)
