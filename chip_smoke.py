@@ -6,6 +6,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
 
 1. device — refuse to run without CUDA; print the card's name and power limit
 2. build  — compile every CUDA kernel of the port from ``src/repro_torch``
+   (one nvcc per source, all started together)
 3. kernels — each kernel against its plain PyTorch version on the card at the
    serving path's shapes (qwen2-72b widths: decode rows, every prefill
    bucket the serve phase's prompts can take, the merge slabs), with times
@@ -16,6 +17,11 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    plain versions at every (T, d) the training path gives them (the weight
    slabs of the seven projections), bf16 and f32, with times, bounds and a
    partial library yardstick
+3c. bdmm kernels — ``bdmm`` at the weight slabs (OFT / BOFT training and
+   merge), the banked decode rows and every prefill bucket (OFT / BOFT
+   serving), ``bdmm_dblocks`` at the weight slabs (their backward), bf16 and
+   f32, b = 32, with times, bounds, plain versions and one einsum each as
+   the library yardstick; dblocks must be bit-identical across two runs
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
    the ``gs_fused_T`` kernel must have run
@@ -31,13 +37,27 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    GSOFT, the adapter gradients of one train step against a central
    difference of the loss along a seeded random direction (all four GS
    kernels run in these backward passes)
-9. report — one JSON line of kernels, then the ``{"ok": true, ...}`` line
+9. OFT / BOFT train — as phase 7 with OFT and BOFT (b = 32, BOFT at its two
+   butterfly levels): fixed-batch steps whose bdmm / bdmm_dblocks launches
+   per step must equal the design's count, then 3 steps through the
+   launcher (``launch/train.py --peft``); one step each of householder,
+   givens and lora at 2 layers (finite loss, no GS or bdmm launch)
+10. OFT / BOFT gradients — as phase 8, f32 at 2 layers
+11. mixed serve — full width, 8 layers, bf16: one bank holding gsoft, oft,
+   boft, householder and givens tenants (``attach`` with a
+   ``{name: PEFTConfig}`` mapping), 12 requests on 4 slots, median rate of
+   3 runs and a profile; then f32 at 2 layers: every tenant's tokens equal
+   its solo offline-merged run, decode logits within tolerance, and the
+   base slot equals the bankless model
+12. report — one JSON line of kernels, then the ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -54,11 +74,14 @@ import torch  # noqa: E402
 
 from repro_torch import optim  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
+from repro_torch.core import adapters as ad_lib  # noqa: E402
 from repro_torch.core import peft as peft_lib  # noqa: E402
 from repro_torch.core.runtime import ModelRuntime  # noqa: E402
 from repro_torch.data import DataConfig, LMDataSource  # noqa: E402
+from repro_torch.kernels import bdmm as bk  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import gs_fused as gk  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, prompt_bucket  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
@@ -96,6 +119,10 @@ GRAD_BATCH, GRAD_SEQ = 2, 64
 FD_TARGET = 1e-2
 FD_MAX_STEP = 1e-2
 FD_REL = 1e-2
+BDMM_BLOCK = 32
+QUICK_LAYERS = 2                    # householder / givens / lora one-step check
+MIXED_SERVE_REQUESTS = 12           # two per tenant and two on the base slot
+MIXED_SCALE = 0.3                   # noise on the mixed bank's adapters
 
 KERNELS = {
     "gs_fused_T": dict(fn=gk.gs_fused_T, plain=gk.gs_fused_T_plain,
@@ -110,6 +137,34 @@ KERNELS = {
     "gs_fused_grads": dict(fn=gk.gs_fused_grads, plain=gk.gs_fused_grads_plain,
                            replaces="src/repro/kernels/gs_fused.py:221",
                            source="src/repro_torch/kernels/csrc/gs_fused_bwd.cu"),
+    "bdmm": dict(fn=bk.bdmm, plain=bk.bdmm_plain,
+                 replaces="src/repro/kernels/bdmm.py:46",
+                 source="src/repro_torch/kernels/csrc/bdmm.cu"),
+    "bdmm_dblocks": dict(fn=bk.bdmm_dblocks, plain=bk.bdmm_dblocks_plain,
+                         replaces="src/repro/kernels/bdmm.py:98",
+                         source="src/repro_torch/kernels/csrc/bdmm.cu"),
+}
+# kernel launches per adapted weight slice and train step, by method, as the
+# design predicts (m: BOFT's butterfly levels): materialization runs outside
+# remat, so once forward; the weight slab is frozen, so no dx launch for the
+# first level's input
+DESIGN_LAUNCHES = {
+    "gsoft": lambda m: {"gs_fused": 1, "gs_fused_bwd": 1},
+    "oft": lambda m: {"bdmm": 1, "bdmm_dblocks": 1},
+    "boft": lambda m: {"bdmm": 2 * m - 1, "bdmm_dblocks": m},
+    "householder": lambda m: {},
+    "givens": lambda m: {},
+    "lora": lambda m: {},
+}
+# the backward kernel of each trained method (counted in the train() steps)
+BWD_KERNEL = {"gsoft": "gs_fused_bwd", "oft": "bdmm_dblocks",
+              "boft": "bdmm_dblocks"}
+# the kernels one train step's gradient runs, by method (phases 8 and 10)
+GRAD_KERNELS = {
+    "gsoft": ("gs_fused", "gs_fused_bwd"),
+    "double_gsoft": ("gs_fused", "gs_fused_T", "gs_fused_bwd", "gs_fused_grads"),
+    "oft": ("bdmm", "bdmm_dblocks"),
+    "boft": ("bdmm", "bdmm_dblocks"),
 }
 
 
@@ -319,6 +374,122 @@ def check_bwd_case(kernel, T, d, b, dtype, gen, device) -> dict:
                 bound_by=bound_by)
 
 
+def bdmm_bound(B: int, T: int, d: int, b: int, dtype) -> tuple:
+    """Least time for y = bdmm(x, blocks), square b x b blocks: x read and y
+    written once, the per-row blocks read once; 2*B*T*d*b operations."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * T * d + B * d * b) * es
+    flops = 2 * B * T * d * b
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dblocks_bound(T: int, d: int, b: int, dtype) -> tuple:
+    """Least time for dblocks = bdmm_dblocks(dy, x): dy and x read once,
+    the fp32 (r, b, b) sums written once; 2*T*d*b operations."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = 2 * T * d * es + d * b * 4
+    flops = 2 * T * d * b
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _slabs(cfg):
+    """(T, d) of the weight-side rotation of each projection's weight
+    W (d_in, d_out): its columns are the tokens (T = d_out, d = d_in).
+    wi / wg, MLP wo, wq / attn wo, wk / wv."""
+    D, F = cfg.d_model, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.d_head
+    return [(F, D), (D, F), (cfg.num_heads * cfg.d_head, D), (kv, D)]
+
+
+def bdmm_cases(cfg):
+    """(B, T, d) the OFT / BOFT paths give ``bdmm``: the weight slabs
+    (training, merge; also the dx of BOFT's second level), the banked decode
+    rows and each prefill bucket at both widths a rotation sees (d_model
+    before the attention and MLP input projections, d_ff before the MLP
+    output projection)."""
+    out = [(1, t, d) for t, d in _slabs(cfg)]
+    for d in (cfg.d_model, cfg.d_ff):
+        out.append((4, 1, d))
+        out += [(1, t, d) for t in prefill_buckets()]
+    return out
+
+
+def check_bdmm_case(B, T, d, b, dtype, gen, device) -> dict:
+    r = d // b
+    blocks = _orth_factors(gen, B, r, b, dtype, device)[0]
+    x = torch.randn((B, T, d), generator=gen, device=device).to(dtype)
+    y = bk.bdmm(x, blocks)
+    torch.cuda.synchronize()
+    y_plain = bk.bdmm_plain(x, blocks)
+    err = (y.float() - y_plain.float()).abs().max().item()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    if not (math.isfinite(err) and err <= tol):
+        raise AssertionError(f"bdmm B={B} T={T} d={d} b={b} {dtype}: "
+                             f"max|err| {err} > {tol}")
+    set_bytes = (2 * B * T * d + B * d * b) * x.element_size()
+    n_sets = int(min(16, max(1, math.ceil(120e6 / set_bytes))))
+    sets = [(x, blocks)] + [(x, _orth_factors(gen, B, r, b, dtype, device)[0])
+                            for _ in range(n_sets - 1)]
+    ms = time_ms(bk.bdmm, sets)
+    plain_ms = time_ms(bk.bdmm_plain, sets)
+
+    def library(xx, w):                  # one cuBLAS batched product
+        return torch.einsum("zgij,ztgj->ztgi", w, xx.view(B, T, r, b))
+
+    lib_ms = time_ms(library, sets)
+    lib_err = (library(x, blocks).reshape(B, T, d).float()
+               - y.float()).abs().max().item()
+    bound_ms, bound_by = bdmm_bound(B, T, d, b, dtype)
+    gt, tt, tpc = bk.bdmm_geometry(B, T, r, b, b, gk._num_sms(device))
+    return dict(kernel="bdmm", B=B, T=T, d=d, b=b, groups_per_cta=gt, tt=tt,
+                tokens_per_cta=tpc, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_err=lib_err,
+                library_what='einsum("zgij,ztgj->ztgi")',
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_dblocks_case(T, d, b, dtype, gen, device) -> dict:
+    r = d // b
+    dy = torch.randn((1, T, d), generator=gen, device=device).to(dtype)
+    x = torch.randn((1, T, d), generator=gen, device=device).to(dtype)
+    got = bk.bdmm_dblocks(dy, x, b, b)
+    torch.cuda.synchronize()
+    want = bk.bdmm_dblocks_plain(dy, x, b, b)
+    err = (got - want).abs().max().item()
+    rel = err / max(1.0, want.abs().max().item())
+    if not (math.isfinite(rel) and rel <= GRAD_REL):
+        raise AssertionError(f"bdmm_dblocks T={T} d={d} b={b} {dtype}: rel "
+                             f"err {rel} > {GRAD_REL}")
+    if not torch.equal(bk.bdmm_dblocks(dy, x, b, b), got):
+        raise AssertionError(f"bdmm_dblocks T={T} d={d} b={b} {dtype}: two "
+                             "runs differ")
+    del want
+    args = [(dy, x, b, b)]
+    ms = time_ms(bk.bdmm_dblocks, args)
+    plain_ms = time_ms(bk.bdmm_dblocks_plain, args)
+    # the library yardstick sums fp32 copies prepared outside the timing
+    dy32, x32 = dy.float().view(T, r, b), x.float().view(T, r, b)
+    lib_ms = time_ms(lambda p, q: torch.einsum("tgi,tgj->gij", p, q),
+                     [(dy32, x32)])
+    lib_err = (torch.einsum("tgi,tgj->gij", dy32, x32)
+               - got[0]).abs().max().item()
+    del dy32, x32
+    bound_ms, bound_by = dblocks_bound(T, d, b, dtype)
+    gt, splits, tps = bk.dblocks_geometry(1, T, r, b, b, gk._num_sms(device))
+    return dict(kernel="bdmm_dblocks", B=1, T=T, d=d, b=b, groups_per_cta=gt,
+                splits=splits, tokens_per_split=tps,
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                grad_rel_err=rel, tol=GRAD_REL, bit_identical=True, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                library_what='einsum("tgi,tgj->gij") over fp32 copies',
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 # ---------------------------------------------------------------------------
 # main-path phases
 # ---------------------------------------------------------------------------
@@ -355,7 +526,8 @@ def _profile(run) -> dict:
                                 count=e.count))
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels) / 1e3
-    # the port's kernels live in namespace gs::; sum them by kernel function
+    # the port's kernels (GS and bdmm) live in namespace gs::; sum them by
+    # kernel function
     by_kernel = {}
     for k in kernels:
         if "gs::" in k["name"]:
@@ -363,8 +535,8 @@ def _profile(run) -> dict:
             by_kernel[fam] = by_kernel.get(fam, 0.0) + k["device_ms"]
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=1.0 - busy / wall if wall > 0 else None,
-                gs_kernels_device_s=sum(by_kernel.values()) / 1e3,
-                gs_device_ms_by_kernel=by_kernel, top=kernels[:16])
+                port_kernels_device_s=sum(by_kernel.values()) / 1e3,
+                port_device_ms_by_kernel=by_kernel, top=kernels[:16])
 
 
 def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
@@ -431,6 +603,32 @@ def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
                 profile=_profile(drive))
 
 
+def _logits_gap(cfg, banked, slot: int, merged, prompt, first: int,
+                device) -> tuple:
+    """One prefill and one decode step (fed ``first``) of ``prompt`` on the
+    bank's ``slot`` and on the merged runtime; fails unless the decode
+    logits agree within LOGIT_TOL of their largest magnitude. Returns
+    (max |diff|, tolerance, the bank's prefill logits)."""
+    logits = []
+    feed = torch.as_tensor(prompt[None], device=device)
+    for rt, s in ((banked, [slot]), (merged, [0])):
+        state = rt.decode_state(1, 64)
+        req = peft_lib.PrefillRequest(batch={"tokens": feed},
+                                      last_idx=torch.as_tensor(len(prompt) - 1),
+                                      ctx=rt.context(s))
+        pre, state = steps.build_prefill_step(cfg)(rt.params, req, state)
+        _, lg, _ = steps.build_decode_step(cfg)(
+            rt.params, rt.context(s),
+            torch.as_tensor([[int(first)]], device=device), state,
+            torch.as_tensor([len(prompt)], device=device))
+        logits.append((pre.float(), lg.float()))
+    tol = LOGIT_TOL * max(1.0, logits[1][1].abs().max().item())
+    err = (logits[0][1] - logits[1][1]).abs().max().item()
+    if not (torch.isfinite(logits[0][1]).all() and err <= tol):
+        raise AssertionError(f"decode logits differ by {err} (tolerance {tol})")
+    return err, tol, logits[0][0]
+
+
 def merged_phase(cfg, seed: int, device) -> dict:
     pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
     base = ModelRuntime(cfg, seed=seed, device=device)
@@ -459,26 +657,10 @@ def merged_phase(cfg, seed: int, device) -> dict:
                              f"{tokens['merged']}")
 
     # one prefill + one decode step, logits compared
-    logits = {}
-    feed = torch.as_tensor(prompt[None], device=device)
-    for name, rt, slot in (("banked", banked, [1]), ("merged", merged, [0])):
-        state = rt.decode_state(1, 64)
-        req = peft_lib.PrefillRequest(batch={"tokens": feed},
-                                      last_idx=torch.as_tensor(len(prompt) - 1),
-                                      ctx=rt.context(slot))
-        _, state = steps.build_prefill_step(cfg)(rt.params, req, state)
-        _, lg, _ = steps.build_decode_step(cfg)(
-            rt.params, rt.context(slot),
-            torch.as_tensor([[int(tokens[name][0])]], device=device), state,
-            torch.as_tensor([len(prompt)], device=device))
-        logits[name] = lg.float()
-    scale = max(1.0, logits["merged"].abs().max().item())
-    err = (logits["banked"] - logits["merged"]).abs().max().item()
-    if not (torch.isfinite(logits["banked"]).all() and err <= LOGIT_TOL * scale):
-        raise AssertionError(f"decode logits differ by {err} "
-                             f"(tolerance {LOGIT_TOL * scale})")
+    err, tol, _ = _logits_gap(cfg, banked, 1, merged, prompt,
+                              tokens["banked"][0], device)
     return dict(layers=cfg.num_layers, tokens=tokens["banked"],
-                logit_max_abs_err=err, logit_tol=LOGIT_TOL * scale,
+                logit_max_abs_err=err, logit_tol=tol,
                 merge_s=merge_s, merge_launches=merge_launches,
                 allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
@@ -498,12 +680,50 @@ def _slices(pcfg, params) -> int:
                for spec in peft_lib.adapted_paths(pcfg, params).values())
 
 
-def train_phase(cfg, seed: int, device, steps_n: int = TRAIN_STEPS) -> dict:
-    """GSOFT fine-tuning of the depth-cut model: ``steps_n`` steps of
-    ``build_train_step`` on one fixed batch (the counted main-path run; the
-    loss must fall), one more under the profiler, then 3 steps of
-    ``train()`` on ``batch_at(step)``."""
-    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+def design_launches(pcfg, params) -> dict:
+    """Kernel launches per train step the design predicts for ``pcfg`` on
+    ``params``: DESIGN_LAUNCHES per adapted weight slice."""
+    want = {name: 0 for name in KERNELS}
+    for spec in peft_lib.adapted_paths(pcfg, params).values():
+        b = spec.resolved_block(spec.d_in, spec.block_size)
+        m = min(spec.boft_factors, ad_lib.max_butterfly_levels(spec.d_in, b))
+        for name, per in DESIGN_LAUNCHES[pcfg.method](m).items():
+            want[name] += per * math.prod(spec.batch)
+    return want
+
+
+def _launcher_run(cfg, method: str, seed: int, steps_n: int) -> dict:
+    """``launch/train.py --peft method`` (which runs ``train()``) for
+    ``steps_n`` steps at ``cfg``'s depth and remat, on the card; its output
+    is echoed into this log."""
+    argv = ["--arch", "qwen2-72b", "--peft", method, "--block-size",
+            str(BDMM_BLOCK), "--steps", str(steps_n), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--warmup", "1", "--seed", str(seed), "--no-resume", "--set",
+            f"num_layers={cfg.num_layers}", f"remat={cfg.remat}"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_train.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  launcher: {line}")
+    final = [float(line.split()[2]) for line in out.splitlines()
+             if line.startswith("final loss")]
+    if rc != 0 or len(final) != 1 or not math.isfinite(final[0]):
+        raise AssertionError(f"launcher --peft {method} returned {rc}: {out}")
+    return dict(argv=argv, final_loss=final[0],
+                steps_logged=sum(line.startswith("step ")
+                                 for line in out.splitlines()))
+
+
+def train_phase(cfg, seed: int, device, steps_n: int = TRAIN_STEPS,
+                method: str = "gsoft") -> dict:
+    """Fine-tuning of the depth-cut model with ``method`` (b = 32):
+    ``steps_n`` steps of ``build_train_step`` on one fixed batch (the
+    counted main-path run; the loss must fall, the launches must equal the
+    design's), one more under the profiler, then 3 steps of ``train()``
+    (GSOFT directly, the others through the launcher)."""
+    pcfg = peft_lib.PEFTConfig(method=method, block_size=BDMM_BLOCK)
     tcfg = steps.TrainStepConfig(
         peft=pcfg, opt=optim.OptimizerConfig(learning_rate=TRAIN_LR))
     dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed,
@@ -511,13 +731,14 @@ def train_phase(cfg, seed: int, device, steps_n: int = TRAIN_STEPS) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = ModelRuntime(cfg, seed=seed, device=device).params
-    adapters = peft_lib.init_peft(pcfg, params, device=device)
+    adapters = peft_lib.init_peft(pcfg, params, device=device, seed=seed)
     trainable, frozen = peft_lib.trainable_and_frozen(pcfg, params, adapters)
     opt_state = optim.init(tcfg.opt, trainable)
     step = steps.build_train_step(cfg, tcfg)
     batch = {k: torch.as_tensor(v, device=device)
              for k, v in LMDataSource(dcfg).batch_at(0).items()}
     n_slices = _slices(pcfg, frozen)
+    per_step = design_launches(pcfg, frozen)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -537,44 +758,82 @@ def train_phase(cfg, seed: int, device, steps_n: int = TRAIN_STEPS) -> dict:
         raise AssertionError(f"zero gradient norm: {gnorms}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the fixed-batch loss did not fall: {losses}")
-    want = {"gs_fused": steps_n * n_slices, "gs_fused_bwd": steps_n * n_slices,
-            "gs_fused_T": 0, "gs_fused_grads": 0}
+    want = {k: steps_n * v for k, v in per_step.items()}
     if launches != want:
-        raise AssertionError(f"launches {launches} != the design's {want} "
-                             f"({n_slices} adapted slices x {steps_n} steps)")
+        raise AssertionError(f"{method}: launches {launches} != the design's "
+                             f"{want} ({n_slices} adapted slices x {steps_n} "
+                             f"steps)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = _profile(lambda: step(frozen, trainable, opt_state, batch))
     step_s = float(np.median(times))
     del params, adapters, trainable, frozen, opt_state, step
     torch.cuda.empty_cache()
 
+    bwd = BWD_KERNEL[method]
     _reset_launches()
-    hist = []
-    out = train_loop.train(cfg, tcfg, dcfg,
-                           train_loop.LoopConfig(steps=3, log_every=1),
-                           log_fn=lambda msg: log(f"  train(): {msg}"),
-                           device=device)
-    hist = out["history"]
-    loop_launches = _launches()
-    del out
+    if method == "gsoft":
+        out = train_loop.train(cfg, tcfg, dcfg,
+                               train_loop.LoopConfig(steps=3, log_every=1),
+                               log_fn=lambda msg: log(f"  train(): {msg}"),
+                               device=device)
+        loop = dict(history=out["history"])
+        del out
+        if len(loop["history"]) != 3 or not all(
+                math.isfinite(h["loss"]) for h in loop["history"]):
+            raise AssertionError(f"train() history {loop['history']}")
+    else:
+        loop = _launcher_run(cfg, method, seed, 3)
+    loop["launches"] = _launches()
     torch.cuda.empty_cache()
-    if len(hist) != 3 or not all(math.isfinite(h["loss"]) for h in hist):
-        raise AssertionError(f"train() history {hist}")
-    if loop_launches["gs_fused_bwd"] != 3 * n_slices:
-        raise AssertionError(f"train() launches {loop_launches}")
-    return dict(layers=cfg.num_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                lr=TRAIN_LR, remat=cfg.remat, adapted_slices=n_slices,
-                losses=losses, grad_norms=gnorms, step_s=times,
-                step_median_s=step_s,
+    if loop["launches"][bwd] != 3 * per_step[bwd]:
+        raise AssertionError(f"train() launches {loop['launches']}")
+    return dict(method=method, layers=cfg.num_layers, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, lr=TRAIN_LR, remat=cfg.remat,
+                adapted_slices=n_slices, losses=losses, grad_norms=gnorms,
+                step_s=times, step_median_s=step_s,
                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
                 launches=launches,
                 launches_per_step={k: v / steps_n for k, v in launches.items()},
-                peak_mem_gb=peak_gb, setup_s=setup_s, profile=prof,
-                train_loop=dict(history=hist, launches=loop_launches))
+                design_per_step=per_step, peak_mem_gb=peak_gb,
+                setup_s=setup_s, profile=prof, train_loop=loop)
+
+
+def quick_step_phase(cfg, seed: int, device, method: str) -> dict:
+    """One train step of a method that runs no kernel of the port
+    (householder, givens, lora): a finite loss, and no GS or bdmm launch."""
+    pcfg = peft_lib.PEFTConfig(method=method, block_size=BDMM_BLOCK)
+    tcfg = steps.TrainStepConfig(
+        peft=pcfg, opt=optim.OptimizerConfig(learning_rate=TRAIN_LR))
+    torch.cuda.reset_peak_memory_stats()
+    params = ModelRuntime(cfg, seed=seed, device=device).params
+    adapters = peft_lib.init_peft(pcfg, params, device=device, seed=seed)
+    trainable, frozen = peft_lib.trainable_and_frozen(pcfg, params, adapters)
+    opt_state = optim.init(tcfg.opt, trainable)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in LMDataSource(
+        DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed,
+                   vocab_size=min(cfg.vocab_size, 256))).batch_at(0).items()}
+    _reset_launches()
+    t0 = time.perf_counter()
+    _, _, m = steps.build_train_step(cfg, tcfg)(frozen, trainable, opt_state,
+                                                batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _launches()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    del params, adapters, trainable, frozen, opt_state
+    torch.cuda.empty_cache()
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"{method}: loss {loss}, grad norm {gnorm}")
+    if any(launches.values()):
+        raise AssertionError(f"{method} launched the port's kernels: "
+                             f"{launches}")
+    return dict(method=method, layers=cfg.num_layers, loss=loss,
+                grad_norm=gnorm, step_s=step_s, launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def grad_phase(cfg, seed: int, device, method: str) -> dict:
-    """One train step's adapter gradients (autograd through the GS kernels)
+    """One train step's adapter gradients (autograd through the port's kernels)
     against a central difference of the loss along a seeded random
     direction, in f32 at a perturbed (non-identity) adapter point."""
     pcfg = peft_lib.PEFTConfig(method=method, block_size=32)
@@ -617,10 +876,7 @@ def grad_phase(cfg, seed: int, device, method: str) -> dict:
     err = abs(fd - deriv)
     del params, adapters, direction
     torch.cuda.empty_cache()
-    want_fwd = ("gs_fused",) if method == "gsoft" else ("gs_fused", "gs_fused_T")
-    want_bwd = (("gs_fused_bwd",) if method == "gsoft"
-                else ("gs_fused_bwd", "gs_fused_grads"))
-    for name in want_fwd + want_bwd:
+    for name in GRAD_KERNELS[method]:
         if launches[name] == 0:
             raise AssertionError(f"{method}: {name} never launched in the "
                                  f"gradient step ({launches})")
@@ -633,6 +889,144 @@ def grad_phase(cfg, seed: int, device, method: str) -> dict:
                 central_difference=fd, central_h=fd_h, central_h2=fd_h2,
                 h=h, loss_plus=lp, loss_minus=lm,
                 rel_err=err / abs(deriv), tol=FD_REL, launches=launches,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
+def mixed_cfgs() -> dict:
+    """The mixed bank's tenants: one per bankable method, b = 32."""
+    return {f"t_{m}": peft_lib.PEFTConfig(method=m, block_size=BDMM_BLOCK)
+            for m in ("gsoft", "oft", "boft", "householder", "givens")}
+
+
+def _mixed_adapters(cfgs, params, seed: int, device) -> dict:
+    """Identity adapters plus N(0, MIXED_SCALE^2) noise, as
+    tests/test_methods.py perturbs them."""
+    return {n: perturbed_adapters(c, params, seed + 1 + i, MIXED_SCALE, device)
+            for i, (n, c) in enumerate(cfgs.items())}
+
+
+def _one(rt, prompt, adapter, max_new: int = 8):
+    eng = ServeEngine(rt, max_batch=1, max_len=64, eos_id=-1)
+    rid = eng.add_request(list(prompt), max_new_tokens=max_new, adapter=adapter)
+    return eng.run()[rid]
+
+
+def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
+    """One bank of gsoft, oft, boft, householder and givens tenants built by
+    ``attach(adapters, {name: PEFTConfig})``; 12 requests (two per tenant,
+    two on the base slot; prompts of 16-128 tokens, 16 new tokens each) on
+    4 slots. The first run is the counted main-path run; ``repeats`` runs
+    give the median rate; one more runs under the profiler."""
+    cfgs = mixed_cfgs()
+    t0 = time.perf_counter()
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    rt = base.attach(_mixed_adapters(cfgs, base.params, seed, device), cfgs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    methods_in_bank = rt.bank.bank_methods
+    if methods_in_bank != tuple(sorted(c.method for c in cfgs.values())):
+        raise AssertionError(f"bank methods {methods_in_bank}")
+    rng = np.random.default_rng(seed + 100)
+    order = list(cfgs) + [None]
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                        size=MIXED_SERVE_REQUESTS)
+    work = [(rng.integers(1, cfg.vocab_size, size=int(n)).tolist(),
+             order[i % len(order)]) for i, n in enumerate(lens)]
+
+    def drive():
+        eng = ServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN, eos_id=-1)
+        for prompt, adapter in work:
+            eng.add_request(prompt, max_new_tokens=16, adapter=adapter)
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        return eng, results, time.perf_counter() - t0
+
+    warm = ServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN, eos_id=-1)
+    for name in cfgs:
+        warm.add_request([1, 2, 3], max_new_tokens=2, adapter=name)
+    warm.run()
+    _reset_launches()
+    eng, results, wall = drive()
+    launches = _launches()
+    if len(results) != MIXED_SERVE_REQUESTS or any(
+            len(v) != 16 for v in results.values()):
+        raise AssertionError(f"served {len(results)} of "
+                             f"{MIXED_SERVE_REQUESTS} requests")
+    if not all(0 <= t < cfg.padded_vocab() for v in results.values()
+               for t in v):
+        raise AssertionError("served a token outside the vocabulary")
+    for name in ("gs_fused_T", "bdmm"):
+        if launches[name] == 0:
+            raise AssertionError(f"mixed serving never launched {name}: "
+                                 f"{launches}")
+    if launches["bdmm_dblocks"] or launches["gs_fused_bwd"]:
+        raise AssertionError(f"serving launched a backward kernel: {launches}")
+    walls = [wall]
+    for _ in range(repeats - 1):
+        _, again, w = drive()
+        if again != results:
+            raise AssertionError("a repeated run served other tokens")
+        walls.append(w)
+    toks = eng.stats["tokens_generated"]
+    wall_med = float(np.median(walls))
+    return dict(layers=cfg.num_layers, tenants=list(cfgs),
+                bank_methods=list(methods_in_bank), requests=len(results),
+                prompt_lens=[int(n) for n in lens], tokens=toks,
+                wall_s=walls, wall_median_s=wall_med, tok_s=toks / wall_med,
+                decode_steps=eng.stats["decode_steps"],
+                prefills=eng.stats["prefills"], setup_s=setup_s,
+                launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                profile=_profile(drive))
+
+
+def mixed_check_phase(cfg, seed: int, device) -> dict:
+    """f32: each tenant of the mixed bank (served together, 4 slots) gives
+    the tokens of its solo offline-merged run, with decode logits within
+    tolerance, and prefill logits other than the base slot's; the base
+    slot gives the bankless model's tokens."""
+    cfgs = mixed_cfgs()
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    adapters = _mixed_adapters(cfgs, base.params, seed + 50, device)
+    banked = base.attach(adapters, cfgs)
+    prompt = np.random.default_rng(seed + 5).integers(1, cfg.vocab_size, 24)
+    eng = ServeEngine(banked, max_batch=4, max_len=64, eos_id=-1)
+    rids = {n: eng.add_request(prompt.tolist(), max_new_tokens=8, adapter=n)
+            for n in list(cfgs) + [None]}
+    res = eng.run()
+    tokens = {n: res[r] for n, r in rids.items()}
+    solo = {None: _one(base, prompt, None)}
+    if tokens[None] != solo[None]:
+        raise AssertionError(f"base slot {tokens[None]} != bankless model "
+                             f"{solo[None]}")
+    gaps = {}
+    for name, pcfg in cfgs.items():
+        merged = ModelRuntime(cfg, base.params, device=device,
+                              adapters=adapters[name], peft_cfg=pcfg)
+        solo[name] = _one(merged, prompt, None)
+        if tokens[name] != solo[name]:
+            raise AssertionError(f"{name}: banked {tokens[name]} != solo "
+                                 f"merged {solo[name]}")
+        gaps[name] = _logits_gap(cfg, banked, banked.bank.slot(name), merged,
+                                 prompt, tokens[name][0], device)
+        del merged
+        torch.cuda.empty_cache()
+    # each tenant's rotation really runs: its prefill logits differ from the
+    # base slot's (a tenant may still pick the base's tokens: Householder's
+    # 4 reflections move only a 4-dimensional slice of d = 8192)
+    base_pre = _logits_gap(cfg, banked, 0, base, prompt, tokens[None][0],
+                           device)[2]
+    moved = {n: (g[2] - base_pre).abs().max().item() for n, g in gaps.items()}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"a tenant's prefill logits equal the base "
+                             f"slot's: {moved}")
+    return dict(layers=cfg.num_layers, tokens={str(k): v for k, v in
+                                               tokens.items()},
+                distinct_tenant_tokens=len({tuple(v) for v in tokens.values()}),
+                logit_max_abs_err={k: v[0] for k, v in gaps.items()},
+                logit_tol={k: v[1] for k, v in gaps.items()},
+                prefill_logit_gap_to_base=moved,
                 allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
@@ -704,6 +1098,30 @@ def main() -> int:
                 f"({c['bound_by']})")
         torch.cuda.empty_cache()
 
+    # 3c. bdmm kernels against their plain versions
+    bdmm_run = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, T, d in bdmm_cases(full):
+            c = check_bdmm_case(B, T, d, BDMM_BLOCK, dtype, gen, device)
+            bdmm_run.append(c)
+            log(f"kernel bdmm           B={B} T={T:5d} d={d:5d} b={BDMM_BLOCK} "
+                f"gt={c['groups_per_cta']} tt={c['tt']} tpc="
+                f"{c['tokens_per_cta']} {c['dtype']:8s} err "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+        for T, d in _slabs(full):
+            c = check_dblocks_case(T, d, BDMM_BLOCK, dtype, gen, device)
+            bdmm_run.append(c)
+            log(f"kernel bdmm_dblocks   T={T:5d} d={d:5d} b={BDMM_BLOCK} "
+                f"gt={c['groups_per_cta']} splits={c['splits']} "
+                f"{c['dtype']:8s} rel err {c['grad_rel_err']:.2e} (tol "
+                f"{GRAD_REL:.0e}) bit-identical ms {c['ms']:.4f} plain "
+                f"{c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
+                f"{c['bound_ms']:.4f} ({c['bound_by']})")
+        torch.cuda.empty_cache()
+
     # 4. serve, bf16, full width, depth cut
     cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
     log(f"serve: qwen2-72b full width, depth cut 80 -> {SERVE_LAYERS} layers, "
@@ -717,7 +1135,7 @@ def main() -> int:
         f"launches {serve['launches']}")
     log(f"serve profile: wall {prof['wall_s']:.3f} s, device busy "
         f"{prof['device_busy_s']:.3f} s (idle share {prof['idle_share']}), "
-        f"GS kernels {prof['gs_kernels_device_s']:.4f} s")
+        f"port kernels {prof['port_kernels_device_s']:.4f} s")
     torch.cuda.empty_cache()
 
     # 5. banked vs merged, f32
@@ -745,8 +1163,8 @@ def main() -> int:
         f"{train['launches_per_step']}")
     log(f"train profile: wall {tprof['wall_s']:.3f} s, device busy "
         f"{tprof['device_busy_s']:.3f} s (idle share {tprof['idle_share']}), "
-        f"GS kernels {tprof['gs_kernels_device_s']:.4f} s "
-        f"{ {k: round(v, 2) for k, v in tprof['gs_device_ms_by_kernel'].items()} } ms")
+        f"port kernels {tprof['port_kernels_device_s']:.4f} s "
+        f"{ {k: round(v, 2) for k, v in tprof['port_device_ms_by_kernel'].items()} } ms")
     torch.cuda.empty_cache()
 
     # 8. gradients against a central difference, f32
@@ -763,11 +1181,80 @@ def main() -> int:
             f"{g['rel_err']:.2e} (tol {FD_REL:.0e}); launches {g['launches']}")
         torch.cuda.empty_cache()
 
-    # 9. report
+    # 9. OFT / BOFT fine-tuning, bf16, full width, depth cut; one step each
+    # of the methods that run no kernel of the port
+    trains_bdmm = {}
+    for method in ("oft", "boft"):
+        log(f"train {method}: qwen2-72b full width, {TRAIN_LAYERS} layers, "
+            f"bf16, remat full, b={BDMM_BLOCK}, batch {TRAIN_BATCH} x seq "
+            f"{TRAIN_SEQ}, AdamW lr {TRAIN_LR}")
+        t = train_phase(cfg4, args.seed, device, method=method)
+        trains_bdmm[method] = t
+        tp = t["profile"]
+        log(f"train {method}: losses {['%.5f' % v for v in t['losses']]}; "
+            f"step {['%.3f' % v for v in t['step_s']]} s, median "
+            f"{t['step_median_s']:.3f} s, {t['tokens_per_s']:.1f} tok/s; "
+            f"peak {t['peak_mem_gb']:.1f} GB; launches per step "
+            f"{ {k: v for k, v in t['launches_per_step'].items() if v} } "
+            f"(design {t['design_per_step']})")
+        log(f"train {method} profile: wall {tp['wall_s']:.3f} s, device busy "
+            f"{tp['device_busy_s']:.3f} s (idle share {tp['idle_share']}), "
+            f"port kernels {tp['port_kernels_device_s']:.4f} s "
+            f"{ {k: round(v, 2) for k, v in tp['port_device_ms_by_kernel'].items()} } ms")
+        torch.cuda.empty_cache()
+    cfg_q = full.with_overrides(num_layers=QUICK_LAYERS, remat="full")
+    quick = []
+    for method in ("householder", "givens", "lora"):
+        q = quick_step_phase(cfg_q, args.seed, device, method)
+        quick.append(q)
+        log(f"train {method}: {QUICK_LAYERS} layers bf16, one step: loss "
+            f"{q['loss']:.5f}, grad norm {q['grad_norm']:.3e}, "
+            f"{q['step_s']:.3f} s, peak {q['peak_mem_gb']:.1f} GB; port "
+            f"kernel launches {sum(q['launches'].values())}")
+
+    # 10. OFT / BOFT gradients against a central difference, f32
+    for method in ("oft", "boft"):
+        g = grad_phase(cfg_g, args.seed, device, method)
+        grads.append(g)
+        log(f"grads {method}: directional derivative "
+            f"{g['directional_derivative']:.6e}, central difference "
+            f"{g['central_difference']:.6e} (h {g['h']:.2e}), rel err "
+            f"{g['rel_err']:.2e} (tol {FD_REL:.0e}); launches "
+            f"{ {k: v for k, v in g['launches'].items() if v} }")
+        torch.cuda.empty_cache()
+
+    # 11. mixed-method serving, bf16, full width, depth cut; then f32 checks
+    log(f"mixed serve: qwen2-72b full width, {SERVE_LAYERS} layers, bf16, "
+        f"tenants {list(mixed_cfgs())}")
+    torch.cuda.reset_peak_memory_stats()
+    mserve = mixed_serve_phase(cfg8, args.seed, device)
+    mprof = mserve["profile"]
+    log(f"mixed serve: {mserve['requests']} requests, {mserve['tokens']} "
+        f"tokens; wall {['%.3f' % w for w in mserve['wall_s']]} s, median "
+        f"{mserve['tok_s']:.1f} tok/s; {mserve['decode_steps']} decode "
+        f"steps; launches { {k: v for k, v in mserve['launches'].items() if v} }")
+    log(f"mixed serve profile: wall {mprof['wall_s']:.3f} s, device busy "
+        f"{mprof['device_busy_s']:.3f} s (idle share {mprof['idle_share']}), "
+        f"port kernels {mprof['port_kernels_device_s']:.4f} s")
+    torch.cuda.empty_cache()
+    log(f"mixed check: {CHECK_LAYERS} layers, f32, TF32 off")
+    mcheck = mixed_check_phase(cfg2, args.seed, device)
+    log(f"mixed check: every tenant == its solo merged run, base slot == "
+        f"bankless; decode logits max|diff| "
+        f"{ {k: '%.2e' % v for k, v in mcheck['logit_max_abs_err'].items()} }"
+        f"; prefill logits moved from the base slot's by "
+        f"{ {k: '%.2e' % v for k, v in mcheck['prefill_logit_gap_to_base'].items()} }"
+        f"; {mcheck['distinct_tenant_tokens']} distinct token lists of 6")
+    torch.cuda.empty_cache()
+
+    # 12. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
-               "grads_double_gsoft": grads[1]["launches"]}
+               "grads_double_gsoft": grads[1]["launches"],
+               "train_oft": trains_bdmm["oft"]["launches"],
+               "train_boft": trains_bdmm["boft"]["launches"],
+               "serve_mixed": mserve["launches"]}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
@@ -775,15 +1262,22 @@ def main() -> int:
                  "gs_fused_bwd": ("gs_fused_bwd", 1, full.d_ff, full.d_model,
                                   32, "bfloat16"),
                  "gs_fused_grads": ("gs_fused_grads", 1, full.d_model,
-                                    full.d_ff, 32, "bfloat16")}
+                                    full.d_ff, 32, "bfloat16"),
+                 "bdmm": ("bdmm", 1, full.d_ff, full.d_model, 32, "bfloat16"),
+                 "bdmm_dblocks": ("bdmm_dblocks", 1, full.d_ff, full.d_model,
+                                  32, "bfloat16")}
     # launches on the training path: GSOFT training (phase 7) for the
     # forward rotation and the fused backward; Double GSOFT's gradient step
-    # (phase 8) for the transpose rotation and the grads-only backward
+    # (phase 8) for the transpose rotation and the grads-only backward; OFT
+    # and BOFT training (phase 9) for the bdmm kernels
     launches = {"gs_fused_T": grads[1]["launches"]["gs_fused_T"],
                 "gs_fused": train["launches"]["gs_fused"],
                 "gs_fused_bwd": train["launches"]["gs_fused_bwd"],
-                "gs_fused_grads": grads[1]["launches"]["gs_fused_grads"]}
-    all_cases = cases + bwd_cases_run
+                "gs_fused_grads": grads[1]["launches"]["gs_fused_grads"],
+                "bdmm": sum(t["launches"]["bdmm"] for t in trains_bdmm.values()),
+                "bdmm_dblocks": sum(t["launches"]["bdmm_dblocks"]
+                                    for t in trains_bdmm.values())}
+    all_cases = cases + bwd_cases_run + bdmm_run
     kernels = []
     for name, key in main_case.items():
         c = next(c for c in all_cases
@@ -793,10 +1287,11 @@ def main() -> int:
         extra = {f"max_abs_err_{dt}": max(x["max_abs_err"] for x in mine
                                           if x["dtype"] == dt)
                  for dt in ("bfloat16", "float32")}
-        if name in ("gs_fused_bwd", "gs_fused_grads"):
+        if name in ("gs_fused_bwd", "gs_fused_grads", "bdmm_dblocks"):
             extra.update({f"max_grad_rel_err_{dt}": max(
                 x["grad_rel_err"] for x in mine if x["dtype"] == dt)
                 for dt in ("bfloat16", "float32")})
+        if "library_what" in c:
             extra["library_what"] = c["library_what"]
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
@@ -811,8 +1306,11 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, build_s=build_s, cases=cases,
-                                   bwd_cases=bwd_cases_run, serve=serve,
+                                   bwd_cases=bwd_cases_run,
+                                   bdmm_cases=bdmm_run, serve=serve,
                                    merged=merged, train=train, grads=grads,
+                                   train_bdmm=trains_bdmm, quick=quick,
+                                   mixed_serve=mserve, mixed_check=mcheck,
                                    kernels=kernels), indent=1))
     log(f"details: {out}")
     print(card)

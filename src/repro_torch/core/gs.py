@@ -1,5 +1,5 @@
-"""GSOFT layout of Group-and-Shuffle matrices (the part of
-``repro/core/gs.py`` the serving path needs).
+"""GSOFT layout of Group-and-Shuffle matrices and the block-diagonal
+product (the parts of ``repro/core/gs.py`` the adapters need).
 
 GSOFT uses the square two-factor GS matrix
 
@@ -14,6 +14,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
 
 from .permutations import gs_sigma, inverse_sigma
 
@@ -57,6 +60,17 @@ def gsoft_layout(d: int, block_size: int) -> GSOFTLayout:
     if d % block_size != 0:
         raise ValueError(f"block size {block_size} must divide d={d}")
     return GSOFTLayout(d, block_size)
+
+
+def block_diag_matmul(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = diag(B_1..B_k) x along the last axis of x.
+
+    blocks: (k, rows, cols); x: (..., k*cols) -> (..., k*rows). The op the
+    bdmm kernel implements: on the card it runs ``kernels.ops.bdmm`` (the
+    ``bdmm`` kernel forward, ``bdmm_dblocks`` and, for an input that needs
+    a gradient, ``bdmm`` backward), as the JAX package's ``bdmm_diff`` rule
+    pairs the two Pallas kernels."""
+    return kernel_ops.bdmm(blocks, x)
 
 
 def pick_block_size(d: int, target_b: int) -> int:

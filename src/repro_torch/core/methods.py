@@ -1,7 +1,13 @@
-"""MethodOps registry (port of ``repro/core/methods.py``), holding the
-methods ported so far: ``gsoft`` and ``double_gsoft``. ``core.adapters`` and
-``core.peft`` dispatch only through ``get(name)``; an unknown method raises
-a KeyError listing what is registered.
+"""MethodOps registry (port of ``repro/core/methods.py``): gsoft,
+double_gsoft, oft, boft, householder, givens and lora, one explicit record
+each. ``core.adapters`` and ``core.peft`` dispatch only through
+``get(name)``; an unknown method raises a KeyError listing what is
+registered. This is the one module of the port that compares method
+strings (``tests/test_torch_methods.py`` guards it, as
+``tests/test_methods.py`` guards the JAX package).
+
+Not ported yet: ``quant_fuse`` / ``quant_compatible`` (the int8 slice) and
+``bank_shard_axes`` (the scale-out slice).
 """
 from __future__ import annotations
 
@@ -18,14 +24,20 @@ NON_ADAPTER_METHODS = ("full", "none")
 class MethodOps:
     """The per-method call surface.
 
+    * ``structure`` — one-liner for docs; ``orthogonal`` — capability flag
     * ``init_params(spec, generator, dtype, device)`` — identity-init params
     * ``materialize(spec, params, W)`` — W_eff (weight-side, unbatched)
-    * ``apply_activation_side(spec, params, x)`` — x -> x Q
+    * ``apply_activation_side(spec, params, x)`` — x -> x Q, or None
     * ``param_count(spec)`` — analytic count
-    * ``bank_build(spec, params_by_slot, device)`` — per-slot serving stacks
+    * ``bank_build(spec, params_by_slot, device)`` — per-slot serving stacks,
+      or None (``bank_unsupported`` says why)
     * ``bank_rotator(entry, slots, x)`` — per-row x Q_slot
+    * ``banked_kernel`` — the kernel family the banked rotation rides
+      ("gs" / "bdmm"; "" = plain torch only)
     """
     method: str
+    structure: str
+    orthogonal: bool
     init_params: Callable
     materialize: Callable
     param_count: Callable
@@ -33,6 +45,7 @@ class MethodOps:
     bank_build: Optional[Callable] = None
     bank_rotator: Optional[Callable] = None
     bank_unsupported: str = ""
+    banked_kernel: str = ""
 
 
 _METHODS: Dict[str, MethodOps] = {}
@@ -70,21 +83,89 @@ def trainable_split(method: str, params, adapters):
 
 
 register(MethodOps(
-    method="gsoft",                  # Q = P^T L P R (paper eq. 1)
+    method="gsoft",
+    structure="Q = P^T L P R (two-factor GS, paper eq. 1)",
+    orthogonal=True,
     init_params=_ad.gsoft_init,
     materialize=_ad.gsoft_materialize,
     param_count=_ad.gsoft_param_count,
     apply_activation_side=_ad.gsoft_apply_T,
     bank_build=_ad.gsoft_bank_build,
     bank_rotator=_ad.gs_rotate_banked,
+    banked_kernel="gs",
 ))
 
 register(MethodOps(
-    method="double_gsoft",           # W_eff = Q_U W Q_V (paper §4)
+    method="double_gsoft",
+    structure="W_eff = Q_U W Q_V (two-sided GS, paper §4)",
+    orthogonal=True,
     init_params=_ad.double_gsoft_init,
     materialize=_ad.double_gsoft_materialize,
     param_count=_ad.double_gsoft_param_count,
     bank_unsupported=("its output-side factor Q_V rotates AFTER the base "
                       "matmul, which the per-request serving hook does not "
                       "carry yet — merge it offline instead"),
+))
+
+register(MethodOps(
+    method="oft",
+    structure="Q = diag(Q_1..Q_r) (block-diagonal, OFT)",
+    orthogonal=True,
+    init_params=_ad.oft_init,
+    materialize=_ad.oft_materialize,
+    param_count=_ad.oft_param_count,
+    apply_activation_side=_ad.oft_apply_T,
+    bank_build=_ad.oft_bank_build,
+    bank_rotator=_ad.oft_rotate_banked,
+    banked_kernel="bdmm",
+))
+
+register(MethodOps(
+    method="boft",
+    structure="Q = B_m..B_1 (block butterfly, BOFT)",
+    orthogonal=True,
+    init_params=_ad.boft_init,
+    materialize=_ad.boft_materialize,
+    param_count=_ad.boft_param_count,
+    apply_activation_side=_ad.boft_apply_T,
+    bank_build=_ad.boft_bank_build,
+    bank_rotator=_ad.boft_rotate_banked,
+    banked_kernel="bdmm",
+))
+
+register(MethodOps(
+    method="householder",
+    structure="Q = H_1..H_k, H_i = I - 2 v_i v_i^T (HOFT)",
+    orthogonal=True,
+    init_params=_ad.householder_init,
+    materialize=_ad.householder_materialize,
+    param_count=_ad.householder_param_count,
+    apply_activation_side=_ad.householder_apply_T,
+    bank_build=_ad.householder_bank_build,
+    bank_rotator=_ad.householder_rotate_banked,
+))
+
+register(MethodOps(
+    method="givens",
+    structure="Q = G_m..G_1 (brick-wall Givens rounds, GOFT)",
+    orthogonal=True,
+    init_params=_ad.givens_init,
+    materialize=_ad.givens_materialize,
+    param_count=_ad.givens_param_count,
+    apply_activation_side=_ad.givens_apply_T,
+    bank_build=_ad.givens_bank_build,
+    bank_rotator=_ad.givens_rotate_banked,
+))
+
+register(MethodOps(
+    method="lora",
+    structure="W + (alpha/r) A B (low-rank residual)",
+    orthogonal=False,
+    init_params=_ad.lora_init,
+    materialize=_ad.lora_materialize,
+    param_count=_ad.lora_param_count,
+    bank_unsupported=("it is weight-side only — the low-rank residual "
+                      "W + (alpha/r) A B is not an orthogonal rotation of "
+                      "the inputs, so there is no activation-side form to "
+                      "bank; merge it offline instead"),
 ))

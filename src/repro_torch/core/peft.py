@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import re
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -35,12 +35,17 @@ DEFAULT_TARGETS: Tuple[str, ...] = (
 
 @dataclasses.dataclass(frozen=True)
 class PEFTConfig:
-    """The GSOFT / Double GSOFT fields of ``repro.core.peft.PEFTConfig``
-    (same names and defaults). ``use_pallas`` is kept for one-for-one conversion; kernel
-    choice follows the device."""
-    method: str = "gsoft"
+    """``repro.core.peft.PEFTConfig`` (same fields and defaults).
+    ``use_pallas`` is kept for one-for-one conversion; kernel choice follows
+    the device."""
+    method: str = "gsoft"          # any core.methods entry, or full|none
     block_size: int = 32
     block_size_out: int = 0
+    rank: int = 8
+    alpha: float = 16.0
+    boft_factors: int = 2
+    reflections: int = 4           # householder factor count (even)
+    givens_rounds: int = 4         # givens brick-wall round count
     neumann_order: Optional[int] = None
     use_scale: bool = False
     use_pallas: bool = False
@@ -83,6 +88,8 @@ def spec_for(cfg: PEFTConfig, shape: Tuple[int, ...]) -> AdapterSpec:
     return AdapterSpec(
         method=cfg.method, d_in=int(shape[-2]), d_out=int(shape[-1]),
         block_size=cfg.block_size, block_size_out=cfg.block_size_out,
+        rank=cfg.rank, alpha=cfg.alpha, boft_factors=cfg.boft_factors,
+        reflections=cfg.reflections, givens_rounds=cfg.givens_rounds,
         neumann_order=cfg.neumann_order,
         use_scale=cfg.use_scale, use_pallas=cfg.use_pallas,
         batch=tuple(int(s) for s in shape[:-2]))
@@ -99,10 +106,15 @@ def adapted_paths(cfg: PEFTConfig, params: Tree) -> Dict[str, AdapterSpec]:
 
 def init_peft(cfg: PEFTConfig, params: Tree,
               dtype: torch.dtype = torch.float32,
-              device: DeviceLike = "cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Adapter tree: {weight_path: adapter_params}, identity-initialized."""
+              device: DeviceLike = "cuda",
+              seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Adapter tree: {weight_path: adapter_params}, W_eff(init) == W. The
+    random draws (LoRA's A) come from one generator seeded with ``seed``,
+    in sorted path order."""
     dev = resolve_device(device)
-    return {path: init_adapter(spec, None, dtype, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {path: init_adapter(spec, gen, dtype, dev)
             for path, spec in sorted(adapted_paths(cfg, params).items())}
 
 
@@ -151,20 +163,38 @@ def trainable_and_frozen(cfg: PEFTConfig, params: Tree, adapters: Tree):
 
 BASE_ADAPTER = "__base__"
 
+PEFTConfigs = Union[PEFTConfig, Mapping[str, PEFTConfig]]
+
 
 @dataclasses.dataclass
 class AdapterBank:
-    """Stacked per-request orthogonal rotations for multi-adapter serving.
+    """Stacked per-request rotations for multi-adapter serving.
 
     ``tree`` mirrors the params nesting: each adapted weight path maps to
-    ``{method: factors}`` with factors stacked over A slots after the layer
-    dim, e.g. ``{"L": (L, A, r, b, b), "R": ...}``. Slot 0 is the identity
+    ``{method: factors}``, each method's pre-processed per-slot stacks
+    (Cayley-orthogonalized GS / OFT / BOFT blocks, normalized Householder
+    vectors, Givens cos/sin) over A slots after the layer dim, e.g.
+    ``{"gsoft": {"L": (L, A, r, b, b), "R": ...}}``. Slot 0 is the identity
     (serves the base model); slots 1..N are the named adapters in ``names``
-    order."""
-    cfg: PEFTConfig
+    order. In a mixed-method bank every method stack spans all A slots and
+    holds that method's identity wherever the slot's adapter uses another
+    method, so the per-row composition of all stacks is the one rotation of
+    the row's adapter."""
+    cfg: PEFTConfig                  # primary/default config (bank knobs)
     names: Tuple[str, ...]
     tree: Dict[str, Any]
     device: torch.device
+    # the config each named adapter was built with
+    cfgs: Dict[str, PEFTConfig] = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_slots(self) -> int:
+        return len(self.names)
+
+    @property
+    def bank_methods(self) -> Tuple[str, ...]:
+        """Methods actually present in this bank (sorted)."""
+        return tuple(sorted({c.method for c in self.cfgs.values()}))
 
     def slot(self, name: Optional[str]) -> int:
         """Bank slot for an adapter name (None / BASE_ADAPTER -> identity)."""
@@ -201,15 +231,61 @@ def _nest_insert(root: Dict[str, Any], path: str, value: Any) -> None:
     node[parts[-1]] = value
 
 
-def bank_capability_check(cfg: PEFTConfig) -> None:
+def normalize_bank_cfgs(adapters_by_name: Mapping[str, Any],
+                        peft_cfg: PEFTConfigs
+                        ) -> Tuple[PEFTConfig, Dict[str, PEFTConfig]]:
+    """(primary, {name: cfg}) from either a single PEFTConfig (homogeneous
+    bank) or a {name: PEFTConfig} mapping (mixed-method bank)."""
+    if isinstance(peft_cfg, PEFTConfig):
+        return peft_cfg, {name: peft_cfg for name in adapters_by_name}
+    cfgs = dict(peft_cfg)
+    missing = sorted(set(adapters_by_name) - set(cfgs))
+    if missing:
+        raise ValueError(f"no PEFTConfig for adapters {missing} — a mixed-"
+                         "method bank needs one config per adapter name")
+    if not cfgs:
+        raise ValueError("empty PEFTConfig mapping — pass a single "
+                         "PEFTConfig for an adapterless (identity-only) "
+                         "bank")
+    primary = next(iter(cfgs.values()))
+    return primary, {name: cfgs[name] for name in adapters_by_name}
+
+
+def bank_capability_check(name: Optional[str], cfg: PEFTConfig) -> None:
+    """The method must be registered and provide ``bank_build``
+    (``MethodOps.bank_unsupported`` explains why not)."""
     ops = methods_lib.get(cfg.method)   # KeyError lists registered methods
     if ops.bank_build is None:
-        raise ValueError(f"adapter bank cannot serve method {cfg.method!r}: "
-                         f"it has no bank path — {ops.bank_unsupported}")
+        who = f"adapter '{name}'" if name else "the bank config"
+        raise ValueError(f"adapter bank cannot serve {who}: method "
+                         f"{cfg.method!r} has no bank path — "
+                         f"{ops.bank_unsupported}")
     if cfg.use_scale:
         raise ValueError("adapter bank does not support use_scale "
                          "(the per-output magnitude acts on the weight "
                          "output, not the rotated input)")
+
+
+def check_bank_member(name: str, cfg: PEFTConfig, primary: PEFTConfig,
+                      cfg_of_method: Dict[str, PEFTConfig]) -> None:
+    """One adapter's admissibility against a bank under ``primary``:
+    bankable method, bank-wide knobs, one config per method. Mutates
+    ``cfg_of_method`` (method -> canonical config)."""
+    bank_capability_check(name, cfg)
+    if cfg.target_patterns != primary.target_patterns:
+        raise ValueError(
+            f"adapter '{name}': target_patterns differ from the bank's "
+            "— all adapters in one bank must adapt the same weights")
+    if cfg.use_pallas != primary.use_pallas:
+        raise ValueError(
+            f"adapter '{name}': use_pallas differs from the bank's — "
+            "the kernel path is a bank-wide choice")
+    prev = cfg_of_method.setdefault(cfg.method, cfg)
+    if prev != cfg:
+        raise ValueError(
+            f"adapter '{name}' shares method {cfg.method!r} with other "
+            "adapters but differs in config — one bank holds one stack "
+            "(hence one config) per method")
 
 
 def bank_specs(cfg: PEFTConfig, params: Tree) -> Dict[str, AdapterSpec]:
@@ -226,29 +302,48 @@ def _tree_device(params: Tree) -> torch.device:
     return next(iter(flatten_paths(params).values())).device
 
 
-def build_adapter_bank(cfg: PEFTConfig, params: Tree,
+def build_adapter_bank(cfg: PEFTConfigs, params: Tree,
                        adapters_by_name: Dict[str, Dict[str, Dict[str, torch.Tensor]]]
                        ) -> AdapterBank:
     """Build an AdapterBank from named adapter trees (as from ``init_peft``),
-    on the device of ``params``. Per path, factors are Cayley-processed up
-    front and stacked over [identity] + adapters under the method's key, so
-    the tree matches the JAX bank's leaf for leaf. (The JAX package also
-    takes a ``{name: PEFTConfig}`` mapping for mixed-method banks; with one
-    method ported, one config covers every adapter.)"""
-    bank_capability_check(cfg)
+    on the device of ``params``.
+
+    ``cfg`` is a single PEFTConfig (every adapter uses it) or a
+    {name: PEFTConfig} mapping for a mixed-method bank. Per path, each
+    method's factors are pre-processed up front and stacked over
+    [identity] + adapters (slots of another method hold this method's
+    identity), so the tree matches the JAX bank's leaf for leaf. All
+    configs must share ``target_patterns`` / ``use_pallas``, and adapters
+    of one method must share its config (one stack per method)."""
+    primary, cfg_by_name = normalize_bank_cfgs(adapters_by_name, cfg)
+    bank_capability_check(None, primary)
+    cfg_of_method: Dict[str, PEFTConfig] = {}
+    names_of_method: Dict[str, set] = {}
+    for name, c in cfg_by_name.items():
+        check_bank_member(name, c, primary, cfg_of_method)
+        names_of_method.setdefault(c.method, set()).add(name)
+
     device = _tree_device(params)
-    ops = methods_lib.get(cfg.method)
     names = (BASE_ADAPTER,) + tuple(adapters_by_name)
     tree: Dict[str, Any] = {}
-    for path, spec in sorted(bank_specs(cfg, params).items()):
-        params_by_slot: List[Optional[Dict[str, torch.Tensor]]] = [None]
-        for name in names[1:]:
-            if path not in adapters_by_name[name]:
-                raise KeyError(f"adapter '{name}' has no params for {path}")
-            params_by_slot.append(adapters_by_name[name][path])
-        _nest_insert(tree, path,
-                     {cfg.method: ops.bank_build(spec, params_by_slot, device)})
-    return AdapterBank(cfg=cfg, names=names, tree=tree, device=device)
+    for path, spec in sorted(bank_specs(primary, params).items()):
+        shape = tuple(spec.batch) + (spec.d_in, spec.d_out)
+        entry: Dict[str, Any] = {}
+        for m in sorted(cfg_of_method):
+            members = names_of_method[m]
+            params_by_slot: List[Optional[Dict[str, torch.Tensor]]] = [None]
+            for name in names[1:]:
+                if name not in members:
+                    params_by_slot.append(None)     # other method: identity
+                    continue
+                if path not in adapters_by_name[name]:
+                    raise KeyError(f"adapter '{name}' has no params for {path}")
+                params_by_slot.append(adapters_by_name[name][path])
+            entry[m] = methods_lib.get(m).bank_build(
+                spec_for(cfg_of_method[m], shape), params_by_slot, device)
+        _nest_insert(tree, path, entry)
+    return AdapterBank(cfg=primary, names=names, tree=tree, device=device,
+                       cfgs=cfg_by_name)
 
 
 # ---------------------------------------------------------------------------

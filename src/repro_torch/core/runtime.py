@@ -4,8 +4,10 @@ Binds ``ModelConfig + params + optional AdapterBank`` on one device.
 ``adapters`` + ``peft_cfg`` merge ONE adapter into the weights offline (the
 paper's zero-overhead serving mode, §6.1, through the forward GS kernel);
 ``attach({name: adapters}, peft_cfg)`` serves per-request adapters from an
-eager bank, activation-side (through the transpose GS kernel). Merging and
-banking are mutually exclusive.
+eager bank, activation-side (GSOFT through the transpose GS kernel, OFT and
+BOFT through the banked bdmm kernel, Householder and Givens in plain
+torch); ``peft_cfg`` is one PEFTConfig or a ``{name: PEFTConfig}`` mapping
+for a mixed-method bank. Merging and banking are mutually exclusive.
 
 Sources this slice does not port raise NotImplementedError naming the
 slice they wait for: adapter stores and checkpoints (the store slice),
@@ -89,11 +91,18 @@ class ModelRuntime:
         if self.bank is not None:
             self.bank.release(name)
 
-    def attach(self, source, peft_cfg: Optional[peft_lib.PEFTConfig] = None,
-               ) -> "ModelRuntime":
+    def attach(self, source,
+               peft_cfg: Optional[peft_lib.PEFTConfigs] = None, *,
+               hbm_budget: Optional[int] = None) -> "ModelRuntime":
         """New runtime over the same params serving per-request adapters
         (slot 0 stays the identity). ``source`` is ``{name: adapter_tree}``
-        with ``peft_cfg`` (eager bank) or a pre-built ``AdapterBank``."""
+        with ``peft_cfg`` — one PEFTConfig, or ``{name: PEFTConfig}`` for a
+        mixed-method bank — (eager bank) or a pre-built ``AdapterBank``.
+        ``hbm_budget`` (a store-paged bank) waits for the store slice."""
+        if hbm_budget is not None:
+            raise NotImplementedError(
+                "hbm_budget (a store-paged adapter bank) is not ported yet "
+                "(store slice)")
         if self._merged:
             raise ValueError(
                 "this runtime's params already contain a merged adapter; "

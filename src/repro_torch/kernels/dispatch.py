@@ -1,9 +1,14 @@
-"""Differentiable GS rotations (port of the ``gs_diff`` / ``gs_T_diff``
-custom-VJP rules of ``repro/kernels/dispatch.py``).
+"""Differentiable kernel entry points (port of the ``bdmm_diff``,
+``gs_diff`` and ``gs_T_diff`` custom-VJP rules of
+``repro/kernels/dispatch.py``).
 
-Each is a ``torch.autograd.Function`` whose forward and backward are the GS
-kernels, as in the JAX rules:
+Each is a ``torch.autograd.Function`` whose forward and backward are the
+port's kernels, as in the JAX rules:
 
+* ``bdmm_diff(blocks, x)``: y = diag(blocks) x (``bdmm``); the backward is
+  ``bdmm_dblocks(dy, x)`` for the blocks and, only when the input needs a
+  gradient, ``bdmm(blocks^T, dy)`` for dx (a frozen weight slab never does;
+  the JAX rule always computes it).
 * ``gs_diff(L, R, x)``: y = P^T L P R x (``gs_fused``); the backward is the
   fused ``gs_fused_bwd`` -> (dx, dL, dR).
 * ``gs_T_diff(L, R, x)``: y = Q^T x = R^T P^T L^T P x (``gs_fused_T``).
@@ -12,7 +17,7 @@ kernels, as in the JAX rules:
   swapped.
 
 L, R: (r, b, b); x: (T, d). dL and dR are cast to L's dtype. As in the JAX
-rules the dx slab is always computed, even for a frozen x (skipping it when
+rules the GS dx slab is always computed, even for a frozen x (skipping it when
 ``needs_input_grad`` is false is a later optimization). A CUDA tensor runs
 the kernels, a CPU tensor their plain versions, both ways. The tuning
 registry of the JAX module is not ported: the kernels pick their own launch
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .bdmm import bdmm, bdmm_dblocks
 from .gs_fused import gs_fused, gs_fused_bwd, gs_fused_grads, gs_fused_T
 
 
@@ -56,6 +62,33 @@ class _GSTDiff(torch.autograd.Function):
         dx = gs_fused(dy1, _row(L), _row(R))[0]
         dL, dR = gs_fused_grads(dy1, _row(x), _row(L), _row(R))
         return dL[0].to(L.dtype), dR[0].to(R.dtype), dx.to(x.dtype)
+
+
+class _BdmmDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, blocks, x):
+        ctx.save_for_backward(blocks, x)
+        return bdmm(x, blocks.to(x.dtype).contiguous())
+
+    @staticmethod
+    def backward(ctx, dy):
+        blocks, x = ctx.saved_tensors
+        dy = dy.contiguous()
+        bo, bi = blocks.shape[-2], blocks.shape[-1]
+        dblocks = dx = None
+        if ctx.needs_input_grad[0]:
+            dblocks = bdmm_dblocks(dy, x, bo, bi).to(blocks.dtype)
+        if ctx.needs_input_grad[1]:
+            dx = bdmm(dy, blocks.to(x.dtype).transpose(-1, -2).contiguous())
+        return dblocks, dx
+
+
+def bdmm_diff(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable per-row block-diagonal matmul: blocks (B, r, bo, bi),
+    x (B, T, r * bi) contiguous -> (B, T, r * bo). The kernels run in x's
+    dtype (blocks are cast to it); dblocks comes back in blocks' dtype from
+    the fp32 sums, as the JAX rule casts it."""
+    return _BdmmDiff.apply(blocks, x)
 
 
 def gs_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,26 +1,50 @@
-"""Entry points for the GS rotations (port of the GS part of
-``repro/kernels/ops.py``), with the JAX signatures.
+"""Kernel entry points (port of the bdmm, GS, Householder and Givens parts
+of ``repro/kernels/ops.py``), with the JAX signatures.
 
 Kernel choice follows the device, not a flag: a CUDA tensor always goes
 through the CUDA kernel (or the wrapper raises), a CPU tensor through the
 plain version. ``use_pallas`` is accepted so configs and call sites convert
-one for one from the JAX package, and is ignored. ``gs_transform`` and
-``gs_transform_T`` are differentiable through the autograd rules of
-``dispatch.py`` (kernels both ways on the card). The kernels pick their own
-launch geometry; the tuning registry of ``repro.kernels.dispatch`` is not
-ported yet.
+one for one from the JAX package, and is ignored. ``bdmm``,
+``bdmm_banked``, ``gs_transform`` and ``gs_transform_T`` are differentiable
+through the autograd rules of ``dispatch.py`` (kernels both ways on the
+card). ``householder_banked`` and ``givens_banked`` have no kernel, as in
+the JAX package (``banked_kernel=""``): their plain versions run on every
+device. The kernels pick their own launch geometry; the tuning registry of
+``repro.kernels.dispatch`` is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
-from .dispatch import gs_diff, gs_T_diff
+from . import ref
+from .dispatch import bdmm_diff, gs_diff, gs_T_diff
 from .gs_fused import gs_fused_T
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (N, d), contiguous: the rows are the rotation's tokens."""
     return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def bdmm(blocks: torch.Tensor, x: torch.Tensor,
+         use_pallas: bool = False) -> torch.Tensor:
+    """Block-diagonal matmul y = diag(blocks) x over the last dim of x.
+
+    blocks: (r, bo, bi); x: (..., r * bi) -> (..., r * bo). The kernel runs
+    in x's dtype. ``use_pallas`` is ignored."""
+    del use_pallas
+    y = bdmm_diff(blocks.unsqueeze(0), _tokens(x).unsqueeze(0))[0]
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+def bdmm_banked(blocks: torch.Tensor, x: torch.Tensor,
+                use_pallas: bool = False) -> torch.Tensor:
+    """Per-row block-diagonal matmul: blocks (B, r, bo, bi), x (B, T, r*bi).
+
+    Row i uses its own block set: one kernel launch over all rows (the JAX
+    package vmaps the kernel). ``use_pallas`` is ignored."""
+    del use_pallas
+    return bdmm_diff(blocks, x.contiguous())
 
 
 def gs_transform(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
@@ -48,3 +72,24 @@ def gs_banked_transform_T(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
     ``use_pallas`` is ignored."""
     del use_pallas
     return gs_fused_T(x.contiguous(), L.contiguous(), R.contiguous())
+
+
+def householder_banked(V: torch.Tensor, x: torch.Tensor,
+                       use_pallas: bool = False) -> torch.Tensor:
+    """Per-row Householder-product rotation y[i] = x[i] Q_i (HOFT bank).
+
+    V: (B, k, d) pre-normalized unit reflection vectors; x: (B, T, d). No
+    kernel (O(k d) per token, small beside the projection it precedes): the
+    plain version on every device. ``use_pallas`` is ignored."""
+    del use_pallas
+    return ref.householder_banked_ref(V, x)
+
+
+def givens_banked(C: torch.Tensor, S: torch.Tensor, x: torch.Tensor,
+                  use_pallas: bool = False) -> torch.Tensor:
+    """Per-row Givens-round rotation y[i] = x[i] Q_i (GOFT bank).
+
+    C, S: (B, m, d//2) pre-evaluated cos/sin; x: (B, T, d). No kernel, as
+    for the Householder bank. ``use_pallas`` is ignored."""
+    del use_pallas
+    return ref.givens_banked_ref(C, S, x)

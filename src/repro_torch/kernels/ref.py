@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the GS kernels (port of the GS part of
-``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the port's kernels (port of the GS, bdmm,
+Householder and Givens parts of ``repro/kernels/ref.py``).
 
 Each function is the semantic definition the CUDA kernels are held against,
 and what a wrapper runs for a tensor that lies on the CPU. Like the JAX
 oracles, they accumulate each block matmul in fp32 and cast the result to
-``x.dtype`` between the two stages.
+``x.dtype`` between the two stages. The Householder and Givens banks have no
+kernel (as in the JAX package): their plain versions run on every device.
 """
 from __future__ import annotations
 
@@ -36,6 +37,71 @@ def bdmm_banked_ref(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     yg = torch.einsum("zgij,ztgj->ztgi", blocks.to(torch.float32),
                       xg.to(torch.float32))
     return yg.reshape(bsz, t, r * b_out).to(x.dtype)
+
+
+def bdmm_dblocks_ref(dy: torch.Tensor, x: torch.Tensor, bo: int,
+                     bi: int) -> torch.Tensor:
+    """Gradient of the blocks of ``bdmm_ref``, per row, in fp32.
+
+    dy: (B, T, r * bo);  x: (B, T, r * bi)  ->  (B, r, bo, bi) with
+    dblocks[z, g, i, j] = sum_t dy[z, t, g*bo + i] * x[z, t, g*bi + j].
+    (The JAX package has no such function: its oracle is autodiff of
+    ``bdmm_ref``, which computes the same sum.)"""
+    bsz, t = dy.shape[0], dy.shape[1]
+    r = dy.shape[-1] // bo
+    dyg = dy.reshape(bsz, t, r, bo).to(torch.float32)
+    xg = x.reshape(bsz, t, r, bi).to(torch.float32)
+    return torch.einsum("ztgi,ztgj->zgij", dyg, xg)
+
+
+def householder_banked_ref(V: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-row Householder product rotation y[i] = x[i] Q_i with
+    Q_i = H(v_{i,1}) .. H(v_{i,k}),  H(v) = I - 2 v v^T.
+
+    V: (B, k, d) pre-normalized unit reflection vectors; x: (B, T, d).
+    Applied reflection by reflection in fp32 (x H = x - 2 (x.v) v), so no
+    dense Q is ever formed."""
+    y = x.to(torch.float32)
+    v32 = V.to(torch.float32)
+    for i in range(V.shape[1]):
+        v = v32[:, i]                                     # (B, d)
+        coef = torch.einsum("btd,bd->bt", y, v)
+        y = y - 2.0 * coef[..., None] * v[:, None, :]
+    return y.to(x.dtype)
+
+
+def givens_rotate(y: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                  off: int) -> torch.Tensor:
+    """One brick-wall round on the last axis of y: the disjoint pairs
+    (off + 2k, off + 2k + 1), k < p = c.shape[-1], get
+    (a, b) -> (c a - s b, s a + c b); the boundary elements stay.
+    c, s broadcast against y[..., :p]. Out of place (differentiable)."""
+    p = c.shape[-1]
+    pairs = y[..., off:off + 2 * p].unflatten(-1, (p, 2))
+    a, b = pairs[..., 0], pairs[..., 1]
+    mid = torch.stack((c * a - s * b, s * a + c * b), dim=-1).flatten(-2)
+    return torch.cat((y[..., :off], mid, y[..., off + 2 * p:]), dim=-1)
+
+
+def givens_banked_ref(C: torch.Tensor, S: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Per-row Givens-round rotation y[i] = x[i] Q_i, Q_i = G_m .. G_1
+    brick-wall rounds of disjoint 2 x 2 rotations (GOFT).
+
+    C, S: (B, m, d//2) pre-evaluated cos/sin (the identity slot is c = 1,
+    s = 0); x: (B, T, d). Round l pairs neighbours at offset l % 2. Row
+    vector application: rounds reversed, angles negated. fp32 throughout."""
+    d = x.shape[-1]
+    y = x.to(torch.float32)
+    c32, s32 = C.to(torch.float32), S.to(torch.float32)
+    for lvl in reversed(range(C.shape[1])):
+        off = lvl % 2
+        p = (d - off) // 2
+        if p == 0:
+            continue
+        y = givens_rotate(y, c32[:, lvl, None, :p], -s32[:, lvl, None, :p],
+                          off)
+    return y.to(x.dtype)
 
 
 def _shuffle(y: torch.Tensor, k: int) -> torch.Tensor:

@@ -50,7 +50,8 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
             "without ckpt_dir")
     dev = resolve_device(device)
     params = ModelRuntime(cfg, seed=dcfg.seed, device=dev).params
-    adapters = peft_lib.init_peft(tcfg.peft, params, device=dev)
+    adapters = peft_lib.init_peft(tcfg.peft, params, device=dev,
+                                  seed=dcfg.seed)
     trainable, frozen = peft_lib.trainable_and_frozen(tcfg.peft, params,
                                                       adapters)
     if not tcfg.peft.is_peft:

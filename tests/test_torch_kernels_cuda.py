@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import bdmm as bk  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import gs_fused as gk  # noqa: E402
 
 # f32: fp32 sums in another order than the plain version's matmuls
@@ -212,7 +214,7 @@ def test_backward_refuses_what_it_does_not_take(cuda):
 def test_autograd_rules_match_autograd_of_the_plain_versions(cuda, op, dtype):
     """gs_diff / gs_T_diff gradients (the kernels both ways) against
     autograd through the plain forward versions on the card."""
-    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import ref
     rng = np.random.default_rng(17)
     t, r, b = 45, 24, 8
     x = torch.from_numpy(rng.normal(size=(t, r * b)).astype(np.float32))
@@ -242,3 +244,182 @@ def test_autograd_rules_match_autograd_of_the_plain_versions(cuda, op, dtype):
             scale = max(1.0, want.float().abs().max().item())
             err = (got.float() - want.float()).abs().max().item()
             assert err <= 2.0 ** -5 * scale, f"{op} {name} bf16: {err}"
+
+
+# ---------------------------------------------------------------------------
+# block-diagonal matmul kernels (csrc/bdmm.cu)
+# ---------------------------------------------------------------------------
+
+# (B, T, r, bo, bi): decode rows (per-row blocks, T = 1) at both qwen2-72b
+# widths, short prefills, ragged T, a long slab with several token tiles per
+# CTA, rectangular and odd blocks (no float4 path), b = 128, tiny d
+BDMM_CASES = [(4, 1, 256, 32, 32), (4, 1, 924, 32, 32), (1, 16, 256, 32, 32),
+              (1, 130, 256, 32, 32), (2, 7, 6, 4, 4), (3, 33, 2, 8, 4),
+              (1, 64, 3, 5, 9), (1, 2500, 64, 32, 32), (2, 40, 4, 128, 128),
+              (1, 9, 16, 4, 4), (1, 5, 1, 32, 32), (2, 1, 8, 16, 8)]
+# (B, T, r, bo, bi) of the blocks gradient: one and several token splits,
+# ragged T, rectangular and odd blocks, b = 128 (4 tiles per thread), and a
+# long slab
+DBLOCKS_CASES = [(1, 64, 256, 32, 32), (1, 3000, 256, 32, 32),
+                 (2, 33, 2, 8, 4), (1, 250, 16, 4, 4), (1, 64, 3, 5, 9),
+                 (1, 40, 2, 128, 128), (2, 7, 6, 4, 4), (1, 1, 4, 8, 8),
+                 (1, 100, 3, 128, 64)]
+
+
+def _bdmm_inputs(rng, bsz, t, r, bo, bi, device, dtype):
+    x = torch.from_numpy(rng.normal(size=(bsz, t, r * bi)).astype(np.float32))
+    blocks = torch.from_numpy(
+        rng.normal(0, bi ** -0.5, size=(bsz, r, bo, bi)).astype(np.float32))
+    return x.to(device, dtype), blocks.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BDMM_CASES,
+                         ids=lambda c: "B%d-T%d-r%d-bo%d-bi%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bdmm_kernel_matches_plain(cuda, case, dtype):
+    bsz, t, r, bo, bi = case
+    rng = np.random.default_rng(bsz * 7 + t + r * 3 + bo + bi)
+    x, blocks = _bdmm_inputs(rng, bsz, t, r, bo, bi, cuda, dtype)
+    before = bk.bdmm.launches
+    y = bk.bdmm(x, blocks)
+    torch.cuda.synchronize()
+    assert bk.bdmm.launches == before + 1
+    want = bk.bdmm_plain(x, blocks)
+    assert y.shape == want.shape == (bsz, t, r * bo) and y.dtype == dtype
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert torch.isfinite(y.float()).all()
+    assert (y.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DBLOCKS_CASES,
+                         ids=lambda c: "B%d-T%d-r%d-bo%d-bi%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bdmm_dblocks_kernel_matches_plain_and_is_deterministic(cuda, case,
+                                                                dtype):
+    bsz, t, r, bo, bi = case
+    rng = np.random.default_rng(bsz * 5 + t + r * 7 + bo + bi)
+    dy = torch.from_numpy(rng.normal(size=(bsz, t, r * bo)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(bsz, t, r * bi)).astype(np.float32))
+    dy, x = dy.to(cuda, dtype), x.to(cuda, dtype)
+    before = bk.bdmm_dblocks.launches
+    got = bk.bdmm_dblocks(dy, x, bo, bi)
+    torch.cuda.synchronize()
+    assert bk.bdmm_dblocks.launches == before + 1
+    want = bk.bdmm_dblocks_plain(dy, x, bo, bi)
+    assert got.shape == (bsz, r, bo, bi) and got.dtype == torch.float32
+    _assert_grads_close(got, want, "dblocks")
+    assert torch.equal(bk.bdmm_dblocks(dy, x, bo, bi), got)
+
+
+@pytest.mark.cuda
+def test_bdmm_decode_grid_splits_groups_over_the_sms(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for r in (256, 924):
+        gt, tt, tpc = bk.bdmm_geometry(4, 1, r, 32, 32, sms)
+        assert (tt, tpc) == (1, 1)
+        assert -(-r // gt) * 4 >= sms
+
+
+def test_bdmm_geometry_is_within_the_kernel_limits():
+    for bsz, t, r, bo, bi in BDMM_CASES + [(1, 29568, 256, 32, 32),
+                                           (1, 8192, 924, 32, 32)]:
+        gt, tt, tpc = bk.bdmm_geometry(bsz, t, r, bo, bi, 132)
+        assert 1 <= gt <= r and gt * max(bo, bi) <= 256
+        assert tt in (1, 8, 32) and tpc % tt == 0 and -(-t // tpc) <= 65535
+    for bsz, t, r, bo, bi in DBLOCKS_CASES + [(1, 29568, 256, 32, 32)]:
+        gt, splits, tps = bk.dblocks_geometry(bsz, t, r, bo, bi, 132)
+        assert 1 <= gt <= r and splits * tps >= t > (splits - 1) * tps
+        assert tps % 32 == 0
+    # at the widest slab, splits fill the card about four CTAs per SM
+    assert bk.dblocks_geometry(1, 29568, 256, 32, 32, 132) == (4, 9, 3296)
+
+
+@pytest.mark.cuda
+def test_bdmm_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 2, 512), device=cuda)
+    with pytest.raises(ValueError, match="block size"):
+        bk.bdmm(x, torch.zeros((1, 2, 256, 256), device=cuda))
+    with pytest.raises(ValueError, match="block size"):
+        bk.bdmm_dblocks(x, x, 256, 256)
+    blocks = torch.zeros((1, 8, 8, 8), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        bk.bdmm(torch.zeros((1, 2, 64), device=cuda, dtype=torch.float16),
+                blocks)
+    x = torch.zeros((1, 64, 2), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.bdmm(x, torch.zeros((1, 8, 8, 8), device=cuda))
+    before = bk.bdmm.launches
+    assert bk.bdmm(torch.zeros((1, 0, 64), device=cuda),
+                   torch.zeros((1, 8, 8, 8), device=cuda)).shape == (1, 0, 64)
+    assert bk.bdmm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bdmm_diff_runs_the_kernels_both_ways(cuda, dtype):
+    """bdmm_diff gradients against autograd of the plain version on the
+    card; dx launches bdmm only when the input needs a gradient."""
+    rng = np.random.default_rng(29)
+    x, blocks = _bdmm_inputs(rng, 2, 45, 24, 8, 8, cuda, dtype)
+    cot = torch.from_numpy(rng.normal(size=(2, 45, 24 * 8)).astype(np.float32))
+    cot = cot.to(cuda)
+    grads = []
+    for f in (dispatch.bdmm_diff, lambda b, v: bk.ref.bdmm_banked_ref(b, v)):
+        args = [blocks.clone().requires_grad_(), x.clone().requires_grad_()]
+        y = f(*args)
+        grads.append(torch.autograd.grad((y.float() * cot).sum(), args))
+    tol = GRAD_REL if dtype == torch.float32 else 2.0 ** -5
+    for name, got, want in zip(("dblocks", "dx"), *grads):
+        assert got.dtype == want.dtype == dtype
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale, name
+    counts = (bk.bdmm.launches, bk.bdmm_dblocks.launches)
+    wb = blocks.clone().requires_grad_()
+    (dispatch.bdmm_diff(wb, x).float() * cot).sum().backward()
+    # forward + dblocks; no dx launch for a frozen input
+    assert (bk.bdmm.launches, bk.bdmm_dblocks.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    xx = x.clone().requires_grad_()
+    (dispatch.bdmm_diff(wb.detach().requires_grad_(), xx).float()
+     * cot).sum().backward()
+    assert (bk.bdmm.launches, bk.bdmm_dblocks.launches) == \
+        (counts[0] + 3, counts[1] + 2)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
+    """On the card the wrappers launch the kernels: with the plain versions
+    made to raise, the bdmm path still runs, forward and backward."""
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    for name in ("bdmm_banked_ref", "bdmm_dblocks_ref", "bdmm_ref"):
+        monkeypatch.setattr(bk.ref, name, boom)
+    rng = np.random.default_rng(3)
+    x, blocks = _bdmm_inputs(rng, 1, 20, 8, 16, 16, cuda, torch.float32)
+    xx = x.requires_grad_()
+    wb = blocks.requires_grad_()
+    dispatch.bdmm_diff(wb, xx).sum().backward()
+    torch.cuda.synchronize()
+    assert wb.grad is not None and xx.grad is not None
+
+
+def test_bdmm_cpu_tensors_take_the_plain_version_without_counting():
+    rng = np.random.default_rng(0)
+    x, blocks = _bdmm_inputs(rng, 2, 3, 4, 8, 8, "cpu", torch.float32)
+    before = (bk.bdmm.launches, bk.bdmm_dblocks.launches)
+    assert torch.equal(bk.bdmm(x, blocks), bk.bdmm_plain(x, blocks))
+    dy = torch.ones((2, 3, 32))
+    assert torch.equal(bk.bdmm_dblocks(dy, x, 8, 8),
+                       bk.bdmm_dblocks_plain(dy, x, 8, 8))
+    assert (bk.bdmm.launches, bk.bdmm_dblocks.launches) == before
+    with pytest.raises(ValueError, match="shape mismatch"):
+        bk.bdmm(torch.zeros((2, 3, 30)), blocks)
+    with pytest.raises(TypeError, match="one dtype"):
+        bk.bdmm(x, blocks.double())
+    with pytest.raises(ValueError, match="expected dy"):
+        bk.bdmm_dblocks(dy[:, :2], x, 8, 8)

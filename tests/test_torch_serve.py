@@ -187,10 +187,11 @@ def test_eos_frees_slot_and_admits_queued_request(world):
 def test_unknown_method_or_adapter_raises(world):
     _, _, rt, tad = world
     with pytest.raises(KeyError,
-                       match="registered methods: \\['double_gsoft', 'gsoft'\\]"):
-        methods.get("oft")
-    with pytest.raises(KeyError):
-        rt.attach(tad, tpeft.PEFTConfig(method="boft"))
+                       match="registered methods: \\['boft', 'double_gsoft', "
+                             "'givens', 'gsoft', 'householder', 'lora', 'oft'\\]"):
+        methods.get("monarch")
+    with pytest.raises(KeyError, match="monarch"):
+        rt.attach(tad, tpeft.PEFTConfig(method="monarch"))
     banked = rt.attach(tad, PCFG)
     eng = ServeEngine(banked, max_batch=1, max_len=48)
     with pytest.raises(KeyError, match="unknown adapter"):

@@ -194,7 +194,8 @@ def test_double_gsoft_cannot_be_banked():
     ops = methods.get("double_gsoft")
     assert ops.bank_build is None and "merge it offline" in ops.bank_unsupported
     with pytest.raises(ValueError, match="no bank path"):
-        tpeft.bank_capability_check(tpeft.PEFTConfig(method="double_gsoft"))
+        tpeft.bank_capability_check(None,
+                                    tpeft.PEFTConfig(method="double_gsoft"))
 
 
 # ---------------------------------------------------------------------------
