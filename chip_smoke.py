@@ -22,12 +22,31 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    serving), ``bdmm_dblocks`` at the weight slabs (their backward), bf16 and
    f32, b = 32, with times, bounds, plain versions and one einsum each as
    the library yardstick; dblocks must be bit-identical across two runs
+3d. int8 and paged kernels — ``q_matmul`` at the LM head and every
+   projection shape (one and four decode rows, one prefill chunk),
+   ``gs_q_matmul`` at each adapted projection (four decode rows of their
+   own adapters, one prefill chunk), ``paged_decode`` at qwen2-72b's heads
+   through page-8 and page-16 tables (one ragged case with a parked row),
+   bf16 and f32, against their plain versions, with times, bounds and
+   library yardsticks
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
    the ``gs_fused_T`` kernel must have run
+4b. paged int8 serve — the serve launcher's ``--engine paged --quantize
+   int8`` path at the same width and depth: the banked runtime quantized to
+   int8 (each bf16 weight freed once quantized), 8 requests (two of one
+   tenant share a 64-token prefix) through ``PagedServeEngine`` (page 8,
+   chunk 16) on 4 slots; ``q_matmul``, ``gs_q_matmul`` and ``paged_decode``
+   must have run, the prefix must have been reused; median rate of 3 runs,
+   params bytes, peak memory, KV pages against the contiguous cache, a
+   profile
 5. banked vs merged — full width at 2 layers in f32 (TF32 off): one adapter
    merged through ``gs_fused``, one prompt served both ways, equal greedy
    tokens and decode logits within tolerance
+5b. paged int8 check — full width at 2 layers in f32: paged tokens equal
+   contiguous tokens, unquantized and int8; the base slot equals the
+   bankless int8 model; banked int8 decode logits within 10 % of
+   max|logit| of "merge, then quantize"
 7. train  — full-width qwen2-72b, depth cut to 4 layers, bf16, remat
    "full": GSOFT (b = 32) on all seven projections, AdamW, steps of
    ``build_train_step`` on one fixed batch (the loss must fall), then 3
@@ -81,8 +100,13 @@ from repro_torch.data import DataConfig, LMDataSource  # noqa: E402
 from repro_torch.kernels import bdmm as bk  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import gs_fused as gk  # noqa: E402
+from repro_torch.kernels import paged_attention as pak  # noqa: E402
+from repro_torch.kernels import q_matmul as qmk  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.serve.engine import ServeEngine, prompt_bucket  # noqa: E402
+from repro_torch.quant import quantize_int8, tree_bytes  # noqa: E402
+from repro_torch.serve.engine import (PagedServeEngine, ServeEngine,  # noqa: E402
+                                      prompt_bucket)
+from repro_torch.serve.kv import kv_page_bytes  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
@@ -123,6 +147,28 @@ BDMM_BLOCK = 32
 QUICK_LAYERS = 2                    # householder / givens / lora one-step check
 MIXED_SERVE_REQUESTS = 12           # two per tenant and two on the base slot
 MIXED_SCALE = 0.3                   # noise on the mixed bank's adapters
+PAGE_SIZE = 8                       # the serve launcher's defaults
+PREFILL_CHUNK = 16
+SHARED_PREFIX = 64                  # tokens two requests of one tenant share
+# quantized matmul: f32 sums in another order (allclose atol = rtol); bf16:
+# kernel and plain version round y once from near-equal fp32 sums (one ulp)
+QMM_F32_TOL = 1e-4
+QMM_BF16_REL = 2.0 ** -7
+# gs_q_matmul bf16: the kernel keeps the rotation's intermediate in fp32
+# where the plain version rounds it, so the rotated slab may differ by one
+# bf16 ulp before the int8 product; f32 relative to max(1, max|ref|)
+GSQ_BF16_REL = 2.0 ** -6
+GSQ_F32_REL = 1e-4
+# paged decode: f32 as tests/test_kv.py; bf16 against one fp32 softmax that
+# rounds neither q * scale nor p
+PAGED_F32_TOL = 2e-5
+PAGED_BF16_REL = 2.0 ** -6
+# banked int8 against "merge, then quantize" (f32, 2 layers): the two int8
+# trees quantize W and Q^T W, whose codes differ by construction (about 1 %
+# of a weight's scale each); 0.15 absolute at smoke scale in
+# tests/test_quant.py is about 5 % of max|logit| there; stated relative to
+# max|logit| here
+QUANT_LOGIT_REL = 0.1
 
 KERNELS = {
     "gs_fused_T": dict(fn=gk.gs_fused_T, plain=gk.gs_fused_T_plain,
@@ -143,6 +189,15 @@ KERNELS = {
     "bdmm_dblocks": dict(fn=bk.bdmm_dblocks, plain=bk.bdmm_dblocks_plain,
                          replaces="src/repro/kernels/bdmm.py:98",
                          source="src/repro_torch/kernels/csrc/bdmm.cu"),
+    "q_matmul": dict(fn=qmk.q_matmul, plain=qmk.q_matmul_plain,
+                     replaces="src/repro/kernels/q_matmul.py:69",
+                     source="src/repro_torch/kernels/csrc/q_matmul.cu"),
+    "gs_q_matmul": dict(fn=qmk.gs_q_matmul, plain=qmk.gs_q_matmul_plain,
+                        replaces="src/repro/kernels/q_matmul.py:120",
+                        source="src/repro_torch/kernels/csrc/q_matmul.cu"),
+    "paged_decode": dict(fn=pak.paged_decode, plain=pak.paged_decode_plain,
+                         replaces="src/repro/kernels/flash_attention.py:180",
+                         source="src/repro_torch/kernels/csrc/paged_attn.cu"),
 }
 # kernel launches per adapted weight slice and train step, by method, as the
 # design predicts (m: BOFT's butterfly levels): materialization runs outside
@@ -526,13 +581,15 @@ def _profile(run) -> dict:
                                 count=e.count))
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels) / 1e3
-    # the port's kernels (GS and bdmm) live in namespace gs::; sum them by
-    # kernel function
+    # the port's kernels live in namespaces gs:: (GS and bdmm), qmm::
+    # (quantized matmuls) and pa:: (paged attention); sum them by function
     by_kernel = {}
     for k in kernels:
-        if "gs::" in k["name"]:
-            fam = k["name"].split("gs::", 1)[1].split("<", 1)[0].split("(", 1)[0]
-            by_kernel[fam] = by_kernel.get(fam, 0.0) + k["device_ms"]
+        for ns in ("gs::", "qmm::", "pa::"):
+            if ns in k["name"]:
+                fam = (k["name"].split(ns, 1)[1].split("<", 1)[0]
+                       .split("(", 1)[0])
+                by_kernel[fam] = by_kernel.get(fam, 0.0) + k["device_ms"]
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=1.0 - busy / wall if wall > 0 else None,
                 port_kernels_device_s=sum(by_kernel.values()) / 1e3,
@@ -604,10 +661,10 @@ def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
 
 
 def _logits_gap(cfg, banked, slot: int, merged, prompt, first: int,
-                device) -> tuple:
+                device, rel: float = LOGIT_TOL) -> tuple:
     """One prefill and one decode step (fed ``first``) of ``prompt`` on the
     bank's ``slot`` and on the merged runtime; fails unless the decode
-    logits agree within LOGIT_TOL of their largest magnitude. Returns
+    logits agree within ``rel`` of their largest magnitude. Returns
     (max |diff|, tolerance, the bank's prefill logits)."""
     logits = []
     feed = torch.as_tensor(prompt[None], device=device)
@@ -622,7 +679,7 @@ def _logits_gap(cfg, banked, slot: int, merged, prompt, first: int,
             torch.as_tensor([[int(first)]], device=device), state,
             torch.as_tensor([len(prompt)], device=device))
         logits.append((pre.float(), lg.float()))
-    tol = LOGIT_TOL * max(1.0, logits[1][1].abs().max().item())
+    tol = rel * max(1.0, logits[1][1].abs().max().item())
     err = (logits[0][1] - logits[1][1]).abs().max().item()
     if not (torch.isfinite(logits[0][1]).all() and err <= tol):
         raise AssertionError(f"decode logits differ by {err} (tolerance {tol})")
@@ -1030,6 +1087,389 @@ def mixed_check_phase(cfg, seed: int, device) -> dict:
                 allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: quantized matmuls and paged decode attention
+# ---------------------------------------------------------------------------
+
+def _bytes_bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _codes(gen, k: int, n: int, device):
+    """int8 codes and per-channel scales of a seeded normal (k, n) weight."""
+    return quantize_int8(torch.randn((k, n), generator=gen, device=device),
+                         axis=-1)
+
+
+def _weight_sets(first, make, nbytes: int) -> list:
+    """``first`` plus fresh argument sets until together they exceed the
+    50 MB L2 (at most 8), so the timed weights come from device memory."""
+    n_sets = int(min(8, max(1, math.ceil(120e6 / nbytes))))
+    return [first] + [make() for _ in range(n_sets - 1)]
+
+
+def _err_ok(err: float, tol: float) -> bool:
+    return math.isfinite(err) and err <= tol
+
+
+def qmm_cases(cfg):
+    """(M, K, N): the LM head (K = d_model, N = vocab) and every projection
+    shape at decode (B = 4 rows, and one row) and at one prefill chunk."""
+    D, F, KV = cfg.d_model, cfg.d_ff, cfg.num_kv_heads * cfg.d_head
+    shapes = [(D, cfg.padded_vocab()), (D, D), (D, KV), (D, F), (F, D)]
+    return [(m, k, n) for m in (1, 4, PREFILL_CHUNK) for k, n in shapes]
+
+
+def check_qmm_case(M, K, N, dtype, gen, device) -> dict:
+    q, s = _codes(gen, K, N, device)
+    x = (torch.randn((M, K), generator=gen, device=device)
+         / math.sqrt(K)).to(dtype)
+    y = qmk.q_matmul(x, q, s)
+    torch.cuda.synchronize()
+    want = qmk.q_matmul_plain(x, q, s)
+    err = (y.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        tol = QMM_F32_TOL * (1.0 + want.abs().max().item())
+    else:
+        tol = QMM_BF16_REL * want.float().abs().max().item()
+    if not _err_ok(err, tol):
+        raise AssertionError(f"q_matmul M={M} K={K} N={N} {dtype}: max|err| "
+                             f"{err} > {tol}")
+    del want
+    sets = _weight_sets((x, q, s), lambda: (x,) + _codes(gen, K, N, device),
+                        K * N)
+    ms = time_ms(qmk.q_matmul, sets)
+    plain_ms = time_ms(qmk.q_matmul_plain, sets[:1])
+    lib = lambda xx, qq, ss: (xx @ qq.to(xx.dtype)) * ss   # noqa: E731
+    lib_ms = time_ms(lib, sets[:1])
+    es = x.element_size()
+    bound_ms, bound_by = _bytes_bound(M * K * es + K * N + 4 * N + M * N * es,
+                                      2 * M * K * N, dtype)
+    tt, c, splits, _ = qmk.qmm_geometry(M, K, N)
+    return dict(kernel="q_matmul", M=M, K=K, N=N, tt=tt, codes=c,
+                k_splits=splits, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_what="(x @ q.to(x.dtype)) * scale",
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def gsq_cases(cfg):
+    """(B, T, d, N): each adapted projection's input width and output width
+    at decode (B = 4 rows of one token) and at one prefill chunk."""
+    D, F, KV = cfg.d_model, cfg.d_ff, cfg.num_kv_heads * cfg.d_head
+    shapes = [(D, D), (D, KV), (D, F), (F, D)]
+    return [(bsz, t, d, n) for bsz, t in ((4, 1), (1, PREFILL_CHUNK))
+            for d, n in shapes]
+
+
+def check_gsq_case(B, T, d, N, b, dtype, gen, device) -> dict:
+    r = d // b
+    L, R = _orth_factors(gen, B, r, b, dtype, device)
+    q, s = _codes(gen, d, N, device)
+    x = (torch.randn((B, T, d), generator=gen, device=device)
+         / math.sqrt(d)).to(dtype)
+    y = qmk.gs_q_matmul(x, L, R, q, s)
+    torch.cuda.synchronize()
+    want = qmk.gs_q_matmul_plain(x, L, R, q, s)
+    err = (y.float() - want.float()).abs().max().item()
+    rel = GSQ_F32_REL if dtype == torch.float32 else GSQ_BF16_REL
+    tol = rel * max(1.0, want.float().abs().max().item())
+    if not _err_ok(err, tol):
+        raise AssertionError(f"gs_q_matmul B={B} T={T} d={d} N={N} {dtype}: "
+                             f"max|err| {err} > {tol}")
+    del want
+    sets = _weight_sets(
+        (x, L, R, q, s),
+        lambda: (x,) + _orth_factors(gen, B, r, b, dtype, device)
+        + _codes(gen, d, N, device), d * N)
+    ms = time_ms(qmk.gs_q_matmul, sets)
+    plain_ms = time_ms(qmk.gs_q_matmul_plain, sets[:1])
+
+    def lib(xx, LL, RR, qq, ss):         # the rotation kernel, then cuBLAS
+        return (gk.gs_fused_T(xx, LL, RR) @ qq.to(xx.dtype)) * ss
+
+    lib_ms = time_ms(lib, sets[:1])
+    # the same product without the rotation: what the rotation adds
+    flat = [(a[0].reshape(B * T, d), a[3], a[4]) for a in sets]
+    qmm_ms = time_ms(qmk.q_matmul, flat)
+    es = x.element_size()
+    nbytes = (B * T * d * es + 2 * B * r * b * b * es + d * N + 4 * N
+              + B * T * N * es)
+    bound_ms, bound_by = _bytes_bound(nbytes, 4 * B * T * d * b
+                                      + 2 * B * T * d * N, dtype)
+    tt, nthr = qmk.gsq_geometry(B, T, r, b, N)
+    return dict(kernel="gs_q_matmul", B=B, T=T, d=d, N=N, b=b, tt=tt,
+                cols_per_tile=nthr * qmk.GSQ_CODES,
+                clusters=-(-B * T // tt) * -(-N // (nthr * qmk.GSQ_CODES)),
+                resident_clusters=qmk.gsq_resident_clusters(tt, r, b),
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_what="gs_fused_T, then (x @ q.to(x.dtype)) * scale",
+                q_matmul_ms=qmm_ms,
+                rotation_share=max(0.0, (ms - qmm_ms) / ms),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def gsq_tile_sweep(B, d, N, b, gen, device) -> dict:
+    """``gs_q_matmul``'s time at every column-tile width (threads along N)
+    for one decode shape, bf16: each cluster recomputes the rotation, so
+    wider tiles trade rotations for fewer streaming SMs. Returns
+    {columns per tile: ms}."""
+    r = d // b
+    L, R = _orth_factors(gen, B, r, b, torch.bfloat16, device)
+    q, s = _codes(gen, d, N, device)
+    x = (torch.randn((B, 1, d), generator=gen, device=device)
+         / math.sqrt(d)).to(torch.bfloat16)
+    tt = qmk.gsq_geometry(B, 1, r, b, N)[0]
+    chosen = qmk.gsq_geometry
+    out = {}
+    try:
+        for nthr in (32, 64, 128, 256, 512):
+            qmk.gsq_geometry = lambda *a, _n=nthr: (tt, _n)
+            out[nthr * qmk.GSQ_CODES] = time_ms(qmk.gs_q_matmul,
+                                                [(x, L, R, q, s)])
+    finally:
+        qmk.gsq_geometry = chosen
+    return out
+
+
+PAGED_LENS = {"ctx144": [144, 144, 144, 144],
+              "ragged_parked": [17, 80, 200, None]}     # None: a parked row
+
+
+def check_paged_case(cfg, page: int, lens_name: str, dtype, gen,
+                     device) -> dict:
+    """B = 4 rows of qwen2-72b's attention (64 query heads over 8 KV heads,
+    d_head 128) through a stall-free pool of the serve phase's geometry
+    (W = max_len / page table columns); a parked row has an all-garbage
+    table and kv_len = W * page + 1, as the engine parks it."""
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    W = SERVE_MAX_LEN // page
+    lens = PAGED_LENS[lens_name]
+    B = len(lens)
+    npages = B * W + 1
+    kp = torch.randn((npages, page, KH, D), generator=gen,
+                     device=device).to(dtype)
+    vp = torch.randn((npages, page, KH, D), generator=gen,
+                     device=device).to(dtype)
+    q = torch.randn((B, H, D), generator=gen, device=device).to(dtype)
+    table = torch.zeros((B, W), dtype=torch.int32, device=device)
+    kv_len = torch.zeros(B, dtype=torch.int32, device=device)
+    for i, n in enumerate(lens):
+        if n is None:                       # parked: garbage page only
+            kv_len[i] = W * page + 1
+            continue
+        table[i, :W] = torch.arange(1 + i * W, 1 + (i + 1) * W)
+        kv_len[i] = n
+    out = pak.paged_decode(q, kp, vp, table, kv_len)
+    torch.cuda.synchronize()
+    want = pak.paged_decode_plain(q, kp, vp, table, kv_len)
+    err = (out.float() - want.float()).abs().max().item()
+    tol = (PAGED_F32_TOL * max(1.0, want.abs().max().item())
+           if dtype == torch.float32
+           else PAGED_BF16_REL * want.float().abs().max().item())
+    if not _err_ok(err, tol):
+        raise AssertionError(f"paged_decode page={page} {lens_name} {dtype}: "
+                             f"max|err| {err} > {tol}")
+    args = [(q, kp, vp, table, kv_len)]
+    ms = time_ms(pak.paged_decode, args)
+    plain_ms = time_ms(pak.paged_decode_plain, args)
+    G = H // KH
+
+    def lib(qq, kk, vv, tbl, lens_):       # table gather, then SDPA
+        k = kk[tbl.long()].reshape(B, -1, KH, D).transpose(1, 2)
+        v = vv[tbl.long()].reshape(B, -1, KH, D).transpose(1, 2)
+        mask = (torch.arange(k.shape[2], device=device)[None, :]
+                < lens_[:, None])[:, None, None, :]
+        return torch.nn.functional.scaled_dot_product_attention(
+            qq.reshape(B, KH, G, D), k, v, attn_mask=mask)
+
+    lib_ms = time_ms(lib, args)
+    lib_err = (lib(*args[0]).reshape(B, H, D).float()
+               - want.float()).abs().max().item()
+    keys = sum(min(int(n), W * page) for n in kv_len.tolist())
+    es = q.element_size()
+    nbytes = 2 * B * H * D * es + 2 * keys * KH * D * es + 4 * B * (W + 1)
+    bound_ms, bound_by = _bytes_bound(nbytes, 4 * H * D * keys, dtype)
+    return dict(kernel="paged_decode", B=B, H=H, KH=KH, D=D, page=page, W=W,
+                lens=lens_name, kv_len=kv_len.tolist(),
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_err=lib_err,
+                library_what="table gather + scaled_dot_product_attention",
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
+# phases 4b and 5b: paged KV serving over int8 weights
+# ---------------------------------------------------------------------------
+
+def _paged_engine(rt, max_batch: int, max_len: int) -> PagedServeEngine:
+    return PagedServeEngine(rt, max_batch=max_batch, max_len=max_len,
+                            eos_id=-1, page_size=PAGE_SIZE,
+                            prefill_chunk=PREFILL_CHUNK)
+
+
+def paged_quant_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
+    """The serve launcher's paged int8 path at full width: 3 GSOFT tenants
+    (b = 32) and the base, the runtime quantized to int8 (each bf16 weight
+    freed once its codes exist), 8 requests (prompts of 16-128 tokens;
+    requests 0 and 4 of one tenant share a 64-token prefix) on 4 slots of
+    ``PagedServeEngine`` (page 8, chunk 16), 16 new tokens each. The first
+    run is the counted main-path run; ``repeats`` runs give the median
+    rate; one more runs under the profiler."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    t0 = time.perf_counter()
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    names = ["tenant_a", "tenant_b", "tenant_c"]
+    banked = base.attach({n: perturbed_adapters(pcfg, base.params,
+                                                seed + 1 + i, 0.05, device)
+                          for i, n in enumerate(names)}, pcfg)
+    bf16_bytes = tree_bytes(banked.params)
+    del base
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tq = time.perf_counter()
+    rt = banked.quantized("int8", release_source=True)
+    del banked
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - tq
+    quantize_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    setup_s = time.perf_counter() - t0
+    int8_bytes = tree_bytes(rt.params)
+    rng = np.random.default_rng(seed + 200)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=8)
+    prefix = rng.integers(1, cfg.vocab_size, size=SHARED_PREFIX).tolist()
+    order = names + [None]
+    work = []
+    for i, n in enumerate(lens):
+        if i in (0, 4):                     # one tenant, one shared prefix
+            n = max(int(n), SHARED_PREFIX + 8) - SHARED_PREFIX
+            prompt = prefix + rng.integers(1, cfg.vocab_size, size=n).tolist()
+        else:
+            prompt = rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+        work.append((prompt, order[i % 4]))
+
+    def drive():
+        eng = _paged_engine(rt, 4, SERVE_MAX_LEN)
+        for prompt, adapter in work:
+            eng.add_request(prompt, max_new_tokens=16, adapter=adapter)
+        t0 = time.perf_counter()
+        peak_pages = 0
+        while eng.step():
+            peak_pages = max(peak_pages, eng.pool.in_use)
+        results = eng.run()
+        torch.cuda.synchronize()
+        return eng, results, time.perf_counter() - t0, peak_pages
+
+    warm = _paged_engine(rt, 4, SERVE_MAX_LEN)
+    for name in names:
+        warm.add_request([1, 2, 3], max_new_tokens=2, adapter=name)
+    warm.run()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    eng, results, wall, peak_pages = drive()
+    launches = _launches()
+    if len(results) != 8 or any(len(v) != 16 for v in results.values()):
+        raise AssertionError(f"served {len(results)} of 8 requests: "
+                             f"{ {k: len(v) for k, v in results.items()} }")
+    if not all(0 <= t < cfg.padded_vocab() for v in results.values()
+               for t in v):
+        raise AssertionError("served a token outside the vocabulary")
+    for name in ("q_matmul", "gs_q_matmul", "paged_decode"):
+        if launches[name] == 0:
+            raise AssertionError(f"paged int8 serving never launched {name}: "
+                                 f"{launches}")
+    if launches["gs_fused_T"] or launches["gs_fused_bwd"] or launches["bdmm"]:
+        raise AssertionError(f"the fused int8 path launched another "
+                             f"rotation kernel: {launches}")
+    kv = eng.kv_stats()
+    if kv["prefix_hits"] < 1:
+        raise AssertionError(f"the shared 64-token prefix was never reused: "
+                             f"{kv}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    walls = [wall]
+    for _ in range(repeats - 1):
+        _, again, w, _ = drive()
+        if again != results:
+            raise AssertionError("a repeated paged run served other tokens")
+        walls.append(w)
+    toks = eng.stats["tokens_generated"]
+    wall_med = float(np.median(walls))
+    page_bytes = kv_page_bytes(cfg, PAGE_SIZE)
+    contiguous_kv = (2 * cfg.num_layers * 4 * SERVE_MAX_LEN
+                     * cfg.num_kv_heads * cfg.d_head
+                     * torch.empty((), dtype=cfg.act_dtype).element_size())
+    return dict(layers=cfg.num_layers, requests=len(results),
+                prompt_lens=[len(p) for p, _ in work], tokens=toks,
+                wall_s=walls, wall_median_s=wall_med, tok_s=toks / wall_med,
+                decode_steps=eng.stats["decode_steps"],
+                prefills=eng.stats["prefills"], setup_s=setup_s,
+                quantize_s=quantize_s, launches=launches,
+                params_bytes_bf16=bf16_bytes, params_bytes_int8=int8_bytes,
+                quantize_peak_gb=quantize_peak_gb, serve_peak_gb=peak_gb,
+                kv_stats=kv, kv_pages_peak=peak_pages,
+                kv_bytes_peak=peak_pages * page_bytes,
+                kv_pool_bytes=eng.num_pages * page_bytes,
+                contiguous_kv_bytes=contiguous_kv,
+                profile=_profile(drive))
+
+
+def paged_quant_check_phase(cfg, seed: int, device) -> dict:
+    """f32 at full width: on a GSOFT bank (one tenant and the base), paged
+    tokens equal contiguous tokens, unquantized and over int8; the base slot
+    over int8 equals the bankless int8 model; the banked int8 decode logits
+    lie within QUANT_LOGIT_REL of "merge, then quantize"; each of the three
+    kernels of the int8 paged path launched."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    adapter = perturbed_adapters(pcfg, base.params, seed + 9, 0.05, device)
+    banked = base.attach({"a": adapter}, pcfg)
+    qbanked = banked.quantized("int8")
+    rng = np.random.default_rng(seed + 6)
+    p1 = rng.integers(1, cfg.vocab_size, 40).tolist()    # three chunks
+    p2 = rng.integers(1, cfg.vocab_size, 24).tolist()
+
+    def serve(rt, paged: bool, work):
+        eng = (_paged_engine(rt, 2, 64) if paged else
+               ServeEngine(rt, max_batch=2, max_len=64, eos_id=-1))
+        rids = [eng.add_request(p, max_new_tokens=8, adapter=a)
+                for p, a in work]
+        res = eng.run()
+        return [res[r] for r in rids]
+
+    work = [(p1, "a"), (p2, None)]
+    _reset_launches()
+    tokens = {}
+    for name, rt in (("f32", banked), ("int8", qbanked)):
+        tokens[name] = {"paged": serve(rt, True, work),
+                        "contiguous": serve(rt, False, work)}
+        if tokens[name]["paged"] != tokens[name]["contiguous"]:
+            raise AssertionError(f"{name}: paged {tokens[name]['paged']} != "
+                                 f"contiguous {tokens[name]['contiguous']}")
+    launches = _launches()
+    for name in ("q_matmul", "gs_q_matmul", "paged_decode"):
+        if launches[name] == 0:
+            raise AssertionError(f"the f32 check never launched {name}")
+    bare = ModelRuntime(cfg, qbanked.params, device=device)
+    base_tokens = serve(bare, True, [(p2, None)])[0]
+    if base_tokens != tokens["int8"]["paged"][1]:
+        raise AssertionError(f"base slot {tokens['int8']['paged'][1]} != "
+                             f"bankless int8 model {base_tokens}")
+    merged = ModelRuntime(cfg, base.params, device=device, adapters=adapter,
+                          peft_cfg=pcfg).quantized("int8")
+    err, tol, _ = _logits_gap(cfg, qbanked, 1, merged, np.asarray(p1),
+                              tokens["int8"]["paged"][0][0], device,
+                              rel=QUANT_LOGIT_REL)
+    scale = tol / QUANT_LOGIT_REL
+    return dict(layers=cfg.num_layers, tokens=tokens, launches=launches,
+                quant_vs_merged_max_abs=err, quant_vs_merged_rel=err / scale,
+                quant_vs_merged_tol=tol,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1122,6 +1562,55 @@ def main() -> int:
                 f"{c['bound_ms']:.4f} ({c['bound_by']})")
         torch.cuda.empty_cache()
 
+    # 3d. quantized matmuls and paged decode attention against their plain
+    # versions
+    qcases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, K, N in qmm_cases(full):
+            if dtype == torch.float32 and M != 4:
+                continue                    # f32: the decode rows only
+            c = check_qmm_case(M, K, N, dtype, gen, device)
+            qcases.append(c)
+            log(f"kernel q_matmul     M={M:2d} K={K:5d} N={N:6d} tt={c['tt']} "
+                f"c={c['codes']} splits={c['k_splits']} {c['dtype']:8s} err "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+        for B, T, d, N in gsq_cases(full):
+            if dtype == torch.float32 and T != 1:
+                continue
+            c = check_gsq_case(B, T, d, N, 32, dtype, gen, device)
+            qcases.append(c)
+            log(f"kernel gs_q_matmul  B={B} T={T:2d} d={d:5d} N={N:5d} b=32 "
+                f"tt={c['tt']} cols={c['cols_per_tile']} clusters="
+                f"{c['clusters']} (resident {c['resident_clusters']}) "
+                f"{c['dtype']:8s} err "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
+                f"{c['ms']:.4f} (q_matmul alone {c['q_matmul_ms']:.4f}) "
+                f"plain {c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
+                f"{c['bound_ms']:.4f} ({c['bound_by']})")
+        torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            for d in (full.d_model, full.d_ff):
+                sweep = gsq_tile_sweep(4, d, full.d_model, 32, gen, device)
+                qcases.append(dict(kernel="gs_q_matmul_tile_sweep", B=4, T=1,
+                                   d=d, N=full.d_model, ms_by_cols=sweep))
+                log(f"gs_q_matmul tile sweep B=4 T=1 d={d} N={full.d_model}: "
+                    f"ms by columns per tile "
+                    f"{ {k: round(v, 4) for k, v in sweep.items()} }")
+        for page in (8, 16):
+            for lens_name in PAGED_LENS:
+                c = check_paged_case(full, page, lens_name, dtype, gen, device)
+                qcases.append(c)
+                log(f"kernel paged_decode page={page:2d} W={c['W']} "
+                    f"kv_len={c['kv_len']} {c['dtype']:8s} err "
+                    f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
+                    f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+                    f"{c['library_ms']:.4f} bound {c['bound_ms']:.5f} "
+                    f"({c['bound_by']})")
+
     # 4. serve, bf16, full width, depth cut
     cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
     log(f"serve: qwen2-72b full width, depth cut 80 -> {SERVE_LAYERS} layers, "
@@ -1138,6 +1627,32 @@ def main() -> int:
         f"port kernels {prof['port_kernels_device_s']:.4f} s")
     torch.cuda.empty_cache()
 
+    # 4b. the serve launcher's paged int8 path, bf16, full width, depth cut
+    log(f"paged int8 serve: qwen2-72b full width, {SERVE_LAYERS} layers, bf16 "
+        f"-> int8 base weights, 3 GSOFT tenants (b=32) + base, page "
+        f"{PAGE_SIZE}, chunk {PREFILL_CHUNK}")
+    qserve = paged_quant_serve_phase(cfg8, args.seed, device)
+    qprof = qserve["profile"]
+    log(f"paged int8 serve: {qserve['requests']} requests, {qserve['tokens']} "
+        f"tokens; wall {['%.3f' % w for w in qserve['wall_s']]} s, median "
+        f"{qserve['tok_s']:.1f} tok/s (bf16 contiguous above: "
+        f"{serve['tok_s']:.1f}); {qserve['decode_steps']} decode steps, "
+        f"{qserve['prefills']} prefills; launches "
+        f"{ {k: v for k, v in qserve['launches'].items() if v} }")
+    log(f"paged int8 serve: params {qserve['params_bytes_bf16'] / 1e9:.3f} GB "
+        f"bf16 -> {qserve['params_bytes_int8'] / 1e9:.3f} GB int8 (quantize "
+        f"{qserve['quantize_s']:.1f} s, peak {qserve['quantize_peak_gb']:.1f} "
+        f"GB); serving peak {qserve['serve_peak_gb']:.1f} GB; KV pages in use "
+        f"at most {qserve['kv_pages_peak']} ({qserve['kv_bytes_peak'] / 1e6:.1f}"
+        f" MB) of a {qserve['kv_pool_bytes'] / 1e6:.1f} MB pool against "
+        f"{qserve['contiguous_kv_bytes'] / 1e6:.1f} MB contiguous; kv_stats "
+        f"{qserve['kv_stats']}")
+    log(f"paged int8 serve profile: wall {qprof['wall_s']:.3f} s, device busy "
+        f"{qprof['device_busy_s']:.3f} s (idle share {qprof['idle_share']}), "
+        f"port kernels {qprof['port_kernels_device_s']:.4f} s "
+        f"{ {k: round(v, 2) for k, v in qprof['port_device_ms_by_kernel'].items()} } ms")
+    torch.cuda.empty_cache()
+
     # 5. banked vs merged, f32
     cfg2 = full.with_overrides(num_layers=CHECK_LAYERS, dtype="f32",
                                param_dtype="f32")
@@ -1147,6 +1662,18 @@ def main() -> int:
         f"max|diff| {merged['logit_max_abs_err']:.3e} (tol "
         f"{merged['logit_tol']:.1e}); merge launches "
         f"{merged['merge_launches']}")
+
+    # 5b. paged and int8 against contiguous and merged, f32
+    log(f"paged int8 check: {CHECK_LAYERS} layers, f32, TF32 off")
+    qcheck = paged_quant_check_phase(cfg2, args.seed, device)
+    log(f"paged int8 check: paged == contiguous tokens (f32 and int8) "
+        f"{qcheck['tokens']['int8']['paged']}; base slot == bankless int8; "
+        f"banked int8 vs merge-then-quantize decode logits max|diff| "
+        f"{qcheck['quant_vs_merged_max_abs']:.3e} "
+        f"({qcheck['quant_vs_merged_rel']:.2e} of max|logit|, tol "
+        f"{QUANT_LOGIT_REL}); launches "
+        f"{ {k: v for k, v in qcheck['launches'].items() if v} }")
+    torch.cuda.empty_cache()
 
     # 7. train, bf16, full width, depth cut
     cfg4 = full.with_overrides(num_layers=TRAIN_LAYERS, remat="full")
@@ -1254,7 +1781,9 @@ def main() -> int:
                "grads_double_gsoft": grads[1]["launches"],
                "train_oft": trains_bdmm["oft"]["launches"],
                "train_boft": trains_bdmm["boft"]["launches"],
-               "serve_mixed": mserve["launches"]}
+               "serve_mixed": mserve["launches"],
+               "serve_paged_int8": qserve["launches"],
+               "check_paged_int8": qcheck["launches"]}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
@@ -1303,6 +1832,29 @@ def main() -> int:
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             shape=dict(B=c["B"], T=c["T"], d=c["d"], b=c["b"],
                        dtype=c["dtype"])))
+    # the int8 paged path's kernels: launches from its main-path run (4b)
+    q_main = {"q_matmul": dict(M=4, K=full.d_model, N=full.padded_vocab(),
+                               dtype="bfloat16"),
+              "gs_q_matmul": dict(B=4, T=1, d=full.d_model, N=full.d_model,
+                                  dtype="bfloat16"),
+              "paged_decode": dict(page=PAGE_SIZE, lens="ctx144",
+                                   dtype="bfloat16")}
+    for name, key in q_main.items():
+        mine = [x for x in qcases if x["kernel"] == name]
+        c = next(x for x in mine if all(x[k] == v for k, v in key.items()))
+        extra = {f"max_abs_err_{dt}": max(x["max_abs_err"] for x in mine
+                                          if x["dtype"] == dt)
+                 for dt in ("bfloat16", "float32")}
+        kernels.append(dict(
+            name=name, route="cuda", source=KERNELS[name]["source"],
+            replaces=KERNELS[name]["replaces"],
+            launches=qserve["launches"][name],
+            launches_by_path={p: v[name] for p, v in by_path.items()
+                              if name in v},
+            max_abs_err=c["max_abs_err"], **extra, ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"],
+            library_what=c["library_what"], shape=key))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, build_s=build_s, cases=cases,
@@ -1311,6 +1863,9 @@ def main() -> int:
                                    merged=merged, train=train, grads=grads,
                                    train_bdmm=trains_bdmm, quick=quick,
                                    mixed_serve=mserve, mixed_check=mcheck,
+                                   quant_paged_cases=qcases,
+                                   paged_int8_serve=qserve,
+                                   paged_int8_check=qcheck,
                                    kernels=kernels), indent=1))
     log(f"details: {out}")
     print(card)

@@ -6,7 +6,8 @@ tensors with the same keys, so ``/``-joined paths match leaf for leaf and
 both packages compute the same thing. bf16 leaves arrive as numpy's
 ``ml_dtypes`` bfloat16, which torch cannot read directly; they pass through
 float32 exactly. ``to_numpy`` carries a port tree back as numpy arrays, so
-tests compare the two packages' trees leaf by leaf.
+tests compare the two packages' trees leaf by leaf. ``quant_params_from_numpy``
+carries a quantized JAX tree across with identical int8 codes and scales.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.quant.core import QuantMeta, QuantTensor
 
 
 def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -55,6 +57,33 @@ def opt_state_from_numpy(state: Mapping, device: DeviceLike = "cuda") -> dict:
     as numpy arrays -> the port's state (``repro_torch.optim``), dtypes
     kept."""
     return _convert(state, resolve_device(device), None)
+
+
+_QUANT_KEYS = ({"q", "scale"}, {"q", "scale", "dtype"})
+
+
+def quant_params_from_numpy(tree: Mapping,
+                            device: DeviceLike = "cuda") -> dict:
+    """A quantized JAX param tree -> the port's, each ``QuantTensor`` leaf
+    handed over as a ``{"q", "scale"}`` mapping of numpy arrays (optionally
+    with ``"dtype"``, the logical weight dtype's name, default "bfloat16"),
+    every other leaf as a numpy array. The codes and scales carry over
+    unchanged, so both packages multiply by the same int8 weights."""
+    dev = resolve_device(device)
+
+    def visit(node):
+        if isinstance(node, Mapping) and set(node) in _QUANT_KEYS:
+            q = np.asarray(node["q"])
+            if q.dtype != np.int8:
+                raise TypeError(f"quantized codes must be int8, got {q.dtype}")
+            meta = QuantMeta(dtype=str(node.get("dtype", "bfloat16")))
+            return QuantTensor(_leaf(q, dev, None),
+                               _leaf(node["scale"], dev, torch.float32), meta)
+        if isinstance(node, Mapping):
+            return {k: visit(v) for k, v in node.items()}
+        return _leaf(node, dev, None)
+
+    return visit(tree)
 
 
 def to_numpy(tree: Any) -> Any:

@@ -215,6 +215,16 @@ def gs_rotate_banked(entry: Params, ids: torch.Tensor,
     return kernel_ops.gs_banked_transform_T(L, R, x)
 
 
+def gsoft_quant_fuse(entry: Params, ids: torch.Tensor,
+                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (L, R) blocks in ``dtype`` for the fused rotate + quantized
+    matmul (``ops.gs_q_matmul_banked``): rotations stay in float over int8
+    base weights."""
+    L = entry["L"].index_select(0, ids).to(dtype)
+    R = entry["R"].index_select(0, ids).to(dtype)
+    return L, R
+
+
 # ---------------------------------------------------------------------------
 # Double GSOFT  (W_eff = Q_U W Q_V)
 # ---------------------------------------------------------------------------

@@ -6,8 +6,7 @@ registered. This is the one module of the port that compares method
 strings (``tests/test_torch_methods.py`` guards it, as
 ``tests/test_methods.py`` guards the JAX package).
 
-Not ported yet: ``quant_fuse`` / ``quant_compatible`` (the int8 slice) and
-``bank_shard_axes`` (the scale-out slice).
+Not ported yet: ``bank_shard_axes`` (the scale-out slice).
 """
 from __future__ import annotations
 
@@ -32,6 +31,11 @@ class MethodOps:
     * ``bank_build(spec, params_by_slot, device)`` — per-slot serving stacks,
       or None (``bank_unsupported`` says why)
     * ``bank_rotator(entry, slots, x)`` — per-row x Q_slot
+    * ``quant_fuse(entry, slots, dtype)`` — per-row factors for the fused
+      rotate + quantized matmul kernel, or None (the rotation then applies
+      to the activations before ``q_matmul``)
+    * ``quant_compatible`` — may serve over quantized base weights (the
+      rotation applies activation-side, in float, before the int8 matmul)
     * ``banked_kernel`` — the kernel family the banked rotation rides
       ("gs" / "bdmm"; "" = plain torch only)
     """
@@ -45,6 +49,8 @@ class MethodOps:
     bank_build: Optional[Callable] = None
     bank_rotator: Optional[Callable] = None
     bank_unsupported: str = ""
+    quant_fuse: Optional[Callable] = None
+    quant_compatible: bool = False
     banked_kernel: str = ""
 
 
@@ -92,6 +98,8 @@ register(MethodOps(
     apply_activation_side=_ad.gsoft_apply_T,
     bank_build=_ad.gsoft_bank_build,
     bank_rotator=_ad.gs_rotate_banked,
+    quant_fuse=_ad.gsoft_quant_fuse,
+    quant_compatible=True,
     banked_kernel="gs",
 ))
 
@@ -117,6 +125,7 @@ register(MethodOps(
     apply_activation_side=_ad.oft_apply_T,
     bank_build=_ad.oft_bank_build,
     bank_rotator=_ad.oft_rotate_banked,
+    quant_compatible=True,
     banked_kernel="bdmm",
 ))
 
@@ -130,6 +139,7 @@ register(MethodOps(
     apply_activation_side=_ad.boft_apply_T,
     bank_build=_ad.boft_bank_build,
     bank_rotator=_ad.boft_rotate_banked,
+    quant_compatible=True,
     banked_kernel="bdmm",
 ))
 
@@ -143,6 +153,7 @@ register(MethodOps(
     apply_activation_side=_ad.householder_apply_T,
     bank_build=_ad.householder_bank_build,
     bank_rotator=_ad.householder_rotate_banked,
+    quant_compatible=True,
 ))
 
 register(MethodOps(
@@ -155,6 +166,7 @@ register(MethodOps(
     apply_activation_side=_ad.givens_apply_T,
     bank_build=_ad.givens_bank_build,
     bank_rotator=_ad.givens_rotate_banked,
+    quant_compatible=True,
 ))
 
 register(MethodOps(

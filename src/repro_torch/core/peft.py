@@ -376,7 +376,12 @@ class AdapterContext:
 class BankRotator:
     """``rot(name, x)`` rotates row i of x with its own adapter (slot 0 =
     identity) before projection ``name``; each method stack of the entry
-    applies in turn (sorted)."""
+    applies in turn (sorted).
+
+    ``quant_rotation`` splits the work for a quantized base matmul: the
+    method that can fuse with the quantized kernel (GSOFT) hands back its
+    per-row factors, so rotation and int8 matmul run as one
+    ``gs_q_matmul_banked`` launch; the other stacks apply to x first."""
 
     __slots__ = ("_group", "slots")
 
@@ -391,6 +396,24 @@ class BankRotator:
         for m in sorted(entry):
             x = methods_lib.get(m).bank_rotator(entry[m], self.slots, x)
         return x
+
+    def quant_rotation(self, name: str, x: torch.Tensor, dtype: torch.dtype
+                       ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]:
+        """-> (x with the unfusible method stacks applied, the per-row
+        factors of the (at most one) method whose ``quant_fuse`` fuses with
+        the quantized matmul, or None). Same fixed sorted method order as
+        ``__call__``."""
+        entry = self._group.get(name)
+        if entry is None:
+            return x, None
+        fused = None
+        for m in sorted(entry):
+            ops = methods_lib.get(m)
+            if fused is None and ops.quant_fuse is not None:
+                fused = ops.quant_fuse(entry[m], self.slots, dtype)
+            else:
+                x = ops.bank_rotator(entry[m], self.slots, x)
+        return x, fused
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,21 +8,40 @@ eager bank, activation-side (GSOFT through the transpose GS kernel, OFT and
 BOFT through the banked bdmm kernel, Householder and Givens in plain
 torch); ``peft_cfg`` is one PEFTConfig or a ``{name: PEFTConfig}`` mapping
 for a mixed-method bank. Merging and banking are mutually exclusive.
+``quantized("int8")`` serves the same model over int8 base weights (the
+bank, if any, carried over untouched: rotations stay in float and GSOFT's
+fuse with the int8 matmul in one kernel). ``paged_state`` /
+``paged_decode_fn`` / ``chunk_prefill_fn`` are the paged-KV engine's
+surface.
 
 Sources this slice does not port raise NotImplementedError naming the
-slice they wait for: adapter stores and checkpoints (the store slice),
-meshes (the scale-out slice), quantized weights (the int8 slice).
+slice they wait for: adapter stores and checkpoints (the store slice, which
+also brings quantized checkpoints), meshes (the scale-out slice).
 """
 from __future__ import annotations
 
 from typing import Any, Mapping, Optional
 
+from repro_torch import quant
 from repro_torch.config import ModelConfig
+from repro_torch.core import methods as methods_lib
 from repro_torch.core import peft as peft_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
 
 Tree = Any
+
+
+def _check_bank_quant_compatible(bank: peft_lib.AdapterBank) -> None:
+    """Every method in the bank must be flagged ``quant_compatible`` (its
+    rotation applies activation-side, in float, before the int8 matmul)."""
+    bad = [m for m in bank.bank_methods
+           if not methods_lib.get(m).quant_compatible]
+    if bad:
+        raise ValueError(
+            f"bank methods {bad} are not quantization-compatible — they "
+            "cannot serve over quantized base weights (see the "
+            "quant_compatible flag on their core.methods records)")
 
 
 class ModelRuntime:
@@ -42,6 +61,11 @@ class ModelRuntime:
         self.device = resolve_device(device)
         if params is None:
             params = api.init_params(cfg, seed, self.device)
+        if adapters is not None and quant.is_quantized_tree(params):
+            raise ValueError(
+                "cannot merge adapters into already-quantized weights — "
+                "merge first, then call runtime.quantized() (quantizing the "
+                "merged tree keeps the rotation at full precision)")
         if (adapters is None) != (peft_cfg is None):
             raise ValueError(
                 "offline merge needs BOTH adapters and peft_cfg — passing "
@@ -62,6 +86,7 @@ class ModelRuntime:
                                                merged=True)
         self.params = params
         self.bank = bank
+        self.quant_cfg: Optional[quant.QuantConfig] = None   # set by quantized()
         self._slot_prefill = {}
 
     # -- adapter bank ---------------------------------------------------------
@@ -124,18 +149,77 @@ class ModelRuntime:
             raise NotImplementedError(
                 f"attaching {type(source).__name__} is not ported yet; the "
                 "adapter store arrives with the store slice")
-        return ModelRuntime(self.cfg, self.params, device=self.device,
-                            bank=bank)
+        if self.is_quantized:
+            _check_bank_quant_compatible(bank)
+        rt = ModelRuntime(self.cfg, self.params, device=self.device,
+                          bank=bank)
+        rt.quant_cfg = self.quant_cfg   # quantize-then-bank commutes
+        return rt
 
-    def quantized(self, mode: Optional[str] = None, **kw) -> "ModelRuntime":
-        raise NotImplementedError(
-            "quantized serving is not ported yet (int8 slice)")
+    # -- quantized serving ----------------------------------------------------
+    @property
+    def is_quantized(self) -> bool:
+        return self.quant_cfg is not None
+
+    def quantized(self, mode: Optional[str] = None, *,
+                  qcfg: Optional[quant.QuantConfig] = None,
+                  release_source: bool = False) -> "ModelRuntime":
+        """New runtime over the same model with base weights quantized for
+        inference (per-output-channel symmetric int8 by default). Pass
+        ``mode`` OR a full ``qcfg``; naming both only works when they agree.
+        The adapter bank, when present, is carried over untouched.
+        ``release_source=True`` frees each float weight once its codes
+        exist (this runtime, and any sharing its params, must not serve
+        afterwards): the float and int8 trees never both sit in memory
+        whole."""
+        if self.is_quantized:
+            raise ValueError("runtime is already quantized "
+                             f"(mode={self.quant_cfg.mode!r})")
+        if qcfg is None:
+            qcfg = quant.QuantConfig(mode=mode or "int8",
+                                     use_pallas=self.cfg.use_pallas)
+        elif mode is not None and qcfg.mode != mode:
+            raise ValueError(
+                f"quantized(mode={mode!r}) conflicts with qcfg.mode="
+                f"{qcfg.mode!r} — pass one or the other")
+        if self.bank is not None:
+            _check_bank_quant_compatible(self.bank)
+        rt = ModelRuntime(self.cfg,
+                          quant.quantize_params(self.params, qcfg,
+                                                release_source=release_source),
+                          device=self.device, bank=self.bank)
+        rt._merged = self._merged
+        rt.quant_cfg = qcfg
+        return rt
 
     # -- state + step closures ------------------------------------------------
     def decode_state(self, batch: int, max_len: int):
         """Contiguous decode state (one max_len KV region per slot)."""
         return self._ops.init_decode_state(self.cfg, batch, max_len,
                                            self.device)
+
+    def paged_state(self, batch: int, num_pages: int, page_size: int,
+                    max_pages: int):
+        """Paged decode state: per-layer (num_pages, page_size, K, D) pools
+        shared by all slots + a (batch, max_pages + 1) int32 page table per
+        slot (sentinel garbage column last)."""
+        if self._ops.init_paged_state is None:
+            raise ValueError(f"family {self.cfg.family!r} has no paged "
+                             "KV serve path")
+        return self._ops.init_paged_state(self.cfg, batch, num_pages,
+                                          page_size, max_pages, self.device)
+
+    def paged_decode_fn(self):
+        """(params, ctx, tokens, state, pos) -> (next_tok, logits, state)
+        through page tables."""
+        from repro_torch.train.steps import build_paged_decode_step
+        return build_paged_decode_step(self.cfg)
+
+    def chunk_prefill_fn(self):
+        """(params, req, state, slot, start) -> (first, state): one prompt
+        chunk for one slot."""
+        from repro_torch.train.steps import build_chunk_prefill_step
+        return build_chunk_prefill_step(self.cfg)
 
     def decode_fn(self):
         """(params, ctx, tokens, state, pos) -> (next_tok, logits, state)."""

@@ -1,5 +1,6 @@
-"""Kernel entry points (port of the bdmm, GS, Householder and Givens parts
-of ``repro/kernels/ops.py``), with the JAX signatures.
+"""Kernel entry points (port of the bdmm, GS, Householder, Givens,
+quantized-matmul and paged-attention parts of ``repro/kernels/ops.py``),
+with the JAX signatures.
 
 Kernel choice follows the device, not a flag: a CUDA tensor always goes
 through the CUDA kernel (or the wrapper raises), a CPU tensor through the
@@ -9,8 +10,10 @@ one for one from the JAX package, and is ignored. ``bdmm``,
 through the autograd rules of ``dispatch.py`` (kernels both ways on the
 card). ``householder_banked`` and ``givens_banked`` have no kernel, as in
 the JAX package (``banked_kernel=""``): their plain versions run on every
-device. The kernels pick their own launch geometry; the tuning registry of
-``repro.kernels.dispatch`` is not ported yet.
+device. ``q_matmul``, ``gs_q_matmul``, ``gs_q_matmul_banked`` and
+``paged_attention`` serve inference only (no autograd rule; a tensor that
+needs a gradient raises). The kernels pick their own launch geometry; the
+tuning registry of ``repro.kernels.dispatch`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ import torch
 from . import ref
 from .dispatch import bdmm_diff, gs_diff, gs_T_diff
 from .gs_fused import gs_fused_T
+from .paged_attention import paged_decode
+from .q_matmul import gs_q_matmul as _gs_q_matmul
+from .q_matmul import q_matmul as _q_matmul
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -93,3 +99,54 @@ def givens_banked(C: torch.Tensor, S: torch.Tensor, x: torch.Tensor,
     for the Householder bank. ``use_pallas`` is ignored."""
     del use_pallas
     return ref.givens_banked_ref(C, S, x)
+
+
+def q_matmul(x: torch.Tensor, q: torch.Tensor, scale,
+             use_pallas: bool = False) -> torch.Tensor:
+    """Quantized-weight matmul y = x @ dequant(q, scale), the dequant in the
+    epilogue. x: (..., K); q: (K, N) int8; scale (1, N) or a scalar. The
+    serving hot path of ``ModelRuntime.quantized``. ``use_pallas`` is
+    ignored."""
+    del use_pallas
+    y = _q_matmul(_tokens(x), q, scale)
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+def gs_q_matmul(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
+                q: torch.Tensor, scale,
+                use_pallas: bool = False) -> torch.Tensor:
+    """Fused activation-side GS rotation + quantized matmul:
+    y = round(x Q_gs) @ dequant(q, scale). L, R: (r, b, b); x: (..., d).
+    One row of the banked kernel. ``use_pallas`` is ignored."""
+    del use_pallas
+    x2 = _tokens(x)
+    y = _gs_q_matmul(x2[None], L[None].contiguous(), R[None].contiguous(),
+                     q, scale)[0]
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+def gs_q_matmul_banked(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
+                       q: torch.Tensor, scale,
+                       use_pallas: bool = False) -> torch.Tensor:
+    """Per-row fused rotate + quantized matmul (multi-adapter quantized
+    serving): L, R (B, r, b, b) per-row GS blocks in x's dtype, x (B, T, d),
+    ONE shared quantized weight q (d, N). Row i computes round(x_i Q_i) @
+    dequant(q): one launch for all rows (the JAX package vmaps the kernel).
+    ``use_pallas`` is ignored."""
+    del use_pallas
+    return _gs_q_matmul(x.contiguous(), L.contiguous(), R.contiguous(), q,
+                        scale)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, table: torch.Tensor, kv_len, *,
+                    scale: float = 0.0,
+                    use_pallas: bool = False) -> torch.Tensor:
+    """Single-token decode attention through a KV page table.
+
+    q: (B, H, D) one query per row; k_pages / v_pages: (P, page, K, D)
+    shared page pools; table: (B, W) page ids (unused entries point at the
+    garbage page 0); kv_len: (B,) valid prefix length per row. The paged
+    engine's decode hot path. ``use_pallas`` is ignored."""
+    del use_pallas
+    return paged_decode(q, k_pages, v_pages, table, kv_len, scale=scale)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (port of the GS, bdmm,
-Householder and Givens parts of ``repro/kernels/ref.py``).
+Householder, Givens, quantized-matmul and paged-attention parts of
+``repro/kernels/ref.py``).
 
 Each function is the semantic definition the CUDA kernels are held against,
 and what a wrapper runs for a tensor that lies on the CPU. Like the JAX
@@ -189,3 +190,65 @@ def gs_fused_grads_ref(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
                        dy: torch.Tensor):
     """(dL, dR) of <dy, P^T L P R x> for one row, fp32 (no dx)."""
     return _gs_bwd_fp32(L, R, x, dy, with_dx=False)
+
+
+def _scale_row(scale, n: int) -> torch.Tensor:
+    """A per-output-channel (1, N) / (N,) or scalar scale as fp32 (1, N)."""
+    s = torch.as_tensor(scale, dtype=torch.float32)
+    return s.reshape(1, -1).expand(1, n) if s.dim() else s.reshape(1, 1).expand(1, n)
+
+
+def q_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale) -> torch.Tensor:
+    """Quantized-weight matmul: x (T, K) float; q (K, N) int8 codes; scale
+    fp32 (1, N) per output channel or a scalar. y = (x @ q) * scale with
+    fp32 products and sums, cast to x.dtype: the dequant runs in the
+    epilogue, never as a float (K, N) weight of x's dtype."""
+    y = x.to(torch.float32) @ q.to(torch.float32)
+    return (y * _scale_row(scale, q.shape[1]).to(y.device)).to(x.dtype)
+
+
+def gs_q_matmul_ref(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
+                    q: torch.Tensor, scale) -> torch.Tensor:
+    """Activation-side GS rotation, rounded to x.dtype, then the quantized
+    matmul: y = round(x Q_gs) @ dequant(q, scale). L, R: (r, b, b);
+    x: (T, d = r*b)."""
+    return q_matmul_ref(gs_fused_T_ref(L, R, x), q, scale)
+
+
+def gs_q_matmul_banked_ref(L: torch.Tensor, R: torch.Tensor,
+                           x: torch.Tensor, q: torch.Tensor,
+                           scale) -> torch.Tensor:
+    """Per-row fused rotate + quantized matmul: L, R (B, r, b, b), x
+    (B, T, d), one shared q (d, N): y[i] = round(x[i] Q_i) @ dequant(q)."""
+    bsz, t, d = x.shape
+    xr = gs_banked_T_ref(L, R, x)
+    y = q_matmul_ref(xr.reshape(bsz * t, d), q, scale)
+    return y.reshape(bsz, t, y.shape[-1])
+
+
+def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                   v_pages: torch.Tensor, table: torch.Tensor, kv_len,
+                   scale: float = 0.0) -> torch.Tensor:
+    """Paged decode attention: one query token per row over the KV pages
+    its table maps to.
+
+    q: (B, H, D); k_pages, v_pages: (P, page, K, D) shared page pools;
+    table: (B, W) int page table (stream page j of row b lives in physical
+    page table[b, j]); kv_len: (B,) valid key counts. GQA: H = K * G.
+    fp32 softmax over the gathered keys; returns (B, H, D) in q.dtype."""
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    g = h // kh
+    scale = scale or 1.0 / (d ** 0.5)
+    tbl = table.long()
+    k = k_pages[tbl].reshape(b, -1, kh, d)
+    v = v_pages[tbl].reshape(b, -1, kh, d)
+    qg = (q.to(torch.float32) * scale).reshape(b, kh, g, d)
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k.to(torch.float32))
+    kpos = torch.arange(k.shape[1], device=q.device)
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1)
+    s = torch.where(kpos[None, None, None, :] < kv_len[:, None, None, None],
+                    s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", p, v.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)

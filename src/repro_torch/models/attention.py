@@ -1,12 +1,16 @@
-"""Attention with GQA, RoPE and a contiguous KV cache (port of
+"""Attention with GQA, RoPE, a contiguous KV cache and a paged one (port of
 ``repro/models/attention.py``: ``init_attention``, ``online_attention``,
-``init_cache``, ``attention_block``). Plain torch: no kernel carries
-attention on this path.
+``init_cache``, ``attention_block``, ``init_paged_kv``,
+``paged_attention_block``, ``paged_prefill_chunk_block``). The contiguous
+path and chunked prefill are plain torch; paged decode runs
+``ops.paged_attention`` (the paged decode kernel on the card), as the JAX
+package's ``use_pallas`` branch does.
 
 The KV sequence is processed in ``attn_chunk`` slices with running
 (max, denom, acc) statistics, as in the JAX package; GQA never repeats KV
 heads. The decode path writes this step's K/V into the cache IN PLACE (the
-JAX package returns a new cache; the port saves the copy).
+JAX package returns a new cache; the port saves the copy); the paged path
+writes its pages in place too (``index_put_`` on the pools).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
 from .layers import Rot, apply_rope, qlinear, stacked_dense_init
 
 NEG_INF = -1e30
@@ -147,3 +152,97 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     K, hd = cfg.num_kv_heads, cfg.d_head
     return {"k": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache: fixed-size pages + per-slot page tables
+# ---------------------------------------------------------------------------
+
+def init_paged_kv(cfg: ModelConfig, num_pages: int, page_size: int, device,
+                  dtype=None) -> Dict[str, torch.Tensor]:
+    """One layer's shared page pools. Page 0 is the GARBAGE page: parked /
+    out-of-range table entries resolve there, so full-batch decode can write
+    through every row's table unconditionally."""
+    dtype = dtype or cfg.act_dtype
+    K, hd = cfg.num_kv_heads, cfg.d_head
+    return {"k": torch.zeros((num_pages, page_size, K, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((num_pages, page_size, K, hd), dtype=dtype,
+                             device=device)}
+
+
+def paged_attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                          cfg: ModelConfig, *, pages: Dict[str, torch.Tensor],
+                          table: torch.Tensor, pos: torch.Tensor,
+                          rot: Rot = None
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step through the paged KV cache.
+
+    x: (B, 1, D); pages: this layer's {"k", "v"} (P, page, K, D) pools;
+    table: (B, max_pages + 1) int32 — the LAST column is a sentinel that is
+    always the garbage page, so a parked row (pos == max_pages * page) routes
+    its write there; pos: (B,) write positions. The pages are written in
+    place. Returns (out, pages)."""
+    b, sq, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, sq, H, hd)
+    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, sq, K, hd)
+    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, sq, K, hd)
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64).reshape(-1)
+    positions = pos[:, None]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    page = pages["k"].shape[1]
+    pid = table.long().gather(1, (pos // page)[:, None])[:, 0]
+    off = pos % page
+    pages["k"].index_put_((pid, off), k[:, 0].to(pages["k"].dtype))
+    pages["v"].index_put_((pid, off), v[:, 0].to(pages["v"].dtype))
+
+    out = kernel_ops.paged_attention(
+        q[:, 0], pages["k"], pages["v"], table[:, :-1], pos + 1,
+        scale=1.0 / math.sqrt(hd))[:, None]          # sentinel column dropped
+    out = out.reshape(b, sq, H * hd)
+    return qlinear(out, p["wo"], rot, "wo"), pages
+
+
+def paged_prefill_chunk_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                              cfg: ModelConfig, *,
+                              pages: Dict[str, torch.Tensor],
+                              table_row: torch.Tensor, start: int,
+                              rot: Rot = None
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One prompt CHUNK for one slot (batch of 1) through the paged cache.
+
+    x: (1, C, D); table_row: (max_pages + 1,) this slot's page table;
+    start: absolute position of the chunk's first token (earlier chunks and
+    any shared-prefix pages already occupy [0, start)). Writes the chunk's
+    K/V through the table in place and attends causally over [0, start + C)
+    with the chunked online softmax over the gathered row (plain torch, as
+    in the JAX package)."""
+    b, c, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, c, H, hd)
+    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, c, K, hd)
+    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, c, K, hd)
+    start = int(start)
+    positions = start + _positions(b, c, x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    page = pages["k"].shape[1]
+    row = table_row.long()
+    idx = start + torch.arange(c, device=x.device)
+    # a chunk's padding past the table clamps onto the sentinel (garbage)
+    # column, as the JAX gather clamps an out-of-range index
+    pid = row[(idx // page).clamp(max=row.shape[0] - 1)]
+    off = idx % page
+    pages["k"].index_put_((pid, off), k[0].to(pages["k"].dtype))
+    pages["v"].index_put_((pid, off), v[0].to(pages["v"].dtype))
+
+    kt = pages["k"][row[:-1]].reshape(1, -1, K, hd)
+    vt = pages["v"][row[:-1]].reshape(1, -1, K, hd)
+    out = online_attention(q, kt, vt, positions, start + c, causal=True,
+                           chunk=cfg.attn_chunk, scale=1.0 / math.sqrt(hd))
+    out = out.reshape(b, c, H * hd)
+    return qlinear(out, p["wo"], rot, "wo"), pages

@@ -13,16 +13,37 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.quant.core import QuantTensor
+
 Rot = Optional[Callable[[str, torch.Tensor], torch.Tensor]]
 
 
-def qlinear(x: torch.Tensor, w: torch.Tensor, rot: Rot = None, name: str = "",
+def qlinear(x: torch.Tensor, w, rot: Rot = None, name: str = "",
             cast: bool = False) -> torch.Tensor:
     """Every base-weight projection routes through here. ``rot(name, x)`` is
     the optional per-request adapter rotation applied to the inputs of
-    projection ``name``. ``cast=True`` casts the weight to the activation
-    dtype first (the lm_head call site). Quantized weights are a later slice.
+    projection ``name``. ``cast=True`` casts a plain weight to the
+    activation dtype first (the lm_head call site).
+
+    ``w`` is a plain weight (y = x @ w) or a ``QuantTensor`` (int8 codes +
+    per-channel scales): then the matmul runs ``ops.q_matmul`` with the
+    dequant in the epilogue, and a rotator's ``quant_rotation`` hook hands
+    GSOFT's per-row factors to the fused ``ops.gs_q_matmul_banked`` (one
+    kernel for rotation and int8 matmul) while other method stacks rotate
+    x first. Quantized matmuls return x's dtype.
     """
+    if isinstance(w, QuantTensor):
+        factors = None
+        if rot is not None:
+            if hasattr(rot, "quant_rotation"):
+                x, factors = rot.quant_rotation(name, x, x.dtype)
+            else:
+                x = rot(name, x)
+        if factors is not None:
+            return kernel_ops.gs_q_matmul_banked(factors[0], factors[1], x,
+                                                 w.q, w.scale)
+        return kernel_ops.q_matmul(x, w.q, w.scale)
     if rot is not None:
         x = rot(name, x)
     return x @ (w.to(x.dtype) if cast else w)
@@ -67,8 +88,11 @@ class _UnbindLayers(torch.autograd.Function):
         return stack_layers(full)
 
 
-def unbind_layers(t: torch.Tensor):
-    """The layers of a layer-stacked tensor as views (see _UnbindLayers)."""
+def unbind_layers(t):
+    """The layers of a layer-stacked tensor (or QuantTensor) as views (see
+    _UnbindLayers)."""
+    if isinstance(t, QuantTensor):
+        return t.unbind()
     if t.requires_grad:
         return _UnbindLayers.apply(t)
     return t.unbind(0)

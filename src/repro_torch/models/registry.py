@@ -10,11 +10,22 @@ Uniform signatures:
 * ``init_decode_state(cfg, batch, max_len, device="cuda") -> state``
 * ``prefill(cfg, params, req: PrefillRequest, state) -> (last_logits, state)``
 * ``decode_step(cfg, params, tokens, state, pos, ctx=None) -> (logits, state)``
+
+Optional paged-KV surface (None -> the family has no paged serve path and
+``PagedServeEngine`` refuses it):
+
+* ``init_paged_state(cfg, batch, num_pages, page_size, max_pages,
+  device="cuda") -> {"pages", "table"}`` (table width max_pages + 1, the
+  sentinel garbage column last)
+* ``paged_chunk_prefill(cfg, params, req, state, slot, start)
+  -> (logits, state)`` — one prompt chunk, one slot
+* ``paged_decode_step(cfg, params, tokens, state, pos, ctx=None)
+  -> (logits, state)`` — full-batch decode through the tables
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +37,9 @@ class FamilyOps:
     init_decode_state: Callable
     prefill: Callable
     decode_step: Callable
+    init_paged_state: Optional[Callable] = None
+    paged_decode_step: Optional[Callable] = None
+    paged_chunk_prefill: Optional[Callable] = None
 
 
 _FAMILIES: Dict[str, FamilyOps] = {}

@@ -1,11 +1,14 @@
 """Decoder-only language model (port of the decoder family of
 ``repro/models/transformer.py``): ``init_lm``, ``forward``, ``lm_loss``,
-``init_decode_state``, ``decode_step``, ``prefill``.
+``init_decode_state``, ``decode_step``, ``prefill``, and the paged serve
+path ``init_paged_state``, ``paged_decode_step``, ``paged_chunk_prefill``.
 
 Layer weights stay stacked (L, d_in, d_out) as in the JAX tree; the JAX
 ``lax.scan`` over layers is a Python loop over slices of the stacked
-tensors. The KV cache is {"kv": {"k", "v": (L, B, S, K, D)}} and is updated
-in place. ``cfg.remat`` applies to ``forward`` under autograd: "full"
+tensors (a quantized weight is a ``QuantTensor`` whose codes and per-layer
+scales slice together). The KV cache is {"kv": {"k", "v": (L, B, S, K, D)}},
+the paged state {"pages": {"k", "v": (L, P, page, K, D)}, "table": (B,
+max_pages + 1) int32}; both are updated in place. ``cfg.remat`` applies to ``forward`` under autograd: "full"
 recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint`` per scanned layer), "none" keeps every activation.
 """
@@ -21,7 +24,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.peft import AdapterContext, PrefillRequest
 from repro_torch.device import DeviceLike, resolve_device
 from . import registry
-from .attention import attention_block, init_attention, init_cache
+from .attention import (attention_block, init_attention, init_cache,
+                        init_paged_kv, paged_attention_block,
+                        paged_prefill_chunk_block)
 from .layers import (apply_mlp, cross_entropy, embed_init, init_stacked_mlp,
                      qlinear, rms_norm, softcap, stacked_dense_init,
                      unbind_layers)
@@ -55,7 +60,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
 
 
 def _slice(tree: Any, i: int) -> Any:
-    """Layer i of a layer-stacked tree (views, no copies)."""
+    """Layer i of a layer-stacked tree (views, no copies; a QuantTensor
+    slices its codes and scales)."""
     if isinstance(tree, dict):
         return {k: _slice(v, i) for k, v in tree.items()}
     return tree[i]
@@ -189,6 +195,88 @@ def prefill(cfg: ModelConfig, params, req: PrefillRequest, state):
     return _unembed(cfg, params, _gather_last(h, req.last_idx)), state
 
 
+# ---------------------------------------------------------------------------
+# serving: paged KV cache + chunked prefill
+# ---------------------------------------------------------------------------
+
+def _paged_decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, pages, table,
+                         pos, rot_attn=None, rot_mlp=None) -> torch.Tensor:
+    """Decoder layer body with the KV write / read routed through a page
+    table (decode step: full batch, one token per row)."""
+    a, _ = paged_attention_block(
+        lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
+        pages=pages, table=table, pos=pos, rot=rot_attn)
+    h = h + a
+    m = apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
+                  cfg.mlp_type, rot=rot_mlp)
+    return h + m
+
+
+def init_paged_state(cfg: ModelConfig, batch: int, num_pages: int,
+                     page_size: int, max_pages: int,
+                     device: DeviceLike = "cuda"):
+    """Paged decode state: per-layer page pools plus one int32 page table
+    per slot. The table has ``max_pages + 1`` columns — the extra SENTINEL
+    column always holds the garbage page 0, so a parked row
+    (pos == max_pages * page_size) writes into garbage."""
+    dev = resolve_device(device)
+    pools = init_paged_kv(cfg, num_pages, page_size, dev)
+    pages = {k: v[None].repeat((cfg.num_layers,) + (1,) * v.dim())
+             for k, v in pools.items()}
+    table = torch.zeros((batch, max_pages + 1), dtype=torch.int32, device=dev)
+    return {"pages": pages, "table": table}
+
+
+def _layer_rotators(ctx: Optional[AdapterContext], i: int):
+    bl_tree = ctx.group("layers") if ctx is not None else None
+    if bl_tree is None:
+        return None, None
+    bl = _slice(bl_tree, i)
+    return ctx.rotator(bl.get("attn")), ctx.rotator(bl.get("mlp"))
+
+
+def paged_decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,
+                      pos, ctx: Optional[AdapterContext] = None):
+    """One token for the whole batch through per-slot page tables.
+
+    tokens: (B, 1); pos: (B,) per-slot write positions (parked rows carry
+    max_pages * page_size); state: {"pages", "table"} from
+    ``init_paged_state``, whose pages are written in place (host code owns
+    table edits at admission / finish). Returns (logits, state)."""
+    h = _embed(cfg, params, tokens)
+    table = state["table"]
+    for i in range(cfg.num_layers):
+        rot_attn, rot_mlp = _layer_rotators(ctx, i)
+        h = _paged_decoder_layer(cfg, _slice(params["layers"], i), h,
+                                 _slice(state["pages"], i), table, pos,
+                                 rot_attn, rot_mlp)
+    return _unembed(cfg, params, h), state
+
+
+def paged_chunk_prefill(cfg: ModelConfig, params, req: PrefillRequest, state,
+                        slot: int, start: int):
+    """One prompt CHUNK for one slot through the paged cache.
+
+    req.batch["tokens"]: (1, C) with C the fixed chunk width; req.last_idx:
+    local index of the chunk's last valid token (only meaningful on the
+    final chunk, whose logits seed the first generated token). Earlier
+    chunks and shared-prefix pages already occupy positions [0, start).
+    Returns (logits, state)."""
+    h = _embed(cfg, params, req.batch["tokens"])
+    table_row = state["table"][int(slot)]
+    for i in range(cfg.num_layers):
+        rot_attn, rot_mlp = _layer_rotators(req.ctx, i)
+        lp = _slice(params["layers"], i)
+        a, _ = paged_prefill_chunk_block(
+            lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
+            pages=_slice(state["pages"], i), table_row=table_row,
+            start=start, rot=rot_attn)
+        h = h + a
+        h = h + apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
+                          cfg.mlp_type, rot=rot_mlp)
+    return _unembed(cfg, params, _gather_last(h, req.last_idx)), state
+
+
 registry.register(registry.FamilyOps(
     family="decoder",
     init_params=init_lm,
@@ -197,4 +285,7 @@ registry.register(registry.FamilyOps(
     init_decode_state=init_decode_state,
     prefill=prefill,
     decode_step=decode_step,
+    init_paged_state=init_paged_state,
+    paged_decode_step=paged_decode_step,
+    paged_chunk_prefill=paged_chunk_prefill,
 ))

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine (port of ``ServeEngine`` from
-``repro/serve/engine.py``).
+"""Continuous-batching serving engines (port of ``ServeEngine`` and
+``PagedServeEngine`` from ``repro/serve/engine.py``).
 
 ``ServeEngine`` schedules requests over ``max_batch`` persistent decode
 slots of one ``ModelRuntime``:
@@ -11,7 +11,12 @@ slots of one ``ModelRuntime``:
     bucket) and copies the fresh state into the slot;
   * with an ``AdapterBank`` on the runtime, row i rotates its activations
     with its own adapter x Q_i before every adapted projection (the
-    ``gs_fused_T`` kernel on the card); slot 0 is the identity.
+    ``gs_fused_T`` kernel on the card; over int8 weights the fused
+    ``gs_q_matmul`` kernel); slot 0 is the identity.
+
+``PagedServeEngine`` keeps the KV cache in fixed-size pages of one shared
+pool (``serve/kv.py``), prefills prompts in fixed-width chunks one per tick,
+and shares full prompt pages between requests of one adapter.
 
 Counters are held on the engine (``EngineMetrics``) until the metrics plane
 is ported; there is no tracer yet.
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.core.peft import PrefillRequest
 from repro_torch.core.runtime import ModelRuntime
+from .kv import KVPagePool, SlotPages, pages_for_budget
 
 
 @dataclasses.dataclass
@@ -104,9 +110,7 @@ class ServeEngine:
         self.max_len = max_len
         self.eos_id = eos_id
 
-        self._slot_prefill = runtime.slot_prefill_fn(max_len)
-        self._decode = runtime.decode_fn()
-        self._state = runtime.decode_state(max_batch, max_len)
+        self._setup_compute()
 
         self._pos = np.zeros(max_batch, np.int64)
         self._last = np.zeros(max_batch, np.int64)
@@ -121,6 +125,12 @@ class ServeEngine:
         self.stats = EngineMetrics()
         self._ctx_key: Any = None
         self._ctx_val = None
+
+    def _setup_compute(self) -> None:
+        """Step closures + device state (the paged engine overrides it)."""
+        self._slot_prefill = self.rt.slot_prefill_fn(self.max_len)
+        self._decode = self.rt.decode_fn()
+        self._state = self.rt.decode_state(self.max_batch, self.max_len)
 
     # -- submission -----------------------------------------------------------
     def add_request(self, prompt: List[int], max_new_tokens: int = 16,
@@ -202,18 +212,28 @@ class ServeEngine:
             self._ctx_key = key
         return self._ctx_val
 
-    def _decode_tick(self) -> None:
-        """One decode step over the full slot array."""
+    def _row_active(self, slot: int) -> bool:
+        """Is this slot decoding? (The paged engine parks slots that are
+        still mid chunked prefill.)"""
+        return self._slot_req[slot] is not None
+
+    def _decode_launch(self) -> torch.Tensor:
+        """Launch one decode step over the full slot array; returns the
+        next-token tensor without reading it on the host."""
         tokens = torch.as_tensor(self._last[:, None], device=self.device)
         pos = torch.as_tensor(self._pos, device=self.device)
         nt, _, self._state = self._decode(self.rt.params, self._context(),
                                           tokens, self._state, pos)
         self.stats.inc("decode_steps")
+        return nt
+
+    def _decode_commit(self, nt: torch.Tensor) -> None:
+        """Read the step's tokens and advance every decoding slot."""
         vals = nt[:, 0].cpu().numpy()
         for slot in range(self.max_batch):
-            req = self._slot_req[slot]
-            if req is None:
+            if not self._row_active(slot):
                 continue
+            req = self._slot_req[slot]
             tok = int(vals[slot])
             self._outs[slot].append(tok)
             self._pos[slot] += 1
@@ -221,13 +241,25 @@ class ServeEngine:
             if tok == self.eos_id or len(self._outs[slot]) >= req.max_new_tokens:
                 self._finish(slot)
 
+    def step_launch(self) -> Optional[torch.Tensor]:
+        """First half of a tick: admit into free slots, launch the decode
+        step; returns the pending tokens (None when no slot decodes)."""
+        self._admit()
+        if self.num_active:
+            return self._decode_launch()
+        return None
+
+    def step_commit(self, pending: Optional[torch.Tensor]) -> bool:
+        """Second half of a tick: read and book the launched step. Returns
+        True while work remains queued or in flight."""
+        if pending is not None:
+            self._decode_commit(pending)
+        return not self.idle
+
     def step(self) -> bool:
         """One scheduler tick: admit into free slots, then one decode step
         over all slots. Returns True while work remains."""
-        self._admit()
-        if self.num_active:
-            self._decode_tick()
-        return not self.idle
+        return self.step_commit(self.step_launch())
 
     def run(self) -> Dict[int, List[int]]:
         """Drain the queue to completion; returns {rid: tokens}."""
@@ -237,3 +269,168 @@ class ServeEngine:
         self.stats.add_wall(time.perf_counter() - t0)
         res, self._results = self._results, {}
         return res
+
+
+@dataclasses.dataclass
+class _PrefillPlan:
+    """One admitted request's remaining chunked-prefill work."""
+    slot: int
+    req: Request
+    sp: SlotPages
+    next_start: int          # absolute position of the next chunk's 1st token
+
+
+class PagedServeEngine(ServeEngine):
+    """Continuous batching over a PAGED KV cache with chunked prefill.
+
+    Against the contiguous parent:
+
+      * memory: slots own fixed-size pages of one static pool (sized by
+        ``hbm_kv_budget`` bytes or ``num_pages``) through per-slot int32
+        page tables, so a short request pays ceil(len / page_size) pages,
+        not ``max_len`` rows; an exhausted pool STALLS admission;
+      * admission: prompts prefill ``prefill_chunk`` tokens per scheduler
+        tick, interleaved with decode, so a long prompt delays the decoding
+        slots by one chunk per tick;
+      * shared prefixes: full prompt pages are content-hashed (seeded by the
+        adapter name) and refcount-shared, and a request's prefill skips
+        the cached tokens (``kv_stats()["prefix_hits"]``).
+
+    Greedy tokens equal ``ServeEngine``'s; decode attention runs the paged
+    decode kernel on the card. Decoder-family runtimes only.
+    """
+
+    def __init__(self, runtime: ModelRuntime, *, max_batch: int = 8,
+                 max_len: int = 256, eos_id: int = 0, page_size: int = 8,
+                 prefill_chunk: int = 16, num_pages: Optional[int] = None,
+                 hbm_kv_budget: Optional[int] = None):
+        if runtime._ops.init_paged_state is None:
+            raise ValueError(
+                f"family {runtime.cfg.family!r} has no paged KV serve path "
+                "— use the contiguous ServeEngine")
+        if page_size < 1 or prefill_chunk < 1:
+            raise ValueError("page_size and prefill_chunk must be >= 1")
+        self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        self.max_pages = -(-max_len // page_size)
+        self._parked = self.max_pages * page_size   # sentinel write position
+        if num_pages is None:
+            if hbm_kv_budget is not None:
+                num_pages = pages_for_budget(runtime.cfg, page_size,
+                                             hbm_kv_budget)
+            else:                       # stall-free default: worst case + 1
+                num_pages = max_batch * self.max_pages + 1
+        self.num_pages = num_pages
+        super().__init__(runtime, max_batch=max_batch, max_len=max_len,
+                         eos_id=eos_id)
+        self._pos[:] = self._parked
+        self._decoding = np.zeros(max_batch, bool)
+        self._slot_pages: List[Optional[SlotPages]] = [None] * max_batch
+        self._prefill_q: "collections.deque[_PrefillPlan]" = \
+            collections.deque()
+
+    def _setup_compute(self) -> None:
+        self._decode = self.rt.paged_decode_fn()
+        self._chunk_prefill = self.rt.chunk_prefill_fn()
+        self.pool = KVPagePool(self.num_pages, self.page_size)
+        self._state = self.rt.paged_state(self.max_batch, self.num_pages,
+                                          self.page_size, self.max_pages)
+
+    # -- scheduling -----------------------------------------------------------
+    def _row_active(self, slot: int) -> bool:
+        return bool(self._decoding[slot])
+
+    def _set_table_row(self, slot: int, row: np.ndarray) -> None:
+        self._state["table"][slot] = torch.as_tensor(row, device=self.device)
+
+    def _admit(self) -> None:
+        """Claim a slot, the adapter and KV pages per queued request; the
+        prompt itself is fed later, one chunk per tick. Either resource
+        exhausted -> stall (stop admitting, keep decoding)."""
+        for slot in range(self.max_batch):
+            if not self._queue:
+                return
+            if self._slot_req[slot] is not None:
+                continue
+            req = self._queue[0]
+            aid = self.rt.acquire_adapter(req.adapter)
+            if aid is None:
+                self.stats.inc("admission_stalls")
+                return
+            sp = self.pool.admit(req.adapter, req.prompt, req.max_new_tokens)
+            if sp is None:                        # KV stall, not an error
+                self.rt.release_adapter(req.adapter)
+                self.stats.inc("admission_stalls")
+                return
+            self._queue.popleft()
+            self._set_table_row(slot, self.pool.table_row(
+                sp, self.max_pages + 1))
+            self._slot_req[slot] = req
+            self._slot_ids[slot] = aid
+            self._slot_pages[slot] = sp
+            self._outs[slot] = []
+            self._decoding[slot] = False
+            self._pos[slot] = self._parked        # writes park in garbage
+            self._prefill_q.append(_PrefillPlan(slot, req, sp,
+                                                next_start=sp.n_cached))
+
+    def _feed_one_chunk(self) -> None:
+        """Advance the HEAD prefill plan by one fixed-width chunk. The last
+        chunk yields the request's first token and flips the slot to
+        decoding; cached-prefix tokens are never fed."""
+        if not self._prefill_q:
+            return
+        plan = self._prefill_q[0]
+        req, slot = plan.req, plan.slot
+        plen = len(req.prompt)
+        start = plan.next_start
+        end = min(start + self.prefill_chunk, plen)
+        toks = np.zeros((1, self.prefill_chunk), np.int64)
+        toks[0, :end - start] = req.prompt[start:end]
+        final = end == plen
+        last_local = (plen - 1) - start if final else end - start - 1
+        feed = PrefillRequest(
+            batch={"tokens": torch.as_tensor(toks, device=self.device)},
+            last_idx=torch.as_tensor(last_local, device=self.device),
+            ctx=self.rt.context([self._slot_ids[slot]]))
+        first, self._state = self._chunk_prefill(self.rt.params, feed,
+                                                 self._state, slot, start)
+        plan.next_start = end
+        if not final:
+            return
+        self._prefill_q.popleft()
+        self.pool.register(plan.sp)               # publish full prompt pages
+        first = int(first)
+        req.t_first = time.perf_counter()
+        self.stats.inc("prefills")
+        self.stats.log_admission(req.rid)
+        self._outs[slot] = [first]
+        self._pos[slot] = plen
+        self._last[slot] = first
+        self._decoding[slot] = True
+        if first == self.eos_id or req.max_new_tokens <= 1:
+            self._finish(slot)
+
+    def _finish(self, slot: int) -> None:
+        sp = self._slot_pages[slot]
+        super()._finish(slot)
+        self._slot_pages[slot] = None
+        self._decoding[slot] = False
+        self._pos[slot] = self._parked
+        self._last[slot] = 0
+        self._set_table_row(slot, np.zeros(self.max_pages + 1, np.int32))
+        self.pool.finish(sp)
+
+    def step_launch(self) -> Optional[torch.Tensor]:
+        """One tick's launch half: admit, feed ONE prompt chunk, launch one
+        decode step over the decoding slots."""
+        self._admit()
+        self._feed_one_chunk()
+        if self._decoding.any():
+            return self._decode_launch()
+        return None
+
+    def kv_stats(self) -> Dict[str, int]:
+        """Page-pool counters (allocs, prefix hits, KV stalls, cache
+        evictions, pages in use)."""
+        return self.pool.stats()

@@ -171,3 +171,44 @@ def build_slot_prefill_step(cfg: ModelConfig, *, max_len: int,
         return first, state
 
     return slot_prefill
+
+
+def build_paged_decode_step(cfg: ModelConfig):
+    """One decode token for the whole batch through per-slot PAGE TABLES.
+    Same call shape as ``build_decode_step`` — params, ctx, tokens (B, 1),
+    state {"pages", "table"}, pos (B,) — so the paged engine drops in next
+    to the contiguous one. Parked rows (pos at the sentinel position) write
+    into the garbage page; their sampled token is ignored by the engine."""
+    fam = api.family_ops(cfg)
+    if fam.paged_decode_step is None:
+        raise ValueError(f"family {cfg.family!r} has no paged decode path")
+
+    @torch.inference_mode()
+    def serve_step(params, ctx, tokens, state, pos):
+        logits, state = fam.paged_decode_step(cfg, params, tokens, state, pos,
+                                              ctx=ctx)
+        next_tok = torch.argmax(logits[:, -1], dim=-1)
+        return next_tok[:, None], logits, state
+
+    return serve_step
+
+
+def build_chunk_prefill_step(cfg: ModelConfig):
+    """Chunked-prefill admission unit: ONE fixed-width prompt chunk for ONE
+    slot, written through that slot's page table.
+    step(params, req, state, slot, start) -> (first_token, state), the
+    token a 0-d device tensor (read it only on the final chunk, where
+    req.last_idx marks the prompt's last valid token; the earlier chunks
+    then cost no host sync)."""
+    fam = api.family_ops(cfg)
+    if fam.paged_chunk_prefill is None:
+        raise ValueError(f"family {cfg.family!r} has no chunked-prefill path")
+
+    @torch.inference_mode()
+    def chunk_step(params, req: peft_lib.PrefillRequest, state, slot: int,
+                   start: int):
+        logits, state = fam.paged_chunk_prefill(cfg, params, req, state,
+                                                slot, start)
+        return torch.argmax(logits[0, -1]), state
+
+    return chunk_step

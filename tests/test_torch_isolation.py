@@ -24,7 +24,10 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.kernels.dispatch, "
             "repro_torch.train.loop, repro_torch.launch.train, "
-            "repro_torch.optim, repro_torch.data, repro_torch.runtime; "
+            "repro_torch.optim, repro_torch.data, repro_torch.runtime, "
+            "repro_torch.quant, repro_torch.serve.kv, "
+            "repro_torch.launch.serve, repro_torch.kernels.q_matmul, "
+            "repro_torch.kernels.paged_attention; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
@@ -68,3 +71,17 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
                    loop.LoopConfig(steps=1), log_fn=lambda s: None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_train.main(["--arch", "qwen2-72b", "--smoke", "--steps", "1"])
+
+
+def test_serving_entry_points_raise_without_a_card(monkeypatch):
+    """The serve launcher and the runtime default to the card too."""
+    import torch
+    from repro_torch.config import get_smoke_config
+    from repro_torch.core.runtime import ModelRuntime
+    from repro_torch.launch import serve as launch_serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", "qwen2-72b", "--smoke", "--engine",
+                           "paged", "--quantize", "int8"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRuntime(get_smoke_config("qwen2-72b"))

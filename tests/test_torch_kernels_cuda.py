@@ -423,3 +423,180 @@ def test_bdmm_cpu_tensors_take_the_plain_version_without_counting():
         bk.bdmm(x, blocks.double())
     with pytest.raises(ValueError, match="expected dy"):
         bk.bdmm_dblocks(dy[:, :2], x, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# quantized matmuls and paged decode attention
+# ---------------------------------------------------------------------------
+
+from repro_torch import quant  # noqa: E402
+from repro_torch.kernels import paged_attention as pak  # noqa: E402
+from repro_torch.kernels import q_matmul as qmk  # noqa: E402
+
+# q_matmul f32: fp32 sums in another order (allclose atol = rtol, as the JAX
+# test); bf16: both round y once from near-equal fp32 sums, one bf16 ulp
+QMM_F32_TOL = 1e-4
+QMM_BF16_REL = 2.0 ** -7
+# gs_q_matmul bf16: the kernel keeps the rotation's intermediate in fp32,
+# the plain version rounds it to bf16, and the rotated slab's bf16 rounding
+# can then differ by one ulp before the int8 product
+GSQ_BF16_REL = 2.0 ** -6
+GSQ_F32_REL = 1e-4
+# paged decode: f32 as tests/test_kv.py; bf16 against the plain version's
+# single fp32 softmax, which rounds neither q * scale nor p
+PAGED_F32_TOL = 2e-5
+PAGED_BF16_REL = 2.0 ** -6
+
+# (M, K, N): decode rows T = 1 and 3 (K split over CTAs at N = 1024), one
+# prefill chunk T = 16 at the MLP width, ragged N (byte loads), token tiles
+QMM_CASES = [(1, 8192, 1024), (3, 8192, 8192), (16, 29568, 1024),
+             (4, 64, 40), (16, 8192, 1000), (2, 100, 130), (33, 48, 96),
+             (250, 24, 40), (8, 256, 512)]
+# (B, T, r, b, N): decode at d = 8192 and d = 29568, a prefill chunk with
+# ragged N, tiny and odd shapes (N not a multiple of 4)
+GSQ_CASES = [(4, 1, 256, 32, 1024), (1, 16, 256, 32, 1000),
+             (4, 1, 924, 32, 8192), (2, 3, 6, 4, 40), (3, 5, 3, 16, 24),
+             (1, 9, 2, 32, 130)]
+# (B, H, K, D, page, pages in the pool, table width W)
+PAGED_CASES = [(4, 64, 8, 128, 8, 40, 18), (4, 64, 8, 128, 16, 24, 9),
+               (3, 4, 2, 16, 8, 11, 5), (2, 6, 3, 32, 16, 7, 3)]
+
+
+def _codes(rng, k, n):
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    return quant.quantize_int8(torch.from_numpy(w), axis=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QMM_CASES, ids=lambda c: "M%d-K%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q_matmul_kernel_matches_plain(cuda, case, dtype):
+    m, k, n = case
+    rng = np.random.default_rng(m * 31 + n)
+    q, s = _codes(rng, k, n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                         / np.sqrt(k))
+    x, q, s = x.to(cuda, dtype), q.to(cuda), s.to(cuda)
+    before = qmk.q_matmul.launches
+    y = qmk.q_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert qmk.q_matmul.launches == before + 1
+    want = qmk.q_matmul_plain(x, q, s)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=QMM_F32_TOL,
+                                   rtol=QMM_F32_TOL)
+    else:
+        err = (y.float() - want.float()).abs().max().item()
+        assert err <= QMM_BF16_REL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GSQ_CASES,
+                         ids=lambda c: "B%d-T%d-r%d-b%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gs_q_matmul_kernel_matches_plain(cuda, case, dtype):
+    bsz, t, r, b, n = case
+    rng = np.random.default_rng(bsz * 100 + t * 10 + r + n)
+    q, s = _codes(rng, r * b, n)
+    L, R = _factors(rng, bsz, r, b), _factors(rng, bsz, r, b)
+    x = torch.from_numpy(rng.normal(size=(bsz, t, r * b)).astype(np.float32)
+                         / np.sqrt(r * b))
+    x, L, R = (a.to(cuda, dtype) for a in (x, L, R))
+    q, s = q.to(cuda), s.to(cuda)
+    before = qmk.gs_q_matmul.launches
+    y = qmk.gs_q_matmul(x, L, R, q, s)
+    torch.cuda.synchronize()
+    assert qmk.gs_q_matmul.launches == before + 1
+    want = qmk.gs_q_matmul_plain(x, L, R, q, s)
+    assert y.shape == (bsz, t, n) and torch.isfinite(y.float()).all()
+    rel = GSQ_F32_REL if dtype == torch.float32 else GSQ_BF16_REL
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= rel * max(1.0, want.float().abs().max().item())
+
+
+def _paged_inputs(rng, case, device, dtype):
+    bsz, h, kh, d, page, npages, w = case
+    q = torch.from_numpy(rng.normal(size=(bsz, h, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.normal(size=(npages, page, kh, d))
+                               .astype(np.float32)) for _ in range(2))
+    table = torch.from_numpy(rng.integers(1, npages, size=(bsz, w))
+                             .astype(np.int32))
+    # one row at one token, one mid-page, one full table, and a parked row
+    # whose kv_len runs past W * page (no page past column W - 1 is read)
+    lens = [1, page + 3, w * page, w * page + 1][:bsz]
+    kv_len = torch.tensor(lens + [2] * (bsz - len(lens)), dtype=torch.int32)
+    return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
+            table.to(device), kv_len.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=lambda c: "B%d-H%d-K%d-D%d-page%d-P%d-W%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_decode_kernel_matches_plain(cuda, case, dtype):
+    rng = np.random.default_rng(sum(case))
+    args = _paged_inputs(rng, case, cuda, dtype)
+    before = pak.paged_decode.launches
+    out = pak.paged_decode(*args)
+    torch.cuda.synchronize()
+    assert pak.paged_decode.launches == before + 1
+    want = pak.paged_decode_plain(*args)
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= PAGED_F32_TOL * max(1.0, want.abs().max().item())
+    else:
+        assert err <= PAGED_BF16_REL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_paged_decode_reads_no_page_past_the_table(cuda):
+    """A parked row's table holds only the garbage page: poisoning every
+    other page must not change its output."""
+    rng = np.random.default_rng(11)
+    q, kp, vp, table, kv_len = _paged_inputs(rng, (2, 4, 2, 16, 8, 6, 3),
+                                             cuda, torch.float32)
+    table[1] = 0
+    kv_len[1] = 3 * 8 + 1
+    first = pak.paged_decode(q, kp, vp, table, kv_len)
+    kp[1:] = float("nan")
+    vp[1:] = float("nan")
+    again = pak.paged_decode(q, kp, vp, table, kv_len)
+    assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+def test_quantized_and_paged_kernels_refuse_gradients(cuda):
+    x = torch.zeros((2, 8), device=cuda, requires_grad=True)
+    q = torch.zeros((8, 4), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="inference only"):
+        qmk.q_matmul(x, q, torch.ones(4, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        qmk.q_matmul(torch.zeros((8, 2), device=cuda).t(), q, 1.0)
+    with pytest.raises(RuntimeError, match="inference only"):
+        pak.paged_decode(torch.zeros((1, 2, 4), device=cuda,
+                                     requires_grad=True),
+                         torch.zeros((2, 8, 1, 4), device=cuda),
+                         torch.zeros((2, 8, 1, 4), device=cuda),
+                         torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+                         torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+def test_quantized_and_paged_cpu_tensors_take_the_plain_versions():
+    rng = np.random.default_rng(2)
+    q, s = _codes(rng, 32, 24)
+    x = torch.from_numpy(rng.normal(size=(3, 32)).astype(np.float32))
+    L, R = _factors(rng, 1, 4, 8), _factors(rng, 1, 4, 8)
+    before = (qmk.q_matmul.launches, qmk.gs_q_matmul.launches,
+              pak.paged_decode.launches)
+    assert torch.equal(qmk.q_matmul(x, q, s), qmk.q_matmul_plain(x, q, s))
+    assert torch.equal(qmk.gs_q_matmul(x[None], L, R, q, s),
+                       qmk.gs_q_matmul_plain(x[None], L, R, q, s))
+    args = _paged_inputs(rng, (2, 4, 2, 16, 8, 6, 3), "cpu", torch.float32)
+    assert torch.equal(pak.paged_decode(*args), pak.paged_decode_plain(*args))
+    assert (qmk.q_matmul.launches, qmk.gs_q_matmul.launches,
+            pak.paged_decode.launches) == before
