@@ -29,6 +29,17 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    through page-8 and page-16 tables (one ragged case with a parked row),
    bf16 and f32, against their plain versions, with times, bounds and
    library yardsticks
+3e. SSD scan — ``ssd`` at zamba2's heads (80, P = N = 64) and mamba2-130m's
+   (24, N = 128) at every prefill bucket, T = 2048 (the carried state),
+   T = 1000 (no multiple of any power-of-two chunk), batch 1 and 4, bf16
+   and f32, against its plain version, with times and bounds (no library
+   call computes the scan)
+3f. flash attention — through ``ops.flash_mha`` at qwen2-72b's heads (64 /
+   8, D 128) and zamba2's (32 / 32, D 80), S of 128, 512 and 2048, causal
+   and not, a ragged causal S of 1000, bf16 and f32, against its plain
+   version with times, bounds and SDPA as the yardstick; a non-causal
+   ragged Sk must raise; then the entry point driven once per model's heads
+   (flash attention's path: it lies on no model path)
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
    the ``gs_fused_T`` kernel must have run
@@ -62,13 +73,25 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    launcher (``launch/train.py --peft``); one step each of householder,
    givens and lora at 2 layers (finite loss, no GS or bdmm launch)
 10. OFT / BOFT gradients — as phase 8, f32 at 2 layers
-11. mixed serve — full width, 8 layers, bf16: one bank holding gsoft, oft,
+11. mixed serve — full width, 4 layers, bf16: one bank holding gsoft, oft,
    boft, householder and givens tenants (``attach`` with a
    ``{name: PEFTConfig}`` mapping), 12 requests on 4 slots, median rate of
    3 runs and a profile; then f32 at 2 layers: every tenant's tokens equal
    its solo offline-merged run, decode logits within tolerance, and the
    base slot equals the bankless model
-12. report — one JSON line of kernels, then the ``{"ok": true, ...}`` line
+13. hybrid serve — zamba2-2.7b at full width and full depth (54 layers),
+   bf16, random weights from the seed, the serve launcher's continuous lane:
+   8 requests (prompts of 16-128 tokens, 16 new tokens) on 4 slots of
+   ``ServeEngine``; ``ssd`` must launch once per Mamba layer per prefill and
+   no other kernel of the port may; median rate of 3 runs, params bytes,
+   peak memory, a profile; then the launcher itself (``--arch
+   zamba2-2.7b``) serves 8 requests
+13b. SSM checks, f32, TF32 off — mamba2-130m at its full config, T = 512:
+   the card's forward against the CPU's (plain versions, same params) and
+   against token-by-token decode (the state-space duality); zamba2-2.7b at
+   full width and 12 layers, T = 320: the duality; both: the first served
+   token equals the forward's argmax; gaps within 1e-3 of max|logit|
+14. report — one JSON line of kernels, then the ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
 """
@@ -99,10 +122,15 @@ from repro_torch.core.runtime import ModelRuntime  # noqa: E402
 from repro_torch.data import DataConfig, LMDataSource  # noqa: E402
 from repro_torch.kernels import bdmm as bk  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import gs_fused as gk  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pak  # noqa: E402
 from repro_torch.kernels import q_matmul as qmk  # noqa: E402
+from repro_torch.kernels import ssd as ssdk  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 from repro_torch.quant import quantize_int8, tree_bytes  # noqa: E402
 from repro_torch.serve.engine import (PagedServeEngine, ServeEngine,  # noqa: E402
                                       prompt_bucket)
@@ -114,6 +142,9 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense bf16 tensor-core rate
               torch.float32: 67e12}     # fp32 outside the tensor cores
 SERVE_LAYERS = 8
+# the mixed-method serve's depth: 4 layers, not the other serve phases' 8,
+# keep the whole script near half its time limit
+MIXED_SERVE_LAYERS = 4
 SERVE_MAX_LEN = 256
 PROMPT_LENS = (16, 128)             # serve phase: prompt lengths drawn in this range
 CHECK_LAYERS = 2
@@ -169,6 +200,21 @@ PAGED_BF16_REL = 2.0 ** -6
 # tests/test_quant.py is about 5 % of max|logit| there; stated relative to
 # max|logit| here
 QUANT_LOGIT_REL = 0.1
+# ssd against its plain version, relative to max|ref| (tests/test_kernels.py:
+# f32 1e-4, bf16 5e-2): fp32 state math in both, sums in another order and
+# over another chunk (the kernel's 64 steps, the plain version's largest
+# divisor of T up to 256); bf16 y rounded once by both
+SSD_F32_REL = 1e-4
+SSD_BF16_REL = 5e-2
+# flash attention, allclose atol = rtol as tests/test_flash_attention.py:
+# f32 sums in another order; bf16 also p rounded to bf16 before p . v
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_TOL = 2e-2
+HYBRID_REQUESTS = 8
+SSM_CHECK_T = 512                   # mamba2-130m: two 256-step chunks
+HYBRID_CHECK_LAYERS = 12            # zamba2: two super-blocks of 6
+HYBRID_CHECK_T = 320
+SSM_LOGIT_REL = 1e-3                # f32 checks, relative to max|logit|
 
 KERNELS = {
     "gs_fused_T": dict(fn=gk.gs_fused_T, plain=gk.gs_fused_T_plain,
@@ -198,6 +244,13 @@ KERNELS = {
     "paged_decode": dict(fn=pak.paged_decode, plain=pak.paged_decode_plain,
                          replaces="src/repro/kernels/flash_attention.py:180",
                          source="src/repro_torch/kernels/csrc/paged_attn.cu"),
+    "ssd": dict(fn=ssdk.ssd, plain=ssdk.ssd_plain,
+                replaces="src/repro/kernels/ssd.py:67",
+                source="src/repro_torch/kernels/csrc/ssd.cu"),
+    "flash_attention": dict(fn=fak.flash_attention,
+                            plain=fak.flash_attention_plain,
+                            replaces="src/repro/kernels/flash_attention.py:77",
+                            source="src/repro_torch/kernels/csrc/flash_attn.cu"),
 }
 # kernel launches per adapted weight slice and train step, by method, as the
 # design predicts (m: BOFT's butterfly levels): materialization runs outside
@@ -223,8 +276,13 @@ GRAD_KERNELS = {
 }
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, prefixed with the seconds since the script
+    started (so a run's output shows where its time went)."""
+    print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -582,10 +640,11 @@ def _profile(run) -> dict:
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels) / 1e3
     # the port's kernels live in namespaces gs:: (GS and bdmm), qmm::
-    # (quantized matmuls) and pa:: (paged attention); sum them by function
+    # (quantized matmuls), pa:: (paged attention), ssd:: (the SSD scan) and
+    # fa:: (flash attention); sum them by function
     by_kernel = {}
     for k in kernels:
-        for ns in ("gs::", "qmm::", "pa::"):
+        for ns in ("gs::", "qmm::", "pa::", "ssd::", "fa::"):
             if ns in k["name"]:
                 fam = (k["name"].split(ns, 1)[1].split("<", 1)[0]
                        .split("(", 1)[0])
@@ -1470,6 +1529,344 @@ def paged_quant_check_phase(cfg, seed: int, device) -> dict:
                 allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
+# ---------------------------------------------------------------------------
+# phases 3e and 3f: the SSD scan and flash attention
+# ---------------------------------------------------------------------------
+
+def ssd_cases():
+    """(Nb, T, H, P, N): zamba2's heads (80, P = N = 64) and mamba2-130m's
+    (24, N = 128) at every prefill bucket the serve phase can take, plus
+    the 13b check's T = 512 for mamba2; zamba2's at T = 2048 (8 chunks of
+    256 for the plain version, 32 of the kernel's 64: the carried state),
+    batch 1 and 4; T = 1000 (JAX's kernel path halves its chunk to 8); batch
+    4 at the longest bucket."""
+    z = (80, 64, 64)
+    m = (24, 64, 128)
+    out = [(1, t) + z for t in prefill_buckets()]
+    out += [(1, t) + m for t in prefill_buckets() + [SSM_CHECK_T]]
+    out += [(1, 2048) + z, (4, 2048) + z, (1, 1000) + z,
+            (4, max(prefill_buckets())) + z]
+    return out
+
+
+def ssd_bound(nb, t, h, p, n, dtype) -> tuple:
+    """Bytes (x, loga, B, C read once, y written once) over the memory rate,
+    or the chunked algorithm's 2 Nb T H (Q N + Q P + 2 N P) operations at
+    the kernel's chunk Q over the fp32 rate (all state math is fp32)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * nb * t * h * p + nb * t * h + 2 * nb * t * h * n) * es
+    q = min(ssdk.CHUNK, t)
+    flops = 2 * nb * t * h * (q * n + q * p + 2 * n * p)
+    return _bytes_bound(nbytes, flops, torch.float32)
+
+
+def check_ssd_case(nb, t, h, p, n, dtype, gen, device) -> dict:
+    def mk(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    x = mk(nb, t, h, p)
+    loga = (-(torch.randn((nb, t, h), generator=gen, device=device).abs())
+            * 0.3).to(dtype)
+    B, C = mk(nb, t, h, n, scale=0.5), mk(nb, t, h, n, scale=0.5)
+    args = (x, loga, B, C)
+    y = ssdk.ssd(*args)
+    torch.cuda.synchronize()
+    want = ssdk.ssd_plain(*args)
+    err = (y.float() - want.float()).abs().max().item()
+    rel = SSD_F32_REL if dtype == torch.float32 else SSD_BF16_REL
+    tol = rel * want.float().abs().max().item()
+    if not _err_ok(err, tol):
+        raise AssertionError(f"ssd Nb={nb} T={t} H={h} P={p} N={n} {dtype}: "
+                             f"max|err| {err} > {tol}")
+    ms = time_ms(ssdk.ssd, [args])
+    plain_ms = time_ms(ssdk.ssd_plain, [args])
+    bound_ms, bound_by = ssd_bound(nb, t, h, p, n, dtype)
+    return dict(kernel="ssd", Nb=nb, T=t, H=h, P=p, N=n,
+                p_tile=ssdk.ssd_geometry(nb, h, p, gk._num_sms(device)),
+                chunk=ssdk.CHUNK, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=None,
+                library_what="none: no single PyTorch call computes the scan",
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def flash_cases(qwen, zamba):
+    """(name, B, H, KH, Sq, Sk, D, causal): qwen2-72b's heads (64 / 8, D
+    128, through ops.flash_mha's GQA) and zamba2's (32 / 32, D 80) at S of
+    128, 512 and 2048, causal and not, and a ragged causal Sq of 1000."""
+    out = []
+    for name, cfg in (("qwen2-72b", qwen), ("zamba2-2.7b", zamba)):
+        hd = (cfg.num_heads, cfg.num_kv_heads, cfg.d_head)
+        for s_len in (128, 512, 2048):
+            for causal in (True, False):
+                out.append((name, 1, *hd[:2], s_len, s_len, hd[2], causal))
+        out.append((name, 1, *hd[:2], 1000, 1000, hd[2], True))
+    return out
+
+
+def flash_bound(b, h, kh, sq, sk, d, causal, dtype) -> tuple:
+    """q, k, v read once and the output written once, or 4 B H Sq Sk D
+    operations (halved when causal) at the dtype's rate."""
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * kh * d) * es
+    flops = 4 * b * h * sq * sk * d // (2 if causal else 1)
+    return _bytes_bound(nbytes, flops, dtype)
+
+
+def check_flash_case(name, b, h, kh, sq, sk, d, causal, dtype, gen,
+                     device) -> dict:
+    """Through ``ops.flash_mha`` on (B, S, H, D) activations: the kernel
+    reads that layout in place and KV head h // (H / KH)."""
+    def mk(s_len, heads):
+        return torch.randn((b, s_len, heads, d), generator=gen,
+                           device=device).to(dtype)
+
+    q, k, v = mk(sq, h), mk(sk, kh), mk(sk, kh)
+    args = (q, k, v)
+    run = lambda qq, kk, vv: ops.flash_mha(qq, kk, vv, causal=causal)
+
+    def plain(qq, kk, vv):
+        return fak.flash_attention_plain(
+            qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            causal=causal).transpose(1, 2)
+
+    def lib(qq, kk, vv):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            is_causal=causal, enable_gqa=h != kh).transpose(1, 2)
+
+    out = run(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    err = (out.float() - want.float()).abs().max().item()
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    if not (torch.isfinite(out).all() and torch.allclose(
+            out.float(), want.float(), atol=tol, rtol=tol)):
+        raise AssertionError(f"flash_attention {name} S={sq} causal={causal} "
+                             f"{dtype}: max|err| {err} (atol = rtol = {tol})")
+    ms = time_ms(run, [args])
+    plain_ms = time_ms(plain, [args])
+    lib_ms = time_ms(lib, [args])
+    lib_err = (lib(*args).float() - want.float()).abs().max().item()
+    bound_ms, bound_by = flash_bound(b, h, kh, sq, sk, d, causal, dtype)
+    return dict(kernel="flash_attention", heads=name, B=b, H=h, KH=kh, Sq=sq,
+                Sk=sk, D=d, causal=causal,
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_err=lib_err,
+                library_what="scaled_dot_product_attention",
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def flash_refusal(device) -> str:
+    """A non-causal Sk that is no multiple of the block raises ValueError,
+    as the JAX kernel does; returns the message."""
+    q = torch.zeros((1, 200, 2, 64), device=device)
+    try:
+        ops.flash_mha(q, q, q, causal=False)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("non-causal flash with Sk = 200, blk 128 did not "
+                         "raise")
+
+
+def flash_entry_phase(qwen, zamba, gen, device) -> dict:
+    """The public entry point ``ops.flash_mha`` driven once at each model's
+    heads (bf16, S = 512, causal): flash attention's path, with its launch
+    count read from just this run."""
+    work = []
+    for cfg in (qwen, zamba):
+        mk = lambda heads: torch.randn(
+            (1, 512, heads, cfg.d_head), generator=gen,
+            device=device).to(torch.bfloat16)
+        work.append((mk(cfg.num_heads), mk(cfg.num_kv_heads),
+                     mk(cfg.num_kv_heads)))
+    _reset_launches()
+    outs = [ops.flash_mha(*a, causal=True) for a in work]
+    torch.cuda.synchronize()
+    launches = _launches()
+    if launches["flash_attention"] != len(work) or any(
+            v for k, v in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"ops.flash_mha launches {launches}")
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("ops.flash_mha gave a non-finite value")
+    return dict(calls=len(work), launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 13b: the Mamba2 families
+# ---------------------------------------------------------------------------
+
+def hybrid_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
+    """The serve launcher's continuous lane for ``--arch zamba2-2.7b`` (a
+    bankless ``ModelRuntime`` from the seed, ``ServeEngine``) at full width
+    and depth: 8 requests (prompts of 16-128 tokens, 16 new tokens each) on
+    4 slots. The first run is the counted main-path run: one ssd launch
+    per Mamba layer per prefill, no other kernel of the port; ``repeats``
+    runs give the median rate; one more runs under the profiler."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = ModelRuntime(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params_bytes = tree_bytes(rt.params)
+    rng = np.random.default_rng(seed + 300)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                        size=HYBRID_REQUESTS)
+    work = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+            for n in lens]
+
+    def drive():
+        eng = ServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN, eos_id=-1)
+        for prompt in work:
+            eng.add_request(prompt, max_new_tokens=16)
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        return eng, results, time.perf_counter() - t0
+
+    warm = ServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN, eos_id=-1)
+    warm.add_request([1, 2, 3], max_new_tokens=2)
+    warm.run()
+    _reset_launches()
+    eng, results, wall = drive()
+    launches = _launches()
+    if len(results) != HYBRID_REQUESTS or any(len(v) != 16
+                                              for v in results.values()):
+        raise AssertionError(f"served {len(results)} of {HYBRID_REQUESTS} "
+                             f"requests: "
+                             f"{ {k: len(v) for k, v in results.items()} }")
+    if not all(0 <= t < cfg.padded_vocab() for v in results.values()
+               for t in v):
+        raise AssertionError("served a token outside the vocabulary")
+    want = cfg.num_layers * eng.stats["prefills"]
+    if launches["ssd"] != want or any(v for k, v in launches.items()
+                                      if k != "ssd"):
+        raise AssertionError(f"hybrid serving launched {launches}; the "
+                             f"design is ssd x {want} (one per Mamba layer "
+                             f"per prefill) and nothing else")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    walls = [wall]
+    for _ in range(repeats - 1):
+        _, again, w = drive()
+        if again != results:
+            raise AssertionError("a repeated hybrid run served other tokens")
+        walls.append(w)
+    toks = eng.stats["tokens_generated"]
+    wall_med = float(np.median(walls))
+    return dict(layers=cfg.num_layers, requests=len(results),
+                prompt_lens=[int(n) for n in lens], tokens=toks,
+                wall_s=walls, wall_median_s=wall_med, tok_s=toks / wall_med,
+                decode_steps=eng.stats["decode_steps"],
+                prefills=eng.stats["prefills"], setup_s=setup_s,
+                launches=launches, params_bytes=params_bytes,
+                peak_mem_gb=peak_gb, profile=_profile(drive))
+
+
+def hybrid_launcher_run(arch: str) -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch>`` on the card
+    (the continuous lane, 8 mixed-length requests): it must serve them all."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(["--arch", arch, "--requests", "8",
+                                "--prompt-len", "128", "--max-new", "16",
+                                "--mixed-lengths"])
+    text = buf.getvalue()
+    if rc != 0 or "[continuous] served 8 requests" not in text:
+        raise AssertionError(f"the serve launcher failed (rc {rc}):\n{text}")
+    return dict(rc=rc, wall_s=time.perf_counter() - t0,
+                report=text.strip().splitlines())
+
+
+def _decode_logits(cfg, rt, tokens, device) -> torch.Tensor:
+    """Token-by-token ``decode_step`` from the empty state: (1, T, Vp)."""
+    fam = api.family_ops(cfg)
+    state = fam.init_decode_state(cfg, 1, tokens.shape[1] + 1, device)
+    step = steps.build_decode_step(cfg)
+    out = []
+    for t in range(tokens.shape[1]):
+        _, lg, state = step(rt.params, None, tokens[:, t:t + 1], state,
+                            torch.as_tensor([t], device=device))
+        out.append(lg[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def _rel_gap(a, b) -> tuple:
+    scale = max(1.0, b.abs().max().item())
+    err = (a.float() - b.float()).abs().max().item()
+    return err, err / scale
+
+
+def ssm_check_phase(ssm_cfg, hybrid_cfg, seed: int, device) -> dict:
+    """f32, TF32 off. mamba2-130m at its full config, T = 512: the card's
+    forward (SSD kernel) against the same forward on the CPU (plain
+    versions, the same params) and against token-by-token decode on the
+    card (the state-space duality); zamba2-2.7b at full width and 12
+    layers, T = 320: the duality; both: the first token ``ServeEngine``
+    serves equals the forward's argmax at the prompt's last position. Gaps
+    relative to max|logit|, each within SSM_LOGIT_REL."""
+    out = {}
+    rng = np.random.default_rng(seed + 400)
+    for name, cfg, t_len in (("mamba2-130m", ssm_cfg, SSM_CHECK_T),
+                             ("zamba2-2.7b", hybrid_cfg, HYBRID_CHECK_T)):
+        rt = ModelRuntime(cfg, seed=seed, device=device)
+        toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, t_len)),
+                               device=device)
+        _reset_launches()
+        with torch.inference_mode():
+            full, _ = api.forward(cfg, rt.params, {"tokens": toks})
+        forward_ssd = _launches()["ssd"]
+        if forward_ssd != cfg.num_layers:
+            raise AssertionError(f"{name} forward launched ssd "
+                                 f"{forward_ssd} times, not {cfg.num_layers}")
+        res = dict(layers=cfg.num_layers, T=t_len, forward_ssd=forward_ssd,
+                   max_logit=full.abs().max().item())
+        if name == "mamba2-130m":
+            cpu = torch.device("cpu")
+            cpu_params = _to(rt.params, cpu)
+            with torch.inference_mode():
+                ref_logits, _ = api.forward(cfg, cpu_params,
+                                            {"tokens": toks.cpu()})
+            err, rel = _rel_gap(full.cpu(), ref_logits)
+            if not rel <= SSM_LOGIT_REL:
+                raise AssertionError(f"{name}: card forward vs CPU forward "
+                                     f"{rel:.3e} of max|logit|")
+            res.update(cpu_max_abs=err, cpu_rel=rel)
+            del cpu_params, ref_logits
+        t0 = time.perf_counter()
+        dec = _decode_logits(cfg, rt, toks, device)
+        torch.cuda.synchronize()
+        err, rel = _rel_gap(dec, full)
+        if not rel <= SSM_LOGIT_REL:
+            raise AssertionError(f"{name}: decode vs forward {rel:.3e} of "
+                                 f"max|logit| (duality)")
+        res.update(duality_max_abs=err, duality_rel=rel,
+                   decode_s=time.perf_counter() - t0)
+        plen = 100
+        eng = ServeEngine(rt, max_batch=2, max_len=SERVE_MAX_LEN, eos_id=-1)
+        rid = eng.add_request(toks[0, :plen].tolist(), max_new_tokens=2)
+        first = eng.run()[rid][0]
+        with torch.inference_mode():
+            head, _ = api.forward(cfg, rt.params, {"tokens": toks[:, :plen]})
+        want = int(torch.argmax(head[0, -1]))
+        if first != want:
+            raise AssertionError(f"{name}: served first token {first} != "
+                                 f"forward argmax {want}")
+        res.update(first_token=first)
+        out[name] = res
+        del rt, full, dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1611,6 +2008,41 @@ def main() -> int:
                     f"{c['library_ms']:.4f} bound {c['bound_ms']:.5f} "
                     f"({c['bound_by']})")
 
+    # 3e. the SSD scan against its plain version
+    zamba = get_config("zamba2-2.7b")
+    mamba = get_config("mamba2-130m")
+    ssd_run = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in ssd_cases():
+            c = check_ssd_case(*case, dtype, gen, device)
+            ssd_run.append(c)
+            log(f"kernel ssd Nb={c['Nb']} T={c['T']:4d} H={c['H']:2d} "
+                f"P={c['P']} N={c['N']:3d} tile={c['p_tile']} "
+                f"{c['dtype']:8s} err {c['max_abs_err']:.2e} (tol "
+                f"{c['tol']:.1e}) ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
+                f"lib none bound {c['bound_ms']:.5f} ({c['bound_by']})")
+        torch.cuda.empty_cache()
+
+    # 3f. flash attention against its plain version, through ops.flash_mha
+    flash_run = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in flash_cases(full, zamba):
+            c = check_flash_case(*case, dtype, gen, device)
+            flash_run.append(c)
+            log(f"kernel flash_attention {c['heads']:11s} H={c['H']}/"
+                f"{c['KH']} D={c['D']:3d} S={c['Sq']:4d} causal="
+                f"{int(c['causal'])} {c['dtype']:8s} err "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib (SDPA) "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+    refusal = flash_refusal(device)
+    log(f"flash_attention: non-causal Sk = 200 raises ValueError: {refusal}")
+    flash_entry = flash_entry_phase(full, zamba, gen, device)
+    log(f"flash_attention entry point ops.flash_mha: launches "
+        f"{ {k: v for k, v in flash_entry['launches'].items() if v} }")
+
     # 4. serve, bf16, full width, depth cut
     cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
     log(f"serve: qwen2-72b full width, depth cut 80 -> {SERVE_LAYERS} layers, "
@@ -1751,10 +2183,11 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 11. mixed-method serving, bf16, full width, depth cut; then f32 checks
-    log(f"mixed serve: qwen2-72b full width, {SERVE_LAYERS} layers, bf16, "
+    cfg_mixed = full.with_overrides(num_layers=MIXED_SERVE_LAYERS)
+    log(f"mixed serve: qwen2-72b full width, {MIXED_SERVE_LAYERS} layers, bf16, "
         f"tenants {list(mixed_cfgs())}")
     torch.cuda.reset_peak_memory_stats()
-    mserve = mixed_serve_phase(cfg8, args.seed, device)
+    mserve = mixed_serve_phase(cfg_mixed, args.seed, device)
     mprof = mserve["profile"]
     log(f"mixed serve: {mserve['requests']} requests, {mserve['tokens']} "
         f"tokens; wall {['%.3f' % w for w in mserve['wall_s']]} s, median "
@@ -1774,7 +2207,45 @@ def main() -> int:
         f"; {mcheck['distinct_tenant_tokens']} distinct token lists of 6")
     torch.cuda.empty_cache()
 
-    # 12. report
+    # 13. hybrid serve: zamba2-2.7b at full width and depth, bf16
+    log(f"hybrid serve: zamba2-2.7b full width, {zamba.num_layers} layers "
+        f"(no cut), bf16, seed {args.seed}, {HYBRID_REQUESTS} requests on 4 "
+        f"slots")
+    hserve = hybrid_serve_phase(zamba, args.seed, device)
+    hprof = hserve["profile"]
+    log(f"hybrid serve: {hserve['requests']} requests, {hserve['tokens']} "
+        f"tokens; wall {['%.3f' % w for w in hserve['wall_s']]} s, median "
+        f"{hserve['tok_s']:.1f} tok/s; {hserve['decode_steps']} decode "
+        f"steps, {hserve['prefills']} prefills; launches "
+        f"{ {k: v for k, v in hserve['launches'].items() if v} }; params "
+        f"{hserve['params_bytes'] / 1e9:.3f} GB; peak "
+        f"{hserve['peak_mem_gb']:.2f} GB; setup {hserve['setup_s']:.1f} s")
+    log(f"hybrid serve profile: wall {hprof['wall_s']:.3f} s, device busy "
+        f"{hprof['device_busy_s']:.3f} s (idle share {hprof['idle_share']}), "
+        f"port kernels {hprof['port_kernels_device_s']:.4f} s; top "
+        f"{[(k['name'][:40], round(k['device_ms'], 1), k['count']) for k in hprof['top'][:6]]}")
+    torch.cuda.empty_cache()
+    hlaunch = hybrid_launcher_run("zamba2-2.7b")
+    log(f"hybrid serve launcher: {hlaunch['report'][0]}")
+    torch.cuda.empty_cache()
+
+    # 13b. SSM checks, f32, TF32 off
+    ssm_cfg = mamba.with_overrides(dtype="f32", param_dtype="f32")
+    hyb_cfg = zamba.with_overrides(num_layers=HYBRID_CHECK_LAYERS,
+                                   dtype="f32", param_dtype="f32")
+    log(f"ssm check: mamba2-130m full config f32 T={SSM_CHECK_T}; "
+        f"zamba2-2.7b full width {HYBRID_CHECK_LAYERS} layers f32 "
+        f"T={HYBRID_CHECK_T}; TF32 off")
+    scheck = ssm_check_phase(ssm_cfg, hyb_cfg, args.seed, device)
+    for name, r in scheck.items():
+        extra = (f"card vs CPU forward {r['cpu_rel']:.2e} of max|logit|; "
+                 if "cpu_rel" in r else "")
+        log(f"ssm check {name}: {extra}decode vs forward (duality) "
+            f"{r['duality_rel']:.2e} of max|logit| {r['max_logit']:.2f} "
+            f"(tol {SSM_LOGIT_REL:.0e}); first served token {r['first_token']}"
+            f" == forward argmax; decode {r['decode_s']:.1f} s")
+
+    # 14. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
@@ -1855,6 +2326,29 @@ def main() -> int:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             library_what=c["library_what"], shape=key))
+    # the SSD scan: launches from the hybrid serve's main-path run (13), the
+    # case one zamba2 prefill gives it; flash attention: its entry point's
+    ssd_main = dict(Nb=1, T=max(prefill_buckets()), H=zamba.ssm_heads,
+                    dtype="float32")        # the model feeds the scan fp32
+    flash_main = dict(heads="zamba2-2.7b", Sq=512, causal=True,
+                      dtype="bfloat16")
+    for name, key, runs, n in (
+            ("ssd", ssd_main, ssd_run, hserve["launches"]["ssd"]),
+            ("flash_attention", flash_main, flash_run,
+             flash_entry["launches"]["flash_attention"])):
+        c = next(x for x in runs if all(x[k] == v for k, v in key.items()))
+        extra = {f"max_abs_err_{dt}": max(x["max_abs_err"] for x in runs
+                                          if x["dtype"] == dt)
+                 for dt in ("bfloat16", "float32")}
+        kernels.append(dict(
+            name=name, route="cuda", source=KERNELS[name]["source"],
+            replaces=KERNELS[name]["replaces"], launches=n,
+            launches_by_path=({"serve_hybrid": n} if name == "ssd"
+                              else {"ops.flash_mha": n}),
+            max_abs_err=c["max_abs_err"], **extra, ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"],
+            library_what=c["library_what"], shape=key))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, build_s=build_s, cases=cases,
@@ -1866,6 +2360,12 @@ def main() -> int:
                                    quant_paged_cases=qcases,
                                    paged_int8_serve=qserve,
                                    paged_int8_check=qcheck,
+                                   ssd_cases=ssd_run, flash_cases=flash_run,
+                                   flash_refusal=refusal,
+                                   flash_entry=flash_entry,
+                                   hybrid_serve=hserve,
+                                   hybrid_launcher=hlaunch,
+                                   ssm_check=scheck,
                                    kernels=kernels), indent=1))
     log(f"details: {out}")
     print(card)

@@ -1,7 +1,8 @@
 """Model configuration + the arch registry (port of ``repro/config.py``).
 
-Only the fields the decoder's serving and training paths read are kept; their names and
-defaults equal ``repro.config.ModelConfig`` so configs convert one for one.
+Only the fields the ported families read (the decoder, and the ``ssm`` /
+``hybrid`` Mamba2 families) are kept; their names and defaults equal
+``repro.config.ModelConfig`` so configs convert one for one.
 ``use_pallas`` stays a field for that reason alone: kernel choice in the
 port follows the tensors' device, not this flag (``kernels/ops.py``).
 """
@@ -18,7 +19,7 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str              # decoder (the one family ported so far)
+    family: str              # decoder | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -35,17 +36,34 @@ class ModelConfig:
     embed_scale: bool = False
     logit_softcap: float = 0.0
 
+    # SSM (mamba2 / zamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_groups: int = 1
+    ssm_conv: int = 4
+    attn_every: int = 0              # hybrid: shared attn block every k layers
+
     dtype: str = "bf16"
     param_dtype: str = "bf16"
     use_pallas: bool = False         # kept for one-for-one conversion; unread
     remat: str = "full"              # full | dots | none (training forward)
     attn_chunk: int = 1024
+    ssd_chunk: int = 256
 
     source: str = ""
 
     @property
     def d_head(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     @property
     def act_dtype(self) -> torch.dtype:

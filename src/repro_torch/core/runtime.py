@@ -14,6 +14,12 @@ fuse with the int8 matmul in one kernel). ``paged_state`` /
 ``paged_decode_fn`` / ``chunk_prefill_fn`` are the paged-KV engine's
 surface.
 
+The ``ssm`` and ``hybrid`` families build, prefill and decode here like the
+decoder; as in the JAX package they serve no adapter bank (``attach``
+builds one over mamba2 and its first prefill raises ValueError; zamba2's
+(nsuper, per)-stacked weights refuse the bank when it is built) and have
+no paged surface.
+
 Sources this slice does not port raise NotImplementedError naming the
 slice they wait for: adapter stores and checkpoints (the store slice, which
 also brings quantized checkpoints), meshes (the scale-out slice).

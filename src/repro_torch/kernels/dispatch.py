@@ -21,7 +21,7 @@ rules the GS dx slab is always computed, even for a frozen x (skipping it when
 ``needs_input_grad`` is false is a later optimization). A CUDA tensor runs
 the kernels, a CPU tensor their plain versions, both ways. The tuning
 registry of the JAX module is not ported: the kernels pick their own launch
-geometry.
+geometry. ``pick_chunk`` is the plain SSD scan's chunk rule.
 """
 from __future__ import annotations
 
@@ -99,3 +99,11 @@ def gs_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def gs_T_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Differentiable transpose rotation y = Q^T x = R^T P^T L^T P x."""
     return _GSTDiff.apply(L, R, x)
+
+
+def pick_chunk(t: int, chunk: int) -> int:
+    """Largest divisor of t that is <= chunk (the plain SSD scan's chunk)."""
+    q = min(chunk, t)
+    while t % q:
+        q -= 1
+    return max(q, 1)

@@ -1,6 +1,6 @@
-"""Kernel entry points (port of the bdmm, GS, Householder, Givens,
-quantized-matmul and paged-attention parts of ``repro/kernels/ops.py``),
-with the JAX signatures.
+"""Kernel entry points (port of ``repro/kernels/ops.py``: bdmm, GS,
+Householder, Givens, quantized matmuls, paged and flash attention, the SSD
+scan), with the JAX signatures.
 
 Kernel choice follows the device, not a flag: a CUDA tensor always goes
 through the CUDA kernel (or the wrapper raises), a CPU tensor through the
@@ -10,10 +10,11 @@ one for one from the JAX package, and is ignored. ``bdmm``,
 through the autograd rules of ``dispatch.py`` (kernels both ways on the
 card). ``householder_banked`` and ``givens_banked`` have no kernel, as in
 the JAX package (``banked_kernel=""``): their plain versions run on every
-device. ``q_matmul``, ``gs_q_matmul``, ``gs_q_matmul_banked`` and
-``paged_attention`` serve inference only (no autograd rule; a tensor that
-needs a gradient raises). The kernels pick their own launch geometry; the
-tuning registry of ``repro.kernels.dispatch`` is not ported yet.
+device. ``q_matmul``, ``gs_q_matmul``, ``gs_q_matmul_banked``,
+``paged_attention``, ``ssd`` and ``flash_mha`` serve inference only on the
+card (no autograd rule; a tensor that needs a gradient raises). The
+kernels pick their own launch geometry; the tuning registry of
+``repro.kernels.dispatch`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ import torch
 
 from . import ref
 from .dispatch import bdmm_diff, gs_diff, gs_T_diff
+from .flash_attention import flash_attention
 from .gs_fused import gs_fused_T
 from .paged_attention import paged_decode
 from .q_matmul import gs_q_matmul as _gs_q_matmul
 from .q_matmul import q_matmul as _q_matmul
+from .ssd import ssd as _ssd
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -150,3 +153,34 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     engine's decode hot path. ``use_pallas`` is ignored."""
     del use_pallas
     return paged_decode(q, k_pages, v_pages, table, kv_len, scale=scale)
+
+
+def ssd(x: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int = 64,
+        use_pallas: bool = False) -> torch.Tensor:
+    """Mamba2 SSD scan. x (T, H, P) or batched (Nb, T, H, P); loga (.., T,
+    H); B, C (.., T, H, N) -> y like x. CUDA: the SSD kernel, one launch
+    for the whole batch (its own chunk); CPU: ``ref.ssd_chunked_ref`` at
+    ``pick_chunk(T, chunk)``, as the JAX package's default path.
+    ``use_pallas`` is ignored."""
+    del use_pallas
+    if x.dim() == 3:
+        return _ssd(x[None], loga[None], B[None], C[None], chunk)[0]
+    return _ssd(x, loga, B, C, chunk)
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, use_pallas: bool = False,
+              blk: int = 128) -> torch.Tensor:
+    """Multi-head attention over (B, S, H, D) activations with GQA (k, v
+    (B, Sk, KH, D), H a multiple of KH). CUDA: the flash kernel reads the
+    (B, S, H, D) layout in place and KV head h // (H / KH); CPU:
+    ``ref.flash_ref`` over repeated KV heads, as the JAX default path. A
+    non-causal Sk that is not a multiple of ``min(blk, Sk)`` raises
+    ValueError on both, as the JAX kernel does. ``use_pallas`` is
+    ignored."""
+    del use_pallas
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, blk_q=blk,
+                          blk_k=blk)
+    return out.transpose(1, 2)

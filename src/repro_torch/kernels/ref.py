@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (port of the GS, bdmm,
-Householder, Givens, quantized-matmul and paged-attention parts of
+Householder, Givens, quantized-matmul, attention and SSD parts of
 ``repro/kernels/ref.py``).
 
 Each function is the semantic definition the CUDA kernels are held against,
@@ -252,3 +252,95 @@ def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", p, v.to(torch.float32))
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: float = 0.0) -> torch.Tensor:
+    """Plain softmax attention. q: (H, Sq, D); k, v: (H, Sk, D). The causal
+    mask is ``i >= j`` on absolute indices from 0 (as the JAX oracle).
+    One fp32 softmax; returns (H, Sq, D) in q.dtype."""
+    sq, d = q.shape[-2], q.shape[-1]
+    sk = k.shape[-2]
+    scale = scale or 1.0 / (d ** 0.5)
+    s = torch.einsum("...qd,...kd->...qk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("...qk,...kd->...qd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, initial_state: torch.Tensor | None = None,
+            return_state: bool = False):
+    """Mamba2 SSD (state-space dual): the sequential scan.
+
+    x: (T, H, P) inputs (already times dt); loga: (T, H) log decay per step
+    (dt * A, A < 0); B, C: (T, H, N) per-head input / output projections;
+    state (H, N, P):
+
+        S_t = exp(loga_t) S_{t-1} + B_t x_t^T,   y_t = C_t^T S_t
+
+    All in fp32; y in x.dtype. With ``return_state``: (y, S_T)."""
+    T, H, P = x.shape
+    N = B.shape[-1]
+    f32 = torch.float32
+    S = (torch.zeros((H, N, P), dtype=f32, device=x.device)
+         if initial_state is None else initial_state.to(f32))
+    xf, laf, Bf, Cf = (a.to(f32) for a in (x, loga, B, C))
+    ys = []
+    for t in range(T):
+        S = (torch.exp(laf[t])[:, None, None] * S
+             + Bf[t][:, :, None] * xf[t][:, None, :])
+        ys.append(torch.einsum("hn,hnp->hp", Cf[t], S))
+    y = (torch.stack(ys) if ys else torch.zeros_like(xf)).to(x.dtype)
+    if return_state:
+        return y, S
+    return y
+
+
+def ssd_chunked_ref(x: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, chunk: int = 16) -> torch.Tensor:
+    """The chunk-parallel SSD (the algorithm the kernels implement): within
+    a chunk of Q steps the causal decay-masked scores (C B^T) o
+    exp(cum_t - cum_s) times x, plus (C o exp(cum)) S; across chunks the
+    state S <- exp(total) S + sum_q exp(total - cum_q) B_q x_q^T. All fp32.
+
+    x: (..., T, H, P); loga: (..., T, H); B, C: (..., T, H, N), any leading
+    batch dims (the JAX oracle takes one row; ``ops.ssd`` vmaps it). T must
+    be a multiple of ``chunk``. Returns y in x.dtype."""
+    T, H, P = x.shape[-3:]
+    N = B.shape[-1]
+    assert T % chunk == 0, (T, chunk)
+    f32 = torch.float32
+    xf = x.to(f32).reshape(-1, T, H, P)
+    nb = xf.shape[0]
+    laf = loga.to(f32).reshape(nb, T, H)
+    Bf = B.to(f32).reshape(nb, T, H, N)
+    Cf = C.to(f32).reshape(nb, T, H, N)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    S = torch.zeros((nb, H, N, P), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, T, chunk):
+        xq, laq = xf[:, c0:c0 + chunk], laf[:, c0:c0 + chunk]
+        Bq, Cq = Bf[:, c0:c0 + chunk], Cf[:, c0:c0 + chunk]
+        cum = torch.cumsum(laq, dim=1)                       # (nb, Q, H)
+        total = cum[:, -1]                                   # (nb, H)
+        rel = cum[:, :, None, :] - cum[:, None, :, :]        # (nb, Q, Q, H)
+        # exp only on causal entries: above the diagonal rel > 0 overflows
+        gamma = torch.exp(rel.masked_fill(~mask[None, :, :, None],
+                                          float("-inf")))
+        scores = torch.einsum("zthn,zshn->ztsh", Cq, Bq) * gamma
+        y = torch.einsum("ztsh,zshp->zthp", scores, xq)
+        y = y + torch.einsum("zthn,zhnp->zthp",
+                             Cq * torch.exp(cum)[..., None], S)
+        w = torch.exp(total[:, None, :] - cum)               # (nb, Q, H)
+        S = (torch.exp(total)[:, :, None, None] * S
+             + torch.einsum("zqhn,zqhp->zhnp", Bq * w[..., None], xq))
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if ys else xf
+    return y.reshape(x.shape).to(x.dtype)

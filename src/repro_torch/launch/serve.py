@@ -4,6 +4,9 @@
     # paged KV engine over int8 base weights and a 3-tenant GSOFT bank
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
         --smoke --engine paged --quantize int8 --demo-adapters 3 --device cpu
+    # the Mamba2 families on the continuous lane
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --smoke --device cpu
 
 Same flags as the JAX launcher for this path plus ``--device`` (default
 ``cuda``: without a card it raises unless ``--device cpu`` is given) and
@@ -12,7 +15,10 @@ computes it). Flags of lanes not ported yet raise NotImplementedError naming
 the slice they wait for: ``--engine static``, ``--quantize fp8``,
 ``--adapters`` / ``--store-dir`` (the store slice), ``--replicas`` (the
 scale-out slice), ``--trace`` (the observability slice), ``--family image``
-(the image slice). Requests are all queued up front.
+(the image slice). ``--family`` is checked against the arch's family, as
+in the JAX launcher; ``ssm`` / ``hybrid`` archs fail as there on
+``--engine paged`` (no paged KV surface) and ``--demo-adapters`` (no bank
+serving: the first prefill raises). Requests are all queued up front.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from repro_torch.config import get_config, get_smoke_config, parse_overrides
 from repro_torch.core import peft as peft_lib
 from repro_torch.core.runtime import ModelRuntime
+from repro_torch.models import registry
 from repro_torch.quant import tree_bytes
 from repro_torch.serve.engine import PagedServeEngine, ServeEngine
 
@@ -78,10 +85,14 @@ def _refuse_unported(args) -> None:
     if args.trace:
         raise NotImplementedError(
             "--trace is not ported yet (observability slice)")
-    if args.family not in (None, "decoder"):
-        raise NotImplementedError(
-            f"--family {args.family} is not ported yet (the port serves the "
-            "decoder family; image waits for the image slice)")
+    if args.family is not None:
+        try:
+            registry.get(args.family)
+        except KeyError:
+            raise NotImplementedError(
+                f"--family {args.family} is not ported yet (the port serves "
+                "the decoder, ssm and hybrid families; image waits for the "
+                "image slice)") from None
 
 
 def main(argv=None) -> int:
@@ -126,6 +137,9 @@ def main(argv=None) -> int:
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.with_overrides(**parse_overrides(args.set))
+    if args.family and not registry.is_family(cfg, args.family):
+        raise SystemExit(f"--family {args.family} but arch {args.arch!r} "
+                         f"registers family {cfg.family!r}")
     rt = ModelRuntime(cfg, device=args.device)
     max_len = args.max_len or args.prompt_len + args.max_new + 8
 

@@ -28,14 +28,22 @@ NEG_INF = -1e30
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, stacked: int,
                    device, dtype=None) -> Dict[str, torch.Tensor]:
+    """Layer-stacked weights (stacked, d_in, d_out), or one layer's
+    (d_in, d_out) when ``stacked`` is 0 (the hybrid's shared block)."""
     d = cfg.d_model
     dtype = dtype or cfg.weight_dtype
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
-    mk = lambda di, do: stacked_dense_init(gen, stacked, di, do, dtype, device)
+    n = max(stacked, 1)
+
+    def mk(di, do):
+        w = stacked_dense_init(gen, n, di, do, dtype, device)
+        return w if stacked else w[0]
+
     p = {"wq": mk(d, H * hd), "wk": mk(d, K * hd), "wv": mk(d, K * hd),
          "wo": mk(H * hd, d)}
     if cfg.qkv_bias:
-        zeros = lambda do: torch.zeros((stacked, do), dtype=dtype, device=device)
+        lead = (stacked,) if stacked else ()
+        zeros = lambda do: torch.zeros(lead + (do,), dtype=dtype, device=device)
         p["bq"], p["bk"], p["bv"] = zeros(H * hd), zeros(K * hd), zeros(K * hd)
     return p
 

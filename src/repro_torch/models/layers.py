@@ -1,5 +1,5 @@
 """Shared building blocks (port of ``repro/models/layers.py``, the parts the
-decoder's serving and training paths use).
+ported families' serving and training paths use).
 
 Conventions as in the JAX package: activations (B, S, D); weights
 (d_in, d_out) used as y = x @ W, layer-stacked weights with a leading layer
@@ -159,6 +159,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, f: int, mlp_type: str, dtype,
+             device) -> Dict[str, torch.Tensor]:
+    """One unstacked MLP (the hybrid's shared block)."""
+    return {k: v[0] for k, v in init_stacked_mlp(gen, 1, d, f, mlp_type,
+                                                 dtype, device).items()}
+
 
 def init_stacked_mlp(gen: torch.Generator, n: int, d: int, f: int,
                      mlp_type: str, dtype, device) -> Dict[str, torch.Tensor]:

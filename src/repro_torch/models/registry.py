@@ -1,6 +1,13 @@
 """Family registry (port of ``repro/models/registry.py``): each model family
 registers a ``FamilyOps`` record; ``models.api`` and ``ModelRuntime``
-dispatch on ``ModelConfig.family``. This slice registers ``decoder`` only.
+dispatch on ``ModelConfig.family``. ``models/transformer.py`` registers
+``decoder``, ``ssm`` (mamba2) and ``hybrid`` (zamba2). This module is the
+only place family strings are compared: call sites branch on the record's
+traits, as in the JAX package:
+
+* ``mixer`` — "attention" | "ssm" | "hybrid": the sequence mixer the stack
+  runs (hybrid: Mamba2 layers with a shared attention block between
+  super-blocks).
 
 Uniform signatures:
 
@@ -40,6 +47,12 @@ class FamilyOps:
     init_paged_state: Optional[Callable] = None
     paged_decode_step: Optional[Callable] = None
     paged_chunk_prefill: Optional[Callable] = None
+    mixer: str = "attention"
+
+    def __post_init__(self):
+        if self.mixer not in ("attention", "ssm", "hybrid"):
+            raise ValueError(f"family {self.family!r}: unknown mixer "
+                             f"{self.mixer!r}")
 
 
 _FAMILIES: Dict[str, FamilyOps] = {}
@@ -55,3 +68,9 @@ def get(family: str) -> FamilyOps:
         raise KeyError(f"unknown model family {family!r}; registered "
                        f"families: {sorted(_FAMILIES)}")
     return _FAMILIES[family]
+
+
+def is_family(cfg, family: str) -> bool:
+    """Registry-owned label check (the launcher's --family assertion):
+    call sites do not compare ``cfg.family`` strings themselves."""
+    return cfg.family == family

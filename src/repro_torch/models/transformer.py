@@ -1,7 +1,18 @@
-"""Decoder-only language model (port of the decoder family of
+"""Language models (port of the decoder, ``ssm`` and ``hybrid`` families of
 ``repro/models/transformer.py``): ``init_lm``, ``forward``, ``lm_loss``,
-``init_decode_state``, ``decode_step``, ``prefill``, and the paged serve
-path ``init_paged_state``, ``paged_decode_step``, ``paged_chunk_prefill``.
+``init_decode_state``, ``decode_step``, ``prefill``, and the decoder's
+paged serve path ``init_paged_state``, ``paged_decode_step``,
+``paged_chunk_prefill``. Structural branches read the registry record's
+``mixer`` trait, never the family string.
+
+``ssm`` (mamba2) stacks Mamba2 layers {"norm", "mamba"} (L, ...);
+``hybrid`` (zamba2) stacks them (nsuper, per, ...) with one shared-weight
+attention + MLP block applied after each super-block (weights shared, one
+KV cache per application). Their decode state is {"mamba": {"conv", "ssm"}}
+(+ the hybrid's {"kv": (nsuper, B, S, K, D)}), updated in place. As in the
+JAX package, their ``prefill`` runs ``forward`` for the logits and returns
+the decode state unchanged (``repro/models/transformer.py`` prefill), and
+they serve no adapter bank (a ``ctx`` raises ValueError).
 
 Layer weights stay stacked (L, d_in, d_out) as in the JAX tree; the JAX
 ``lax.scan`` over layers is a Python loop over slices of the stacked
@@ -27,9 +38,22 @@ from . import registry
 from .attention import (attention_block, init_attention, init_cache,
                         init_paged_kv, paged_attention_block,
                         paged_prefill_chunk_block)
-from .layers import (apply_mlp, cross_entropy, embed_init, init_stacked_mlp,
-                     qlinear, rms_norm, softcap, stacked_dense_init,
-                     unbind_layers)
+from .layers import (apply_mlp, cross_entropy, embed_init, init_mlp,
+                     init_stacked_mlp, qlinear, rms_norm, softcap,
+                     stacked_dense_init, unbind_layers)
+from .ssm import init_mamba, init_mamba_state, mamba_block, mamba_decode_step
+
+
+def _traits(cfg: ModelConfig) -> registry.FamilyOps:
+    """The registry record of this config's family: every structural branch
+    here reads its ``mixer``, never the family string."""
+    return registry.get(cfg.family)
+
+
+def _no_bank(cfg: ModelConfig, ctx: Optional[AdapterContext]) -> None:
+    if ctx is not None:
+        raise ValueError(f"adapter bank serving not supported for "
+                         f"family {cfg.family}")
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
@@ -49,13 +73,33 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": stacked_dense_init(
             gen, 1, cfg.d_model, vp, wd, dev)[0]}
-    params["layers"] = {
-        "attn_norm": torch.zeros((L, cfg.d_model), dtype=wd, device=dev),
-        "attn": init_attention(gen, cfg, L, dev),
-        "mlp_norm": torch.zeros((L, cfg.d_model), dtype=wd, device=dev),
-        "mlp": init_stacked_mlp(gen, L, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                                wd, dev),
-    }
+    zeros = lambda *shape: torch.zeros(shape, dtype=wd, device=dev)
+    mixer = _traits(cfg).mixer
+    if mixer == "attention":
+        params["layers"] = {
+            "attn_norm": zeros(L, cfg.d_model),
+            "attn": init_attention(gen, cfg, L, dev),
+            "mlp_norm": zeros(L, cfg.d_model),
+            "mlp": init_stacked_mlp(gen, L, cfg.d_model, cfg.d_ff,
+                                    cfg.mlp_type, wd, dev),
+        }
+    elif mixer == "ssm":
+        params["layers"] = {"norm": zeros(L, cfg.d_model),
+                            "mamba": init_mamba(gen, cfg, (L,), wd, dev)}
+    else:
+        per = cfg.attn_every
+        if L % per:
+            raise ValueError("attn_every must divide num_layers")
+        nsuper = L // per
+        params["blocks"] = {
+            "norm": zeros(nsuper, per, cfg.d_model),
+            "mamba": init_mamba(gen, cfg, (nsuper, per), wd, dev)}
+        params["shared_attn"] = {
+            "norm": zeros(cfg.d_model),
+            "attn": init_attention(gen, cfg, 0, dev),
+            "mlp_norm": zeros(cfg.d_model),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, wd,
+                            dev)}
     return params
 
 
@@ -87,6 +131,22 @@ def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, cache=None,
     m = apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
                   cfg.mlp_type, rot=rot_mlp)
     return h + m
+
+
+def _shared_attn_layer(cfg: ModelConfig, sp, h: torch.Tensor, cache=None,
+                       cache_pos=None) -> torch.Tensor:
+    """The hybrid's shared attention + MLP block (its KV cache, when given,
+    is written in place)."""
+    a, _ = attention_block(sp["attn"], rms_norm(h, sp["norm"], cfg.norm_eps),
+                           cfg, cache=cache, cache_pos=cache_pos, causal=True)
+    h = h + a
+    return h + apply_mlp(sp["mlp"], rms_norm(h, sp["mlp_norm"], cfg.norm_eps),
+                         cfg.mlp_type)
+
+
+def _mamba_layer(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
+    return h + mamba_block(lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps),
+                           cfg)
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -138,9 +198,27 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, Vp), moe_aux = 0). batch["tokens"]: (B, S)."""
     h = _embed(cfg, params, batch["tokens"])
-    layer = _remat(cfg, lambda lp, hc: _decoder_layer(cfg, lp, hc))
-    for lp in _unbind(params["layers"], cfg.num_layers):
-        h = layer(lp, h)
+    mixer = _traits(cfg).mixer
+    if mixer == "attention":
+        layer = _remat(cfg, lambda lp, hc: _decoder_layer(cfg, lp, hc))
+        for lp in _unbind(params["layers"], cfg.num_layers):
+            h = layer(lp, h)
+    elif mixer == "ssm":
+        layer = _remat(cfg, lambda lp, hc: _mamba_layer(cfg, lp, hc))
+        for lp in _unbind(params["layers"], cfg.num_layers):
+            h = layer(lp, h)
+    else:
+        sp = params["shared_attn"]
+        per = cfg.attn_every
+
+        def super_block(bp, hc):
+            for mp in _unbind(bp, per):
+                hc = _mamba_layer(cfg, mp, hc)
+            return _shared_attn_layer(cfg, sp, hc)
+
+        block = _remat(cfg, super_block)
+        for bp in _unbind(params["blocks"], cfg.num_layers // per):
+            h = block(bp, h)
     return _unembed(cfg, params, h), torch.zeros((), device=h.device)
 
 
@@ -160,20 +238,60 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: DeviceLike = "cuda"):
+    """Decoder {"kv"}: (L, B, S, K, D); ssm {"mamba"}: conv (L, B, W-1, C),
+    ssm (L, B, H, N, P) fp32; hybrid both, stacked (nsuper, per, B, ...)
+    and (nsuper, B, S, K, D)."""
     dev = resolve_device(device)
+    mixer = _traits(cfg).mixer
+    if mixer == "ssm":
+        return {"mamba": init_mamba_state(cfg, batch, (cfg.num_layers,), dev)}
+    n = cfg.num_layers
+    state = {}
+    if mixer == "hybrid":
+        n = cfg.num_layers // cfg.attn_every
+        state["mamba"] = init_mamba_state(cfg, batch, (n, cfg.attn_every),
+                                          dev)
     c = init_cache(cfg, batch, max_len, dev)
-    return {"kv": {k: v[None].repeat((cfg.num_layers,) + (1,) * v.dim())
-                   for k, v in c.items()}}
+    state["kv"] = {k: v[None].repeat((n,) + (1,) * v.dim())
+                   for k, v in c.items()}
+    return state
+
+
+def _mamba_decode_layer(cfg: ModelConfig, lp, h: torch.Tensor, st):
+    """One Mamba layer's decode step; its state slices ``st`` are
+    overwritten with the new state."""
+    y, new = mamba_decode_step(lp["mamba"], rms_norm(h, lp["norm"],
+                                                     cfg.norm_eps), st, cfg)
+    st["conv"].copy_(new["conv"])
+    st["ssm"].copy_(new["ssm"])
+    return h + y
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state, pos,
                 ctx: Optional[AdapterContext] = None):
     """One token for the whole batch. tokens: (B, 1); pos: scalar or (B,)
     per-slot write positions. ``ctx`` rotates row i with adapter
-    ``ctx.slots[i]`` before every adapted projection. The state is updated
-    in place. Returns (logits (B, 1, Vp), state)."""
+    ``ctx.slots[i]`` before every adapted projection (decoder only: the
+    other families raise ValueError). The state is updated in place.
+    Returns (logits (B, 1, Vp), state)."""
     h = _embed(cfg, params, tokens)
-    h = _run_layers(cfg, params, h, state["kv"], cache_pos=pos, ctx=ctx)
+    mixer = _traits(cfg).mixer
+    if mixer == "attention":
+        h = _run_layers(cfg, params, h, state["kv"], cache_pos=pos, ctx=ctx)
+        return _unembed(cfg, params, h), state
+    _no_bank(cfg, ctx)
+    if mixer == "ssm":
+        for i in range(cfg.num_layers):
+            h = _mamba_decode_layer(cfg, _slice(params["layers"], i), h,
+                                    _slice(state["mamba"], i))
+    else:
+        sp = params["shared_attn"]
+        for s in range(cfg.num_layers // cfg.attn_every):
+            bp, mst = _slice(params["blocks"], s), _slice(state["mamba"], s)
+            for j in range(cfg.attn_every):
+                h = _mamba_decode_layer(cfg, _slice(bp, j), h, _slice(mst, j))
+            h = _shared_attn_layer(cfg, sp, h, cache=_slice(state["kv"], s),
+                                   cache_pos=pos)
     return _unembed(cfg, params, h), state
 
 
@@ -189,7 +307,16 @@ def _gather_last(h: torch.Tensor, last_idx) -> torch.Tensor:
 
 def prefill(cfg: ModelConfig, params, req: PrefillRequest, state):
     """Full-prompt forward that fills the KV cache; returns (last_logits,
-    state) with logits gathered at ``req.last_idx``."""
+    state) with logits gathered at ``req.last_idx``.
+
+    ssm / hybrid: the JAX package's prefill, mirrored as it is — ``forward``
+    for the logits, and the decode state returned UNCHANGED (neither the
+    Mamba states nor the hybrid's KV cache take the prompt; decode goes on
+    from them as they were)."""
+    if _traits(cfg).mixer != "attention":
+        _no_bank(cfg, req.ctx)
+        logits, _ = forward(cfg, params, req.batch)
+        return _gather_last(logits, req.last_idx), state
     h = _embed(cfg, params, req.batch["tokens"])
     h = _run_layers(cfg, params, h, state["kv"], ctx=req.ctx)
     return _unembed(cfg, params, _gather_last(h, req.last_idx)), state
@@ -289,3 +416,10 @@ registry.register(registry.FamilyOps(
     paged_decode_step=paged_decode_step,
     paged_chunk_prefill=paged_chunk_prefill,
 ))
+
+# the Mamba2 families: the contiguous serve surface only (no paged KV)
+for _family, _mixer in (("ssm", "ssm"), ("hybrid", "hybrid")):
+    registry.register(registry.FamilyOps(
+        family=_family, init_params=init_lm, forward=forward, loss=lm_loss,
+        init_decode_state=init_decode_state, prefill=prefill,
+        decode_step=decode_step, mixer=_mixer))

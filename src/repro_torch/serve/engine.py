@@ -2,13 +2,15 @@
 ``PagedServeEngine`` from ``repro/serve/engine.py``).
 
 ``ServeEngine`` schedules requests over ``max_batch`` persistent decode
-slots of one ``ModelRuntime``:
+slots of one ``ModelRuntime`` of any ported family (decoder, ``ssm``,
+``hybrid``):
 
   * requests enter free slots as others finish (EOS or token budget);
   * each slot carries its own position; decode runs one step over the full
     slot array with per-slot write positions and KV-length masks;
   * admission prefills one request (batch 1, prompt padded to a power-of-two
-    bucket) and copies the fresh state into the slot;
+    bucket) and copies the fresh state into the slot (every leaf along its
+    own batch axis: KV caches, Mamba conv and SSM states);
   * with an ``AdapterBank`` on the runtime, row i rotates its activations
     with its own adapter x Q_i before every adapted projection (the
     ``gs_fused_T`` kernel on the card; over int8 weights the fused
@@ -297,7 +299,8 @@ class PagedServeEngine(ServeEngine):
         the cached tokens (``kv_stats()["prefix_hits"]``).
 
     Greedy tokens equal ``ServeEngine``'s; decode attention runs the paged
-    decode kernel on the card. Decoder-family runtimes only.
+    decode kernel on the card. Decoder-family runtimes only: a family
+    without a paged surface (``ssm``, ``hybrid``) is refused up front.
     """
 
     def __init__(self, runtime: ModelRuntime, *, max_batch: int = 8,

@@ -150,24 +150,44 @@ def build_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
+def _decode_state_batch_axes(cfg: ModelConfig, max_len: int) -> Tree:
+    """Per-leaf batch axis of the decode state, found by diffing the state's
+    shapes at batch 1 and 2 (built on the meta device, no memory): the
+    leaves put it at different axes (kv (L, B, S, K, D); ssm Mamba state
+    (L, B, ...); hybrid Mamba state (nsuper, per, B, ...))."""
+    fam = api.family_ops(cfg)
+    s1 = fam.init_decode_state(cfg, 1, max_len, "meta")
+    s2 = fam.init_decode_state(cfg, 2, max_len, "meta")
+
+    def axis(a, b):
+        for i, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                return i
+        raise ValueError(f"no batch axis in decode-state leaf {a.shape}")
+
+    return tree_map(axis, s1, s2)
+
+
 def build_slot_prefill_step(cfg: ModelConfig, *, max_len: int,
                             device: DeviceLike = "cuda"):
     """Continuous-batching admission: prefill ONE request (batch 1) into a
-    fresh state and copy it into row ``slot`` of the engine's slot-array
-    state. step(params, req, state, slot) -> (first_token int, state).
-
-    The decoder state's leaves are {"kv": {"k", "v": (L, B, S, K, D)}}, so
-    the slot (batch) axis is axis 1 of every leaf."""
+    fresh state and copy every leaf of it into row ``slot`` of the engine's
+    slot-array state, along that leaf's own batch axis (found as the JAX
+    package finds it). step(params, req, state, slot) -> (first_token int,
+    state)."""
     fam = api.family_ops(cfg)
     dev = resolve_device(device)
+    axes = _decode_state_batch_axes(cfg, max_len)
+
+    def scatter(dst, src, ax, slot):
+        dst.select(ax, slot).copy_(src.select(ax, 0))
 
     @torch.inference_mode()
     def slot_prefill(params, req: peft_lib.PrefillRequest, state, slot: int):
         sub = fam.init_decode_state(cfg, 1, max_len, dev)
         logits, sub = fam.prefill(cfg, params, req, sub)
         first = int(torch.argmax(logits[0, -1]))
-        for key, leaf in sub["kv"].items():
-            state["kv"][key][:, slot] = leaf[:, 0].to(state["kv"][key].dtype)
+        tree_map(lambda d, s_, a: scatter(d, s_, a, slot), state, sub, axes)
         return first, state
 
     return slot_prefill

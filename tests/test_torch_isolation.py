@@ -27,7 +27,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.optim, repro_torch.data, repro_torch.runtime, "
             "repro_torch.quant, repro_torch.serve.kv, "
             "repro_torch.launch.serve, repro_torch.kernels.q_matmul, "
-            "repro_torch.kernels.paged_attention; "
+            "repro_torch.kernels.paged_attention, repro_torch.models.ssm, "
+            "repro_torch.kernels.ssd, repro_torch.kernels.flash_attention; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")

@@ -600,3 +600,178 @@ def test_quantized_and_paged_cpu_tensors_take_the_plain_versions():
     assert torch.equal(pak.paged_decode(*args), pak.paged_decode_plain(*args))
     assert (qmk.q_matmul.launches, qmk.gs_q_matmul.launches,
             pak.paged_decode.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunked scan and flash attention
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as fak  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd as ssdk  # noqa: E402
+
+# ssd, relative to max|ref| as tests/test_kernels.py's tolerances: f32 sums
+# in another order and another chunk (the kernel's 64 against the plain
+# version's largest divisor <= 256); bf16 y rounded once by both
+SSD_F32_REL = 1e-4
+SSD_BF16_REL = 5e-2
+# flash, allclose atol = rtol as tests/test_flash_attention.py: f32 sums in
+# another order; bf16 p rounded to bf16 before p . v (the TPU kernel's step)
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_TOL = 2e-2
+
+# (Nb, T, H, P, N): zamba2 (80 heads, P = N = 64) and mamba2-130m (24
+# heads, N = 128) at prefill buckets, the carried state over 32 chunks, a T
+# that is no multiple of the chunk (JAX's halving path: chunk 8), batch 4
+# with P split over CTAs, and the shapes of tests/test_kernels.py
+SSD_CASES = [(1, 16, 80, 64, 64), (1, 128, 80, 64, 64), (1, 64, 24, 64, 128),
+             (1, 2048, 8, 64, 64), (1, 1000, 4, 64, 128), (4, 300, 6, 16, 32),
+             (4, 128, 80, 64, 64), (1, 32, 2, 8, 8), (1, 48, 2, 8, 8),
+             (1, 16, 3, 4, 4), (2, 5, 3, 20, 12)]
+# (B, H, KH, Sq, Sk, D, causal): qwen2-72b heads (64 / 8, D 128) and
+# zamba2's (32 / 32, D 80), long causal, ragged causal Sq, Sq != Sk, the
+# shapes of tests/test_flash_attention.py
+FLASH_CASES = [(1, 64, 8, 128, 128, 128, True), (1, 64, 8, 512, 512, 128, False),
+               (1, 32, 32, 512, 512, 80, True), (1, 32, 32, 128, 128, 80, False),
+               (1, 8, 8, 2048, 2048, 64, True), (1, 4, 4, 1000, 1000, 64, True),
+               (2, 4, 2, 64, 128, 16, False), (2, 2, 2, 64, 64, 16, True),
+               (3, 3, 3, 100, 100, 16, True), (2, 2, 2, 32, 32, 64, True),
+               (1, 1, 1, 256, 256, 16, True), (1, 2, 1, 70, 130, 32, True)]
+
+
+def _ssd_inputs(rng, case, device, dtype):
+    nb, t, h, p, n = case
+    x = rng.normal(size=(nb, t, h, p))
+    loga = -np.abs(rng.normal(size=(nb, t, h))) * 0.3
+    B = rng.normal(size=(nb, t, h, n)) * 0.5
+    C = rng.normal(size=(nb, t, h, n)) * 0.5
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+            for a in (x, loga, B, C)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=lambda c: "Nb%d-T%d-H%d-P%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    args = _ssd_inputs(np.random.default_rng(sum(case)), case, cuda, dtype)
+    before = ssdk.ssd.launches
+    y = ssdk.ssd(*args)
+    torch.cuda.synchronize()
+    assert ssdk.ssd.launches == before + 1
+    want = ssdk.ssd_plain(*args)
+    assert y.dtype == dtype and y.shape == want.shape
+    assert torch.isfinite(y.float()).all()
+    err = (y.float() - want.float()).abs().max().item()
+    rel = SSD_F32_REL if dtype == torch.float32 else SSD_BF16_REL
+    assert err <= rel * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_carries_the_state_exactly(cuda):
+    """The first chunks of a long row do not depend on what follows, and
+    the 3-D entry point is one row of the batched one."""
+    x, la, B, C = _ssd_inputs(np.random.default_rng(5), (2, 512, 8, 64, 64),
+                              cuda, torch.float32)
+    full = ssdk.ssd(x, la, B, C)
+    head = ssdk.ssd(x[:, :128].contiguous(), la[:, :128].contiguous(),
+                    B[:, :128].contiguous(), C[:, :128].contiguous())
+    assert torch.equal(full[:, :128], head)
+    assert torch.equal(ops.ssd(x[1], la[1], B[1], C[1]), full[1])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, la, B, C = _ssd_inputs(np.random.default_rng(1), (1, 8, 2, 4, 4),
+                              cuda, torch.float32)
+    with pytest.raises(NotImplementedError, match="autograd"):
+        ssdk.ssd(x.requires_grad_(), la, B, C)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssdk.ssd(x.detach(), la.double(), B, C)
+    with pytest.raises(ValueError, match="expected x"):
+        ssdk.ssd(x.detach()[0], la, B, C)
+
+
+def test_ssd_geometry_splits_p_only_while_sms_idle():
+    assert ssdk.ssd_geometry(1, 80, 64, 132) == 32      # zamba2, batch 1
+    assert ssdk.ssd_geometry(4, 80, 64, 132) == 64      # 320 CTAs already
+    assert ssdk.ssd_geometry(1, 24, 64, 132) == 16      # mamba2-130m
+    assert ssdk.ssd_geometry(1, 3, 4, 132) == 4
+    assert ssdk.ssd_geometry(1, 2, 20, 132) == 10       # 20 -> 10, odd
+
+
+def _qkv(rng, case, device, dtype):
+    b, h, kh, sq, sk, d, _ = case
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(device, dtype)
+    return mk(b, h, sq, d), mk(b, kh, sk, d), mk(b, kh, sk, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "B%d-H%d-K%d-Sq%d-Sk%d-D%d-c%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    causal = case[-1]
+    q, k, v = _qkv(np.random.default_rng(sum(case)), case, cuda, dtype)
+    before = fak.flash_attention.launches
+    out = fak.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fak.flash_attention.launches == before + 1
+    want = fak.flash_attention_plain(q, k, v, causal=causal)
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_mha_reads_bshd_in_place_with_gqa(cuda, causal):
+    """ops.flash_mha on (B, S, H, D) activations, 64 / 8 heads, equals the
+    kernel on head-major copies and the plain version."""
+    rng = np.random.default_rng(3)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(cuda)
+    q, k, v = mk(2, 256, 64, 128), mk(2, 256, 8, 128), mk(2, 256, 8, 128)
+    out = ops.flash_mha(q, k, v, causal=causal)
+    assert out.shape == q.shape and out.is_contiguous()
+    heads = fak.flash_attention(q.transpose(1, 2).contiguous(),
+                                k.transpose(1, 2).contiguous(),
+                                v.transpose(1, 2).contiguous(), causal=causal)
+    assert torch.equal(out, heads.transpose(1, 2))
+    want = fak.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal)
+    torch.testing.assert_close(out, want.transpose(1, 2), atol=FLASH_F32_TOL,
+                               rtol=FLASH_F32_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(np.random.default_rng(4), (1, 2, 2, 64, 200, 16, False),
+                   cuda, torch.float32)
+    with pytest.raises(ValueError, match="Sk % blk_k"):
+        fak.flash_attention(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="Sk % blk_k"):
+        ops.flash_mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      causal=False, blk=64)
+    with pytest.raises(NotImplementedError, match="inference only"):
+        fak.flash_attention(q.requires_grad_(), k, v)
+    big = torch.zeros((1, 1, 8, 160), device=cuda)
+    with pytest.raises(ValueError, match="D <= 128"):
+        fak.flash_attention(big, big, big)
+
+
+def test_ssd_and_flash_cpu_tensors_take_the_plain_versions():
+    rng = np.random.default_rng(6)
+    args = _ssd_inputs(rng, (2, 40, 3, 8, 4), "cpu", torch.float32)
+    q, k, v = _qkv(rng, (2, 4, 2, 40, 40, 16, True), "cpu", torch.float32)
+    before = (ssdk.ssd.launches, fak.flash_attention.launches)
+    assert torch.equal(ssdk.ssd(*args), ssdk.ssd_plain(*args))
+    assert torch.equal(fak.flash_attention(q, k, v),
+                       fak.flash_attention_plain(q, k, v))
+    with pytest.raises(ValueError, match="Sk % blk_k"):
+        fak.flash_attention(q, k[:, :, :30], v[:, :, :30], causal=False,
+                            blk_k=16)
+    assert (ssdk.ssd.launches, fak.flash_attention.launches) == before
