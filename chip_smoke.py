@@ -19,9 +19,12 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    partial library yardstick
 3c. bdmm kernels — ``bdmm`` at the weight slabs (OFT / BOFT training and
    merge), the banked decode rows and every prefill bucket (OFT / BOFT
-   serving), ``bdmm_dblocks`` at the weight slabs (their backward), bf16 and
-   f32, b = 32, with times, bounds, plain versions and one einsum each as
-   the library yardstick; dblocks must be bit-identical across two runs
+   serving; also with the blocks read transposed in place, as the banked
+   rotations read them), ``bdmm_dblocks`` at the weight slabs (their
+   backward), bf16 and f32, b = 32, and b = 256 at the wi slab and the
+   decode rows, with the route each took, times, bounds, plain versions and
+   one einsum each as the library yardstick; dblocks must be bit-identical
+   across two runs
 3d. int8 and paged kernels — ``q_matmul`` at the LM head and every
    projection shape (one and four decode rows, one prefill chunk),
    ``gs_q_matmul`` at each adapted projection (four decode rows of their
@@ -175,6 +178,7 @@ FD_TARGET = 1e-2
 FD_MAX_STEP = 1e-2
 FD_REL = 1e-2
 BDMM_BLOCK = 32
+BDMM_LARGE_BLOCK = 256              # phase 3c: a block size past the old limit
 QUICK_LAYERS = 2                    # householder / givens / lora one-step check
 MIXED_SERVE_REQUESTS = 12           # two per tenant and two on the base slot
 MIXED_SCALE = 0.3                   # noise on the mixed bank's adapters
@@ -531,38 +535,65 @@ def bdmm_cases(cfg):
     return out
 
 
-def check_bdmm_case(B, T, d, b, dtype, gen, device) -> dict:
+def bdmm_large_cases(cfg):
+    """(B, T, d) of phase 3c's b = 256 cases: the wi slab and the decode
+    rows, at d_model (256 does not divide qwen2-72b's d_ff)."""
+    return [(1, cfg.d_ff, cfg.d_model), (4, 1, cfg.d_model)]
+
+
+def bdmm_trans_cases(cfg):
+    """(B, T, d) the banked OFT / BOFT rotations give ``bdmm`` with the
+    blocks read transposed: the decode rows and each prefill bucket at both
+    widths."""
+    return [c for c in bdmm_cases(cfg) if c[0] != 1 or c[1] in
+            prefill_buckets()]
+
+
+def _plan_fields(plan) -> dict:
+    return dict(route=plan.route, geometry=list(plan.args),
+                grid=list(plan.grid), threads=plan.threads, smem=plan.smem)
+
+
+def check_bdmm_case(B, T, d, b, dtype, gen, device, trans=False) -> dict:
     r = d // b
     blocks = _orth_factors(gen, B, r, b, dtype, device)[0]
     x = torch.randn((B, T, d), generator=gen, device=device).to(dtype)
-    y = bk.bdmm(x, blocks)
+    y = bk.bdmm(x, blocks, transpose_blocks=trans)
     torch.cuda.synchronize()
-    y_plain = bk.bdmm_plain(x, blocks)
+    y_plain = bk.bdmm_plain(x, blocks, transpose_blocks=trans)
     err = (y.float() - y_plain.float()).abs().max().item()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     if not (math.isfinite(err) and err <= tol):
-        raise AssertionError(f"bdmm B={B} T={T} d={d} b={b} {dtype}: "
-                             f"max|err| {err} > {tol}")
+        raise AssertionError(f"bdmm B={B} T={T} d={d} b={b} {dtype} "
+                             f"trans={trans}: max|err| {err} > {tol}")
     set_bytes = (2 * B * T * d + B * d * b) * x.element_size()
     n_sets = int(min(16, max(1, math.ceil(120e6 / set_bytes))))
     sets = [(x, blocks)] + [(x, _orth_factors(gen, B, r, b, dtype, device)[0])
                             for _ in range(n_sets - 1)]
-    ms = time_ms(bk.bdmm, sets)
-    plain_ms = time_ms(bk.bdmm_plain, sets)
+
+    def kernel(xx, w):
+        return bk.bdmm(xx, w, transpose_blocks=trans)
+
+    def plain(xx, w):
+        return bk.bdmm_plain(xx, w, transpose_blocks=trans)
 
     def library(xx, w):                  # one cuBLAS batched product
-        return torch.einsum("zgij,ztgj->ztgi", w, xx.view(B, T, r, b))
+        return torch.einsum("zgji,ztgj->ztgi" if trans else "zgij,ztgj->ztgi",
+                            w, xx.view(B, T, r, b))
 
+    ms = time_ms(kernel, sets)
+    plain_ms = time_ms(plain, sets)
     lib_ms = time_ms(library, sets)
     lib_err = (library(x, blocks).reshape(B, T, d).float()
                - y.float()).abs().max().item()
     bound_ms, bound_by = bdmm_bound(B, T, d, b, dtype)
-    gt, tt, tpc = bk.bdmm_geometry(B, T, r, b, b, gk._num_sms(device))
-    return dict(kernel="bdmm", B=B, T=T, d=d, b=b, groups_per_cta=gt, tt=tt,
-                tokens_per_cta=tpc, dtype=str(dtype).replace("torch.", ""),
+    plan = bk.bdmm_plan(dtype, B, T, r, b, b, gk._num_sms(device), trans)
+    return dict(kernel="bdmm", B=B, T=T, d=d, b=b, trans=trans,
+                **_plan_fields(plan), dtype=str(dtype).replace("torch.", ""),
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, library_err=lib_err,
-                library_what='einsum("zgij,ztgj->ztgi")',
+                library_what=('einsum("zgji,ztgj->ztgi")' if trans else
+                              'einsum("zgij,ztgj->ztgi")'),
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -593,14 +624,51 @@ def check_dblocks_case(T, d, b, dtype, gen, device) -> dict:
                - got[0]).abs().max().item()
     del dy32, x32
     bound_ms, bound_by = dblocks_bound(T, d, b, dtype)
-    gt, splits, tps = bk.dblocks_geometry(1, T, r, b, b, gk._num_sms(device))
-    return dict(kernel="bdmm_dblocks", B=1, T=T, d=d, b=b, groups_per_cta=gt,
-                splits=splits, tokens_per_split=tps,
+    plan = bk.dblocks_plan(dtype, 1, T, r, b, b, gk._num_sms(device))
+    return dict(kernel="bdmm_dblocks", B=1, T=T, d=d, b=b,
+                **_plan_fields(plan),
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 grad_rel_err=rel, tol=GRAD_REL, bit_identical=True, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
                 library_what='einsum("tgi,tgj->gij") over fp32 copies',
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def bdmm_phase(cfg, gen, device) -> list:
+    """Phase 3c: both bdmm kernels against their plain versions, bf16 and
+    f32, at every shape the OFT / BOFT paths give them (b = 32), with the
+    blocks read transposed at the banked rotations' shapes, and at
+    b = 256."""
+    run = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = ([(B, T, d, BDMM_BLOCK, False) for B, T, d in bdmm_cases(cfg)]
+                 + [(B, T, d, BDMM_BLOCK, True)
+                    for B, T, d in bdmm_trans_cases(cfg)]
+                 + [(B, T, d, BDMM_LARGE_BLOCK, False)
+                    for B, T, d in bdmm_large_cases(cfg)])
+        for B, T, d, b, trans in cases:
+            c = check_bdmm_case(B, T, d, b, dtype, gen, device, trans)
+            run.append(c)
+            log(f"kernel bdmm           B={B} T={T:5d} d={d:5d} b={b:3d} "
+                f"{'T ' if trans else '  '}{c['route']:6s} "
+                f"{c['geometry']} {c['dtype']:8s} err "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+        for T, d, b in ([(T, d, BDMM_BLOCK) for T, d in _slabs(cfg)]
+                        + [(cfg.d_ff, cfg.d_model, BDMM_LARGE_BLOCK)]):
+            c = check_dblocks_case(T, d, b, dtype, gen, device)
+            run.append(c)
+            log(f"kernel bdmm_dblocks   T={T:5d} d={d:5d} b={b:3d} "
+                f"{c['route']:6s} {c['geometry']} {c['dtype']:8s} rel err "
+                f"{c['grad_rel_err']:.2e} (tol {GRAD_REL:.0e}) "
+                f"bit-identical ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
+                f"lib {c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -784,6 +852,7 @@ def merged_phase(cfg, seed: int, device) -> dict:
 def _reset_launches() -> None:
     for name in KERNELS:
         KERNELS[name]["fn"].launches = 0
+    bk.bdmm.launches_by_route = {}
 
 
 def _launches() -> dict:
@@ -1065,6 +1134,7 @@ def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
     _reset_launches()
     eng, results, wall = drive()
     launches = _launches()
+    bdmm_routes = dict(bk.bdmm.launches_by_route)
     if len(results) != MIXED_SERVE_REQUESTS or any(
             len(v) != 16 for v in results.values()):
         raise AssertionError(f"served {len(results)} of "
@@ -1092,7 +1162,7 @@ def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
                 wall_s=walls, wall_median_s=wall_med, tok_s=toks / wall_med,
                 decode_steps=eng.stats["decode_steps"],
                 prefills=eng.stats["prefills"], setup_s=setup_s,
-                launches=launches,
+                launches=launches, bdmm_launches_by_route=bdmm_routes,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 profile=_profile(drive))
 
@@ -1936,28 +2006,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 3c. bdmm kernels against their plain versions
-    bdmm_run = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for B, T, d in bdmm_cases(full):
-            c = check_bdmm_case(B, T, d, BDMM_BLOCK, dtype, gen, device)
-            bdmm_run.append(c)
-            log(f"kernel bdmm           B={B} T={T:5d} d={d:5d} b={BDMM_BLOCK} "
-                f"gt={c['groups_per_cta']} tt={c['tt']} tpc="
-                f"{c['tokens_per_cta']} {c['dtype']:8s} err "
-                f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
-                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
-                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
-                f"({c['bound_by']})")
-        for T, d in _slabs(full):
-            c = check_dblocks_case(T, d, BDMM_BLOCK, dtype, gen, device)
-            bdmm_run.append(c)
-            log(f"kernel bdmm_dblocks   T={T:5d} d={d:5d} b={BDMM_BLOCK} "
-                f"gt={c['groups_per_cta']} splits={c['splits']} "
-                f"{c['dtype']:8s} rel err {c['grad_rel_err']:.2e} (tol "
-                f"{GRAD_REL:.0e}) bit-identical ms {c['ms']:.4f} plain "
-                f"{c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
-                f"{c['bound_ms']:.4f} ({c['bound_by']})")
-        torch.cuda.empty_cache()
+    bdmm_run = bdmm_phase(full, gen, device)
 
     # 3d. quantized matmuls and paged decode attention against their plain
     # versions
@@ -2192,7 +2241,8 @@ def main() -> int:
     log(f"mixed serve: {mserve['requests']} requests, {mserve['tokens']} "
         f"tokens; wall {['%.3f' % w for w in mserve['wall_s']]} s, median "
         f"{mserve['tok_s']:.1f} tok/s; {mserve['decode_steps']} decode "
-        f"steps; launches { {k: v for k, v in mserve['launches'].items() if v} }")
+        f"steps; launches { {k: v for k, v in mserve['launches'].items() if v} }"
+        f" (bdmm by route {mserve['bdmm_launches_by_route']})")
     log(f"mixed serve profile: wall {mprof['wall_s']:.3f} s, device busy "
         f"{mprof['device_busy_s']:.3f} s (idle share {mprof['idle_share']}), "
         f"port kernels {mprof['port_kernels_device_s']:.4f} s")

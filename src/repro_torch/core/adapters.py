@@ -317,9 +317,9 @@ def oft_bank_build(spec: AdapterSpec, params_by_slot: Sequence[Optional[Params]]
 def oft_rotate_banked(entry: Params, ids: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
     """Per-row x_i Q_{ids[i]} for block-diagonal Q: one banked ``bdmm``
-    launch over all rows with the per-row blocks transposed."""
+    launch over all rows, the per-row blocks read transposed in place."""
     Q = entry["Q"].index_select(0, ids).to(x.dtype)          # (B, r, b, b)
-    return kernel_ops.bdmm_banked(Q.transpose(-1, -2), x)
+    return kernel_ops.bdmm_banked(Q, x, transpose_blocks=True)
 
 
 # ---------------------------------------------------------------------------
@@ -379,15 +379,17 @@ def boft_bank_build(spec: AdapterSpec,
 def boft_rotate_banked(entry: Params, ids: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """Per-row x_i Q_{ids[i]} for butterfly Q: per level (reversed), a
-    butterfly gather, a banked ``bdmm`` with the per-row blocks transposed,
-    and the inverse gather."""
-    Q = entry["Q"].index_select(0, ids).to(x.dtype)       # (B, m, r, b, b)
+    butterfly gather, a banked ``bdmm`` with the per-row blocks read
+    transposed in place, and the inverse gather. Each level's blocks are
+    gathered on their own, so the kernel gets them contiguous."""
+    Q = entry["Q"]                                        # (A, m, r, b, b)
     b = Q.shape[-1]
     y = x
     for lvl in reversed(range(Q.shape[1])):
         perm, inv = _butterfly_perm(x.shape[-1], b, lvl + 1)
+        Ql = Q[:, lvl].index_select(0, ids).to(x.dtype)   # (B, r, b, b)
         y = apply_perm(kernel_ops.bdmm_banked(
-            Q[:, lvl].transpose(-1, -2), apply_perm(y, perm)), inv)
+            Ql, apply_perm(y, perm), transpose_blocks=True), inv)
     return y
 
 

@@ -5,10 +5,12 @@
 Each is a ``torch.autograd.Function`` whose forward and backward are the
 port's kernels, as in the JAX rules:
 
-* ``bdmm_diff(blocks, x)``: y = diag(blocks) x (``bdmm``); the backward is
-  ``bdmm_dblocks(dy, x)`` for the blocks and, only when the input needs a
-  gradient, ``bdmm(blocks^T, dy)`` for dx (a frozen weight slab never does;
-  the JAX rule always computes it).
+* ``bdmm_diff(blocks, x, transpose_blocks=False)``: y = diag(W) x
+  (``bdmm``), W = blocks or blocks^T read in place; the backward is
+  ``bdmm_dblocks(dy, x)`` for the blocks (``bdmm_dblocks(x, dy)``, the
+  transpose of W's gradient, when W = blocks^T) and, only when the input
+  needs a gradient, ``bdmm(W^T, dy)`` for dx, W^T again read in place (a
+  frozen weight slab never needs dx; the JAX rule always computes it).
 * ``gs_diff(L, R, x)``: y = P^T L P R x (``gs_fused``); the backward is the
   fused ``gs_fused_bwd`` -> (dx, dL, dR).
 * ``gs_T_diff(L, R, x)``: y = Q^T x = R^T P^T L^T P x (``gs_fused_T``).
@@ -66,29 +68,37 @@ class _GSTDiff(torch.autograd.Function):
 
 class _BdmmDiff(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, blocks, x):
+    def forward(ctx, blocks, x, transpose_blocks):
         ctx.save_for_backward(blocks, x)
-        return bdmm(x, blocks.to(x.dtype).contiguous())
+        ctx.transpose_blocks = transpose_blocks
+        return bdmm(x, blocks.to(x.dtype).contiguous(),
+                    transpose_blocks=transpose_blocks)
 
     @staticmethod
     def backward(ctx, dy):
         blocks, x = ctx.saved_tensors
+        trans = ctx.transpose_blocks
         dy = dy.contiguous()
-        bo, bi = blocks.shape[-2], blocks.shape[-1]
+        p, q = blocks.shape[-2], blocks.shape[-1]
         dblocks = dx = None
         if ctx.needs_input_grad[0]:
-            dblocks = bdmm_dblocks(dy, x, bo, bi).to(blocks.dtype)
+            # blocks' own layout: dy^T x, or (dy^T x)^T = x^T dy when W = blocks^T
+            grad = bdmm_dblocks(x, dy, p, q) if trans else bdmm_dblocks(dy, x, p, q)
+            dblocks = grad.to(blocks.dtype)
         if ctx.needs_input_grad[1]:
-            dx = bdmm(dy, blocks.to(x.dtype).transpose(-1, -2).contiguous())
-        return dblocks, dx
+            dx = bdmm(dy, blocks.to(x.dtype).contiguous(),
+                      transpose_blocks=not trans)
+        return dblocks, dx, None
 
 
-def bdmm_diff(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def bdmm_diff(blocks: torch.Tensor, x: torch.Tensor,
+              transpose_blocks: bool = False) -> torch.Tensor:
     """Differentiable per-row block-diagonal matmul: blocks (B, r, bo, bi),
-    x (B, T, r * bi) contiguous -> (B, T, r * bo). The kernels run in x's
-    dtype (blocks are cast to it); dblocks comes back in blocks' dtype from
-    the fp32 sums, as the JAX rule casts it."""
-    return _BdmmDiff.apply(blocks, x)
+    or (B, r, bi, bo) with ``transpose_blocks`` (W = blocks^T, read in
+    place), x (B, T, r * bi) contiguous -> (B, T, r * bo). The kernels run
+    in x's dtype (blocks are cast to it); dblocks comes back in blocks'
+    dtype from the fp32 sums, as the JAX rule casts it."""
+    return _BdmmDiff.apply(blocks, x, transpose_blocks)
 
 
 def gs_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

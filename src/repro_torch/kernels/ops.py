@@ -47,13 +47,17 @@ def bdmm(blocks: torch.Tensor, x: torch.Tensor,
 
 
 def bdmm_banked(blocks: torch.Tensor, x: torch.Tensor,
-                use_pallas: bool = False) -> torch.Tensor:
+                use_pallas: bool = False,
+                transpose_blocks: bool = False) -> torch.Tensor:
     """Per-row block-diagonal matmul: blocks (B, r, bo, bi), x (B, T, r*bi).
 
     Row i uses its own block set: one kernel launch over all rows (the JAX
-    package vmaps the kernel). ``use_pallas`` is ignored."""
+    package vmaps the kernel). ``transpose_blocks`` multiplies by each
+    row's blocks^T (blocks given (B, r, bi, bo)), read in place: JAX's
+    ``bdmm_banked(blocks^T, x)`` without the copy. ``use_pallas`` is
+    ignored."""
     del use_pallas
-    return bdmm_diff(blocks, x.contiguous())
+    return bdmm_diff(blocks, x.contiguous(), transpose_blocks)
 
 
 def gs_transform(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,

@@ -27,11 +27,15 @@ def bdmm_ref(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return yg.reshape(t, r * b_out).to(x.dtype)
 
 
-def bdmm_banked_ref(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def bdmm_banked_ref(blocks: torch.Tensor, x: torch.Tensor,
+                    transpose_blocks: bool = False) -> torch.Tensor:
     """Per-row block-diagonal matmul.
 
     blocks: (B, r, b_out, b_in);  x: (B, T, r * b_in)  ->  (B, T, r * b_out)
-    """
+    ``transpose_blocks``: multiply by blocks^T, blocks given (B, r, b_in,
+    b_out)."""
+    if transpose_blocks:
+        blocks = blocks.transpose(-1, -2)
     bsz, r, b_out, b_in = blocks.shape
     t = x.shape[1]
     xg = x.reshape(bsz, t, r, b_in)

@@ -252,18 +252,38 @@ def test_autograd_rules_match_autograd_of_the_plain_versions(cuda, op, dtype):
 
 # (B, T, r, bo, bi): decode rows (per-row blocks, T = 1) at both qwen2-72b
 # widths, short prefills, ragged T, a long slab with several token tiles per
-# CTA, rectangular and odd blocks (no float4 path), b = 128, tiny d
+# CTA, rectangular and odd blocks (the CUDA-core route), b = 128, tiny d;
+# b = 256, (512, 64) (bo split over CTAs) and (64, 512) (32 k-steps); bi = 8
+# and 40 (zero-padded along K) with a partial group tile; bi = 1024 (past
+# the tensor cores' 512: bi looped in chunks on the CUDA cores); (8, 512),
+# whose ring holds fewer groups per CTA)
 BDMM_CASES = [(4, 1, 256, 32, 32), (4, 1, 924, 32, 32), (1, 16, 256, 32, 32),
               (1, 130, 256, 32, 32), (2, 7, 6, 4, 4), (3, 33, 2, 8, 4),
               (1, 64, 3, 5, 9), (1, 2500, 64, 32, 32), (2, 40, 4, 128, 128),
-              (1, 9, 16, 4, 4), (1, 5, 1, 32, 32), (2, 1, 8, 16, 8)]
+              (1, 9, 16, 4, 4), (1, 5, 1, 32, 32), (2, 1, 8, 16, 8),
+              (1, 40, 1, 256, 256), (1, 33, 2, 512, 64), (1, 50, 2, 64, 512),
+              (4, 1, 2, 256, 256), (1, 20, 5, 16, 8), (1, 37, 3, 24, 40),
+              (1, 40, 1, 64, 1024), (1, 20, 4, 8, 512)]
+# the product with blocks^T read in place: decode rows, odd blocks, prefill
+# and slab tiles on the tensor cores, large blocks
+TRANS_CASES = [(4, 1, 256, 32, 32), (4, 1, 924, 32, 32), (2, 7, 6, 4, 4),
+               (3, 33, 2, 8, 4), (1, 64, 3, 5, 9), (2, 1, 8, 16, 8),
+               (1, 130, 256, 32, 32), (1, 2500, 64, 32, 32),
+               (1, 40, 1, 256, 256), (1, 33, 2, 512, 64), (4, 1, 2, 256, 256),
+               (1, 37, 3, 24, 40), (1, 40, 1, 64, 1024)]
 # (B, T, r, bo, bi) of the blocks gradient: one and several token splits,
-# ragged T, rectangular and odd blocks, b = 128 (4 tiles per thread), and a
-# long slab
+# ragged T, rectangular and odd blocks, b = 128, a long slab; b = 256,
+# (512, 64) and (64, 512) (split over CTAs along (bo, bi) tiles), and a
+# partial group tile with bi = 40
 DBLOCKS_CASES = [(1, 64, 256, 32, 32), (1, 3000, 256, 32, 32),
                  (2, 33, 2, 8, 4), (1, 250, 16, 4, 4), (1, 64, 3, 5, 9),
                  (1, 40, 2, 128, 128), (2, 7, 6, 4, 4), (1, 1, 4, 8, 8),
-                 (1, 100, 3, 128, 64)]
+                 (1, 100, 3, 128, 64), (1, 40, 1, 256, 256),
+                 (1, 70, 2, 512, 64), (1, 70, 2, 64, 512), (1, 45, 5, 24, 40)]
+# the weight slabs chip_smoke.py gives the kernels (qwen2-72b, b = 32):
+# (B, T, r, bo, bi) of wi / wg, MLP wo, wq / attn wo, wk / wv
+SLABS = [(1, 29568, 256, 32, 32), (1, 8192, 924, 32, 32),
+         (1, 8192, 256, 32, 32), (1, 1024, 256, 32, 32)]
 
 
 def _bdmm_inputs(rng, bsz, t, r, bo, bi, device, dtype):
@@ -316,35 +336,103 @@ def test_bdmm_dblocks_kernel_matches_plain_and_is_deterministic(cuda, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", TRANS_CASES,
+                         ids=lambda c: "B%d-T%d-r%d-bo%d-bi%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bdmm_reads_transposed_blocks_in_place(cuda, case, dtype):
+    bsz, t, r, bo, bi = case
+    rng = np.random.default_rng(bsz * 11 + t + r * 5 + bo + bi)
+    x = torch.from_numpy(rng.normal(size=(bsz, t, r * bi)).astype(np.float32))
+    stored = torch.from_numpy(      # blocks^T is the product's (bo, bi) block
+        rng.normal(0, bi ** -0.5, size=(bsz, r, bi, bo)).astype(np.float32))
+    x, stored = x.to(cuda, dtype), stored.to(cuda, dtype)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    before = bk.bdmm.launches
+    y = bk.bdmm(x, stored, transpose_blocks=True)
+    torch.cuda.synchronize()
+    assert bk.bdmm.launches == before + 1
+    want = bk.bdmm_plain(x, stored, transpose_blocks=True)
+    torch.testing.assert_close(
+        want.float(), bk.bdmm_plain(x, stored.transpose(-1, -2).contiguous())
+        .float(), rtol=0, atol=tol / 2)
+    assert y.shape == (bsz, t, r * bo) and y.dtype == dtype
+    assert torch.isfinite(y.float()).all()
+    assert (y.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 def test_bdmm_decode_grid_splits_groups_over_the_sms(cuda):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for r in (256, 924):
-        gt, tt, tpc = bk.bdmm_geometry(4, 1, r, 32, 32, sms)
-        assert (tt, tpc) == (1, 1)
-        assert -(-r // gt) * 4 >= sms
+        for trans in (False, True):
+            plan = bk.bdmm_plan(torch.bfloat16, 4, 1, r, 32, 32, sms, trans)
+            assert plan.route == "decode" and plan.grid[0] >= sms
+
+
+def _within_limits(plan):
+    gx, gy, gz = plan.grid
+    assert plan.smem <= bk.SMEM_LIMIT == 227 * 1024
+    assert 32 <= plan.threads <= bk.MAX_THREADS <= 1024
+    assert plan.threads % 32 == 0
+    assert 1 <= gx < 2 ** 31 and 1 <= gy <= 65535 and 1 <= gz <= 65535
 
 
 def test_bdmm_geometry_is_within_the_kernel_limits():
-    for bsz, t, r, bo, bi in BDMM_CASES + [(1, 29568, 256, 32, 32),
-                                           (1, 8192, 924, 32, 32)]:
-        gt, tt, tpc = bk.bdmm_geometry(bsz, t, r, bo, bi, 132)
-        assert 1 <= gt <= r and gt * max(bo, bi) <= 256
-        assert tt in (1, 8, 32) and tpc % tt == 0 and -(-t // tpc) <= 65535
-    for bsz, t, r, bo, bi in DBLOCKS_CASES + [(1, 29568, 256, 32, 32)]:
-        gt, splits, tps = bk.dblocks_geometry(bsz, t, r, bo, bi, 132)
-        assert 1 <= gt <= r and splits * tps >= t > (splits - 1) * tps
-        assert tps % 32 == 0
-    # at the widest slab, splits fill the card about four CTAs per SM
-    assert bk.dblocks_geometry(1, 29568, 256, 32, 32, 132) == (4, 9, 3296)
+    """Every route's launch for the test cases and the qwen2-72b slabs, as
+    the C side recomputes and checks it: shared memory, threads, grid."""
+    shapes = BDMM_CASES + TRANS_CASES + SLABS + [(4, 1, 256, 32, 32),
+                                                 (4, 1, 924, 32, 32)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz, t, r, bo, bi in shapes:
+            for trans in (False, True):
+                plan = bk.bdmm_plan(dtype, bsz, t, r, bo, bi, 132, trans)
+                _within_limits(plan)
+                # decode: one flat grid of block rows; else rows on grid z
+                assert plan.grid[2] == (1 if plan.route == "decode" else bsz)
+                if plan.route == "tc":
+                    kt, nt, gt, wpg, tm, tpc = plan.args
+                    assert dtype == torch.bfloat16 and t >= 16
+                    assert kt * 16 >= bi and nt * kt <= 32 and tm % 16 == 0
+                    assert plan.threads == gt * wpg * 32 and tpc % tm == 0
+                    assert plan.grid[1] == -(-t // tpc)
+                elif plan.route == "cc":
+                    gt, nc, kc, tt, tpc = plan.args
+                    assert gt * nc <= bk.MAX_THREADS and nc <= bo and kc <= bi
+                    assert gt == 1 or (kc == bi and nc == bo)
+                    assert tpc % tt == 0 and plan.grid[1] == -(-t // tpc)
+                else:
+                    assert plan.route == "decode" and t < 16
+        for bsz, t, r, bo, bi in DBLOCKS_CASES + SLABS:
+            plan = bk.dblocks_plan(dtype, bsz, t, r, bo, bi, 132)
+            _within_limits(plan)
+            splits, tps = plan.args[-2:]
+            assert splits * tps >= t > (splits - 1) * tps
+            assert tps % (plan.args[3] if plan.route == "tc" else 32) == 0
+    # the slabs take the tensor cores in bf16, the CUDA cores in f32; decode
+    # rows the decode kernel
+    for bsz, t, r, bo, bi in SLABS:
+        assert bk.bdmm_plan(torch.bfloat16, bsz, t, r, bo, bi, 132).route == "tc"
+        assert bk.bdmm_plan(torch.float32, bsz, t, r, bo, bi, 132).route == "cc"
+        assert bk.dblocks_plan(torch.bfloat16, bsz, t, r, bo, bi, 132).route == "tc"
+    # at the widest slab, splits fill the card: twice its resident CTAs on
+    # the tensor cores, about four CTAs per SM on the CUDA cores
+    assert bk.dblocks_plan(torch.bfloat16, 1, 29568, 256, 32, 32,
+                           132).args == (8, 1, 1, 32, 16, 1856)
+    assert bk.dblocks_plan(torch.float32, 1, 29568, 256, 32, 32,
+                           132).args == (4, 32, 32, 9, 3296)
 
 
 @pytest.mark.cuda
 def test_bdmm_refuses_what_it_does_not_take(cuda):
-    x = torch.zeros((1, 2, 512), device=cuda)
-    with pytest.raises(ValueError, match="block size"):
-        bk.bdmm(x, torch.zeros((1, 2, 256, 256), device=cuda))
-    with pytest.raises(ValueError, match="block size"):
-        bk.bdmm_dblocks(x, x, 256, 256)
+    """b = 256 runs and matches the plain version (there is no block-size
+    limit); the wrapper refuses other dtypes and strided inputs, and an
+    empty input launches nothing."""
+    rng = np.random.default_rng(256)
+    x, blocks = _bdmm_inputs(rng, 1, 24, 2, 256, 256, cuda, torch.float32)
+    assert (bk.bdmm(x, blocks) - bk.bdmm_plain(x, blocks)).abs().max() <= F32_TOL
+    _assert_grads_close(bk.bdmm_dblocks(x, x, 256, 256),
+                        bk.bdmm_dblocks_plain(x, x, 256, 256), "dblocks")
     blocks = torch.zeros((1, 8, 8, 8), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or f32"):
         bk.bdmm(torch.zeros((1, 2, 64), device=cuda, dtype=torch.float16),
@@ -406,6 +494,62 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     dispatch.bdmm_diff(wb, xx).sum().backward()
     torch.cuda.synchronize()
     assert wb.grad is not None and xx.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bdmm_diff_reads_transposed_blocks_both_ways(cuda, dtype):
+    """bdmm_diff with transpose_blocks against autograd of the plain version
+    on the card: one forward, one dblocks and one dx launch, as without."""
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.normal(size=(3, 40, 6 * 16)).astype(np.float32))
+    stored = torch.from_numpy(rng.normal(0, 0.25, size=(3, 6, 16, 24))
+                              .astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(3, 40, 6 * 24)).astype(np.float32))
+    x, stored, cot = x.to(cuda, dtype), stored.to(cuda, dtype), cot.to(cuda)
+    grads = []
+    for f in (lambda b, v: dispatch.bdmm_diff(b, v, transpose_blocks=True),
+              lambda b, v: bk.ref.bdmm_banked_ref(b, v, transpose_blocks=True)):
+        args = [stored.clone().requires_grad_(), x.clone().requires_grad_()]
+        grads.append(torch.autograd.grad((f(*args).float() * cot).sum(), args))
+    tol = GRAD_REL if dtype == torch.float32 else 2.0 ** -5
+    for name, got, want in zip(("dblocks", "dx"), *grads):
+        assert got.shape == want.shape and got.dtype == want.dtype == dtype
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale, name
+    counts = (bk.bdmm.launches, bk.bdmm_dblocks.launches)
+    args = [stored.clone().requires_grad_(), x.clone().requires_grad_()]
+    (dispatch.bdmm_diff(*args, transpose_blocks=True).float()
+     * cot).sum().backward()
+    assert (bk.bdmm.launches, bk.bdmm_dblocks.launches) == \
+        (counts[0] + 2, counts[1] + 1)
+
+
+def test_bdmm_takes_any_block_size():
+    """No block-size limit in the wrapper's checks: b = 256 and (64, 512)
+    pass them (the plain version on the CPU, a route of the kernels on the
+    card), blocks read transposed too."""
+    rng = np.random.default_rng(7)
+    for bo, bi in ((256, 256), (64, 512), (512, 64)):
+        x, blocks = _bdmm_inputs(rng, 2, 5, 2, bo, bi, "cpu", torch.float32)
+        assert torch.equal(bk.bdmm(x, blocks), bk.bdmm_plain(x, blocks))
+        tb = blocks.transpose(-1, -2).contiguous()
+        # the same sums, read through a strided view (another order)
+        torch.testing.assert_close(bk.bdmm(x, tb, transpose_blocks=True),
+                                   bk.bdmm_plain(x, blocks), rtol=1e-6,
+                                   atol=1e-6)
+        dy = torch.from_numpy(rng.normal(size=(2, 5, 2 * bo)).astype(np.float32))
+        assert torch.equal(bk.bdmm_dblocks(dy, x, bo, bi),
+                           bk.bdmm_dblocks_plain(dy, x, bo, bi))
+        for dtype in (torch.float32, torch.bfloat16):
+            for t in (1, 5, 300):
+                for trans in (False, True):
+                    _within_limits(bk.bdmm_plan(dtype, 2, t, 2, bo, bi, 132,
+                                                trans))
+                _within_limits(bk.dblocks_plan(dtype, 2, t, 2, bo, bi, 132))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        bk.bdmm(x, blocks, transpose_blocks=True)
 
 
 def test_bdmm_cpu_tensors_take_the_plain_version_without_counting():

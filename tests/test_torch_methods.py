@@ -285,6 +285,51 @@ def test_ops_bdmm_banked_and_gradients_match_jax_pallas(bsz, r, bo, bi, t):
         _close(_np(got), _np(want), F32_REL, name)
 
 
+# (B, r, p, q, T): stored blocks (p, q) read transposed, so the product's
+# (bo, bi) = (q, p): square, rectangular with ragged T, odd sizes
+TRANS_SHAPES = [(2, 4, 8, 8, 16), (1, 3, 4, 8, 33), (2, 2, 9, 5, 7)]
+
+
+@pytest.mark.parametrize("bsz,r,p,q,t", TRANS_SHAPES)
+def test_bdmm_transposed_blocks_match_jax_pallas_of_the_transpose(bsz, r, p, q,
+                                                                  t):
+    """``bk.bdmm(x, Q, transpose_blocks=True)`` is JAX's ``bdmm_pallas(Q^T,
+    x)`` (interpret mode), row by row; ``bdmm_diff``'s gradients are those
+    of JAX's ``bdmm_diff`` rule through the transpose."""
+    from repro.kernels import dispatch as jdispatch
+    from repro.kernels.bdmm import bdmm_pallas
+    from repro_torch.kernels import bdmm as tbk
+    from repro_torch.kernels import dispatch as tdispatch
+    rng = np.random.default_rng(bsz + r + p + q + t)
+    Q = rng.normal(size=(bsz, r, p, q)).astype(np.float32)
+    x = rng.normal(size=(bsz, t, r * p)).astype(np.float32)
+    cot = rng.normal(size=(bsz, t, r * q)).astype(np.float32)
+    tun = jdispatch.Tuning()
+    jy, jgq, jgx = [], [], []
+    for z in range(bsz):
+        jy.append(bdmm_pallas(jnp.swapaxes(_j(Q[z]), -1, -2), _j(x[z]),
+                              interpret=True))
+
+        def jloss(w, xx):
+            y = jdispatch.bdmm_diff(tun, True, jnp.swapaxes(w, -1, -2), xx)
+            return jnp.sum(y * _j(cot[z]))
+
+        gq, gx = jax.grad(jloss, argnums=(0, 1))(_j(Q[z]), _j(x[z]))
+        jgq.append(gq)
+        jgx.append(gx)
+    ty = tbk.bdmm(_t(x), _t(Q), transpose_blocks=True)
+    tq, tx = _t(Q).requires_grad_(), _t(x).requires_grad_()
+    y = tdispatch.bdmm_diff(tq, tx, transpose_blocks=True)
+    gq, gx = torch.autograd.grad((y * _t(cot)).sum(), (tq, tx))
+    for what, got, want in (("y", ty, jy), ("dQ", gq, jgq), ("dx", gx, jgx)):
+        np.testing.assert_allclose(_np(got), np.stack([_np(a) for a in want]),
+                                   rtol=0, atol=1e-5, err_msg=what)
+    # the banked entry point takes the flag through to the same rule
+    tq2 = _t(Q).requires_grad_()
+    yb = tops.bdmm_banked(tq2, _t(x), transpose_blocks=True)
+    _close(_np(yb), _np(ty), 1e-6, "bdmm_banked")
+
+
 def test_dblocks_plain_version_is_the_autodiff_of_bdmm_ref():
     rng = np.random.default_rng(2)
     blocks = rng.normal(size=(3, 5, 9)).astype(np.float32)
