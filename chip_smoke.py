@@ -13,10 +13,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    for the kernel, the plain version and a library yardstick (one dense
    matmul); the transpose kernel's launch variants (split over a cluster or
    not, one or several tokens per tile) must each be checked
-3b. backward kernels — ``gs_fused_bwd`` and ``gs_fused_grads`` against their
-   plain versions at every (T, d) the training path gives them (the weight
-   slabs of the seven projections), bf16 and f32, with times, bounds and a
-   partial library yardstick
+3b. backward kernels — ``gs_fused_grads`` against its plain version at every
+   (T, d) the training paths give it (the weight slabs of the seven
+   projections, both sides), ``gs_fused_bwd`` (with dx) at the weight-side
+   slabs, bf16 and f32, with the route each took, times, bounds and a
+   partial library yardstick; then both at the wi slab with b = 128 and
+   256 (route 2), bf16; then ``gs_fused_bwd``'s path, once: ``gs_diff``
+   through autograd with an input that needs a gradient
 3c. bdmm kernels — ``bdmm`` at the weight slabs (OFT / BOFT training and
    merge), the banked decode rows and every prefill bucket (OFT / BOFT
    serving; also with the blocks read transposed in place, as the banked
@@ -64,12 +67,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
 7. train  — full-width qwen2-72b, depth cut to 4 layers, bf16, remat
    "full": GSOFT (b = 32) on all seven projections, AdamW, steps of
    ``build_train_step`` on one fixed batch (the loss must fall), then 3
-   steps of ``train()``; the forward and backward GS kernels must have run
-   once per adapted weight slice and step
+   steps of ``train()``; ``gs_fused`` and ``gs_fused_grads`` must have run
+   once per adapted weight slice and step, and ``gs_fused_bwd`` never (the
+   rotated weight is frozen: no dx)
 8. gradients — full width, 2 layers, f32, TF32 off: for GSOFT and Double
    GSOFT, the adapter gradients of one train step against a central
-   difference of the loss along a seeded random direction (all four GS
-   kernels run in these backward passes)
+   difference of the loss along a seeded random direction (``gs_fused``,
+   ``gs_fused_T`` and ``gs_fused_grads`` run in these backward passes)
 9. OFT / BOFT train — as phase 7 with OFT and BOFT (b = 32, BOFT at its two
    butterfly levels): fixed-batch steps whose bdmm / bdmm_dblocks launches
    per step must equal the design's count, then 3 steps through the
@@ -259,9 +263,9 @@ KERNELS = {
 # kernel launches per adapted weight slice and train step, by method, as the
 # design predicts (m: BOFT's butterfly levels): materialization runs outside
 # remat, so once forward; the weight slab is frozen, so no dx launch for the
-# first level's input
+# first level's input (GSOFT: the grads-only backward, no gs_fused_bwd)
 DESIGN_LAUNCHES = {
-    "gsoft": lambda m: {"gs_fused": 1, "gs_fused_bwd": 1},
+    "gsoft": lambda m: {"gs_fused": 1, "gs_fused_grads": 1},
     "oft": lambda m: {"bdmm": 1, "bdmm_dblocks": 1},
     "boft": lambda m: {"bdmm": 2 * m - 1, "bdmm_dblocks": m},
     "householder": lambda m: {},
@@ -269,12 +273,14 @@ DESIGN_LAUNCHES = {
     "lora": lambda m: {},
 }
 # the backward kernel of each trained method (counted in the train() steps)
-BWD_KERNEL = {"gsoft": "gs_fused_bwd", "oft": "bdmm_dblocks",
+BWD_KERNEL = {"gsoft": "gs_fused_grads", "oft": "bdmm_dblocks",
               "boft": "bdmm_dblocks"}
-# the kernels one train step's gradient runs, by method (phases 8 and 10)
+# the kernels one train step's gradient runs, by method (phases 8 and 10);
+# Double GSOFT's output side takes gs_fused for the dx of its input, the
+# rotated weight
 GRAD_KERNELS = {
-    "gsoft": ("gs_fused", "gs_fused_bwd"),
-    "double_gsoft": ("gs_fused", "gs_fused_T", "gs_fused_bwd", "gs_fused_grads"),
+    "gsoft": ("gs_fused", "gs_fused_grads"),
+    "double_gsoft": ("gs_fused", "gs_fused_T", "gs_fused_grads"),
     "oft": ("bdmm", "bdmm_dblocks"),
     "boft": ("bdmm", "bdmm_dblocks"),
 }
@@ -428,16 +434,23 @@ def bwd_bound(T: int, d: int, b: int, dtype, with_dx: bool) -> tuple:
 
 
 def bwd_cases(cfg):
-    """(kernel, T, d) the training path gives the backward kernels, b = 32:
-    the weight-side GSOFT rotation treats the columns of W (d_in, d_out) as
-    tokens (T = d_out, d = d_in, gs_fused_bwd); Double GSOFT's output side
-    treats its rows as tokens (T = d_in, d = d_out, gs_fused_grads). Slabs:
-    wq / attn wo, wk / wv, wi / wg, MLP wo."""
+    """(kernel, T, d, b) of phase 3b. The weight-side GSOFT rotation treats
+    the columns of W (d_in, d_out) as tokens (T = d_out, d = d_in); Double
+    GSOFT's output side treats its rows as tokens (T = d_in, d = d_out).
+    Both train through ``gs_fused_grads`` (slabs: wq / attn wo, wk / wv,
+    wi / wg, MLP wo); ``gs_fused_bwd`` (with dx) is held at the weight-side
+    slabs. Then the wi slab at b = 128 and 256 (route 2, bf16 only)."""
     D, F = cfg.d_model, cfg.d_ff
     kv = cfg.num_kv_heads * cfg.d_head
     w = [(D, cfg.num_heads * cfg.d_head), (D, kv), (D, F), (F, D)]
-    return ([("gs_fused_bwd", d_out, d_in) for d_in, d_out in w] +
-            [("gs_fused_grads", d_in, d_out) for d_in, d_out in w])
+    grads = []
+    for T, d in [(d_out, d_in) for d_in, d_out in w] + \
+            [(d_in, d_out) for d_in, d_out in w]:
+        if ("gs_fused_grads", T, d, 32) not in grads:
+            grads.append(("gs_fused_grads", T, d, 32))
+    return (grads + [("gs_fused_bwd", d_out, d_in, 32) for d_in, d_out in w],
+            [(k, F, D, b) for b in (128, 256)
+             for k in ("gs_fused_grads", "gs_fused_bwd")])
 
 
 def check_bwd_case(kernel, T, d, b, dtype, gen, device) -> dict:
@@ -481,14 +494,46 @@ def check_bwd_case(kernel, T, d, b, dtype, gen, device) -> dict:
         lib_what = "2 x bmm over r blocks (b, T) @ (T, b), fp32: the sums only"
         del a, c
     bound_ms, bound_by = bwd_bound(T, d, b, dtype, with_dx)
-    tt, splits = gk.launch_geometry("gs_fused_bwd", 1, T, d, b)
-    return dict(kernel=kernel, B=1, T=T, d=d, b=b, tt=tt, splits=splits,
+    plan = gk.bwd_plan(1, T, d // b, b, gk._DTYPES[dtype], gk._num_sms(device))
+    return dict(kernel=kernel, B=1, T=T, d=d, b=b, route=plan.route,
+                splits=plan.splits, tokens=plan.tokens, window=plan.window,
                 dtype=str(dtype).replace("torch.", ""),
                 max_abs_err=max([dx_err] + grad_abs), dx_abs_err=dx_err,
                 grad_rel_err=grad_err, tol=tol,
                 grad_tol=GRAD_REL, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, library_what=lib_what, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def bwd_entry_phase(cfg, gen, device) -> dict:
+    """``gs_fused_bwd``'s path, which no training path takes: the autograd
+    rule of ``ops.gs_transform`` (``gs_diff``) when its input needs a
+    gradient, driven once at the wi slab in bf16, with the launches counted
+    from zero around that run; dx against the plain transpose rotation."""
+    T, d, b = cfg.d_ff, cfg.d_model, 32
+    L, R = (f[0].requires_grad_() for f in
+            _orth_factors(gen, 1, d // b, b, torch.bfloat16, device))
+    x = torch.randn((T, d), generator=gen, device=device).to(
+        torch.bfloat16).requires_grad_()
+    cot = torch.randn((T, d), generator=gen, device=device).to(torch.bfloat16)
+    _reset_launches()
+    y = ops.gs_transform(L, R, x)
+    dL, dR, dx = torch.autograd.grad(y, (L, R, x), cot)
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = {k: 0 for k in launches}
+    want.update(gs_fused=1, gs_fused_bwd=1)
+    if launches != want:
+        raise AssertionError(f"gs_diff with an input that needs a gradient "
+                             f"launched {launches}, not {want}")
+    ref_dx = gk.gs_fused_T_plain(cot[None], L.detach()[None],
+                                 R.detach()[None])[0]
+    err = (dx.float() - ref_dx.float()).abs().max().item()
+    if not (math.isfinite(err) and err <= BF16_TOL and
+            all(torch.isfinite(g).all() for g in (dL, dR))):
+        raise AssertionError(f"gs_diff dx err {err} (tol {BF16_TOL})")
+    return dict(T=T, d=d, b=b, dtype="bfloat16", launches=launches,
+                dx_abs_err=err)
 
 
 def bdmm_bound(B: int, T: int, d: int, b: int, dtype) -> tuple:
@@ -1146,7 +1191,8 @@ def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
         if launches[name] == 0:
             raise AssertionError(f"mixed serving never launched {name}: "
                                  f"{launches}")
-    if launches["bdmm_dblocks"] or launches["gs_fused_bwd"]:
+    if (launches["bdmm_dblocks"] or launches["gs_fused_bwd"]
+            or launches["gs_fused_grads"]):
         raise AssertionError(f"serving launched a backward kernel: {launches}")
     walls = [wall]
     for _ in range(repeats - 1):
@@ -1511,7 +1557,8 @@ def paged_quant_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
         if launches[name] == 0:
             raise AssertionError(f"paged int8 serving never launched {name}: "
                                  f"{launches}")
-    if launches["gs_fused_T"] or launches["gs_fused_bwd"] or launches["bdmm"]:
+    if (launches["gs_fused_T"] or launches["gs_fused_bwd"]
+            or launches["gs_fused_grads"] or launches["bdmm"]):
         raise AssertionError(f"the fused int8 path launched another "
                              f"rotation kernel: {launches}")
     kv = eng.kv_stats()
@@ -1992,18 +2039,27 @@ def main() -> int:
 
     # 3b. backward kernels against their plain versions
     bwd_cases_run = []
+    slabs_bwd, large_bwd = bwd_cases(full)
     for dtype in (torch.bfloat16, torch.float32):
-        for kernel, T, d in bwd_cases(full):
-            c = check_bwd_case(kernel, T, d, 32, dtype, gen, device)
+        for kernel, T, d, b in slabs_bwd + (
+                large_bwd if dtype == torch.bfloat16 else []):
+            c = check_bwd_case(kernel, T, d, b, dtype, gen, device)
             bwd_cases_run.append(c)
-            log(f"kernel {kernel:14s} T={T:5d} d={d:5d} b=32 tt={c['tt']} "
-                f"splits={c['splits']} {c['dtype']:8s} dx err "
+            log(f"kernel {kernel:14s} T={T:5d} d={d:5d} b={b:3d} "
+                f"{c['route']:8s} splits={c['splits']} tokens={c['tokens']} "
+                f"{c['dtype']:8s} dx err "
                 f"{c['dx_abs_err']:.2e} (tol {c['tol']:.0e}) dL/dR rel err "
                 f"{c['grad_rel_err']:.2e} (tol {GRAD_REL:.0e}) ms "
                 f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
                 f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
                 f"({c['bound_by']})")
         torch.cuda.empty_cache()
+
+    bwd_entry = bwd_entry_phase(full, gen, device)
+    log(f"gs_diff with an input that needs a gradient (wi slab, bf16): "
+        f"launches {({k: v for k, v in bwd_entry['launches'].items() if v})}"
+        f", dx err {bwd_entry['dx_abs_err']:.2e} (tol {BF16_TOL:.0e})")
+    torch.cuda.empty_cache()
 
     # 3c. bdmm kernels against their plain versions
     bdmm_run = bdmm_phase(full, gen, device)
@@ -2299,6 +2355,7 @@ def main() -> int:
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
+               "gs_diff_input_grad": bwd_entry["launches"],
                "grads_double_gsoft": grads[1]["launches"],
                "train_oft": trains_bdmm["oft"]["launches"],
                "train_boft": trains_bdmm["boft"]["launches"],
@@ -2311,19 +2368,20 @@ def main() -> int:
                               "float32"),
                  "gs_fused_bwd": ("gs_fused_bwd", 1, full.d_ff, full.d_model,
                                   32, "bfloat16"),
-                 "gs_fused_grads": ("gs_fused_grads", 1, full.d_model,
-                                    full.d_ff, 32, "bfloat16"),
+                 "gs_fused_grads": ("gs_fused_grads", 1, full.d_ff,
+                                    full.d_model, 32, "bfloat16"),
                  "bdmm": ("bdmm", 1, full.d_ff, full.d_model, 32, "bfloat16"),
                  "bdmm_dblocks": ("bdmm_dblocks", 1, full.d_ff, full.d_model,
                                   32, "bfloat16")}
     # launches on the training path: GSOFT training (phase 7) for the
-    # forward rotation and the fused backward; Double GSOFT's gradient step
-    # (phase 8) for the transpose rotation and the grads-only backward; OFT
-    # and BOFT training (phase 9) for the bdmm kernels
+    # forward rotation and the grads-only backward; Double GSOFT's gradient
+    # step (phase 8) for the transpose rotation; gs_diff with an input that
+    # needs a gradient (phase 3b) for the fused backward with dx; OFT and
+    # BOFT training (phase 9) for the bdmm kernels
     launches = {"gs_fused_T": grads[1]["launches"]["gs_fused_T"],
                 "gs_fused": train["launches"]["gs_fused"],
-                "gs_fused_bwd": train["launches"]["gs_fused_bwd"],
-                "gs_fused_grads": grads[1]["launches"]["gs_fused_grads"],
+                "gs_fused_bwd": bwd_entry["launches"]["gs_fused_bwd"],
+                "gs_fused_grads": train["launches"]["gs_fused_grads"],
                 "bdmm": sum(t["launches"]["bdmm"] for t in trains_bdmm.values()),
                 "bdmm_dblocks": sum(t["launches"]["bdmm_dblocks"]
                                     for t in trains_bdmm.values())}
@@ -2403,6 +2461,7 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, build_s=build_s, cases=cases,
                                    bwd_cases=bwd_cases_run,
+                                   bwd_entry=bwd_entry,
                                    bdmm_cases=bdmm_run, serve=serve,
                                    merged=merged, train=train, grads=grads,
                                    train_bdmm=trains_bdmm, quick=quick,

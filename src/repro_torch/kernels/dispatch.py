@@ -11,17 +11,18 @@ port's kernels, as in the JAX rules:
   transpose of W's gradient, when W = blocks^T) and, only when the input
   needs a gradient, ``bdmm(W^T, dy)`` for dx, W^T again read in place (a
   frozen weight slab never needs dx; the JAX rule always computes it).
-* ``gs_diff(L, R, x)``: y = P^T L P R x (``gs_fused``); the backward is the
-  fused ``gs_fused_bwd`` -> (dx, dL, dR).
+* ``gs_diff(L, R, x)``: y = P^T L P R x (``gs_fused``); the backward is
+  ``gs_fused_grads`` -> (dL, dR), or the fused ``gs_fused_bwd`` -> (dx, dL,
+  dR) only when x needs a gradient.
 * ``gs_T_diff(L, R, x)``: y = Q^T x = R^T P^T L^T P x (``gs_fused_T``).
-  Since <dy, Q^T x> = <x, Q dy>, dx is the forward rotation ``gs_fused`` of
-  dy, and (dL, dR) come from ``gs_fused_grads`` with input and cotangent
-  swapped.
+  Since <dy, Q^T x> = <x, Q dy>, (dL, dR) come from ``gs_fused_grads`` with
+  input and cotangent swapped, and dx, only when x needs it, is the
+  forward rotation ``gs_fused`` of dy.
 
-L, R: (r, b, b); x: (T, d). dL and dR are cast to L's dtype. As in the JAX
-rules the GS dx slab is always computed, even for a frozen x (skipping it when
-``needs_input_grad`` is false is a later optimization). A CUDA tensor runs
-the kernels, a CPU tensor their plain versions, both ways. The tuning
+L, R: (r, b, b); x: (T, d). dL and dR are cast to L's dtype. The GS rules,
+like bdmm's, skip the dx slab for a frozen x (the weight a GSOFT adapter
+rotates); the JAX rules always compute it. A CUDA tensor runs the kernels,
+a CPU tensor their plain versions, both ways. The tuning
 registry of the JAX module is not ported: the kernels pick their own launch
 geometry. ``pick_chunk`` is the plain SSD scan's chunk rule.
 """
@@ -47,8 +48,14 @@ class _GSDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         L, R, x = ctx.saved_tensors
-        dx, dL, dR = gs_fused_bwd(_row(x), _row(dy), _row(L), _row(R))
-        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx[0].to(x.dtype)
+        args = (_row(x), _row(dy), _row(L), _row(R))
+        dx = None
+        if ctx.needs_input_grad[2]:
+            dx, dL, dR = gs_fused_bwd(*args)
+            dx = dx[0].to(x.dtype)
+        else:
+            dL, dR = gs_fused_grads(*args)
+        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx
 
 
 class _GSTDiff(torch.autograd.Function):
@@ -61,9 +68,11 @@ class _GSTDiff(torch.autograd.Function):
     def backward(ctx, dy):
         L, R, x = ctx.saved_tensors
         dy1 = _row(dy)
-        dx = gs_fused(dy1, _row(L), _row(R))[0]
         dL, dR = gs_fused_grads(dy1, _row(x), _row(L), _row(R))
-        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx.to(x.dtype)
+        dx = None
+        if ctx.needs_input_grad[2]:
+            dx = gs_fused(dy1, _row(L), _row(R))[0].to(x.dtype)
+        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx
 
 
 class _BdmmDiff(torch.autograd.Function):

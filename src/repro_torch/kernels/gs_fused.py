@@ -36,18 +36,29 @@ The backward, ``csrc/gs_fused_bwd.cu``:
   ``gs_fused_bwd_pallas``: the gradients of <dy, gs_fused(x, L, R)>, dx in
   x.dtype and dL, dR (B, r, b, b) in fp32;
 * ``gs_fused_grads(x, dy, L, R) -> (dL, dR)`` replaces
-  ``gs_fused_grads_pallas``: the same without dx.
+  ``gs_fused_grads_pallas``: the same without dx, what a GSOFT step runs
+  for a frozen weight.
 
-Both keep every intermediate in fp32, as does their plain version, so the
-two differ by summation order only, in bf16 as in f32 (dx is then rounded
-to bf16 by both). One call launches the kernel's two passes (and, with
-several token splits, the partial-sum reduction) and counts one launch.
+``bwd_plan`` picks the route. Route 1 (bf16, b = 32, r >= b: every weight
+slab the GSOFT paths train) is one tensor-core pass with no workspace: the
+output groups are cut into tiles that need only their own source groups
+(``tile_groups``; super-blocks of b^2 features when b divides r), each tile
+into CTAs of 8 groups (``tc_table``), the tokens into splits; dx is then
+the transpose rotation of dy (``gs_fused_T``'s kernel, counted as part of
+this one call). Route 2 (f32, other b up to 256, r < b) is the two-pass
+kernel with an fp32 workspace. Both keep every intermediate at least as
+precise as bf16 hi + lo (route 1's sums) or fp32, as does their plain
+version, so the two differ by summation order and that split (2^-17
+relative) only; dx is rounded to bf16 by both. One call counts one launch,
+whatever it runs.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import build, ref
@@ -57,24 +68,37 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # x, L, R, y, B, T, r, b, tokens per tile[, cluster], stream
 _FWD_ARGTYPES = {"gs_fused_T": [_PTR] * 4 + [_INT] * 6 + [_PTR],
                  "gs_fused": [_PTR] * 4 + [_INT] * 5 + [_PTR]}
-# x, dy, L, R, R^T, dx, workspace, partial sums, dL, dR, B, T, r, b,
-# tokens per tile, token splits, stream
-_BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 6 + [_PTR]
-# the C functions of each source
+# route 2: x, dy, L, R, R^T, dx, workspace, partial sums, dL, dR, B, T, r,
+# b, tokens per tile, token splits, pass-2 CTAs per block, stream
+_BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 7 + [_PTR]
+# route 1: x, dy, L, R, plan table, partial sums, dL, dR, B, T, r, entries,
+# splits, tokens per split, window, dy columns, stream
+_TC_ARGTYPES = [_PTR] * 8 + [_INT] * 8 + [_PTR]
+# the C functions of each source, by dtype
 _ENTRIES = {"gs_fused_T": {"gs_fused_T": _FWD_ARGTYPES["gs_fused_T"]},
             "gs_fused": {"gs_fused": _FWD_ARGTYPES["gs_fused"]},
             "gs_fused_bwd": {"gs_fused_bwd": _BWD_ARGTYPES,
                              "gs_fused_grads": _BWD_ARGTYPES}}
 _LIBS = {}
 _SMS = {}
-# largest block size of the backward kernel's b x b sums (csrc/gs_fused_bwd.cu)
-BWD_MAX_BLOCK = 128
+_TABLES = {}
+# constants of csrc/gs_common.cuh and csrc/gs_fused_bwd.cu the launch plan
+# mirrors (checked against the library when it loads)
+MAX_TILE_ELEMS = 32768    # tokens per tile x d of the fp32 tile kernels
+REDUCE_TOKENS = 64        # tokens per staged chunk of route 2's pass 2
+REDUCE_TILES = 1024       # 4 x 4 tiles of a b x b block one pass-2 CTA holds
+BWD_MAX_BLOCK = 256       # largest block size of the backward
+TC_BLOCK = 32             # route 1: the block size it takes
+TC_SLOTS = 8              # ... output groups per CTA
+TC_TOKENS = 16            # ... tokens per staged tile
+TC_MAX_WINDOW = 39        # ... source groups a CTA stages
+TC_TAB = 8 + 4 * TC_SLOTS  # ... ints per CTA in the plan table
 
 
 def _lib(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its C signatures bound
     (and its constants read once: ``tile``, for the transpose kernel
-    ``cluster``, for the backward ``reduce_tokens``)."""
+    ``cluster``; the backward's are checked against the launch plan's)."""
     if name not in _LIBS:
         lib = build.load(name)
         for entry, argtypes in _ENTRIES[name].items():
@@ -90,8 +114,12 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.gs_cluster_size.restype = ctypes.c_int
             lib.cluster = int(lib.gs_cluster_size())
         if name == "gs_fused_bwd":
+            lib.gs_grads_tc_bf16.argtypes = _TC_ARGTYPES
+            lib.gs_grads_tc_bf16.restype = ctypes.c_int
             lib.gs_reduce_tokens.restype = ctypes.c_int
-            lib.reduce_tokens = int(lib.gs_reduce_tokens())
+            lib.gs_bwd_constants.argtypes = [_PTR]
+            lib.gs_bwd_constants.restype = None
+            _check_bwd_lib(lib)
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -134,14 +162,11 @@ def _tile_tokens(t: int, d: int, max_tile: int) -> int:
     return tt
 
 
-def launch_geometry(name: str, bsz: int, t: int, d: int, b: int = 0) -> tuple:
-    """(tokens per tile, CTAs per tile) that ``name``'s kernel is launched
-    with for x (bsz, t, d); for the backward (``gs_fused_bwd``, block size
-    ``b``), (tokens per tile of pass 1, token splits of pass 2)."""
+def launch_geometry(name: str, bsz: int, t: int, d: int) -> tuple:
+    """(tokens per tile, CTAs per tile) that the forward kernel ``name`` is
+    launched with for x (bsz, t, d); the backward's is ``bwd_plan``."""
     lib = _lib(name)
     tt = _tile_tokens(t, d, lib.tile)
-    if name == "gs_fused_bwd":
-        return tt, _reduce_splits(bsz, t, d // b, lib.reduce_tokens)
     if name != "gs_fused_T":
         return tt, 1
     # split each tile over a cluster of CTAs when the split grid still fits
@@ -153,12 +178,21 @@ def launch_geometry(name: str, bsz: int, t: int, d: int, b: int = 0) -> tuple:
     return tt, split if bsz * -(-t // tt) * split <= sms else 1
 
 
-def _reduce_splits(bsz: int, t: int, r: int, reduce_tokens: int) -> int:
-    """Token splits of the backward's pass 2, whose grid is one CTA per
-    (b x b block, split, row): enough splits for about two CTAs per SM,
-    never more than the chunks of ``reduce_tokens`` tokens there are."""
-    sms = _num_sms(torch.device("cuda", torch.cuda.current_device()))
-    return max(1, min(-(-t // reduce_tokens), -(-2 * sms // (bsz * r))))
+def _run(name: str, y: torch.Tensor, x: torch.Tensor, L: torch.Tensor,
+         R: torch.Tensor) -> int:
+    """Launch forward kernel ``name`` (``gs_fused_T``: y = x Q; ``gs_fused``,
+    given L^T and R^T: y = Q x) into ``y``; returns the CUDA error code."""
+    lib = _lib(name)
+    bsz, t, d = x.shape
+    r, b = L.shape[1], L.shape[2]
+    with torch.cuda.device(x.device):
+        tt, split = launch_geometry(name, bsz, t, d)
+        args = [x.data_ptr(), L.data_ptr(), R.data_ptr(), y.data_ptr(),
+                bsz, t, r, b, tt]
+        if name == "gs_fused_T":
+            args.append(split)
+        args.append(torch.cuda.current_stream(x.device).cuda_stream)
+        return getattr(lib, f"{name}_{_DTYPES[x.dtype]}")(*args)
 
 
 def _launch(wrapper, x: torch.Tensor, L: torch.Tensor,
@@ -171,21 +205,13 @@ def _launch(wrapper, x: torch.Tensor, L: torch.Tensor,
     if not (x.is_contiguous() and L.is_contiguous() and R.is_contiguous()):
         raise ValueError("kernel needs contiguous x, L, R")
     lib = _lib(name)
-    bsz, t, d = x.shape
-    r, b = L.shape[1], L.shape[2]
-    if d > lib.tile:
-        raise ValueError(f"d={d} exceeds the kernel's tile limit {lib.tile}")
+    if x.shape[2] > lib.tile:
+        raise ValueError(f"d={x.shape[2]} exceeds the kernel's tile limit "
+                         f"{lib.tile}")
     y = torch.empty_like(x)
-    if t == 0 or bsz == 0:
+    if x.shape[0] == 0 or x.shape[1] == 0:
         return y
-    with torch.cuda.device(x.device):
-        tt, split = launch_geometry(name, bsz, t, d)
-        args = [x.data_ptr(), L.data_ptr(), R.data_ptr(), y.data_ptr(),
-                bsz, t, r, b, tt]
-        if name == "gs_fused_T":
-            args.append(split)
-        args.append(torch.cuda.current_stream(x.device).cuda_stream)
-        err = getattr(lib, f"{name}_{_DTYPES[x.dtype]}")(*args)
+    err = _run(name, y, x, L, R)
     if err != 0:
         msg = lib.gs_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (code {err})")
@@ -239,23 +265,145 @@ gs_fused_T.launches = 0
 gs_fused.launches = 0
 
 
+def tile_groups(r: int, b: int, k: int) -> list:
+    """(s0, q, g) of the output groups tile k owns, sorted: group g starts
+    at position g * b = q * r + s0 of dw = P dy with s0 in [k * b, k * b +
+    b), so it covers source groups s0 .. s0 + b - 1 of row q (those past
+    r - 1 wrap to row q + 1). For r >= b a tile holds one group per q."""
+    out = []
+    for q in range(b):
+        g = -(-(q * r + k * b) // b)
+        s0 = g * b - q * r
+        if g < r and s0 < r:
+            out.append((s0, q, g))
+    return sorted(out)
+
+
+def tc_table(r: int, b: int = TC_BLOCK, slots: int = TC_SLOTS) -> tuple:
+    """The route-1 plan of one row's factors: (table, tiles, parts,
+    largest window, largest dy column span). One table entry per CTA (tile
+    k, part c) of ``TC_TAB`` ints: [w0, W, qlo, dq, simple, 0, 0, 0] then,
+    per slot, [q, g, s0 - w0, 0] (q = -1: no group). The CTA owns the
+    slots' output groups (dL[g]) and the rows of dR their positions map to;
+    it stages source groups w0 .. w0 + W - 1 (past r - 1: wrapped) of x and
+    dy columns qlo .. qlo + dq - 1. ``simple``: b | r, so its slots are
+    columns qlo + s of one super-block."""
+    tiles, parts = -(-r // b), -(-b // slots)
+    rows, maxw, maxdq = [], 1, 8
+    for k in range(tiles):
+        groups = tile_groups(r, b, k)
+        for c in range(parts):
+            mine = groups[c * slots:(c + 1) * slots]
+            entry = [0] * (8 + 4 * slots)
+            for s in range(slots):
+                entry[8 + 4 * s] = -1
+            if mine:
+                w0 = mine[0][0]
+                width = mine[-1][0] + b - w0
+                cols = [q for _, q, _ in mine] + [q + 1 for s0, q, _ in mine
+                                                  if s0 + b > r]
+                qlo = min(cols) // 8 * 8
+                dq = (max(cols) - qlo) // 8 * 8 + 8
+                simple = (len(mine) == slots and dq == 8 and w0 + width <= r
+                          and all(s0 == w0 and q == qlo + i
+                                  for i, (s0, q, _) in enumerate(mine)))
+                entry[:5] = [w0, width, qlo, dq, int(simple)]
+                for s, (s0, q, g) in enumerate(mine):
+                    entry[8 + 4 * s:8 + 4 * s + 3] = [q, g, s0 - w0]
+                maxw, maxdq = max(maxw, width), max(maxdq, dq)
+            rows.append(entry)
+    return np.asarray(rows, np.int32), tiles, parts, maxw, maxdq
+
+
+class BwdPlan(NamedTuple):
+    """How one backward call is launched (``bwd_plan``)."""
+    route: str      # "tc": route 1, one pass on the tensor cores; "two_pass"
+    entries: int    # tc: CTAs per split and row (tiles x parts)
+    parts: int      # tc: CTAs per tile (its slots)
+    splits: int     # token splits (partial sums added in order)
+    tokens: int     # tc: tokens per split; two_pass: pass-1 tokens per tile
+    window: int     # tc: largest window of source groups a CTA stages
+    dq: int         # tc: largest dy column span a CTA stages
+    ichunks: int    # two_pass: CTAs per b x b block in pass 2 (rows split)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_geometry(r: int) -> tuple:
+    return tc_table(r)
+
+
+def _one_wave_splits(ctas: int, most: int, sms: int) -> int:
+    """Token splits (at most ``most``) whose ``ctas`` x splits CTAs fill
+    one wave of ``sms`` best; 1 when even one split takes more."""
+    return max(1, min(most, sms // ctas))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(bsz: int, t: int, r: int, b: int, dtype: str, sms: int) -> BwdPlan:
+    """The backward's launch plan for x (bsz, t, r * b) in ``dtype``
+    ("bf16" or "f32") on a card of ``sms`` SMs.
+
+    Route 1 ("tc": bf16, b = 32, r >= b): one CTA per (tile part, token
+    split, row), each CTA alone on its SM (its shared memory), so the token
+    splits fill one wave. Route 2 ("two_pass": any other shape, b <= 256):
+    pass 1 in tiles of up to 8 tokens, pass 2 in splits of 64-token chunks
+    for about two CTAs per SM, a block's rows split over CTAs so each holds
+    at most ``REDUCE_TILES`` 4 x 4 tiles."""
+    if dtype == "bf16" and b == TC_BLOCK and r >= b:
+        _, tiles, parts, maxw, maxdq = _tc_geometry(r)
+        entries = tiles * parts
+        splits = _one_wave_splits(entries * bsz, -(-t // TC_TOKENS), sms)
+        tps = -(-(-(-t // splits)) // TC_TOKENS) * TC_TOKENS
+        return BwdPlan("tc", entries, parts, -(-t // tps), tps, maxw, maxdq, 0)
+    n4 = -(-b // 4)
+    ichunks = -(-(n4 * n4) // REDUCE_TILES)
+    splits = max(1, min(-(-t // REDUCE_TOKENS),
+                        -(-2 * sms // (bsz * r * ichunks))))
+    return BwdPlan("two_pass", 0, 0, splits, _tile_tokens(t, r * b,
+                                                          MAX_TILE_ELEMS),
+                   0, 0, ichunks)
+
+
+def _tc_table_on(device: torch.device, r: int) -> torch.Tensor:
+    """The route-1 plan table of ``r`` groups as an int32 tensor on
+    ``device`` (built once per device and r)."""
+    key = (device, r)
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(_tc_geometry(r)[0]).to(device)
+    return _TABLES[key]
+
+
+def _check_bwd_lib(lib: ctypes.CDLL) -> None:
+    """The plan mirrors the source's constants; refuse a mismatch."""
+    got = (ctypes.c_int * 7)()
+    lib.gs_bwd_constants(got)
+    want = (TC_BLOCK, TC_SLOTS, TC_TOKENS, TC_MAX_WINDOW, REDUCE_TILES,
+            BWD_MAX_BLOCK, TC_TAB)
+    if tuple(got) != want or lib.gs_reduce_tokens() != REDUCE_TOKENS or \
+            lib.gs_max_tile_elems() != MAX_TILE_ELEMS:
+        raise RuntimeError(f"gs_fused_bwd.cu constants {tuple(got)} differ "
+                           f"from the launch plan's {want}")
+
+
 def _launch_bwd(wrapper, with_dx: bool, x: torch.Tensor, dy: torch.Tensor,
                 L: torch.Tensor, R: torch.Tensor):
-    """Run the backward kernel (``csrc/gs_fused_bwd.cu``) and count the call
-    on ``wrapper.launches`` once it launched without error. Returns
-    (dx, dL, dR) or (dL, dR)."""
+    """Run the backward (``csrc/gs_fused_bwd.cu``; for dx on route 1 also
+    the transpose rotation of ``csrc/gs_fused_T.cu``) and count the call on
+    ``wrapper.launches`` once it launched without error. Returns (dx, dL,
+    dR) or (dL, dR)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes bf16 or f32, got {x.dtype}")
     if not all(a.is_contiguous() for a in (x, dy, L, R)):
         raise ValueError("kernel needs contiguous x, dy, L, R")
-    lib = _lib("gs_fused_bwd")
     bsz, t, d = x.shape
     r, b = L.shape[1], L.shape[2]
-    if d > lib.tile:
-        raise ValueError(f"d={d} exceeds the kernel's tile limit {lib.tile}")
+    if d > MAX_TILE_ELEMS:
+        raise ValueError(f"d={d} exceeds the kernel's tile limit "
+                         f"{MAX_TILE_ELEMS}")
     if b > BWD_MAX_BLOCK:
         raise ValueError(f"block size b={b} exceeds the backward kernel's "
                          f"limit {BWD_MAX_BLOCK}")
+    lib = _lib("gs_fused_bwd")
     f32 = torch.float32
     dx = torch.empty_like(x) if with_dx else None
     if t == 0 or bsz == 0:               # no token: zero sums, no launch
@@ -264,18 +412,31 @@ def _launch_bwd(wrapper, with_dx: bool, x: torch.Tensor, dy: torch.Tensor,
         return (dx,) + grads if with_dx else grads
     dL = torch.empty(L.shape, dtype=f32, device=x.device)
     dR = torch.empty(L.shape, dtype=f32, device=x.device)
+    dt = _DTYPES[x.dtype]
     with torch.cuda.device(x.device):
-        tt, splits = launch_geometry("gs_fused_bwd", bsz, t, d, b)
-        ws = torch.empty((3, bsz, t, d), dtype=f32, device=x.device)
-        part = (torch.empty((2, splits) + tuple(L.shape), dtype=f32,
-                            device=x.device) if splits > 1 else dL)
-        RT = R.transpose(-1, -2).contiguous()
-        entry = "gs_fused_bwd" if with_dx else "gs_fused_grads"
-        err = getattr(lib, f"{entry}_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), dy.data_ptr(), L.data_ptr(), R.data_ptr(),
-            RT.data_ptr(), dx.data_ptr() if with_dx else None, ws.data_ptr(),
-            part.data_ptr(), dL.data_ptr(), dR.data_ptr(), bsz, t, r, b, tt,
-            splits, torch.cuda.current_stream(x.device).cuda_stream)
+        plan = bwd_plan(bsz, t, r, b, dt, _num_sms(x.device))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        part = (torch.empty((2, plan.splits) + tuple(L.shape), dtype=f32,
+                            device=x.device) if plan.splits > 1 else dL)
+        if plan.route == "tc":
+            entry = "gs_grads_tc"
+            err = lib.gs_grads_tc_bf16(
+                x.data_ptr(), dy.data_ptr(), L.data_ptr(), R.data_ptr(),
+                _tc_table_on(x.device, r).data_ptr(), part.data_ptr(),
+                dL.data_ptr(), dR.data_ptr(), bsz, t, r, plan.entries,
+                plan.splits, plan.tokens, plan.window, plan.dq, stream)
+            if err == 0 and with_dx:     # dx = Q^T dy
+                entry = "gs_fused_T"
+                err = _run(entry, dx, dy, L, R)
+        else:
+            ws = torch.empty((3, bsz, t, d), dtype=f32, device=x.device)
+            RT = R.transpose(-1, -2).contiguous()
+            entry = "gs_fused_bwd" if with_dx else "gs_fused_grads"
+            err = getattr(lib, f"{entry}_{dt}")(
+                x.data_ptr(), dy.data_ptr(), L.data_ptr(), R.data_ptr(),
+                RT.data_ptr(), dx.data_ptr() if with_dx else None,
+                ws.data_ptr(), part.data_ptr(), dL.data_ptr(), dR.data_ptr(),
+                bsz, t, r, b, plan.tokens, plan.splits, plan.ichunks, stream)
     if err != 0:
         msg = lib.gs_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} (code {err})")

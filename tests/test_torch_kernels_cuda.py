@@ -126,12 +126,19 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 # agree to summation order: 1e-4 of the largest magnitude
 GRAD_REL = 1e-4
 
-# (B, T, r, b): one and several pass-2 token splits, ragged T, r < b, r > b,
-# r not a power of two, b = 128 (512-thread pass 2), tiny d, and the
-# qwen2-72b MLP width d = 29568 (one token per fp32 tile)
+# (B, T, r, b): one and several token splits, ragged T, r < b, r > b, r not
+# a power of two, tiny d, and the qwen2-72b MLP width d = 29568 (one token
+# per fp32 tile). bf16 at b = 32 and r >= b takes route 1 (tensor cores):
+# b | r, r = b, b not dividing r (r = 924, 33: a window of 39 groups; 63;
+# 40), several token splits (T = 3000 at r = 256), rows B = 2 and 4, a
+# ragged last token tile; route 2 (two passes, and every f32 case) also at
+# b = 64, 128 and 256 (rows split over pass-2 CTAs) with r < b and r >= b
 BWD_CASES = [(1, 64, 256, 32), (2, 130, 32, 32), (1, 7, 6, 4), (3, 5, 3, 16),
              (1, 33, 24, 8), (1, 40, 8, 128), (1, 300, 2, 32),
-             (1, 9, 924, 32), (2, 3, 5, 5)]
+             (1, 9, 924, 32), (2, 3, 5, 5), (1, 3000, 256, 32),
+             (2, 500, 924, 32), (1, 777, 33, 32), (1, 1000, 63, 32),
+             (4, 45, 40, 32), (1, 50, 2, 64), (1, 70, 64, 64),
+             (1, 30, 128, 128), (1, 20, 2, 256), (1, 41, 3, 256)]
 
 
 def _bwd_inputs(rng, bsz, t, r, b, device, dtype):
@@ -176,11 +183,15 @@ def test_backward_kernels_match_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
-def test_backward_splits_follow_the_grid(cuda):
-    # r = 256 blocks of one row: two pass-2 splits; r = 924: one; r = 32: many
-    assert gk.launch_geometry("gs_fused_bwd", 1, 29568, 8192, 32) == (4, 2)
-    assert gk.launch_geometry("gs_fused_bwd", 1, 8192, 29568, 32) == (1, 1)
-    assert gk.launch_geometry("gs_fused_bwd", 1, 8192, 1024, 32)[1] > 2
+def test_backward_plan_matches_the_kernel(cuda):
+    # loading the library checks its constants against the plan's
+    gk._lib("gs_fused_bwd")
+    sms = gk._num_sms(cuda)
+    plan = gk.bwd_plan(1, 29568, 256, 32, "bf16", sms)
+    assert plan.route == "tc" and plan.entries == 32
+    assert plan.entries * plan.splits <= sms
+    assert gk.bwd_plan(1, 29568, 256, 32, "f32", sms).route == "two_pass"
+    assert gk.bwd_plan(1, 29568, 64, 128, "bf16", sms).route == "two_pass"
 
 
 @pytest.mark.cuda
@@ -197,8 +208,8 @@ def test_backward_of_empty_input_is_zero_and_launches_nothing(cuda, name):
 
 @pytest.mark.cuda
 def test_backward_refuses_what_it_does_not_take(cuda):
-    x = torch.zeros((1, 2, 512), device=cuda)
-    L = torch.zeros((1, 2, 256, 256), device=cuda)
+    x = torch.zeros((1, 2, 1024), device=cuda)
+    L = torch.zeros((1, 2, 512, 512), device=cuda)
     with pytest.raises(ValueError, match="block size"):
         gk.gs_fused_bwd(x, x, L, L)
     L = torch.zeros((1, 8, 8, 8), device=cuda)
