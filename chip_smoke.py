@@ -9,10 +9,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    (one nvcc per source, all started together)
 3. kernels — each kernel against its plain PyTorch version on the card at the
    serving path's shapes (qwen2-72b widths: decode rows, every prefill
-   bucket the serve phase's prompts can take, the merge slabs), with times
-   for the kernel, the plain version and a library yardstick (one dense
-   matmul); the transpose kernel's launch variants (split over a cluster or
-   not, one or several tokens per tile) must each be checked
+   bucket the serve phase's prompts can take, the weight slabs the merge
+   and training rotate, Double GSOFT's output sides), with times for the
+   kernel, the plain version and a library yardstick (one dense matmul;
+   for ``gs_fused`` where b divides r also the product over its b^2 x b^2
+   diagonal blocks), and ``gs_fused``'s route; the transpose kernel's
+   launch variants (split over a cluster or not, one or several tokens per
+   tile) must each be checked
 3b. backward kernels — ``gs_fused_grads`` against its plain version at every
    (T, d) the training paths give it (the weight slabs of the seven
    projections, both sides), ``gs_fused_bwd`` (with dx) at the weight-side
@@ -69,7 +72,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    ``build_train_step`` on one fixed batch (the loss must fall), then 3
    steps of ``train()``; ``gs_fused`` and ``gs_fused_grads`` must have run
    once per adapted weight slice and step, and ``gs_fused_bwd`` never (the
-   rotated weight is frozen: no dx)
+   rotated weight is frozen: no dx); the profiled step reports
+   ``gs_fused``'s share of the busy time and the device time of the copies
+   that lay W^T and dy out as contiguous tokens for the GS kernels
 8. gradients — full width, 2 layers, f32, TF32 off: for GSOFT and Double
    GSOFT, the adapter gradients of one train step against a central
    difference of the loss along a seeded random direction (``gs_fused``,
@@ -372,13 +377,34 @@ def check_case(kernel, B, T, d, b, dtype, gen, device) -> dict:
     M = _dense(kernel, L, R, device)
     lib_ms = time_ms(torch.bmm, [(x, M)])
     lib_err = (torch.bmm(x, M).float() - y.float()).abs().max().item()
+    blocks_ms = blocks_err = None
+    if kernel == "gs_fused" and B == 1 and r % b == 0:
+        # Q is block-diagonal in d / b^2 blocks of b^2 x b^2 when b | r: one
+        # einsum over those blocks computes the same function
+        n = b * b
+        Mb = torch.stack([M[0, s * n:(s + 1) * n, s * n:(s + 1) * n]
+                          for s in range(d // n)])
+
+        def blocks(xx, mb):
+            return torch.einsum("tsi,sij->tsj", xx.view(T, d // n, n), mb)
+        blocks_ms = time_ms(blocks, [(x[0], Mb)])
+        blocks_err = (blocks(x[0], Mb).reshape(T, d).float()
+                      - y[0].float()).abs().max().item()
+        del Mb
     del M
     bound_ms, bound_by = bound(B, T, d, b, dtype)
-    tt, cluster = gk.launch_geometry(kernel, B, T, d)
-    return dict(kernel=kernel, B=B, T=T, d=d, b=b, tt=tt, cluster=cluster,
-                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_err=lib_err, bound_ms=bound_ms, bound_by=bound_by)
+    route = None
+    if kernel == "gs_fused":
+        plan = gk.fwd_plan(B, T, r, b, gk._DTYPES[dtype], gk._num_sms(device))
+        route, tt, cluster = plan.route, plan.tokens, 1
+    else:
+        tt, cluster = gk.launch_geometry(kernel, B, T, d)
+    return dict(kernel=kernel, B=B, T=T, d=d, b=b, route=route, tt=tt,
+                cluster=cluster, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_err=lib_err,
+                library_blocks_ms=blocks_ms, library_blocks_err=blocks_err,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def prefill_buckets():
@@ -391,19 +417,22 @@ def prefill_buckets():
 
 def kernel_cases(cfg):
     """The serving path's shapes: decode rows (B=4, T=1) and each prefill
-    bucket (B=1) through the transpose rotation; the merge slabs (T = d_out
+    bucket (B=1) through the transpose rotation; the weight slabs (T = d_out
     of wq / wi at d = d_model, of the MLP wo at d = d_ff) through the
-    forward rotation. The short buckets run the transpose kernel split over
-    a cluster with several tokens per tile (d = d_model) or one (d = d_ff),
-    the longer ones unsplit."""
+    forward rotation, and at b = 32 those of wk / wv (T = 1024 at d =
+    d_model) and Double GSOFT's output side of wq (T = d_model at d = 1024,
+    the wk / wv width). The short buckets run the transpose kernel split
+    over a cluster with several tokens per tile (d = d_model) or one (d =
+    d_ff), the longer ones unsplit."""
     D, F = cfg.d_model, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.d_head
     out = []
     for d, slabs in ((D, (cfg.num_heads * cfg.d_head, F)), (F, (D,))):
         for b in (32, 128):
             out.append(("gs_fused_T", 4, 1, d, b))
             out += [("gs_fused_T", 1, t, d, b) for t in prefill_buckets()]
             out += [("gs_fused", 1, t, d, b) for t in slabs]
-    return out
+    return out + [("gs_fused", 1, kv, D, 32), ("gs_fused", 1, D, kv, 32)]
 
 
 def check_variants(cases) -> None:
@@ -730,12 +759,14 @@ def perturbed_adapters(pcfg, params, seed: int, scale: float, device):
             for path, entry in ad.items()}
 
 
-def _profile(run) -> dict:
+def _profile(run, copy_shapes=None) -> dict:
     """Run ``run()`` under torch.profiler; device time by kernel name, and
-    the share of the wall time with a kernel running on the card."""
+    the share of the wall time with a kernel running on the card. With
+    ``copy_shapes`` (a set of (T, d)), also the device time of the copies
+    (``aten::clone``) of tensors of those shapes, (T, d) or (1, T, d)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=copy_shapes is not None) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -762,10 +793,29 @@ def _profile(run) -> dict:
                 fam = (k["name"].split(ns, 1)[1].split("<", 1)[0]
                        .split("(", 1)[0])
                 by_kernel[fam] = by_kernel.get(fam, 0.0) + k["device_ms"]
-    return dict(wall_s=wall, device_busy_s=busy,
-                idle_share=1.0 - busy / wall if wall > 0 else None,
-                port_kernels_device_s=sum(by_kernel.values()) / 1e3,
-                port_device_ms_by_kernel=by_kernel, top=kernels[:16])
+    out = dict(wall_s=wall, device_busy_s=busy,
+               idle_share=1.0 - busy / wall if wall > 0 else None,
+               port_kernels_device_s=sum(by_kernel.values()) / 1e3,
+               port_device_ms_by_kernel=by_kernel, top=kernels[:16])
+    if copy_shapes is not None:
+        ms, n = 0.0, 0
+        for e in prof.key_averages(group_by_input_shape=True):
+            shape = tuple(e.input_shapes[0]) if e.input_shapes else ()
+            if e.key == "aten::clone" and (shape in copy_shapes or (
+                    len(shape) == 3 and shape[0] == 1 and shape[1:] in copy_shapes)):
+                us = getattr(e, "device_time_total", None)
+                ms += (us if us is not None else e.cuda_time_total) / 1e3
+                n += e.count
+        out.update(copies_device_ms=ms, copies=n)
+    return out
+
+
+# the forward GS rotation's kernels by profiler name: route 1 and route 2
+def gs_fwd_share(prof) -> tuple:
+    """(``gs_fused``'s device ms by kernel, their share of the busy time)."""
+    by = {k: v for k, v in prof["port_device_ms_by_kernel"].items()
+          if k.endswith("gs_fused_tc_kernel") or k == "gs_fused_kernel"}
+    return by, sum(by.values()) / (prof["device_busy_s"] * 1e3)
 
 
 def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
@@ -994,7 +1044,19 @@ def train_phase(cfg, seed: int, device, steps_n: int = TRAIN_STEPS,
                              f"{want} ({n_slices} adapted slices x {steps_n} "
                              f"steps)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prof = _profile(lambda: step(frozen, trainable, opt_state, batch))
+    # GSOFT: the GS kernels take W^T and dy as contiguous (d_out, d_in) tokens
+    slabs = ({(s.d_out, s.d_in) for s in
+              peft_lib.adapted_paths(pcfg, frozen).values()}
+             if method == "gsoft" else None)
+    prof = _profile(lambda: step(frozen, trainable, opt_state, batch), slabs)
+    if method == "gsoft":
+        by, share = gs_fwd_share(prof)
+        prof["gs_fwd_device_ms_by_kernel"], prof["gs_fwd_share_of_busy"] = by, share
+        # bf16 at b = 32: every gs_fused launch takes route 1 on the card
+        if device.type == "cuda" and ("gs_fused_kernel" in by or not any(
+                k.endswith("gs_fused_tc_kernel") for k in by)):
+            raise AssertionError(f"the GSOFT step's gs_fused launches did "
+                                 f"not all take route 1: {by}")
     step_s = float(np.median(times))
     del params, adapters, trainable, frozen, opt_state, step
     torch.cuda.empty_cache()
@@ -2029,11 +2091,14 @@ def main() -> int:
         for kernel, B, T, d, b in kernel_cases(full):
             c = check_case(kernel, B, T, d, b, dtype, gen, device)
             cases.append(c)
+            blocks = ("" if c["library_blocks_ms"] is None else
+                      f" blocks {c['library_blocks_ms']:.4f}")
             log(f"kernel {kernel:10s} B={B} T={T:5d} d={d:5d} b={b:3d} "
-                f"tt={c['tt']} cluster={c['cluster']} {c['dtype']:8s} err {c['max_abs_err']:.2e} (tol "
+                f"{c['route'] or ''} tt={c['tt']} cluster={c['cluster']} "
+                f"{c['dtype']:8s} err {c['max_abs_err']:.2e} (tol "
                 f"{c['tol']:.0e}) ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
-                f"lib {c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
-                f"({c['bound_by']})")
+                f"lib {c['library_ms']:.4f}{blocks} bound "
+                f"{c['bound_ms']:.4f} ({c['bound_by']})")
     check_variants(cases)
     torch.cuda.empty_cache()
 
@@ -2228,7 +2293,10 @@ def main() -> int:
     log(f"train profile: wall {tprof['wall_s']:.3f} s, device busy "
         f"{tprof['device_busy_s']:.3f} s (idle share {tprof['idle_share']}), "
         f"port kernels {tprof['port_kernels_device_s']:.4f} s "
-        f"{ {k: round(v, 2) for k, v in tprof['port_device_ms_by_kernel'].items()} } ms")
+        f"{ {k: round(v, 2) for k, v in tprof['port_device_ms_by_kernel'].items()} } ms"
+        f"; gs_fused share of busy {tprof['gs_fwd_share_of_busy']:.3f}; "
+        f"W^T / dy token copies {tprof['copies_device_ms']:.2f} ms "
+        f"({tprof['copies']} copies)")
     torch.cuda.empty_cache()
 
     # 8. gradients against a central difference, f32
@@ -2365,7 +2433,7 @@ def main() -> int:
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
-                              "float32"),
+                              "bfloat16"),
                  "gs_fused_bwd": ("gs_fused_bwd", 1, full.d_ff, full.d_model,
                                   32, "bfloat16"),
                  "gs_fused_grads": ("gs_fused_grads", 1, full.d_ff,
@@ -2401,6 +2469,9 @@ def main() -> int:
                 for dt in ("bfloat16", "float32")})
         if "library_what" in c:
             extra["library_what"] = c["library_what"]
+        if name == "gs_fused":
+            extra.update(gs_route=c["route"],
+                         library_blocks_ms=c["library_blocks_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=launches[name],

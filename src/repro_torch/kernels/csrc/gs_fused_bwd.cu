@@ -132,20 +132,6 @@ struct Layout {
   }
 };
 
-// the fp32 fragment c as bf16 hi = bf16(c) and lo = bf16(c - hi), packed
-// as the rows gid (c0, c1) and gid + 8 (c2, c3) of two 8 x 8 matrices each
-__device__ __forceinline__ void hi_lo(const float (&c)[4], uint32_t (&s)[4]) {
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const float2 v = make_float2(c[2 * p], c[2 * p + 1]);
-    const __nv_bfloat162 h = __float22bfloat162_rn(v);
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __float22bfloat162_rn(make_float2(v.x - hf.x, v.y - hf.y));
-    s[p] = *reinterpret_cast<const uint32_t*>(&h);
-    s[2 + p] = *reinterpret_cast<const uint32_t*>(&l);
-  }
-}
-
 // One CTA: plan entry blockIdx.x (a tile's 8 slots), token split blockIdx.y,
 // row blockIdx.z. Shared memory (Layout): x and dy stages [token][window
 // group][...] as in device memory; V (hi, lo) and DWT as [slot][position e]

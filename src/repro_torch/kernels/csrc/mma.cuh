@@ -1,7 +1,8 @@
 // Hopper PTX wrappers shared by the tensor-core kernels (bdmm.cu,
-// gs_fused_bwd.cu): shared-memory addresses, 16-byte cp.async, ldmatrix /
-// stmatrix and the bf16 mma.sync m16n8k16 with fp32 sums. Each including
-// .cu file is its own shared library.
+// gs_fused.cu, gs_fused_bwd.cu): shared-memory addresses, 16-byte cp.async,
+// ldmatrix / stmatrix, the bf16 mma.sync m16n8k16 with fp32 sums, and the
+// split of an fp32 fragment into bf16 hi + lo. Each including .cu file is
+// its own shared library.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,10 +85,54 @@ __device__ __forceinline__ void stsm_x4_trans(const uint32_t (&r)[4], void* p) {
       : "memory");
 }
 
+// store four 8 x 8 b16 matrices from the mma fragment layout: row i of
+// matrix k (lane 8k + i gives its 16-byte address) receives row i of the
+// fragment
+__device__ __forceinline__ void stsm_x4(const uint32_t (&r)[4], void* p) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(smem_addr(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// global stores with the streaming (evict-first) hint: written once and not
+// read again by the kernel, so they do not push its input out of L2
+__device__ __forceinline__ void st_cs16(void* p, uint4 v) {
+  asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cs2(void* p, bf16 v) {
+  asm volatile("st.global.cs.b16 [%0], %1;\n" ::"l"(p),
+               "h"(__bfloat16_as_ushort(v))
+               : "memory");
+}
+
 // two bf16 in one 32-bit register, `lo` in the low half (the lower k index)
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// two fp32 as bf16 in one 32-bit register, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  const __nv_bfloat162 h = __float22bfloat162_rn(make_float2(lo, hi));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the fp32 fragment c as bf16 hi = bf16(c) and lo = bf16(c - hi), packed
+// as the rows gid (c0, c1) and gid + 8 (c2, c3) of two 8 x 8 matrices each
+__device__ __forceinline__ void hi_lo(const float (&c)[4], uint32_t (&s)[4]) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float2 v = make_float2(c[2 * p], c[2 * p + 1]);
+    const __nv_bfloat162 h = __float22bfloat162_rn(v);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __float22bfloat162_rn(make_float2(v.x - hf.x, v.y - hf.y));
+    s[p] = *reinterpret_cast<const uint32_t*>(&h);
+    s[2 + p] = *reinterpret_cast<const uint32_t*>(&l);
+  }
 }
 
 }  // namespace gs

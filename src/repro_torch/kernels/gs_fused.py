@@ -8,7 +8,8 @@ sm_90a, sharing ``csrc/gs_common.cuh``), built by ``build.py``.
   ``ops.gs_banked_transform_T``): y[i] = R_i^T P^T L_i^T P x[i] = x[i] Q_i,
   the activation-side adapter rotation of banked serving.
 * ``gs_fused(x, L, R)`` replaces ``gs_fused_pallas``: y[i] = P^T L_i P R_i x[i]
-  = Q_i x[i], used by the offline merge on the columns of W.
+  = Q_i x[i]: the rotation of W's columns every GSOFT step materializes,
+  Double GSOFT's dx of its output side, and the offline merge.
 
 Both take x (B, T, d) and per-row factors L, R (B, r, b, b), d = r * b, in
 one dtype (bf16 or f32). A CUDA tensor runs the kernel or raises; a CPU
@@ -25,10 +26,18 @@ at decode the transpose kernel splits each row over a cluster of 8 CTAs so
 fp32 tile is 118 KB, so the tile is one token there and the kernels ask for
 dynamic shared memory above 48 KB. See the sources for the details.
 
-Numerics: the kernel keeps the intermediate in fp32, the plain version (like
-the JAX oracle) rounds it to x.dtype. In f32 the two agree to rounding
-order; in bf16 they differ by that one rounding of the intermediate, at most
-about 2^-8 of its magnitude, carried through an orthogonal second factor.
+``fwd_plan`` picks ``gs_fused``'s route. Route 1 (bf16, b = 32, r >= b:
+every slab GSOFT and Double GSOFT train) runs on the tensor cores: one CTA
+per tile of the backward's plan (``tc_table``: the output groups whose
+windows of source groups overlap, a super-block of b^2 features when b
+divides r) and token split, factors read once per CTA, any width d. Route 2
+(f32, other b, r < b) is the fp32 tile kernel above, d <= ``MAX_TILE_ELEMS``.
+
+Numerics: the kernels keep the intermediate in fp32 (route 1: as bf16 hi +
+lo, about 2^-17 relative), the plain version (like the JAX oracle) rounds it
+to x.dtype. In f32 the two agree to rounding order; in bf16 they differ by
+that one rounding of the intermediate, at most about 2^-8 of its magnitude,
+carried through an orthogonal second factor.
 
 The backward, ``csrc/gs_fused_bwd.cu``:
 
@@ -74,6 +83,9 @@ _BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 7 + [_PTR]
 # route 1: x, dy, L, R, plan table, partial sums, dL, dR, B, T, r, entries,
 # splits, tokens per split, window, dy columns, stream
 _TC_ARGTYPES = [_PTR] * 8 + [_INT] * 8 + [_PTR]
+# route 1 of gs_fused: x, L, R, plan table, y, B, T, r, tiles, splits,
+# tokens per split, window, stream
+_FWD_TC_ARGTYPES = [_PTR] * 5 + [_INT] * 7 + [_PTR]
 # the C functions of each source, by dtype
 _ENTRIES = {"gs_fused_T": {"gs_fused_T": _FWD_ARGTYPES["gs_fused_T"]},
             "gs_fused": {"gs_fused": _FWD_ARGTYPES["gs_fused"]},
@@ -93,6 +105,7 @@ TC_SLOTS = 8              # ... output groups per CTA
 TC_TOKENS = 16            # ... tokens per staged tile
 TC_MAX_WINDOW = 39        # ... source groups a CTA stages
 TC_TAB = 8 + 4 * TC_SLOTS  # ... ints per CTA in the plan table
+FWD_MAX_WINDOW = 2 * TC_BLOCK - 1  # gs_fused route 1: source groups a tile stages
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -113,6 +126,12 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "gs_fused_T":
             lib.gs_cluster_size.restype = ctypes.c_int
             lib.cluster = int(lib.gs_cluster_size())
+        if name == "gs_fused":
+            lib.gs_fused_tc_bf16.argtypes = _FWD_TC_ARGTYPES
+            lib.gs_fused_tc_bf16.restype = ctypes.c_int
+            lib.gs_fwd_constants.argtypes = [_PTR]
+            lib.gs_fwd_constants.restype = None
+            _check_fwd_lib(lib)
         if name == "gs_fused_bwd":
             lib.gs_grads_tc_bf16.argtypes = _TC_ARGTYPES
             lib.gs_grads_tc_bf16.restype = ctypes.c_int
@@ -163,8 +182,9 @@ def _tile_tokens(t: int, d: int, max_tile: int) -> int:
 
 
 def launch_geometry(name: str, bsz: int, t: int, d: int) -> tuple:
-    """(tokens per tile, CTAs per tile) that the forward kernel ``name`` is
-    launched with for x (bsz, t, d); the backward's is ``bwd_plan``."""
+    """(tokens per tile, CTAs per tile) that the fp32 tile kernel ``name``
+    (``gs_fused_T``, route 2 of ``gs_fused``) is launched with for x (bsz,
+    t, d); route 1's plan is ``fwd_plan``, the backward's ``bwd_plan``."""
     lib = _lib(name)
     tt = _tile_tokens(t, d, lib.tile)
     if name != "gs_fused_T":
@@ -197,8 +217,9 @@ def _run(name: str, y: torch.Tensor, x: torch.Tensor, L: torch.Tensor,
 
 def _launch(wrapper, x: torch.Tensor, L: torch.Tensor,
             R: torch.Tensor) -> torch.Tensor:
-    """Run ``wrapper``'s kernel and count the launch on ``wrapper.launches``
-    (only once the kernel was launched without error)."""
+    """Run ``wrapper``'s fp32 tile kernel (``gs_fused_T``, route 2 of
+    ``gs_fused``) and count the launch on ``wrapper.launches`` (only once
+    the kernel was launched without error)."""
     name = wrapper.__name__
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes bf16 or f32, got {x.dtype}")
@@ -216,6 +237,30 @@ def _launch(wrapper, x: torch.Tensor, L: torch.Tensor,
         msg = lib.gs_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (code {err})")
     wrapper.launches += 1
+    return y
+
+
+def _launch_tc(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
+               plan: "FwdPlan") -> torch.Tensor:
+    """Route 1 of ``gs_fused`` (bf16 by its plan), counted on
+    ``gs_fused.launches`` once launched without error."""
+    if not (x.is_contiguous() and L.is_contiguous() and R.is_contiguous()):
+        raise ValueError("kernel needs contiguous x, L, R")
+    lib = _lib("gs_fused")
+    y = torch.empty_like(x)
+    if x.shape[0] == 0 or x.shape[1] == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = lib.gs_fused_tc_bf16(
+            x.data_ptr(), L.data_ptr(), R.data_ptr(),
+            _tc_table_on(x.device, L.shape[1]).data_ptr(), y.data_ptr(),
+            x.shape[0], x.shape[1], L.shape[1], plan.tiles, plan.splits,
+            plan.tokens, plan.window,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        msg = lib.gs_error_string(err).decode()
+        raise RuntimeError(f"gs_fused launch failed: {msg} (code {err})")
+    gs_fused.launches += 1
     return y
 
 
@@ -256,7 +301,12 @@ def gs_fused(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
         return gs_fused_plain(x, L, R)
     if x.device.type != "cuda":
         raise ValueError(f"gs_fused runs on cuda or cpu, not {x.device}")
-    # the forward kernel takes L^T and R^T so its factor reads are coalesced
+    bsz, t, _ = x.shape
+    plan = fwd_plan(bsz, t, L.shape[1], L.shape[2], _DTYPES.get(x.dtype, ""),
+                    _num_sms(x.device))
+    if plan.route == "tc":
+        return _launch_tc(x, L, R, plan)
+    # route 2 takes L^T and R^T so its factor reads are coalesced
     return _launch(gs_fused, x, L.transpose(-1, -2).contiguous(),
                    R.transpose(-1, -2).contiguous())
 
@@ -362,6 +412,58 @@ def bwd_plan(bsz: int, t: int, r: int, b: int, dtype: str, sms: int) -> BwdPlan:
     return BwdPlan("two_pass", 0, 0, splits, _tile_tokens(t, r * b,
                                                           MAX_TILE_ELEMS),
                    0, 0, ichunks)
+
+
+class FwdPlan(NamedTuple):
+    """How one ``gs_fused`` call is launched (``fwd_plan``)."""
+    route: str      # "tc": route 1 on the tensor cores; "cc": the fp32 tiles
+    tiles: int      # tc: CTAs per split and row (tiles of output groups)
+    splits: int     # tc: token splits
+    tokens: int     # tc: tokens per split; cc: tokens per tile
+    window: int     # tc: largest window of source groups a tile stages
+
+
+def tile_windows(r: int) -> list:
+    """(w0, W) of each route-1 tile of ``r`` groups: the union of its
+    ``tc_table`` entries' windows (entry 0 starts it; empty entries have
+    W = 0)."""
+    table, tiles, parts, _, _ = _tc_geometry(r)
+    out = []
+    for k in range(tiles):
+        ent = table[k * parts:(k + 1) * parts]
+        w0 = int(ent[0, 0])
+        end = max(int(e[0] + e[1]) for e in ent if e[1] > 0)
+        out.append((w0, end - w0))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(bsz: int, t: int, r: int, b: int, dtype: str, sms: int) -> FwdPlan:
+    """``gs_fused``'s launch plan for x (bsz, t, r * b) in ``dtype`` ("bf16"
+    or "f32") on a card of ``sms`` SMs.
+
+    Route 1 ("tc": bf16, b = 32, r >= b): one CTA per (tile, token split,
+    row), each alone on its SM (its shared memory), the splits filling one
+    wave. Route 2 ("cc": any other shape): one CTA per tile of up to 8
+    tokens, whole rows of d <= ``MAX_TILE_ELEMS``."""
+    if dtype == "bf16" and b == TC_BLOCK and r >= b:
+        tiles = -(-r // b)
+        window = max(w for _, w in tile_windows(r))
+        splits = _one_wave_splits(tiles * bsz, -(-t // TC_TOKENS), sms)
+        tps = -(-(-(-t // splits)) // TC_TOKENS) * TC_TOKENS
+        return FwdPlan("tc", tiles, -(-t // tps), tps, window)
+    return FwdPlan("cc", 0, 1, _tile_tokens(t, r * b, MAX_TILE_ELEMS), 0)
+
+
+def _check_fwd_lib(lib: ctypes.CDLL) -> None:
+    """Route 1's plan mirrors gs_fused.cu's constants; refuse a mismatch."""
+    got = (ctypes.c_int * 6)()
+    lib.gs_fwd_constants(got)
+    want = (TC_BLOCK, TC_SLOTS, TC_TOKENS, FWD_MAX_WINDOW, TC_TAB,
+            -(-TC_BLOCK // TC_SLOTS))
+    if tuple(got) != want or lib.gs_max_tile_elems() != MAX_TILE_ELEMS:
+        raise RuntimeError(f"gs_fused.cu constants {tuple(got)} differ from "
+                           f"the launch plan's {want}")
 
 
 def _tc_table_on(device: torch.device, r: int) -> torch.Tensor:

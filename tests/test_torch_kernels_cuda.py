@@ -119,6 +119,61 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 # ---------------------------------------------------------------------------
+# gs_fused route 1 (csrc/gs_fused.cu gs_fused_tc_kernel)
+# ---------------------------------------------------------------------------
+
+# (B, T, r) at b = 32, bf16: the slabs GSOFT and Double GSOFT train (wi / wg
+# T = 29568 at r = 256; MLP wo T = 8192 at r = 924, b not dividing r; wq /
+# attn wo 8192 x 8192; wk / wv T = 1024; the output sides T = 8192 at r =
+# 32 = b and T = 1024 at r = 256), ragged T, T < 16, rows B > 1 with their
+# own factors, r = b, windows that wrap (r = 33, 40, 63) and d > 32768 (r =
+# 1056 with b | r, r = 1040 without)
+FWD_TC_CASES = [(1, 29568, 256), (1, 8192, 924), (1, 8192, 256),
+                (1, 1024, 256), (1, 8192, 32), (1, 1000, 256), (1, 77, 924),
+                (1, 5, 256), (1, 1, 33), (2, 9, 924), (3, 40, 40),
+                (2, 300, 924), (4, 33, 256), (1, 100, 32), (1, 777, 33),
+                (1, 1000, 63), (1, 64, 1056), (1, 130, 1040)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FWD_TC_CASES, ids=lambda c: "B%d-T%d-r%d" % c)
+def test_forward_route1_matches_plain_and_reruns_bit_identical(cuda, case):
+    bsz, t, r = case
+    rng = np.random.default_rng(bsz * 13 + t * 5 + r)
+    x = torch.from_numpy(rng.normal(size=(bsz, t, r * 32)).astype(np.float32))
+    L, R = _factors(rng, bsz, r, 32), _factors(rng, bsz, r, 32)
+    x, L, R = (a.to(cuda, torch.bfloat16) for a in (x, L, R))
+    plan = gk.fwd_plan(bsz, t, r, 32, "bf16", gk._num_sms(cuda))
+    assert plan.route == "tc"
+    before = gk.gs_fused.launches
+    y = gk.gs_fused(x, L, R)
+    torch.cuda.synchronize()
+    assert gk.gs_fused.launches == before + 1
+    want = gk.gs_fused_plain(x, L, R)
+    assert torch.isfinite(y.float()).all()
+    assert (y.float() - want.float()).abs().max().item() <= BF16_TOL
+    assert torch.equal(gk.gs_fused(x, L, R), y)
+
+
+@pytest.mark.cuda
+def test_forward_route2_keeps_f32_other_blocks_and_short_rows(cuda):
+    # loading the library checks its constants against route 1's plan
+    gk._lib("gs_fused")
+    sms = gk._num_sms(cuda)
+    assert gk.fwd_plan(1, 29568, 256, 32, "bf16", sms).route == "tc"
+    assert gk.fwd_plan(1, 29568, 256, 32, "f32", sms).route == "cc"
+    assert gk.fwd_plan(1, 29568, 64, 128, "bf16", sms).route == "cc"
+    assert gk.fwd_plan(1, 300, 16, 32, "bf16", sms).route == "cc"
+    # route 2 (and the transpose rotation) still hold whole fp32 rows
+    x = torch.zeros((1, 2, 33792), device=cuda)
+    L = torch.zeros((1, 1056, 32, 32), device=cuda)
+    with pytest.raises(ValueError, match="tile limit"):
+        gk.gs_fused(x, L, L)
+    with pytest.raises(ValueError, match="tile limit"):
+        gk.gs_fused_T(x.bfloat16(), L.bfloat16(), L.bfloat16())
+
+
+# ---------------------------------------------------------------------------
 # backward kernels (csrc/gs_fused_bwd.cu)
 # ---------------------------------------------------------------------------
 

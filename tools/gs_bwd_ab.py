@@ -100,6 +100,7 @@ def _grad_step(cs, cfg, seed: int, device, method: str) -> dict:
                 launches_per_step=launches, profiled_wall_s=prof["wall_s"],
                 device_busy_s=prof["device_busy_s"],
                 idle_share=prof["idle_share"],
+                port_device_ms_by_kernel=prof["port_device_ms_by_kernel"],
                 gs_bwd_device_ms_by_kernel=by, gs_bwd_share_of_busy=share)
 
 
