@@ -12,10 +12,12 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    bucket the serve phase's prompts can take, the weight slabs the merge
    and training rotate, Double GSOFT's output sides), with times for the
    kernel, the plain version and a library yardstick (one dense matmul;
-   for ``gs_fused`` where b divides r also the product over its b^2 x b^2
-   diagonal blocks), and ``gs_fused``'s route; the transpose kernel's
-   launch variants (split over a cluster or not, one or several tokens per
-   tile) must each be checked
+   where b divides r also the product over the b^2 x b^2 diagonal blocks),
+   and each call's route; the transpose rotation runs through its slot-id
+   entry (``gs_fused_T_bank``) from a 4-slot fp32 bank, also at Double
+   GSOFT's output-side slabs, the dx slab of the GS backward and d = 33792;
+   the fp32 tile route's launch variants (split over a cluster or not, one
+   or several tokens per tile) must each be checked
 3b. backward kernels — ``gs_fused_grads`` against its plain version at every
    (T, d) the training paths give it (the weight slabs of the seven
    projections, both sides), ``gs_fused_bwd`` (with dx) at the weight-side
@@ -33,8 +35,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    across two runs
 3d. int8 and paged kernels — ``q_matmul`` at the LM head and every
    projection shape (one and four decode rows, one prefill chunk),
-   ``gs_q_matmul`` at each adapted projection (four decode rows of their
-   own adapters, one prefill chunk), ``paged_decode`` at qwen2-72b's heads
+   ``gs_q_matmul`` at each adapted projection through its slot-id entry
+   (four decode rows of their own slots of a 4-slot fp32 bank, one prefill
+   chunk; also d = 33792), ``paged_decode`` at qwen2-72b's heads
    through page-8 and page-16 tables (one ragged case with a parked row),
    bf16 and f32, against their plain versions, with times, bounds and
    library yardsticks
@@ -51,13 +54,15 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    (flash attention's path: it lies on no model path)
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
-   the ``gs_fused_T`` kernel must have run
+   the ``gs_fused_T`` kernel must have run, every launch through the bank
+   read by slot id; the profile counts the gather and copy kernels
 4b. paged int8 serve — the serve launcher's ``--engine paged --quantize
    int8`` path at the same width and depth: the banked runtime quantized to
    int8 (each bf16 weight freed once quantized), 8 requests (two of one
    tenant share a 64-token prefix) through ``PagedServeEngine`` (page 8,
-   chunk 16) on 4 slots; ``q_matmul``, ``gs_q_matmul`` and ``paged_decode``
-   must have run, the prefix must have been reused; median rate of 3 runs,
+   chunk 16) on 4 slots; ``q_matmul``, ``gs_q_matmul`` (every call through
+   the bank read by slot id) and ``paged_decode`` must have run, the prefix
+   must have been reused; median rate of 3 runs,
    params bytes, peak memory, KV pages against the contiguous cache, a
    profile
 5. banked vs merged — full width at 2 layers in f32 (TF32 off): one adapter
@@ -87,8 +92,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
 10. OFT / BOFT gradients — as phase 8, f32 at 2 layers
 11. mixed serve — full width, 4 layers, bf16: one bank holding gsoft, oft,
    boft, householder and givens tenants (``attach`` with a
-   ``{name: PEFTConfig}`` mapping), 12 requests on 4 slots, median rate of
-   3 runs and a profile; then f32 at 2 layers: every tenant's tokens equal
+   ``{name: PEFTConfig}`` mapping), 12 requests on 4 slots (the GSOFT
+   rotations through the bank read by slot id), median rate of 3 runs and a
+   profile; then f32 at 2 layers: every tenant's tokens equal
    its solo offline-merged run, decode logits within tolerance, and the
    base slot equals the bankless model
 13. hybrid serve — zamba2-2.7b at full width and full depth (54 layers),
@@ -228,9 +234,12 @@ SSM_CHECK_T = 512                   # mamba2-130m: two 256-step chunks
 HYBRID_CHECK_LAYERS = 12            # zamba2: two super-blocks of 6
 HYBRID_CHECK_T = 320
 SSM_LOGIT_REL = 1e-3                # f32 checks, relative to max|logit|
+SLOTS = 4                           # phases 3 and 3d: slots of the fp32 bank
 
 KERNELS = {
     "gs_fused_T": dict(fn=gk.gs_fused_T, plain=gk.gs_fused_T_plain,
+                       bank=gk.gs_fused_T_bank,
+                       bank_plain=gk.gs_fused_T_bank_plain,
                        replaces="src/repro/kernels/gs_fused.py:163",
                        source="src/repro_torch/kernels/csrc/gs_fused_T.cu"),
     "gs_fused": dict(fn=gk.gs_fused, plain=gk.gs_fused_plain,
@@ -325,12 +334,16 @@ def time_ms(fn, arg_sets) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(B: int, T: int, d: int, b: int, dtype) -> tuple:
+def bound(B: int, T: int, d: int, b: int, dtype,
+          factor_bytes: int = None) -> tuple:
     """Least time for y = rotation(x): x read and y written once, the
-    per-row factors read once; 4*B*T*d*b operations (two block stages of
-    2*d*b each per token) at the dtype's peak rate."""
+    factors read once (per-row factors in x's dtype, or ``factor_bytes``:
+    the fp32 bank slots the rows read); 4*B*T*d*b operations (two block
+    stages of 2*d*b each per token) at the dtype's peak rate."""
     es = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * T * d + 2 * B * d * b) * es
+    if factor_bytes is None:
+        factor_bytes = 2 * B * d * b * es
+    nbytes = 2 * B * T * d * es + factor_bytes
     flops = 4 * B * T * d * b
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -345,6 +358,27 @@ def _orth_factors(gen, B, r, b, dtype, device):
     return q[:, 0].to(dtype).contiguous(), q[:, 1].to(dtype).contiguous()
 
 
+def _slot_ids(B: int, device) -> torch.Tensor:
+    """Row i of a bank call reads slot (i + 1) % SLOTS: distinct slots for
+    up to four rows, the identity slot 0 last."""
+    return torch.tensor([(i + 1) % SLOTS for i in range(B)],
+                        dtype=torch.int64, device=device)
+
+
+def _bank(gen, r: int, b: int, device) -> tuple:
+    """A SLOTS-slot fp32 bank (L, R) of orthogonal blocks with the identity
+    in slot 0, as ``gsoft_bank_build`` stacks one."""
+    L, R = _orth_factors(gen, SLOTS, r, b, torch.float32, device)
+    L[0] = R[0] = torch.eye(b, device=device)
+    return L, R
+
+
+def _bank_bytes(ids: torch.Tensor, L: torch.Tensor) -> int:
+    """fp32 bytes of the bank slots the rows read (L and R, each slot
+    once)."""
+    return 2 * len(set(ids.tolist())) * L[0].numel() * L.element_size()
+
+
 def _dense(kernel: str, L, R, device):
     """Per-row dense M with x @ M == kernel(x): the rotation of the rows of
     the identity (built with the kernel, outside any timing)."""
@@ -356,51 +390,74 @@ def _dense(kernel: str, L, R, device):
 
 
 def check_case(kernel, B, T, d, b, dtype, gen, device) -> dict:
+    """``kernel`` at x (B, T, d), block b, against its plain version, with
+    times (kernel, plain, dense ``bmm``, the b^2 x b^2 block product where b
+    divides r) and the bound. ``gs_fused_T`` runs through its slot-id entry
+    from a SLOTS-slot fp32 bank (the serving path's call), ``gs_fused``
+    with per-row factors in x's dtype."""
     r = d // b
     spec = KERNELS[kernel]
-    L, R = _orth_factors(gen, B, r, b, dtype, device)
     x = torch.randn((B, T, d), generator=gen, device=device).to(dtype)
-    y = spec["fn"](x, L, R)
+    banked = kernel == "gs_fused_T"
+    if banked:
+        ids = _slot_ids(B, device)
+        fn, plain = spec["bank"], spec["bank_plain"]
+        args = (x,) + _bank(gen, r, b, device) + (ids,)
+        fresh = lambda: (x,) + _bank(gen, r, b, device) + (ids,)  # noqa: E731
+        L = args[1].index_select(0, ids).to(dtype)
+        R = args[2].index_select(0, ids).to(dtype)
+        factor_bytes = _bank_bytes(ids, args[1])
+    else:
+        fn, plain = spec["fn"], spec["plain"]
+        L, R = _orth_factors(gen, B, r, b, dtype, device)
+        args = (x, L, R)
+        fresh = lambda: (x,) + _orth_factors(gen, B, r, b, dtype, device)  # noqa: E731
+        factor_bytes = None
+    y = fn(*args)
     torch.cuda.synchronize()
-    y_plain = spec["plain"](x, L, R)
+    y_plain = plain(*args)
     err = (y.float() - y_plain.float()).abs().max().item()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(f"{kernel} B={B} T={T} d={d} b={b} {dtype}: "
                              f"max|err| {err} > {tol}")
-    set_bytes = (2 * B * T * d + 2 * B * d * b) * x.element_size()
+    del y_plain
+    set_bytes = 2 * B * T * d * x.element_size() + (
+        factor_bytes or 2 * B * d * b * x.element_size())
     n_sets = int(min(16, max(1, math.ceil(120e6 / set_bytes))))
-    sets = [(x, L, R)] + [(x,) + _orth_factors(gen, B, r, b, dtype, device)
-                          for _ in range(n_sets - 1)]
-    ms = time_ms(spec["fn"], sets)
-    plain_ms = time_ms(spec["plain"], sets)
+    sets = [args] + [fresh() for _ in range(n_sets - 1)]
+    ms = time_ms(fn, sets)
+    plain_ms = time_ms(plain, sets)
+    del sets
     M = _dense(kernel, L, R, device)
     lib_ms = time_ms(torch.bmm, [(x, M)])
     lib_err = (torch.bmm(x, M).float() - y.float()).abs().max().item()
     blocks_ms = blocks_err = None
-    if kernel == "gs_fused" and B == 1 and r % b == 0:
+    if r % b == 0:
         # Q is block-diagonal in d / b^2 blocks of b^2 x b^2 when b | r: one
         # einsum over those blocks computes the same function
         n = b * b
-        Mb = torch.stack([M[0, s * n:(s + 1) * n, s * n:(s + 1) * n]
-                          for s in range(d // n)])
+        Mb = torch.stack([M[:, s * n:(s + 1) * n, s * n:(s + 1) * n]
+                          for s in range(d // n)], dim=1)
 
         def blocks(xx, mb):
-            return torch.einsum("tsi,sij->tsj", xx.view(T, d // n, n), mb)
-        blocks_ms = time_ms(blocks, [(x[0], Mb)])
-        blocks_err = (blocks(x[0], Mb).reshape(T, d).float()
-                      - y[0].float()).abs().max().item()
+            return torch.einsum("btsi,bsij->btsj",
+                                xx.view(B, T, d // n, n), mb)
+        blocks_ms = time_ms(blocks, [(x, Mb)])
+        blocks_err = (blocks(x, Mb).reshape(B, T, d).float()
+                      - y.float()).abs().max().item()
         del Mb
     del M
-    bound_ms, bound_by = bound(B, T, d, b, dtype)
-    route = None
+    bound_ms, bound_by = bound(B, T, d, b, dtype, factor_bytes)
     if kernel == "gs_fused":
         plan = gk.fwd_plan(B, T, r, b, gk._DTYPES[dtype], gk._num_sms(device))
         route, tt, cluster = plan.route, plan.tokens, 1
     else:
-        tt, cluster = gk.launch_geometry(kernel, B, T, d)
+        plan = gk.t_plan(B, T, r, b, gk._DTYPES[dtype], gk._num_sms(device))
+        route, tt, cluster = plan.route, plan.tt, plan.cluster
     return dict(kernel=kernel, B=B, T=T, d=d, b=b, route=route, tt=tt,
-                cluster=cluster, dtype=str(dtype).replace("torch.", ""),
+                cluster=cluster, plan=plan._asdict(), banked=banked,
+                dtype=str(dtype).replace("torch.", ""),
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, library_err=lib_err,
                 library_blocks_ms=blocks_ms, library_blocks_err=blocks_err,
@@ -432,16 +489,32 @@ def kernel_cases(cfg):
             out.append(("gs_fused_T", 4, 1, d, b))
             out += [("gs_fused_T", 1, t, d, b) for t in prefill_buckets()]
             out += [("gs_fused", 1, t, d, b) for t in slabs]
-    return out + [("gs_fused", 1, kv, D, 32), ("gs_fused", 1, D, kv, 32)]
+    out += [("gs_fused", 1, kv, D, 32), ("gs_fused", 1, D, kv, 32)]
+    # bf16 only (route 1): Double GSOFT's output sides (T = d_in, d = d_out
+    # of wq / attn wo, wk / wv, wi / wg and the MLP wo, the last also the
+    # shape of the GS backward's dx slab) and a width past 32768
+    wide = 33 * 1024
+    return out + [("gs_fused_T", 1, t, d, 32)
+                  for t, d in ((D, D), (D, kv), (D, F), (F, D))] + [
+        ("gs_fused_T", 4, 1, wide, 32), ("gs_fused_T", 1, 128, wide, 32)]
+
+
+def f32_case(kernel: str, T: int, d: int) -> bool:
+    """Phase 3 also runs the case in f32 (route 2): the rows and prefill
+    buckets of the transpose rotation and every ``gs_fused`` slab."""
+    return kernel == "gs_fused" or (T <= max(prefill_buckets())
+                                    and d <= gk.MAX_TILE_ELEMS)
 
 
 def check_variants(cases) -> None:
-    """Fail unless every launch variant of the transpose kernel was held
-    against its plain version in each dtype: split over a cluster with one
-    and with several tokens per tile, and unsplit."""
+    """Fail unless every launch variant of the transpose rotation's fp32
+    tile route was held against its plain version in each dtype (bf16:
+    through b = 128): split over a cluster with one and with several tokens
+    per tile, and unsplit."""
     for dtype in ("bfloat16", "float32"):
         seen = {(c["cluster"] > 1, c["tt"] > 1) for c in cases
-                if c["kernel"] == "gs_fused_T" and c["dtype"] == dtype}
+                if c["kernel"] == "gs_fused_T" and c["dtype"] == dtype
+                and c["route"] == "cc"}
         missing = {(True, False), (True, True), (False, True)} - seen
         if missing:
             raise AssertionError(f"gs_fused_T {dtype}: no checked case ran "
@@ -783,6 +856,20 @@ def _profile(run, copy_shapes=None) -> dict:
                                 count=e.count))
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels) / 1e3
+    # the gathers (index_select) and the copies / dtype casts (PyTorch's
+    # direct_copy kernels) the run launched, by count and device ms
+    moved = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        for what, tag in (("index_select", "indexSelect"),
+                          ("copy", "direct_copy_kernel")):
+            if tag in e.key:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(e, "self_cuda_time_total", 0.0)
+                n, ms = moved.get(what, (0, 0.0))
+                moved[what] = (n + e.count, ms + us / 1e3)
     # the port's kernels live in namespaces gs:: (GS and bdmm), qmm::
     # (quantized matmuls), pa:: (paged attention), ssd:: (the SSD scan) and
     # fa:: (flash attention); sum them by function
@@ -796,7 +883,11 @@ def _profile(run, copy_shapes=None) -> dict:
     out = dict(wall_s=wall, device_busy_s=busy,
                idle_share=1.0 - busy / wall if wall > 0 else None,
                port_kernels_device_s=sum(by_kernel.values()) / 1e3,
-               port_device_ms_by_kernel=by_kernel, top=kernels[:16])
+               port_device_ms_by_kernel=by_kernel, top=kernels[:16],
+               index_select_kernels=moved.get("index_select", (0, 0.0))[0],
+               index_select_device_ms=moved.get("index_select", (0, 0.0))[1],
+               copy_kernels=moved.get("copy", (0, 0.0))[0],
+               copy_device_ms=moved.get("copy", (0, 0.0))[1])
     if copy_shapes is not None:
         ms, n = 0.0, 0
         for e in prof.key_averages(group_by_input_shape=True):
@@ -808,6 +899,13 @@ def _profile(run, copy_shapes=None) -> dict:
                 n += e.count
         out.update(copies_device_ms=ms, copies=n)
     return out
+
+
+def _moved(prof) -> str:
+    """The profile's gather and copy / cast kernels, for the log."""
+    return (f"index_select kernels {prof['index_select_kernels']} "
+            f"({prof['index_select_device_ms']:.2f} ms), copy / cast kernels "
+            f"{prof['copy_kernels']} ({prof['copy_device_ms']:.2f} ms)")
 
 
 # the forward GS rotation's kernels by profiler name: route 1 and route 2
@@ -850,19 +948,18 @@ def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
     warm = ServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN, eos_id=-1)
     warm.add_request([1, 2, 3], max_new_tokens=2, adapter=names[0])
     warm.run()
-    gk.gs_fused_T.launches = 0
-    gk.gs_fused.launches = 0
+    _reset_launches()
     eng, results, wall = drive()
     launches = {"gs_fused_T": gk.gs_fused_T.launches,
                 "gs_fused": gk.gs_fused.launches}
+    slot = _slot_launches()
     if len(results) != 8 or any(len(v) != 16 for v in results.values()):
         raise AssertionError(f"served {len(results)} of 8 requests: "
                              f"{ {k: len(v) for k, v in results.items()} }")
     if not all(0 <= t < cfg.padded_vocab() for v in results.values()
                for t in v):
         raise AssertionError("served a token outside the vocabulary")
-    if launches["gs_fused_T"] == 0:
-        raise AssertionError("banked serving never launched gs_fused_T")
+    check_slot_path("serve", launches, slot, ("gs_fused_T",))
     walls = [wall]
     for _ in range(repeats - 1):
         _, again, w = drive()
@@ -877,7 +974,7 @@ def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
                 tok_s=toks / wall_med,
                 decode_steps=eng.stats["decode_steps"],
                 prefills=eng.stats["prefills"], setup_s=setup_s,
-                launches=launches,
+                launches=launches, slot_launches=slot,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 profile=_profile(drive))
 
@@ -947,11 +1044,28 @@ def merged_phase(cfg, seed: int, device) -> dict:
 def _reset_launches() -> None:
     for name in KERNELS:
         KERNELS[name]["fn"].launches = 0
+    gk.gs_fused_T.slot_launches = qmk.gs_q_matmul.slot_launches = 0
     bk.bdmm.launches_by_route = {}
 
 
 def _launches() -> dict:
     return {name: KERNELS[name]["fn"].launches for name in KERNELS}
+
+
+def _slot_launches() -> dict:
+    """The GSOFT rotation launches that read the bank by slot id."""
+    return {"gs_fused_T": gk.gs_fused_T.slot_launches,
+            "gs_q_matmul": qmk.gs_q_matmul.slot_launches}
+
+
+def check_slot_path(phase: str, launches: dict, slot: dict,
+                    names: tuple) -> None:
+    """Fail unless each of ``names`` launched and every launch of it read
+    the bank by slot id (no gathered factors)."""
+    for name in names:
+        if launches[name] == 0 or slot[name] != launches[name]:
+            raise AssertionError(f"{phase}: {slot[name]} of {launches[name]} "
+                                 f"{name} launches read the bank by slot id")
 
 
 def _slices(pcfg, params) -> int:
@@ -1241,6 +1355,7 @@ def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
     _reset_launches()
     eng, results, wall = drive()
     launches = _launches()
+    slot = _slot_launches()
     bdmm_routes = dict(bk.bdmm.launches_by_route)
     if len(results) != MIXED_SERVE_REQUESTS or any(
             len(v) != 16 for v in results.values()):
@@ -1256,6 +1371,7 @@ def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
     if (launches["bdmm_dblocks"] or launches["gs_fused_bwd"]
             or launches["gs_fused_grads"]):
         raise AssertionError(f"serving launched a backward kernel: {launches}")
+    check_slot_path("mixed serve", launches, slot, ("gs_fused_T",))
     walls = [wall]
     for _ in range(repeats - 1):
         _, again, w = drive()
@@ -1270,7 +1386,8 @@ def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
                 wall_s=walls, wall_median_s=wall_med, tok_s=toks / wall_med,
                 decode_steps=eng.stats["decode_steps"],
                 prefills=eng.stats["prefills"], setup_s=setup_s,
-                launches=launches, bdmm_launches_by_route=bdmm_routes,
+                launches=launches, slot_launches=slot,
+                bdmm_launches_by_route=bdmm_routes,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 profile=_profile(drive))
 
@@ -1394,22 +1511,31 @@ def check_qmm_case(M, K, N, dtype, gen, device) -> dict:
 
 def gsq_cases(cfg):
     """(B, T, d, N): each adapted projection's input width and output width
-    at decode (B = 4 rows of one token) and at one prefill chunk."""
+    at decode (B = 4 rows of one token) and at one prefill chunk; and the
+    wq-like shape at a width past 32768 at decode."""
     D, F, KV = cfg.d_model, cfg.d_ff, cfg.num_kv_heads * cfg.d_head
     shapes = [(D, D), (D, KV), (D, F), (F, D)]
     return [(bsz, t, d, n) for bsz, t in ((4, 1), (1, PREFILL_CHUNK))
-            for d, n in shapes]
+            for d, n in shapes] + [(4, 1, 33 * 1024, D)]
 
 
 def check_gsq_case(B, T, d, N, b, dtype, gen, device) -> dict:
+    """``gs_q_matmul`` through its slot-id entry (``gs_q_matmul_bank``,
+    rows on their own slots of a SLOTS-slot fp32 bank) against the gather
+    and its plain version; times of the call, the plain version, the
+    library yardstick (the bank rotation, then one cuBLAS product of x and
+    the widened codes) and ``q_matmul`` alone on x (the product without
+    the rotation); the bound counts x, the bank slots read, the codes and
+    scales once, and y."""
     r = d // b
-    L, R = _orth_factors(gen, B, r, b, dtype, device)
+    ids = _slot_ids(B, device)
     q, s = _codes(gen, d, N, device)
     x = (torch.randn((B, T, d), generator=gen, device=device)
          / math.sqrt(d)).to(dtype)
-    y = qmk.gs_q_matmul(x, L, R, q, s)
+    args = (x,) + _bank(gen, r, b, device) + (ids, q, s)
+    y = qmk.gs_q_matmul_bank(*args)
     torch.cuda.synchronize()
-    want = qmk.gs_q_matmul_plain(x, L, R, q, s)
+    want = qmk.gs_q_matmul_bank_plain(*args)
     err = (y.float() - want.float()).abs().max().item()
     rel = GSQ_F32_REL if dtype == torch.float32 else GSQ_BF16_REL
     tol = rel * max(1.0, want.float().abs().max().item())
@@ -1417,59 +1543,44 @@ def check_gsq_case(B, T, d, N, b, dtype, gen, device) -> dict:
         raise AssertionError(f"gs_q_matmul B={B} T={T} d={d} N={N} {dtype}: "
                              f"max|err| {err} > {tol}")
     del want
+    again = qmk.gs_q_matmul_bank(*args)
+    if not torch.equal(again, y):
+        raise AssertionError(f"gs_q_matmul B={B} T={T} d={d} N={N} {dtype}: "
+                             f"a rerun differs")
+    del again
     sets = _weight_sets(
-        (x, L, R, q, s),
-        lambda: (x,) + _orth_factors(gen, B, r, b, dtype, device)
+        args, lambda: (x,) + _bank(gen, r, b, device) + (ids,)
         + _codes(gen, d, N, device), d * N)
-    ms = time_ms(qmk.gs_q_matmul, sets)
-    plain_ms = time_ms(qmk.gs_q_matmul_plain, sets[:1])
+    ms = time_ms(qmk.gs_q_matmul_bank, sets)
+    plain_ms = time_ms(qmk.gs_q_matmul_bank_plain, sets[:1])
 
-    def lib(xx, LL, RR, qq, ss):         # the rotation kernel, then cuBLAS
-        return (gk.gs_fused_T(xx, LL, RR) @ qq.to(xx.dtype)) * ss
+    def lib(xx, LL, RR, ii, qq, ss):     # the rotation kernel, then cuBLAS
+        return (gk.gs_fused_T_bank(xx, LL, RR, ii) @ qq.to(xx.dtype)) * ss
 
     lib_ms = time_ms(lib, sets[:1])
     # the same product without the rotation: what the rotation adds
-    flat = [(a[0].reshape(B * T, d), a[3], a[4]) for a in sets]
+    flat = [(a[0].reshape(B * T, d), a[4], a[5]) for a in sets]
     qmm_ms = time_ms(qmk.q_matmul, flat)
+    rot_ms = time_ms(gk.gs_fused_T_bank, [a[:4] for a in sets])
     es = x.element_size()
-    nbytes = (B * T * d * es + 2 * B * r * b * b * es + d * N + 4 * N
+    nbytes = (B * T * d * es + _bank_bytes(ids, args[1]) + d * N + 4 * N
               + B * T * N * es)
     bound_ms, bound_by = _bytes_bound(nbytes, 4 * B * T * d * b
                                       + 2 * B * T * d * N, dtype)
-    tt, nthr = qmk.gsq_geometry(B, T, r, b, N)
-    return dict(kernel="gs_q_matmul", B=B, T=T, d=d, N=N, b=b, tt=tt,
-                cols_per_tile=nthr * qmk.GSQ_CODES,
-                clusters=-(-B * T // tt) * -(-N // (nthr * qmk.GSQ_CODES)),
-                resident_clusters=qmk.gsq_resident_clusters(tt, r, b),
-                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_what="gs_fused_T, then (x @ q.to(x.dtype)) * scale",
-                q_matmul_ms=qmm_ms,
-                rotation_share=max(0.0, (ms - qmm_ms) / ms),
+    plan = (dict(zip(("tokens_per_tile", "cols_per_cta", "k_splits",
+                      "k_rows_per_split"),
+                     qmk.gsq_plan(B * T, d, N, qmk._num_sms())))
+            if dtype == torch.bfloat16 else None)
+    return dict(kernel="gs_q_matmul", B=B, T=T, d=d, N=N, b=b, plan=plan,
+                rotation_route=gk.t_plan(B, T, r, b, gk._DTYPES[dtype],
+                                         gk._num_sms(device)).route,
+                slots=ids.tolist(), dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                library_what="gs_fused_T_bank, then (x @ q.to(x.dtype)) * "
+                             "scale",
+                q_matmul_ms=qmm_ms, rotation_ms=rot_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
-
-
-def gsq_tile_sweep(B, d, N, b, gen, device) -> dict:
-    """``gs_q_matmul``'s time at every column-tile width (threads along N)
-    for one decode shape, bf16: each cluster recomputes the rotation, so
-    wider tiles trade rotations for fewer streaming SMs. Returns
-    {columns per tile: ms}."""
-    r = d // b
-    L, R = _orth_factors(gen, B, r, b, torch.bfloat16, device)
-    q, s = _codes(gen, d, N, device)
-    x = (torch.randn((B, 1, d), generator=gen, device=device)
-         / math.sqrt(d)).to(torch.bfloat16)
-    tt = qmk.gsq_geometry(B, 1, r, b, N)[0]
-    chosen = qmk.gsq_geometry
-    out = {}
-    try:
-        for nthr in (32, 64, 128, 256, 512):
-            qmk.gsq_geometry = lambda *a, _n=nthr: (tt, _n)
-            out[nthr * qmk.GSQ_CODES] = time_ms(qmk.gs_q_matmul,
-                                                [(x, L, R, q, s)])
-    finally:
-        qmk.gsq_geometry = chosen
-    return out
 
 
 PAGED_LENS = {"ctx144": [144, 144, 144, 144],
@@ -1609,6 +1720,7 @@ def paged_quant_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
     _reset_launches()
     eng, results, wall, peak_pages = drive()
     launches = _launches()
+    slot = _slot_launches()
     if len(results) != 8 or any(len(v) != 16 for v in results.values()):
         raise AssertionError(f"served {len(results)} of 8 requests: "
                              f"{ {k: len(v) for k, v in results.items()} }")
@@ -1623,6 +1735,7 @@ def paged_quant_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
             or launches["gs_fused_grads"] or launches["bdmm"]):
         raise AssertionError(f"the fused int8 path launched another "
                              f"rotation kernel: {launches}")
+    check_slot_path("paged int8 serve", launches, slot, ("gs_q_matmul",))
     kv = eng.kv_stats()
     if kv["prefix_hits"] < 1:
         raise AssertionError(f"the shared 64-token prefix was never reused: "
@@ -1646,6 +1759,7 @@ def paged_quant_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
                 decode_steps=eng.stats["decode_steps"],
                 prefills=eng.stats["prefills"], setup_s=setup_s,
                 quantize_s=quantize_s, launches=launches,
+                slot_launches=slot,
                 params_bytes_bf16=bf16_bytes, params_bytes_int8=int8_bytes,
                 quantize_peak_gb=quantize_peak_gb, serve_peak_gb=peak_gb,
                 kv_stats=kv, kv_pages_peak=peak_pages,
@@ -2089,12 +2203,16 @@ def main() -> int:
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for kernel, B, T, d, b in kernel_cases(full):
+            if dtype == torch.float32 and not f32_case(kernel, T, d):
+                continue
             c = check_case(kernel, B, T, d, b, dtype, gen, device)
             cases.append(c)
+            torch.cuda.empty_cache()
             blocks = ("" if c["library_blocks_ms"] is None else
                       f" blocks {c['library_blocks_ms']:.4f}")
             log(f"kernel {kernel:10s} B={B} T={T:5d} d={d:5d} b={b:3d} "
-                f"{c['route'] or ''} tt={c['tt']} cluster={c['cluster']} "
+                f"{c['route'] or ''} {tuple(c['plan'].values())[1:]} "
+                f"tt={c['tt']} cluster={c['cluster']} "
                 f"{c['dtype']:8s} err {c['max_abs_err']:.2e} (tol "
                 f"{c['tol']:.0e}) ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
                 f"lib {c['library_ms']:.4f}{blocks} bound "
@@ -2146,27 +2264,19 @@ def main() -> int:
                 f"({c['bound_by']})")
         torch.cuda.empty_cache()
         for B, T, d, N in gsq_cases(full):
-            if dtype == torch.float32 and T != 1:
+            if dtype == torch.float32 and (T != 1 or d > gk.MAX_TILE_ELEMS):
                 continue
             c = check_gsq_case(B, T, d, N, 32, dtype, gen, device)
             qcases.append(c)
             log(f"kernel gs_q_matmul  B={B} T={T:2d} d={d:5d} N={N:5d} b=32 "
-                f"tt={c['tt']} cols={c['cols_per_tile']} clusters="
-                f"{c['clusters']} (resident {c['resident_clusters']}) "
-                f"{c['dtype']:8s} err "
+                f"slots={c['slots']} plan={c['plan']} rotation "
+                f"{c['rotation_route']} {c['dtype']:8s} err "
                 f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
-                f"{c['ms']:.4f} (q_matmul alone {c['q_matmul_ms']:.4f}) "
-                f"plain {c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
+                f"{c['ms']:.4f} (rotation alone {c['rotation_ms']:.4f}, "
+                f"q_matmul alone {c['q_matmul_ms']:.4f}) plain "
+                f"{c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
                 f"{c['bound_ms']:.4f} ({c['bound_by']})")
-        torch.cuda.empty_cache()
-        if dtype == torch.bfloat16:
-            for d in (full.d_model, full.d_ff):
-                sweep = gsq_tile_sweep(4, d, full.d_model, 32, gen, device)
-                qcases.append(dict(kernel="gs_q_matmul_tile_sweep", B=4, T=1,
-                                   d=d, N=full.d_model, ms_by_cols=sweep))
-                log(f"gs_q_matmul tile sweep B=4 T=1 d={d} N={full.d_model}: "
-                    f"ms by columns per tile "
-                    f"{ {k: round(v, 4) for k, v in sweep.items()} }")
+            torch.cuda.empty_cache()
         for page in (8, 16):
             for lens_name in PAGED_LENS:
                 c = check_paged_case(full, page, lens_name, dtype, gen, device)
@@ -2226,7 +2336,8 @@ def main() -> int:
         f"launches {serve['launches']}")
     log(f"serve profile: wall {prof['wall_s']:.3f} s, device busy "
         f"{prof['device_busy_s']:.3f} s (idle share {prof['idle_share']}), "
-        f"port kernels {prof['port_kernels_device_s']:.4f} s")
+        f"port kernels {prof['port_kernels_device_s']:.4f} s; "
+        f"{_moved(prof)}; slot-id launches {serve['slot_launches']}")
     torch.cuda.empty_cache()
 
     # 4b. the serve launcher's paged int8 path, bf16, full width, depth cut
@@ -2252,7 +2363,8 @@ def main() -> int:
     log(f"paged int8 serve profile: wall {qprof['wall_s']:.3f} s, device busy "
         f"{qprof['device_busy_s']:.3f} s (idle share {qprof['idle_share']}), "
         f"port kernels {qprof['port_kernels_device_s']:.4f} s "
-        f"{ {k: round(v, 2) for k, v in qprof['port_device_ms_by_kernel'].items()} } ms")
+        f"{ {k: round(v, 2) for k, v in qprof['port_device_ms_by_kernel'].items()} } ms"
+        f"; {_moved(qprof)}; slot-id launches {qserve['slot_launches']}")
     torch.cuda.empty_cache()
 
     # 5. banked vs merged, f32
@@ -2369,7 +2481,8 @@ def main() -> int:
         f" (bdmm by route {mserve['bdmm_launches_by_route']})")
     log(f"mixed serve profile: wall {mprof['wall_s']:.3f} s, device busy "
         f"{mprof['device_busy_s']:.3f} s (idle share {mprof['idle_share']}), "
-        f"port kernels {mprof['port_kernels_device_s']:.4f} s")
+        f"port kernels {mprof['port_kernels_device_s']:.4f} s; "
+        f"{_moved(mprof)}; slot-id launches {mserve['slot_launches']}")
     torch.cuda.empty_cache()
     log(f"mixed check: {CHECK_LAYERS} layers, f32, TF32 off")
     mcheck = mixed_check_phase(cfg2, args.seed, device)
@@ -2455,6 +2568,11 @@ def main() -> int:
                                     for t in trains_bdmm.values())}
     all_cases = cases + bwd_cases_run + bdmm_run
     kernels = []
+    # the GSOFT rotation launches of the serve phases that read the bank by
+    # slot id (all of them: phases 4, 4b and 11 check it)
+    slot_by_path = {"serve": serve["slot_launches"],
+                    "serve_mixed": mserve["slot_launches"],
+                    "serve_paged_int8": qserve["slot_launches"]}
     for name, key in main_case.items():
         c = next(c for c in all_cases
                  if (c["kernel"], c["B"], c["T"], c["d"], c["b"],
@@ -2469,7 +2587,7 @@ def main() -> int:
                 for dt in ("bfloat16", "float32")})
         if "library_what" in c:
             extra["library_what"] = c["library_what"]
-        if name == "gs_fused":
+        if name in ("gs_fused", "gs_fused_T"):
             extra.update(gs_route=c["route"],
                          library_blocks_ms=c["library_blocks_ms"])
         kernels.append(dict(
@@ -2477,6 +2595,9 @@ def main() -> int:
             replaces=KERNELS[name]["replaces"], launches=launches[name],
             launches_by_path={p: v[name] for p, v in by_path.items()
                               if name in v},
+            **({"slot_launches_by_path": {p: v[name] for p, v in
+                                          slot_by_path.items() if v[name]}}
+               if name == "gs_fused_T" else {}),
             max_abs_err=c["max_abs_err"], **extra,
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
@@ -2501,6 +2622,9 @@ def main() -> int:
             launches=qserve["launches"][name],
             launches_by_path={p: v[name] for p, v in by_path.items()
                               if name in v},
+            **({"slot_launches_by_path": {p: v[name] for p, v in
+                                          slot_by_path.items() if v[name]}}
+               if name == "gs_q_matmul" else {}),
             max_abs_err=c["max_abs_err"], **extra, ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],

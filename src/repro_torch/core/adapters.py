@@ -208,21 +208,21 @@ def gs_rotate_banked(entry: Params, ids: torch.Tensor,
 
     ``entry``: a ``gsoft_bank_build`` stack {"L": (A, r, b, b), "R": ...}
     (layer dims already sliced off); ids: (B,) slot per row; x: (B, T, d).
-    The per-row factors are gathered and cast to x.dtype, then rotated by
-    the ``gs_fused_T`` kernel on the card."""
-    L = entry["L"].index_select(0, ids).to(x.dtype)          # (B, r, b, b)
-    R = entry["R"].index_select(0, ids).to(x.dtype)
-    return kernel_ops.gs_banked_transform_T(L, R, x)
+    On the card the ``gs_fused_T`` kernel reads each row's factors from the
+    bank by slot id and rounds them to x.dtype itself (JAX gathers and
+    casts first; the result is the same); on the CPU they are gathered."""
+    return kernel_ops.gs_bank_transform_T(entry["L"], entry["R"], ids, x)
 
 
 def gsoft_quant_fuse(entry: Params, ids: torch.Tensor,
-                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row (L, R) blocks in ``dtype`` for the fused rotate + quantized
-    matmul (``ops.gs_q_matmul_banked``): rotations stay in float over int8
-    base weights."""
-    L = entry["L"].index_select(0, ids).to(dtype)
-    R = entry["R"].index_select(0, ids).to(dtype)
-    return L, R
+                     dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+    """The hand-off to the fused rotate + quantized matmul
+    (``ops.gs_q_matmul_bank``): the bank's (L, R) and the slot ids, read
+    by the kernel on the card and rounded to the activations' ``dtype``
+    there (rotations stay in float over int8 base weights). JAX hands over
+    gathered blocks cast to ``dtype`` instead."""
+    del dtype     # the kernel rounds to x's dtype, which the caller passes
+    return entry["L"], entry["R"], ids
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,10 @@ class MethodOps:
     * ``bank_build(spec, params_by_slot, device)`` — per-slot serving stacks,
       or None (``bank_unsupported`` says why)
     * ``bank_rotator(entry, slots, x)`` — per-row x Q_slot
-    * ``quant_fuse(entry, slots, dtype)`` — per-row factors for the fused
-      rotate + quantized matmul kernel, or None (the rotation then applies
-      to the activations before ``q_matmul``)
+    * ``quant_fuse(entry, slots, dtype)`` — the hand-off to the fused
+      rotate + quantized matmul (GSOFT: its bank and the slot ids, for
+      ``ops.gs_q_matmul_bank``), or None (the rotation then applies to the
+      activations before ``q_matmul``)
     * ``quant_compatible`` — may serve over quantized base weights (the
       rotation applies activation-side, in float, before the int8 matmul)
     * ``banked_kernel`` — the kernel family the banked rotation rides

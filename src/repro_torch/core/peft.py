@@ -380,8 +380,8 @@ class BankRotator:
 
     ``quant_rotation`` splits the work for a quantized base matmul: the
     method that can fuse with the quantized kernel (GSOFT) hands back its
-    per-row factors, so rotation and int8 matmul run as one
-    ``gs_q_matmul_banked`` launch; the other stacks apply to x first."""
+    bank and the slot ids, so rotation and int8 matmul run as one
+    ``gs_q_matmul_bank`` call; the other stacks apply to x first."""
 
     __slots__ = ("_group", "slots")
 
@@ -399,10 +399,10 @@ class BankRotator:
 
     def quant_rotation(self, name: str, x: torch.Tensor, dtype: torch.dtype
                        ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]:
-        """-> (x with the unfusible method stacks applied, the per-row
-        factors of the (at most one) method whose ``quant_fuse`` fuses with
-        the quantized matmul, or None). Same fixed sorted method order as
-        ``__call__``."""
+        """-> (x with the unfusible method stacks applied, the hand-off of
+        the (at most one) method whose ``quant_fuse`` fuses with the
+        quantized matmul (GSOFT: its bank (L, R) and the slot ids), or
+        None). Same fixed sorted method order as ``__call__``."""
         entry = self._group.get(name)
         if entry is None:
             return x, None

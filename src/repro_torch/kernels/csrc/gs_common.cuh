@@ -1,6 +1,6 @@
 // Shared pieces of the fused GSOFT rotation kernels (gs_fused_T.cu,
-// gs_fused.cu): constants, type conversion, the register-tiled block product
-// and the launch helper. Each including .cu file is its own shared library.
+// gs_fused.cu, gs_fused_bwd.cu): constants, type conversion, the bank slot
+// of a row, the register-tiled block product and the launch helper. Each including .cu file is its own shared library.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -25,6 +25,31 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
+// A factor element of type F as the fp32 value the kernels multiply with:
+// rounded to the activation type T first when F is wider (an fp32 bank
+// entry with bf16 x: what ``index_select(...).to(x.dtype)`` would give),
+// exact when F is T.
+template <typename T, typename F>
+struct Factor {
+  static __device__ __forceinline__ float get(F v) {
+    return to_f32(from_f32<T>(to_f32(v)));
+  }
+};
+template <typename T>
+struct Factor<T, T> {
+  static __device__ __forceinline__ float get(T v) { return to_f32(v); }
+};
+
+// The bank slot of batch row `row`: ids[row] clamped into [0, slots) (the
+// kernels never read past the bank), or the row itself without ids (per-row
+// factors passed straight through).
+__device__ __forceinline__ long long row_slot(const long long* ids, int row,
+                                              int slots) {
+  if (ids == nullptr) return row;
+  const long long s = ids[row];
+  return s < 0 ? 0 : (s >= slots ? slots - 1 : s);
+}
+
 // Register layout shared by both kernels: thread `tid` owns the feature
 // columns k = tid + p * kThreads (p < KP) of all TT tokens of the tile, so a
 // factor element loaded once from L1/L2 feeds TT fused multiply-adds, and the
@@ -35,8 +60,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // Block product over the tile: acc[p][t] = sum_i F[g][i][j] * buf[t*d + in(g, i)]
 // for column k = g*b + j, with F read as F[(g*b + i)*b + j] (row i of block g),
 // and `in` the stage's shuffled input position.
-template <typename T, int TT, bool kShuffledIn>
-__device__ __forceinline__ void block_stage(const T* __restrict__ F,
+// F's element type FT may be wider than the activation type T (Factor).
+template <typename T, int TT, bool kShuffledIn, typename FT>
+__device__ __forceinline__ void block_stage(const FT* __restrict__ F,
                                             const float* buf, int d, int r, int b,
                                             int kbeg, int kend,
                                             float (&acc)[kPerThread / TT][TT]) {
@@ -48,14 +74,14 @@ __device__ __forceinline__ void block_stage(const T* __restrict__ F,
     const int k = kbeg + threadIdx.x + p * kThreads;
     if (k < kend) {
       const int g = k / b, j = k - g * b;
-      const T* Fg = F + (size_t)g * b * b + j;
+      const FT* Fg = F + (size_t)g * b * b + j;
       // input position of row i of block g: g*b + i (in place) or
       // i*r + g (reading the P^T-shuffled intermediate)
       const float* in = kShuffledIn ? buf + g : buf + g * b;
       const int step = kShuffledIn ? r : 1;
 #pragma unroll 4
       for (int i = 0; i < b; ++i) {
-        const float w = to_f32(Fg[(size_t)i * b]);
+        const float w = Factor<T, FT>::get(Fg[(size_t)i * b]);
 #pragma unroll
         for (int t = 0; t < TT; ++t) acc[p][t] += w * in[t * d + i * step];
       }

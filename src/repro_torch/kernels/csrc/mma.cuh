@@ -1,7 +1,8 @@
 // Hopper PTX wrappers shared by the tensor-core kernels (bdmm.cu,
-// gs_fused.cu, gs_fused_bwd.cu): shared-memory addresses, 16-byte cp.async,
-// ldmatrix / stmatrix, the bf16 mma.sync m16n8k16 with fp32 sums, and the
-// split of an fp32 fragment into bf16 hi + lo. Each including .cu file is
+// gs_fused.cu, gs_fused_T.cu, gs_fused_bwd.cu, q_matmul.cu): shared-memory
+// addresses, 16-byte cp.async, ldmatrix / stmatrix, the bf16 mma.sync
+// m16n8k16 with fp32 sums, the split of an fp32 fragment into bf16 hi + lo,
+// and programmatic dependent launch. Each including .cu file is
 // its own shared library.
 #pragma once
 
@@ -85,6 +86,14 @@ __device__ __forceinline__ void stsm_x4_trans(const uint32_t (&r)[4], void* p) {
       : "memory");
 }
 
+// the same for two matrices (lanes 0-15 give the addresses)
+__device__ __forceinline__ void stsm_x2_trans(const uint32_t (&r)[2], void* p) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n"
+      ::"r"(smem_addr(p)), "r"(r[0]), "r"(r[1])
+      : "memory");
+}
+
 // store four 8 x 8 b16 matrices from the mma fragment layout: row i of
 // matrix k (lane 8k + i gives its 16-byte address) receives row i of the
 // fragment
@@ -107,6 +116,18 @@ __device__ __forceinline__ void st_cs2(void* p, bf16 v) {
   asm volatile("st.global.cs.b16 [%0], %1;\n" ::"l"(p),
                "h"(__bfloat16_as_ushort(v))
                : "memory");
+}
+
+// programmatic dependent launch: let the next kernel of the stream (launched
+// with cudaLaunchAttributeProgrammaticStreamSerialization) start its CTAs
+// now; and, in that kernel, wait until this grid has finished and its
+// writes are visible. Both are no-ops without such a launch.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // two bf16 in one 32-bit register, `lo` in the low half (the lower k index)

@@ -9,10 +9,17 @@
 //
 // gs_q_matmul replaces gs_q_matmul_pallas (_gs_q_matmul_kernel) and its
 // per-row vmap ops.gs_q_matmul_banked:  y_i = round(x_i Q_i) @ q * scale
-// with Q_i = P^T L_i P R_i the row's GSOFT rotation (x (B, T, d), per-row L,
-// R (B, r, b, b) in x's dtype, one shared q (d, N)). The rotated slab is
-// rounded to x's dtype (as the TPU kernel does) and stays in shared memory:
-// one launch, no round trip through device memory.
+// with Q_i = P^T L_i P R_i the row's GSOFT rotation (per-row factors, or a
+// bank read at the rows' slot ids) and one shared q (d, N). Its rotated slab
+// xr = round(x_i Q_i) is exactly gs_fused_T's output (the TPU kernel rounds
+// z to x's dtype before its product), so the wrapper computes it once per
+// call with gs_fused_T's kernel (csrc/gs_fused_T.cu: 64 KB at decode wq, in
+// L2) and launches the product here behind it with programmatic dependent
+// launch: each token is rotated once however many column tiles there are,
+// and the product's CTAs load their first code stages while the rotation
+// runs (griddepcontrol.wait before the first read of xr). One call, no
+// round trip to the host. f32 (the checks) runs q_matmul's fp32 kernel on
+// xr instead.
 //
 // What bounds them on the H100: at decode (M = B * T <= 16) the work is
 // streaming the int8 weight once, K * N bytes (67 MB for wq, 242 MB for the
@@ -34,29 +41,27 @@
 // kernel adds them in split order and applies the scale (deterministic, no
 // atomics).
 //
-// gs_q_matmul design. A cluster of 8 CTAs owns one token tile (TT tokens of
-// any rows) and one tile of NC output columns. CTA c owns 1/8 of the GS
-// blocks: it gathers its blocks of P x from the token tile, computes their
-// first stage (L^T) into shared memory, reads the inputs of its blocks of
-// the second stage (P^T of the first stage's output) from the CTAs that
-// hold them over distributed shared memory, and computes its blocks of the
-// second stage (R^T), rounded to x's dtype. So the rotated slab never leaves
-// the chip, each CTA reads 1/8 of the rows' factors (their loads batched,
-// several in flight per thread) and holds two (TT, d / 8) fp32 buffers,
-// which leaves room for TT = 8 tokens at d = 8192 and 4 at d = 29568. CTA c
-// then multiplies its blocks' K rows by the codes of the column tile, its
-// threads split over columns and K lanes, adds the K lanes in shared memory,
-// and the cluster adds its 8 partial tiles over distributed shared memory in
-// rank order (its threads load 16 rows of codes before using any). The
-// rotation is recomputed by every column tile (as on the TPU), so the
-// wrapper takes wide column tiles (8 clusters on the H100, of the 15 it
-// holds at once), and the grid is ordered so the token tiles of one column
-// tile run side by side and share the codes in L2.
+// gs_q_matmul's product (bf16). The codes stream once, as int8, through a
+// 4-stage ring of 16-byte cp.async copies (64 K rows x 32-128 columns a
+// stage, with the matching 64 K rows of xr); each code is widened exactly
+// to bf16 in registers (the byte permute of widen4, then cvt.rn.bf16x2.f32)
+// and multiplied on the tensor cores (mma.sync m16n8k16, fp32 sums) with
+// the codes as A (16 output columns a fragment) and the tokens as B's 8
+// columns, so 4 decode rows waste no fragment rows; a prefill chunk takes
+// 16-token tiles. The scale is applied in the epilogue. The grid gives every
+// SM a share of the codes: K is split over up to 8 CTAs of a cluster (8 at
+// every qwen2-72b projection: more, shorter code streams ran faster than
+// wider column tiles), whose partial tiles are added in rank order over
+// distributed shared memory (no atomics, bit-identical reruns), and the
+// column tiles narrow where they still do not fill twice the SMs (wk / wv
+// at N = 1024).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -69,11 +74,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-// v rounded to T and back: the activation-dtype rounding of the TPU kernel
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
 }
 
 // Four int8 codes of one 32-bit word -> four exact floats: flip the sign
@@ -287,294 +287,247 @@ int q_matmul(const void* x, const void* q, const void* scale, void* y,
 }
 
 // ---------------------------------------------------------------------------
-// gs_q_matmul (banked)
+// gs_q_matmul's product (bf16)
 // ---------------------------------------------------------------------------
 
-constexpr int kGThreads = 512;
-constexpr int kCluster = 8;               // CTAs sharing one token tile's rotation
-constexpr int kGC = 4;                    // codes per thread in the matmul
-constexpr int kGU = 16;                   // rows of codes a thread loads at once
-// tt * share must not exceed this (share = ceil(r / kCluster) * b): a CTA
-// holds two (tt, share) fp32 buffers, 192 KB at most
-constexpr int kRotTileElems = 24576;
+namespace gsq {
 
-// TT floats at p (16-byte aligned for TT >= 4) -> v
-template <int TT>
-__device__ __forceinline__ void load_tokens(const float* p, float* v) {
-  if constexpr (TT % 4 == 0) {
-#pragma unroll
-    for (int t = 0; t < TT; t += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(p + t);
-      v[t] = f.x; v[t + 1] = f.y; v[t + 2] = f.z; v[t + 3] = f.w;
-    }
-  } else if constexpr (TT == 2) {
-    const float2 f = *reinterpret_cast<const float2*>(p);
-    v[0] = f.x; v[1] = f.y;
-  } else {
-    v[0] = p[0];
-  }
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKT = 64;                   // K rows a stage
+constexpr int kStages = 4;
+constexpr int kMaxSplits = 8;             // K splits: the cluster along K
+constexpr int kXP = kKT * 2 + 16;         // xr token pitch in a stage (bytes)
+
+__host__ __device__ inline int code_pitch(int nt) { return nt + 16; }
+
+__host__ __device__ inline size_t stage_bytes(int nt, int ntok) {
+  return (size_t)kKT * code_pitch(nt) + (size_t)ntok * kXP;
 }
 
-// One block stage of the rotation for the columns [kbeg, kend) of this
-// CTA's blocks, every token of the tile with its own row's factors F[t]:
-// out[(k - kbeg) * TT + t] = sum_i F_t[g][i][j] in[(g*b + i - kbeg) * TT + t]
-// for column k = g*b + j. The factor loads of U rows i are issued before
-// their multiply-adds, so a thread keeps U * TT loads in flight.
-template <typename T, int TT, bool kRound>
-__device__ __forceinline__ void rot_stage(const T* const* F, const float* in,
-                                          float* out, int b, int kbeg,
-                                          int kend) {
-  constexpr int U = TT >= 8 ? 4 : 8;
-  for (int k = kbeg + threadIdx.x; k < kend; k += kGThreads) {
-    const int g = k / b, j = k - g * b;
-    const size_t fo = (size_t)g * b * b + j;
-    const float* ing = in + (size_t)(g * b - kbeg) * TT;
-    float acc[TT];
-#pragma unroll
-    for (int t = 0; t < TT; ++t) acc[t] = 0.f;
-    for (int i0 = 0; i0 < b; i0 += U) {
-      float f[U][TT];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int t = 0; t < TT; ++t)
-          f[u][t] = i0 + u < b ? to_f32(F[t][fo + (size_t)(i0 + u) * b]) : 0.f;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (i0 + u < b) {
-          float v[TT];
-          load_tokens<TT>(ing + (size_t)(i0 + u) * TT, v);
-#pragma unroll
-          for (int t = 0; t < TT; ++t) acc[t] = fmaf(f[u][t], v[t], acc[t]);
-        }
-      }
-    }
-    float* o = out + (size_t)(k - kbeg) * TT;
-#pragma unroll
-    for (int t = 0; t < TT; ++t) o[t] = kRound ? round_to<T>(acc[t]) : acc[t];
-  }
+// the ring; after the K loop it holds the fp32 partial sums of the warps'
+// K lanes (kWarps / (nt / 32) lanes of ntok tokens x nt columns)
+__host__ __device__ inline size_t smem_bytes(int nt, int ntok) {
+  const size_t ring = kStages * stage_bytes(nt, ntok);
+  const size_t red = (size_t)(kWarps / (nt / 32)) * ntok * nt * 4;
+  return ring > red ? ring : red;
 }
 
-// grid.x = kCluster * token tiles * column tiles, token tile fastest after
-// the rank (clusters of one column tile are neighbours in launch order).
-// Rank c of a cluster owns the GS blocks [c * bpr, (c + 1) * bpr) of both
-// stages, bpr = ceil(r / kCluster), hence the K rows [c * bpr * b, ...) of
-// the product. Its buffers are token-minor: element (k, t) at k * TT + t.
-template <typename T, int TT>
-__global__ void __launch_bounds__(kGThreads, 1)
-gs_q_matmul_kernel(const T* __restrict__ x, const T* __restrict__ Lf,
-                   const T* __restrict__ Rf, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, T* __restrict__ y,
-                   int n_tokens, int M, int r, int b, int N, int nthr_n,
-                   int vec, int token_tiles) {
-  extern __shared__ __align__(16) float smem[];
+// rows k and k + 1 of four consecutive columns (one 32-bit word each) ->
+// four bf16 pairs (row k in the low half), exact: |code| <= 128 has 8
+// significant bits
+__device__ __forceinline__ void widen_pairs(uint32_t lo_row, uint32_t hi_row,
+                                            uint32_t (&out)[4]) {
+  float a[4], b[4];
+  widen4(lo_row, a);
+  widen4(hi_row, b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = gs::pack_f32(a[j], b[j]);
+}
+
+// y (M, N) = round((xr @ q) * scale) for one token tile of NTOK tokens
+// (blockIdx.z), one tile of nt columns (blockIdx.y) and one K split
+// (blockIdx.x, the rank in a cluster of `splits` CTAs along K). Warp w owns
+// 32 columns (w % (nt / 32)) and every (4 / (nt / 32))-th 16-row step of
+// each 64-row stage. MMA m16n8k16 with A = q^T (16 columns x 16 rows of K:
+// column 4 gid + 2 f + h is fragment f's row gid + 8 h, so one 32-bit word
+// of a code row serves both fragments) and B = xr^T (16 K rows x 8 tokens).
+// kVec: N % 16 == 0 and q 16-byte aligned, so codes move as 16-byte cp.async
+// chunks; otherwise byte by byte.
+template <int NTOK, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gsq_product_kernel(const __nv_bfloat16* __restrict__ xr,
+                   const int8_t* __restrict__ q,
+                   const float* __restrict__ scale,
+                   __nv_bfloat16* __restrict__ y, int M, int K, int N, int kps,
+                   int nt) {
+  constexpr int NT8 = NTOK / 8;
+  extern __shared__ __align__(128) unsigned char sm[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int d = r * b;
-  const int rank = blockIdx.x % kCluster;
-  const int cl = blockIdx.x / kCluster;
-  const int m0 = (cl % token_tiles) * TT;
-  const int col_tile = cl / token_tiles;
-  const int nt = min(TT, M - m0);
-  const int bpr = (r + kCluster - 1) / kCluster;
-  const int share = bpr * b;
-  const int gbeg = min(r, rank * bpr), gend = min(r, gbeg + bpr);
-  const int kbeg = gbeg * b, kend = gend * b;
-  const int width = kend - kbeg;
-  float* sbuf = smem;                          // s, then m: (share, TT)
-  float* qbuf = smem + (size_t)share * TT;     // q (peers read it), then y
+  const int split = blockIdx.x, n0 = blockIdx.y * nt, m0 = blockIdx.z * NTOK;
+  const int splits = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nb = nt / 32, kl = kWarps / nb;
+  const int wcol = warp % nb, wk = warp / nb;
+  const int cp = code_pitch(nt);
+  const size_t sb = stage_bytes(nt, NTOK);
+  const int kbeg = split * kps, kend = min(K, kbeg + kps);
+  const int nchunks = (kend - kbeg + kKT - 1) / kKT;
 
-  const T* Lt[TT];
-  const T* Rt[TT];
+  auto load_codes = [&](int c, int buf) {
+    unsigned char* cs = sm + (size_t)buf * sb;
+    const int k0 = kbeg + c * kKT;
+    if constexpr (kVec) {
+      const int per_row = nt / 16;
+      for (int o = tid; o < kKT * per_row; o += kThreads) {
+        const int rr = o / per_row, cc = o - rr * per_row;
+        const int k = k0 + rr, col = n0 + cc * 16;
+        const bool ok = k < kend && col < N;
+        gs::cp_async16(cs + rr * cp + cc * 16,
+                       ok ? q + (size_t)k * N + col : q, ok);
+      }
+    } else {
+      for (int o = tid; o < kKT * nt; o += kThreads) {
+        const int rr = o / nt, cc = o - rr * nt;
+        const int k = k0 + rr, col = n0 + cc;
+        cs[rr * cp + cc] = (k < kend && col < N)
+                               ? (unsigned char)q[(size_t)k * N + col]
+                               : (unsigned char)0;
+      }
+    }
+  };
+  auto load_xr = [&](int c, int buf) {
+    unsigned char* xs = sm + (size_t)buf * sb + (size_t)kKT * cp;
+    const int k0 = kbeg + c * kKT;
+    for (int o = tid; o < NTOK * 8; o += kThreads) {
+      const int t = o >> 3, kc = o & 7;
+      const int m = m0 + t, k = k0 + kc * 8;
+      unsigned char* dst = xs + t * kXP + kc * 16;
+      if (m < M && k + 8 <= kend && (K & 7) == 0) {
+        gs::cp_async16(dst, xr + (size_t)m * K + k, true);
+      } else {
+        __nv_bfloat16* d16 = reinterpret_cast<__nv_bfloat16*>(dst);
 #pragma unroll
-  for (int t = 0; t < TT; ++t) {
-    const size_t row = (size_t)(t < nt ? m0 + t : m0) / n_tokens;
-    Lt[t] = Lf + row * r * b * b;
-    Rt[t] = Rf + row * r * b * b;
+        for (int e = 0; e < 8; ++e)
+          d16[e] = (m < M && k + e < kend) ? xr[(size_t)m * K + k + e]
+                                           : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  // the codes of the first stages do not depend on the rotation in front of
+  // this kernel: load them before waiting for it
+  for (int c = 0; c < kStages - 1; ++c)
+    if (c < nchunks) load_codes(c, c);
+  gs::pdl_wait();
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < nchunks) load_xr(c, c);
+    gs::cp_async_commit();
   }
 
-  // this CTA's blocks of s = P x: s[u] = x[(u % r) * b + u / r]; tokens past
-  // the ragged end are 0
-  for (int o = threadIdx.x; o < width * TT; o += kGThreads) {
-    const int uu = o / TT, t = o - uu * TT;
-    const int u = kbeg + uu;
-    sbuf[o] = t < nt ? to_f32(x[(size_t)(m0 + t) * d + (u % r) * b + u / r])
-                     : 0.f;
-  }
-  __syncthreads();
-  // stage 1: q_g = L_g^T s_g on this CTA's blocks
-  rot_stage<T, TT, false>(Lt, sbuf, qbuf, b, kbeg, kend);
-  cluster.sync();                              // every CTA's q written
-  // m = P^T q on this CTA's blocks: m[g*b + i] = q[i*r + g], from the
-  // owner of q's block (i*r + g) / b, over distributed shared memory
-#pragma unroll 4
-  for (int o = threadIdx.x; o < width * TT; o += kGThreads) {
-    const int mm = o / TT, t = o - mm * TT;
-    const int gl = mm / b, i = mm - gl * b;
-    const int v = i * r + gbeg + gl;
-    const int owner = (v / b) / bpr;
-    const float* src = cluster.map_shared_rank(qbuf, owner);
-    sbuf[o] = src[(size_t)(v - owner * share) * TT + t];
-  }
-  cluster.sync();                              // no peer reads our q any more
-  // stage 2: y_g = R_g^T m_g, rounded to x's dtype, into qbuf
-  rot_stage<T, TT, true>(Rt, sbuf, qbuf, b, kbeg, kend);
-  __syncthreads();
+  float acc[2][NT8][4];
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int h = 0; h < NT8; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[f][h][j] = 0.f;
 
-  // this CTA's K range of the product: threads over (K lanes, columns)
-  const int nc = nthr_n * kGC;                 // columns of the tile
-  const int klanes = kGThreads / nthr_n;
-  const int tid_n = threadIdx.x % nthr_n, kl = threadIdx.x / nthr_n;
-  const int n = col_tile * nc + tid_n * kGC;
-  float acc2[TT][kGC];
+  for (int it = 0; it < nchunks; ++it) {
+    gs::cp_async_wait<kStages - 2>();
+    __syncthreads();  // this stage landed; the stage refilled below is consumed
+    const int nxt = it + kStages - 1;
+    if (nxt < nchunks) {
+      load_codes(nxt, nxt % kStages);
+      load_xr(nxt, nxt % kStages);
+    }
+    gs::cp_async_commit();
+    const unsigned char* cs = sm + (size_t)(it % kStages) * sb;
+    const unsigned char* xs = cs + (size_t)kKT * cp;
+    for (int s = wk; s < kKT / 16; s += kl) {
+      const unsigned char* cr = cs + (16 * s + 2 * tig) * cp + wcol * 32 + 4 * gid;
+      uint32_t lo[4], hi[4];
+      widen_pairs(*reinterpret_cast<const uint32_t*>(cr),
+                  *reinterpret_cast<const uint32_t*>(cr + cp), lo);
+      widen_pairs(*reinterpret_cast<const uint32_t*>(cr + 8 * cp),
+                  *reinterpret_cast<const uint32_t*>(cr + 9 * cp), hi);
 #pragma unroll
-  for (int t = 0; t < TT; ++t)
+      for (int h = 0; h < NT8; ++h) {
+        const unsigned char* xb = xs + (h * 8 + gid) * kXP + (16 * s + 2 * tig) * 2;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xb);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xb + 16);
 #pragma unroll
-    for (int c = 0; c < kGC; ++c) acc2[t][c] = 0.f;
-  if (n < N) {
-    const int8_t* qn = q + n;
-    int k = kbeg + kl;
-    if (vec && n + kGC <= N) {
-      // the codes of kGU rows are loaded before any is used, so a thread
-      // keeps kGU loads in flight (a load per row at a time is bound by
-      // the memory latency, not by the bytes)
-      for (; k + (kGU - 1) * klanes < kend; k += kGU * klanes) {
-        unsigned int wq[kGU];
-#pragma unroll
-        for (int u = 0; u < kGU; ++u)
-          load_raw<kGC>(qn + (size_t)(k + u * klanes) * N, wq + u);
-#pragma unroll
-        for (int u = 0; u < kGU; ++u) {
-          float w[kGC], xv[TT];
-          widen4(wq[u], w);
-          load_tokens<TT>(qbuf + (size_t)(k + u * klanes - kbeg) * TT, xv);
-#pragma unroll
-          for (int t = 0; t < TT; ++t)
-#pragma unroll
-            for (int c = 0; c < kGC; ++c)
-              acc2[t][c] = fmaf(xv[t], w[c], acc2[t][c]);
+        for (int f = 0; f < 2; ++f) {
+          const uint32_t a[4] = {lo[2 * f], lo[2 * f + 1], hi[2 * f], hi[2 * f + 1]};
+          gs::mma_16816(acc[f][h], a, b0, b1);
         }
       }
     }
-    for (; k < kend; k += klanes) {            // the rest, and ragged N
-      float w[kGC], xv[TT];
-      load_codes<kGC>(qn + (size_t)k * N, N - n, vec, w);
-      load_tokens<TT>(qbuf + (size_t)(k - kbeg) * TT, xv);
-#pragma unroll
-      for (int t = 0; t < TT; ++t)
-#pragma unroll
-        for (int c = 0; c < kGC; ++c) acc2[t][c] = fmaf(xv[t], w[c], acc2[t][c]);
-    }
   }
-  __syncthreads();                             // the slab is consumed
-  // add the K lanes in lane order; the sum lands in red[0 .. TT * nc)
-  float* red = smem;
+  gs::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: partial sums of the K lanes
+  float* red = reinterpret_cast<float*>(sm);
 #pragma unroll
-  for (int t = 0; t < TT; ++t)
+  for (int f = 0; f < 2; ++f)
 #pragma unroll
-    for (int c = 0; c < kGC; ++c)
-      red[(kl * TT + t) * nc + tid_n * kGC + c] = acc2[t][c];
+    for (int h = 0; h < NT8; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wcol * 32 + 4 * gid + 2 * f + (j >> 1);
+        const int t = h * 8 + 2 * tig + (j & 1);
+        red[((size_t)wk * NTOK + t) * nt + col] = acc[f][h][j];
+      }
   __syncthreads();
-  for (int o = threadIdx.x; o < TT * nc; o += kGThreads) {
-    float s = 0.f;
-    for (int l = 0; l < klanes; ++l) s += red[l * TT * nc + o];
-    red[o] = s;
+  const int tile = NTOK * nt;
+  for (int e = tid; e < tile; e += kThreads) {
+    float sum = red[e];
+    for (int w = 1; w < kl; ++w) sum += red[(size_t)w * tile + e];
+    red[e] = sum;
   }
-  cluster.sync();                              // every partial tile ready
-  // rank c adds the 8 partial tiles on its slice of the outputs, rank order
-  const int per = (TT * nc + kCluster - 1) / kCluster;
-  const int obeg = rank * per, oend = min(TT * nc, obeg + per);
-  for (int o = obeg + threadIdx.x; o < oend; o += kGThreads) {
-    const int t = o / nc, col = col_tile * nc + (o - t * nc);
-    if (t >= nt || col >= N) continue;
-    float s = 0.f;
-    for (int c = 0; c < kCluster; ++c) s += cluster.map_shared_rank(red, c)[o];
-    y[(size_t)(m0 + t) * N + col] = from_f32<T>(s * scale[col]);
+  cluster.sync();  // every split's partial tile is ready
+  // rank c adds the splits' tiles on its slice of the outputs, in rank order
+  const int per = (tile + splits - 1) / splits;
+  const int ebeg = split * per, eend = min(tile, ebeg + per);
+  for (int e = ebeg + tid; e < eend; e += kThreads) {
+    const int t = e / nt, col = n0 + (e - t * nt);
+    if (m0 + t >= M || col >= N) continue;
+    float sum = 0.f;
+    for (int c = 0; c < splits; ++c) sum += cluster.map_shared_rank(red, c)[e];
+    y[(size_t)(m0 + t) * N + col] = __float2bfloat16(sum * scale[col]);
   }
-  cluster.sync();                              // peers are done reading red
+  cluster.sync();  // peers are done reading this CTA's tile
 }
 
-template <typename T, int TT>
-int launch_gqm(const void* x, const void* L, const void* R, const void* q,
-               const void* scale, void* y, int n_tokens, int M, int r, int b,
-               int N, int nthr_n, int vec, cudaStream_t stream) {
-  auto kernel = gs_q_matmul_kernel<T, TT>;
-  const size_t share = (size_t)((r + kCluster - 1) / kCluster) * b;
-  const size_t slabs = 2 * share * TT;
-  const size_t red = (size_t)kGThreads * kGC * TT;   // K lanes x tile
-  const size_t smem = (slabs > red ? slabs : red) * sizeof(float);
+template <int NTOK, bool kVec>
+int launch_product(const void* xr, const void* q, const void* scale, void* y,
+                   int M, int K, int N, int splits, int kps, int nt,
+                   cudaStream_t stream) {
+  auto kernel = gsq_product_kernel<NTOK, kVec>;
+  const size_t smem = smem_bytes(nt, NTOK);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nc = nthr_n * kGC;
-  const int token_tiles = (M + TT - 1) / TT;
-  const long long col_tiles = (N + nc - 1) / nc;
-  const long long blocks = (long long)kCluster * token_tiles * col_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
-  cfg.blockDim = dim3(kGThreads, 1, 1);
+  cfg.gridDim = dim3(splits, (N + nt - 1) / nt, (M + NTOK - 1) / NTOK);
+  cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const T*)x, (const T*)L,
-                           (const T*)R, (const int8_t*)q, (const float*)scale,
-                           (T*)y, n_tokens, M, r, b, N, nthr_n, vec,
-                           token_tiles);
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const __nv_bfloat16*)xr,
+                           (const int8_t*)q, (const float*)scale,
+                           (__nv_bfloat16*)y, M, K, N, kps, nt);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// How many clusters of the kernel for this geometry the card holds at once
-// (cudaOccupancyMaxActiveClusters), or a negative error code.
-template <typename T, int TT>
-int active_clusters_tt(int r, int b) {
-  auto kernel = gs_q_matmul_kernel<T, TT>;
-  const size_t share = (size_t)((r + kCluster - 1) / kCluster) * b;
-  const size_t slabs = 2 * share * TT;
-  const size_t red = (size_t)kGThreads * kGC * TT;
-  const size_t smem = (slabs > red ? slabs : red) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * 64, 1, 1);
-  cfg.blockDim = dim3(kGThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
-}
+}  // namespace gsq
 
-template <typename T>
-int gs_q_matmul(const void* x, const void* L, const void* R, const void* q,
-                const void* scale, void* y, int n_tokens, int M, int r, int b,
-                int N, int tt, int nthr_n, int vec, void* stream) {
-  const long long share = (long long)((r + kCluster - 1) / kCluster) * b;
-  if (M <= 0 || n_tokens <= 0 || r <= 0 || b <= 0 || N <= 0 ||
-      tt * share > kRotTileElems || nthr_n < 32 || nthr_n > kGThreads ||
-      kGThreads % nthr_n != 0)
+int gsq_product(const void* xr, const void* q, const void* scale, void* y,
+                int M, int K, int N, int ntok, int nt, int splits, int kps,
+                int vec, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || splits <= 0 ||
+      splits > gsq::kMaxSplits || kps <= 0 || kps % gsq::kKT != 0 ||
+      (long long)splits * kps < K || (long long)(splits - 1) * kps >= K ||
+      (nt != 32 && nt != 64 && nt != 128) || (N + nt - 1) / nt > 65535 ||
+      (M + ntok - 1) / ntok > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (tt) {
-    case 1: return launch_gqm<T, 1>(x, L, R, q, scale, y, n_tokens, M, r, b, N, nthr_n, vec, s);
-    case 2: return launch_gqm<T, 2>(x, L, R, q, scale, y, n_tokens, M, r, b, N, nthr_n, vec, s);
-    case 4: return launch_gqm<T, 4>(x, L, R, q, scale, y, n_tokens, M, r, b, N, nthr_n, vec, s);
-    case 8: return launch_gqm<T, 8>(x, L, R, q, scale, y, n_tokens, M, r, b, N, nthr_n, vec, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define GSQ_CASE(NTOK_, VEC_)                                                  \
+  if (ntok == NTOK_ && (vec != 0) == VEC_)                                     \
+    return gsq::launch_product<NTOK_, VEC_>(xr, q, scale, y, M, K, N, splits, \
+                                            kps, nt, s);
+  GSQ_CASE(8, true) GSQ_CASE(8, false) GSQ_CASE(16, true) GSQ_CASE(16, false)
+#undef GSQ_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace qmm
@@ -585,18 +538,10 @@ const char* qmm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int qmm_cluster_size() { return qmm::kCluster; }
-
-int qmm_rot_tile_elems() { return qmm::kRotTileElems; }
-
-int qmm_gs_q_matmul_active_clusters(int tt, int r, int b) {
-  switch (tt) {
-    case 1: return qmm::active_clusters_tt<__nv_bfloat16, 1>(r, b);
-    case 2: return qmm::active_clusters_tt<__nv_bfloat16, 2>(r, b);
-    case 4: return qmm::active_clusters_tt<__nv_bfloat16, 4>(r, b);
-    case 8: return qmm::active_clusters_tt<__nv_bfloat16, 8>(r, b);
-    default: return -1;
-  }
+// the constants gsq_plan mirrors: K rows a stage, largest K split
+void qmm_gsq_constants(int* out) {
+  out[0] = qmm::gsq::kKT;
+  out[1] = qmm::gsq::kMaxSplits;
 }
 
 int qmm_q_matmul_f32(const void* x, const void* q, const void* scale, void* y,
@@ -613,20 +558,14 @@ int qmm_q_matmul_bf16(const void* x, const void* q, const void* scale, void* y,
                                       splits, k_per_split, vec, stream);
 }
 
-int qmm_gs_q_matmul_f32(const void* x, const void* L, const void* R,
-                        const void* q, const void* scale, void* y, int n_tokens,
-                        int M, int r, int b, int N, int tt, int nthr_n, int vec,
-                        void* stream) {
-  return qmm::gs_q_matmul<float>(x, L, R, q, scale, y, n_tokens, M, r, b, N,
-                                 tt, nthr_n, vec, stream);
-}
-
-int qmm_gs_q_matmul_bf16(const void* x, const void* L, const void* R,
-                         const void* q, const void* scale, void* y,
-                         int n_tokens, int M, int r, int b, int N, int tt,
-                         int nthr_n, int vec, void* stream) {
-  return qmm::gs_q_matmul<__nv_bfloat16>(x, L, R, q, scale, y, n_tokens, M, r,
-                                         b, N, tt, nthr_n, vec, stream);
+// gs_q_matmul's product in bf16: y = round((xr @ q) * scale), xr (M, K)
+// the rotated slab; launched behind the rotation with programmatic
+// dependent launch
+int qmm_gsq_product_bf16(const void* xr, const void* q, const void* scale,
+                         void* y, int M, int K, int N, int ntok, int nt,
+                         int splits, int kps, int vec, void* stream) {
+  return qmm::gsq_product(xr, q, scale, y, M, K, N, ntok, nt, splits, kps, vec,
+                          stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@ plain version. ``use_pallas`` is accepted so configs and call sites convert
 one for one from the JAX package, and is ignored. ``bdmm``,
 ``bdmm_banked``, ``gs_transform`` and ``gs_transform_T`` are differentiable
 through the autograd rules of ``dispatch.py`` (kernels both ways on the
-card). ``householder_banked`` and ``givens_banked`` have no kernel, as in
+card). ``gs_bank_transform_T`` and ``gs_q_matmul_bank`` are the port's own
+serving entries: they take a bank and slot ids where JAX gathers first.
+``householder_banked`` and ``givens_banked`` have no kernel, as in
 the JAX package (``banked_kernel=""``): their plain versions run on every
 device. ``q_matmul``, ``gs_q_matmul``, ``gs_q_matmul_banked``,
 ``paged_attention``, ``ssd`` and ``flash_mha`` serve inference only on the
@@ -23,9 +25,10 @@ import torch
 from . import ref
 from .dispatch import bdmm_diff, gs_diff, gs_T_diff
 from .flash_attention import flash_attention
-from .gs_fused import gs_fused_T
+from .gs_fused import gs_fused_T, gs_fused_T_bank
 from .paged_attention import paged_decode
 from .q_matmul import gs_q_matmul as _gs_q_matmul
+from .q_matmul import gs_q_matmul_bank as _gs_q_matmul_bank
 from .q_matmul import q_matmul as _q_matmul
 from .ssd import ssd as _ssd
 
@@ -87,6 +90,20 @@ def gs_banked_transform_T(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
     return gs_fused_T(x.contiguous(), L.contiguous(), R.contiguous())
 
 
+def gs_bank_transform_T(L_bank: torch.Tensor, R_bank: torch.Tensor,
+                        ids: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-row transpose rotation with the factors read from a bank by slot
+    id: y[i] = x[i] Q_{ids[i]}.
+
+    L_bank, R_bank: (A, r, b, b), fp32 (a ``gsoft_bank_build`` entry) or
+    x's dtype; ids: (B,) int64 slots; x: (B, T, d). The port's own entry,
+    no JAX counterpart: JAX gathers and casts (``jnp.take(...).astype``)
+    and calls ``gs_banked_transform_T``. CUDA: the kernel reads the ids and
+    rounds the bank entries to x's dtype on the device (one launch, no
+    gather or cast); CPU: the gather, the cast and the plain version."""
+    return gs_fused_T_bank(x.contiguous(), L_bank, R_bank, ids)
+
+
 def householder_banked(V: torch.Tensor, x: torch.Tensor,
                        use_pallas: bool = False) -> torch.Tensor:
     """Per-row Householder-product rotation y[i] = x[i] Q_i (HOFT bank).
@@ -143,6 +160,17 @@ def gs_q_matmul_banked(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
     del use_pallas
     return _gs_q_matmul(x.contiguous(), L.contiguous(), R.contiguous(), q,
                         scale)
+
+
+def gs_q_matmul_bank(L_bank: torch.Tensor, R_bank: torch.Tensor,
+                     ids: torch.Tensor, x: torch.Tensor, q: torch.Tensor,
+                     scale) -> torch.Tensor:
+    """``gs_q_matmul_banked`` with the factors read from a bank by slot id:
+    y[i] = round(x[i] Q_{ids[i]}) @ dequant(q). L_bank, R_bank (A, r, b,
+    b) fp32 or x's dtype, ids (B,) int64, x (B, T, d), q (d, N) int8. The
+    port's own entry (JAX gathers, then calls ``gs_q_matmul_banked``): on
+    the card one call, no gather or cast."""
+    return _gs_q_matmul_bank(x.contiguous(), L_bank, R_bank, ids, q, scale)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

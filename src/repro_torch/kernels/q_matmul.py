@@ -9,37 +9,49 @@ Source: ``csrc/q_matmul.cu`` (CUDA C++ for sm_90a), built by ``build.py``.
 * ``gs_q_matmul(x, L, R, q, scale)`` replaces ``gs_q_matmul_pallas`` and its
   per-row ``vmap`` (``ops.gs_q_matmul_banked``): y[i] = round(x[i] Q_i) @ q *
   scale for x (B, T, d) with per-row GSOFT factors L, R (B, r, b, b) in x's
-  dtype, the rotated slab kept in shared memory (one launch).
+  dtype; ``gs_q_matmul_bank(x, L, R, ids, q, scale)`` reads them from a
+  bank (A, r, b, b) at the rows' slot ids on the device instead.
 
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain version
 (``ref.py``). The kernels serve inference only: a tensor that needs a
 gradient raises. The wrapper picks the launch geometry (see
-``qmm_geometry`` / ``gsq_geometry``); the sources say what bounds the
-kernels and what their design does about it.
+``qmm_geometry`` / ``gsq_plan``); the sources say what bounds the kernels
+and what their design does about it.
+
+``gs_q_matmul`` is one call of two kernels on the stream: the rotation
+(``gs_fused_T``'s kernel, ``gs_fused.rotate_T_into``) writes the rotated
+slab round(x Q) once, and the product (bf16: ``csrc/q_matmul.cu``
+``gsq_product_kernel`` on the tensor cores, launched behind it with
+programmatic dependent launch; f32: ``q_matmul``'s fp32 kernel) streams the
+codes once. It counts one launch on ``gs_q_matmul.launches`` (and, through
+a bank, on ``gs_q_matmul.slot_launches``), none on ``gs_fused_T``'s.
 
 Numerics: the codes are widened exactly and all sums are fp32, as in the
 plain version; only the summation order differs. ``gs_q_matmul`` keeps the
-rotation's intermediate in fp32 where the plain version (like the JAX
-oracle) rounds it to x's dtype; both round the rotated slab to x's dtype
-before the product, as the TPU kernel does.
+rotation's intermediate as bf16 hi + lo or fp32 where the plain version
+(like the JAX oracle) rounds it to x's dtype; both round the rotated slab
+to x's dtype before the product, as the TPU kernel does.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from . import build, ref
+from . import build, gs_fused, ref
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # x, q, scale, y, ws, M, K, N, tt, c, splits, k_per_split, vec, stream
 _QMM_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [_PTR]
-# x, L, R, q, scale, y, n_tokens, M, r, b, N, tt, threads along N, vec, stream
-_GSQ_ARGTYPES = [_PTR] * 6 + [_INT] * 8 + [_PTR]
+# xr, q, scale, y, M, K, N, tokens per tile, columns per CTA, K splits, K
+# rows per split, vec, stream
+_GSQ_ARGTYPES = [_PTR] * 4 + [_INT] * 8 + [_PTR]
 K_SPLIT_MIN_ROWS = 256      # fewest K rows one split of q_matmul takes
-GSQ_THREADS = 512           # threads of a gs_q_matmul CTA (csrc)
-GSQ_CODES = 4               # codes per thread along N in gs_q_matmul (csrc)
+GSQ_KT = 64                 # gs_q_matmul's product: K rows a stage (csrc)
+GSQ_MAX_SPLITS = 8          # ... K splits (a cluster along K; csrc)
+GSQ_SPLIT_MIN_ROWS = 512    # ... fewest K rows a split takes
 _LIB = []
 _SMS = {}
 
@@ -50,16 +62,18 @@ def _lib() -> ctypes.CDLL:
         for dt in _DTYPES.values():
             getattr(lib, f"qmm_q_matmul_{dt}").argtypes = _QMM_ARGTYPES
             getattr(lib, f"qmm_q_matmul_{dt}").restype = ctypes.c_int
-            getattr(lib, f"qmm_gs_q_matmul_{dt}").argtypes = _GSQ_ARGTYPES
-            getattr(lib, f"qmm_gs_q_matmul_{dt}").restype = ctypes.c_int
+        lib.qmm_gsq_product_bf16.argtypes = _GSQ_ARGTYPES
+        lib.qmm_gsq_product_bf16.restype = ctypes.c_int
         lib.qmm_error_string.argtypes = [ctypes.c_int]
         lib.qmm_error_string.restype = ctypes.c_char_p
-        lib.qmm_cluster_size.restype = ctypes.c_int
-        lib.qmm_rot_tile_elems.restype = ctypes.c_int
-        lib.qmm_gs_q_matmul_active_clusters.argtypes = [_INT] * 3
-        lib.qmm_gs_q_matmul_active_clusters.restype = ctypes.c_int
-        lib.cluster = int(lib.qmm_cluster_size())
-        lib.rot_tile = int(lib.qmm_rot_tile_elems())
+        lib.qmm_gsq_constants.argtypes = [_PTR]
+        lib.qmm_gsq_constants.restype = None
+        got = (ctypes.c_int * 2)()
+        lib.qmm_gsq_constants(got)
+        if tuple(got) != (GSQ_KT, GSQ_MAX_SPLITS):
+            raise RuntimeError(f"q_matmul.cu constants {tuple(got)} differ "
+                               f"from the launch plan's "
+                               f"{(GSQ_KT, GSQ_MAX_SPLITS)}")
         _LIB.append(lib)
     return _LIB[0]
 
@@ -73,7 +87,12 @@ def _num_sms() -> int:
 
 def scale_vector(scale, n: int, device) -> torch.Tensor:
     """A per-output-channel (1, N) / (N,) or scalar scale as a contiguous
-    fp32 (N,) vector (the kernels' epilogue operand)."""
+    fp32 (N,) vector (the kernels' epilogue operand; a view when the scale
+    already is one, as a ``QuantTensor``'s is)."""
+    if (isinstance(scale, torch.Tensor) and scale.dtype == torch.float32
+            and scale.numel() == n and scale.is_contiguous()
+            and scale.device == device):
+        return scale.view(n)
     s = torch.as_tensor(scale, dtype=torch.float32, device=device)
     return (s.reshape(-1) if s.dim() else s.reshape(1)).expand(n).contiguous()
 
@@ -93,36 +112,26 @@ def qmm_geometry(m: int, k: int, n: int) -> tuple:
     return tt, c, -(-k // per), per
 
 
-def gsq_geometry(bsz: int, t: int, r: int, b: int, n: int) -> tuple:
-    """(tokens per tile, threads along N) of ``gs_q_matmul``: the largest
-    power-of-two token tile (<= 8) with tt * d / 8 within the kernel's
-    rotation tile and no more than the B * T tokens need; then the widest
-    column tile (each cluster recomputes the rotation) that still leaves
-    half as many clusters as the card holds at once (one per 16 SMs), never
-    narrower than one warp. On the H100 that is 8 clusters, the fastest
-    count at N = 8192 for d = 8192 and d = 29568 (``PERF.md``)."""
-    lib = _lib()
-    m = bsz * t
-    share = -(-r // lib.cluster) * b
-    tt = 1
-    while tt < 8 and 2 * tt * share <= lib.rot_tile and tt < m:
-        tt *= 2
-    token_tiles = -(-m // tt)
-    want = max(1, _num_sms() // (2 * lib.cluster))
-    nthr = GSQ_THREADS
-    while (nthr > 32 and token_tiles
-           * -(-n // (nthr * GSQ_CODES)) < want):
-        nthr //= 2
-    return tt, nthr
-
-
-def gsq_resident_clusters(tt: int, r: int, b: int) -> int:
-    """How many ``gs_q_matmul`` clusters of this geometry the card holds at
-    once (``cudaOccupancyMaxActiveClusters``, bf16)."""
-    n = _lib().qmm_gs_q_matmul_active_clusters(tt, r, b)
-    if n < 0:
-        raise RuntimeError(f"occupancy query failed (code {-n})")
-    return n
+@functools.lru_cache(maxsize=None)
+def gsq_plan(m: int, k: int, n: int, sms: int) -> tuple:
+    """(tokens per tile, columns per CTA, K splits, K rows per split) of
+    ``gs_q_matmul``'s bf16 product for xr (m, k), q (k, n): 8-token tiles
+    and 128 columns a CTA for m <= 8 (decode rows), else 16 tokens and 64
+    columns; K split over up to 8 CTAs (a cluster) of at least 512 rows
+    each; then the columns narrowed (to 32) until the CTAs number twice the
+    SMs. More, shorter code streams ran faster on the H100 at every
+    qwen2-72b projection (``PERF.md`` §6), so the split is as deep as
+    the cluster allows."""
+    ntok = 8 if m <= 8 else 16
+    tiles = -(-m // ntok)
+    nt = 128 if ntok == 8 else 64
+    splits = 1
+    while splits < GSQ_MAX_SPLITS and k >= 2 * splits * GSQ_SPLIT_MIN_ROWS:
+        splits *= 2
+    while -(-n // nt) * tiles * splits < 2 * sms and nt > 32:
+        nt //= 2
+    per = -(-(-(-k // splits)) // GSQ_KT) * GSQ_KT
+    return ntok, nt, -(-k // per), per
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, k: int) -> None:
@@ -196,11 +205,66 @@ def gs_q_matmul_plain(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
     return ref.gs_q_matmul_banked_ref(L, R, x, q, scale)
 
 
+def gs_q_matmul_bank_plain(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
+                           ids: torch.Tensor, q: torch.Tensor,
+                           scale) -> torch.Tensor:
+    """Plain version of ``gs_q_matmul_bank``: gather row i's factors at
+    ids[i], cast them to x's dtype, then ``gs_q_matmul_plain``."""
+    return gs_q_matmul_plain(x, L.index_select(0, ids).to(x.dtype),
+                             R.index_select(0, ids).to(x.dtype), q, scale)
+
+
+def _gsq_checks(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
+                q: torch.Tensor) -> None:
+    _check(x, q, x.shape[2])
+    if L.requires_grad or R.requires_grad:
+        raise RuntimeError("gs_q_matmul serves inference only: the factors "
+                           "must not require a gradient")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gs_q_matmul runs on cuda or cpu, not {x.device}")
+
+
+def _gsq_launch(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
+                ids, q: torch.Tensor, scale) -> torch.Tensor:
+    """The rotation into xr, then the product behind it (one call)."""
+    if not all(a.is_contiguous() for a in (x, L, R, q)):
+        raise ValueError("gs_q_matmul needs contiguous x, L, R and q")
+    bsz, t, d = x.shape
+    n = q.shape[1]
+    y = torch.empty((bsz, t, n), dtype=x.dtype, device=x.device)
+    if bsz * t == 0:
+        return y
+    lib = _lib()
+    m = bsz * t
+    dev = x.device
+    with gs_fused.on_device(dev):
+        s = scale_vector(scale, n, dev)
+        xr = torch.empty_like(x)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        gs_fused.rotate_T_into(xr, x, L, R, ids, stream)
+        if x.dtype == torch.bfloat16:
+            ntok, nt, splits, per = gsq_plan(m, d, n, _num_sms())
+            err = lib.qmm_gsq_product_bf16(
+                xr.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, d,
+                n, ntok, nt, splits, per, _vec(q, n, 16), stream)
+        else:                           # f32: q_matmul's fp32 kernel on xr
+            tt, c, splits, per = qmm_geometry(m, d, n)
+            ws = (torch.empty((splits, m, n), dtype=torch.float32,
+                              device=dev) if splits > 1 else None)
+            err = lib.qmm_q_matmul_f32(
+                xr.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+                ws.data_ptr() if ws is not None else None, m, d, n, tt, c,
+                splits, per, _vec(q, n, c), stream)
+    _err(lib, "gs_q_matmul", err)
+    gs_q_matmul.launches += 1
+    return y
+
+
 def gs_q_matmul(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
                 q: torch.Tensor, scale) -> torch.Tensor:
     """y[i] = round(x[i] Q_i) @ q * scale, Q_i = P^T L_i P R_i. x (B, T, d);
-    L, R (B, r, b, b) in x's dtype; q (d, N) int8. CUDA: the kernel (counted
-    in ``gs_q_matmul.launches``); CPU: the plain version."""
+    L, R (B, r, b, b) in x's dtype; q (d, N) int8. CUDA: the kernels
+    (counted once in ``gs_q_matmul.launches``); CPU: the plain version."""
     if x.dim() != 3 or L.dim() != 4 or R.shape != L.shape:
         raise ValueError(f"expected x (B, T, d) and L, R (B, r, b, b); got "
                          f"x {tuple(x.shape)}, L {tuple(L.shape)}, "
@@ -209,40 +273,34 @@ def gs_q_matmul(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
     if b != b2 or x.shape[0] != bsz or x.shape[2] != r * b:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)} against "
                          f"factors {tuple(L.shape)} (need d = r * b)")
-    _check(x, q, x.shape[2])
+    _gsq_checks(x, L, R, q)
     if not (L.dtype == R.dtype == x.dtype):
         raise TypeError(f"x, L, R must share one dtype; got {x.dtype}, "
                         f"{L.dtype}, {R.dtype}")
-    if L.requires_grad or R.requires_grad:
-        raise RuntimeError("gs_q_matmul serves inference only: the factors "
-                           "must not require a gradient")
     if x.device.type == "cpu":
         return gs_q_matmul_plain(x, L, R, q, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"gs_q_matmul runs on cuda or cpu, not {x.device}")
-    if not all(a.is_contiguous() for a in (x, L, R, q)):
-        raise ValueError("gs_q_matmul needs contiguous x, L, R and q")
-    lib = _lib()
-    t = x.shape[1]
-    n = q.shape[1]
-    if -(-r // lib.cluster) * b > lib.rot_tile:
-        raise ValueError(f"d={r * b} exceeds the kernel's rotation tile "
-                         f"({lib.rot_tile} elements a CTA)")
-    y = torch.empty((bsz, t, n), dtype=x.dtype, device=x.device)
-    if bsz * t == 0:
-        return y
-    with torch.cuda.device(x.device):
-        s = scale_vector(scale, n, x.device)
-        tt, nthr = gsq_geometry(bsz, t, r, b, n)
-        err = getattr(lib, f"qmm_gs_q_matmul_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), L.data_ptr(), R.data_ptr(), q.data_ptr(),
-            s.data_ptr(), y.data_ptr(), t, bsz * t, r, b, n, tt, nthr,
-            _vec(q, n, GSQ_CODES),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _err(lib, "gs_q_matmul", err)
-    gs_q_matmul.launches += 1
+    return _gsq_launch(x, L, R, None, q, scale)
+
+
+def gs_q_matmul_bank(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
+                     ids: torch.Tensor, q: torch.Tensor,
+                     scale) -> torch.Tensor:
+    """y[i] = round(x[i] Q_{ids[i]}) @ q * scale with the factors of a bank:
+    x (B, T, d); L, R (A, r, b, b), fp32 or x's dtype; ids (B,) int64; q
+    (d, N) int8. CUDA: the kernels read each row's slot id on the device
+    (counted once in ``gs_q_matmul.launches`` and ``.slot_launches``; no
+    gather, no cast); CPU: the plain version."""
+    gs_fused.check_bank(x, L, R, ids)
+    _gsq_checks(x, L, R, q)
+    if x.device.type == "cpu":
+        return gs_q_matmul_bank_plain(x, L, R, ids, q, scale)
+    if not ids.is_contiguous():
+        raise ValueError("gs_q_matmul needs contiguous ids")
+    y = _gsq_launch(x, L, R, ids, q, scale)
+    gs_q_matmul.slot_launches += 1
     return y
 
 
 q_matmul.launches = 0
 gs_q_matmul.launches = 0
+gs_q_matmul.slot_launches = 0     # of them, through a bank read by slot id

@@ -29,9 +29,9 @@ def qlinear(x: torch.Tensor, w, rot: Rot = None, name: str = "",
     ``w`` is a plain weight (y = x @ w) or a ``QuantTensor`` (int8 codes +
     per-channel scales): then the matmul runs ``ops.q_matmul`` with the
     dequant in the epilogue, and a rotator's ``quant_rotation`` hook hands
-    GSOFT's per-row factors to the fused ``ops.gs_q_matmul_banked`` (one
-    kernel for rotation and int8 matmul) while other method stacks rotate
-    x first. Quantized matmuls return x's dtype.
+    GSOFT's bank and slot ids to the fused ``ops.gs_q_matmul_bank`` (one
+    call for rotation and int8 matmul) while other method stacks rotate x
+    first. Quantized matmuls return x's dtype.
     """
     if isinstance(w, QuantTensor):
         factors = None
@@ -41,8 +41,7 @@ def qlinear(x: torch.Tensor, w, rot: Rot = None, name: str = "",
             else:
                 x = rot(name, x)
         if factors is not None:
-            return kernel_ops.gs_q_matmul_banked(factors[0], factors[1], x,
-                                                 w.q, w.scale)
+            return kernel_ops.gs_q_matmul_bank(*factors, x, w.q, w.scale)
         return kernel_ops.q_matmul(x, w.q, w.scale)
     if rot is not None:
         x = rot(name, x)

@@ -68,9 +68,21 @@ def test_kernel_matches_plain(cuda, case, dtype, name):
 
 @pytest.mark.cuda
 def test_short_prefill_runs_the_split_multi_token_variant(cuda):
-    assert gk.launch_geometry("gs_fused_T", 1, 16, 8192) == (4, 8)
-    assert gk.launch_geometry("gs_fused_T", 1, 128, 8192) == (4, 1)
-    assert gk.launch_geometry("gs_fused_T", 1, 16, 29568) == (1, 8)
+    # route 2 (f32; bf16 with b != 32): an fp32 tile over a cluster of 8
+    # CTAs when the split grid fits one wave
+    sms = gk._num_sms(cuda)
+    for t, d, tt, cluster in ((16, 8192, 4, 8), (128, 8192, 4, 1),
+                              (16, 29568, 1, 8)):
+        plan = gk.t_plan(1, t, d // 32, 32, "f32", sms)
+        assert (plan.route, plan.tt, plan.cluster) == ("cc", tt, cluster)
+    # route 1 (bf16, b = 32): a short prefill spreads each 32-group tile
+    # over entries of 8 or 16 output groups, so its factor read runs on at
+    # least 32 SMs (4 times the whole tiles'); a long one runs whole tiles
+    for t, d in ((16, 8192), (128, 8192), (16, 29568), (1, 8192)):
+        plan = gk.t_plan(1 if t > 1 else 4, t, d // 32, 32, "bf16", sms)
+        assert plan.route == "tc" and plan.ng < 32
+        assert plan.entries * plan.splits * (1 if t > 1 else 4) >= 32
+    assert gk.t_plan(1, 29568, 256, 32, "bf16", sms).ng == 32
 
 
 @pytest.mark.cuda
@@ -164,13 +176,17 @@ def test_forward_route2_keeps_f32_other_blocks_and_short_rows(cuda):
     assert gk.fwd_plan(1, 29568, 256, 32, "f32", sms).route == "cc"
     assert gk.fwd_plan(1, 29568, 64, 128, "bf16", sms).route == "cc"
     assert gk.fwd_plan(1, 300, 16, 32, "bf16", sms).route == "cc"
-    # route 2 (and the transpose rotation) still hold whole fp32 rows
+    # route 2 (of both rotations) still holds whole fp32 rows; route 1 of
+    # the transpose rotation (bf16, b = 32) takes any width
     x = torch.zeros((1, 2, 33792), device=cuda)
     L = torch.zeros((1, 1056, 32, 32), device=cuda)
     with pytest.raises(ValueError, match="tile limit"):
         gk.gs_fused(x, L, L)
     with pytest.raises(ValueError, match="tile limit"):
-        gk.gs_fused_T(x.bfloat16(), L.bfloat16(), L.bfloat16())
+        gk.gs_fused_T(x, L, L)
+    y = gk.gs_fused_T(x.bfloat16(), L.bfloat16(), L.bfloat16())
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.float().abs().max().item() == 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +251,20 @@ def test_backward_kernels_match_plain(cuda, case, dtype):
     # deterministic: a second run is bit-identical
     again = gk.gs_fused_bwd(x, dy, L, R)
     assert all(torch.equal(a, b) for a, b in zip(again, (dx, dL, dR)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1056, 1040])
+def test_backward_route1_takes_d_past_32768(cuda, r):
+    """Route 1 of the backward (bf16, b = 32) and its dx, route 1 of the
+    transpose rotation, take d = 33792 and 33280."""
+    rng = np.random.default_rng(r)
+    x, dy, L, R = _bwd_inputs(rng, 1, 40, r, 32, cuda, torch.bfloat16)
+    dx, dL, dR = gk.gs_fused_bwd(x, dy, L, R)
+    want = gk.gs_fused_bwd_plain(x, dy, L, R)
+    assert (dx.float() - want[0].float()).abs().max().item() <= BF16_TOL
+    _assert_grads_close(dL, want[1], "dL")
+    _assert_grads_close(dR, want[2], "dR")
 
 
 @pytest.mark.cuda
@@ -727,6 +757,148 @@ def test_gs_q_matmul_kernel_matches_plain(cuda, case, dtype):
     assert err <= rel * max(1.0, want.float().abs().max().item())
 
 
+# ---------------------------------------------------------------------------
+# the banked serving rotations: gs_fused_T's route 1 (csrc/gs_fused_T.cu
+# gs_T_tc) and the bank read by slot id; gs_q_matmul's chained product
+# ---------------------------------------------------------------------------
+
+# (B, T, r) at b = 32, bf16, per-row factors: decode rows and every prefill
+# bucket at d = 8192 and d = 29568 (b not dividing r), the dx slab of the GS
+# backward (T = 29568), Double GSOFT's output sides (T = 8192 at r = 32, 256
+# and 924), ragged T, rows with their own factors, windows that wrap (r =
+# 33, 40, 63), d past 32768 (r = 1056, 1040)
+T_TC_CASES = [(4, 1, 256), (1, 16, 256), (1, 32, 256), (1, 64, 256),
+              (1, 128, 256), (4, 1, 924), (1, 16, 924), (1, 64, 924),
+              (1, 128, 924), (1, 29568, 256), (1, 8192, 32), (1, 8192, 256),
+              (1, 8192, 924), (1, 1000, 256), (1, 77, 924), (3, 5, 33),
+              (2, 300, 40), (1, 1000, 63), (4, 1, 1056), (1, 40, 1056),
+              (2, 9, 1040)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", T_TC_CASES, ids=lambda c: "B%d-T%d-r%d" % c)
+def test_transpose_route1_matches_plain_and_reruns_bit_identical(cuda, case):
+    bsz, t, r = case
+    rng = np.random.default_rng(bsz * 1000 + t + r)
+    x = torch.from_numpy(rng.normal(size=(bsz, t, r * 32)).astype(np.float32))
+    L, R = _factors(rng, bsz, r, 32), _factors(rng, bsz, r, 32)
+    x, L, R = (a.to(cuda, torch.bfloat16) for a in (x, L, R))
+    assert gk.t_plan(bsz, t, r, 32, "bf16", gk._num_sms(cuda)).route == "tc"
+    before = gk.gs_fused_T.launches
+    y = gk.gs_fused_T(x, L, R)
+    torch.cuda.synchronize()
+    assert gk.gs_fused_T.launches == before + 1
+    want = gk.gs_fused_T_plain(x, L, R)
+    assert torch.isfinite(y.float()).all()
+    assert (y.float() - want.float()).abs().max().item() <= BF16_TOL
+    assert torch.equal(gk.gs_fused_T(x, L, R), y)
+
+
+def _bank(rng, slots, r, b):
+    """fp32 (A, r, b, b) orthogonal blocks with the identity in slot 0."""
+    L, R = _factors(rng, slots, r, b), _factors(rng, slots, r, b)
+    L[0] = R[0] = torch.eye(b)
+    return L, R
+
+
+# (T, r, b, x dtype, bank dtype): decode rows and a prefill bucket of the
+# qwen2-72b widths on route 1 from an fp32 bank (bf16 x) and from a bf16
+# bank; route 2 from an fp32 bank with f32 x and with bf16 x at b = 128
+BANK_CASES = [(1, 256, 32, torch.bfloat16, torch.float32),
+              (16, 256, 32, torch.bfloat16, torch.float32),
+              (1, 924, 32, torch.bfloat16, torch.float32),
+              (16, 924, 32, torch.bfloat16, torch.bfloat16),
+              (1, 1056, 32, torch.bfloat16, torch.float32),
+              (1, 256, 32, torch.float32, torch.float32),
+              (3, 924, 32, torch.float32, torch.float32),
+              (1, 64, 128, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BANK_CASES, ids=lambda c: "T%d-r%d-b%d-%s-%s" % (
+    c[:3] + tuple(str(a).split(".")[1] for a in c[3:])))
+def test_transpose_bank_reads_slot_ids_on_the_device(cuda, case):
+    """gs_fused_T_bank against the gather, cast and plain version: repeated
+    slot ids, the identity slot 0 (x back bit for bit), fp32 bank entries
+    rounded to bf16 in registers, one launch counted on both counters, and
+    the same y from a non-default stream."""
+    t, r, b, xdt, bdt = case
+    rng = np.random.default_rng(t + r + b)
+    Lb, Rb = (a.to(cuda, bdt) for a in _bank(rng, 4, r, b))
+    x = torch.from_numpy(rng.normal(size=(4, t, r * b)).astype(np.float32))
+    x[2] = x[0]
+    x = x.to(cuda, xdt)
+    ids = torch.tensor([2, 0, 2, 3], dtype=torch.int64, device=cuda)
+    before = (gk.gs_fused_T.launches, gk.gs_fused_T.slot_launches)
+    y = gk.gs_fused_T_bank(x, Lb, Rb, ids)
+    torch.cuda.synchronize()
+    assert (gk.gs_fused_T.launches, gk.gs_fused_T.slot_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = gk.gs_fused_T_bank_plain(x, Lb, Rb, ids)
+    tol = F32_TOL if xdt == torch.float32 else BF16_TOL
+    assert (y.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(y[1], x[1]) and torch.equal(y[0], y[2])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = gk.gs_fused_T_bank(x, Lb, Rb, ids)
+    side.synchronize()
+    assert torch.equal(again, y)
+
+
+# (B, T, r, b, N): decode rows of wq (d = N = 8192), of wk / wv (N = 1024:
+# K split over a cluster), the MLP wo input (d = 29568, b not dividing r),
+# a prefill chunk with ragged N, two 16-token tiles, d past 32768, tiny
+# shapes with N not a multiple of 16 (byte-wise code loads) and b != 32
+GSQ_BANK_CASES = [(4, 1, 256, 32, 8192), (4, 1, 256, 32, 1024),
+                  (4, 1, 924, 32, 8192), (1, 16, 256, 32, 1000),
+                  (1, 32, 256, 32, 512), (4, 1, 1056, 32, 256),
+                  (2, 3, 6, 4, 40), (3, 5, 3, 16, 24), (1, 9, 2, 32, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,dtype",
+    # f32 rotates on route 2, which holds d <= 32768: bf16 alone past it
+    [(c, dt) for c in GSQ_BANK_CASES for dt in (torch.float32, torch.bfloat16)
+     if dt == torch.bfloat16 or c[2] * c[3] <= 32768],
+    ids=lambda v: ("B%d-T%d-r%d-b%d-N%d" % v if isinstance(v, tuple)
+                   else str(v).split(".")[1]))
+def test_gs_q_matmul_bank_is_one_call_and_matches_plain(cuda, case, dtype):
+    """The rotation and the product behind it count one launch of
+    gs_q_matmul (and none of gs_fused_T), match the gather + plain version,
+    and rerun bit-identically (the K split adds in rank order)."""
+    bsz, t, r, b, n = case
+    rng = np.random.default_rng(bsz * 100 + t * 10 + r + n)
+    q, s = _codes(rng, r * b, n)
+    Lb, Rb = (a.to(cuda) for a in _bank(rng, 4, r, b))
+    x = torch.from_numpy(rng.normal(size=(bsz, t, r * b)).astype(np.float32)
+                         / np.sqrt(r * b)).to(cuda, dtype)
+    ids = torch.tensor([3, 0, 1, 3][:bsz], dtype=torch.int64, device=cuda)
+    q, s = q.to(cuda), s.to(cuda)
+    before = (qmk.gs_q_matmul.launches, qmk.gs_q_matmul.slot_launches,
+              gk.gs_fused_T.launches)
+    y = qmk.gs_q_matmul_bank(x, Lb, Rb, ids, q, s)
+    torch.cuda.synchronize()
+    assert (qmk.gs_q_matmul.launches, qmk.gs_q_matmul.slot_launches,
+            gk.gs_fused_T.launches) == (before[0] + 1, before[1] + 1,
+                                        before[2])
+    want = qmk.gs_q_matmul_bank_plain(x, Lb, Rb, ids, q, s)
+    assert y.shape == (bsz, t, n) and torch.isfinite(y.float()).all()
+    rel = GSQ_F32_REL if dtype == torch.float32 else GSQ_BF16_REL
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= rel * max(1.0, want.float().abs().max().item())
+    assert torch.equal(qmk.gs_q_matmul_bank(x, Lb, Rb, ids, q, s), y)
+
+
+def test_gsq_plan_splits_k_when_the_columns_do_not_fill_the_card():
+    # wk / wv at decode: 8 column tiles of 128 would leave most SMs idle
+    ntok, nt, splits, per = qmk.gsq_plan(4, 8192, 1024, 132)
+    assert (ntok, nt, splits, per) == (8, 32, 8, 1024)
+    assert qmk.gsq_plan(4, 8192, 29568, 132)[1:3] == (128, 8)
+    assert qmk.gsq_plan(16, 8192, 8192, 132)[:2] == (16, 64)
+
+
 def _paged_inputs(rng, case, device, dtype):
     bsz, h, kh, d, page, npages, w = case
     q = torch.from_numpy(rng.normal(size=(bsz, h, d)).astype(np.float32))
@@ -808,8 +980,20 @@ def test_quantized_and_paged_cpu_tensors_take_the_plain_versions():
                        qmk.gs_q_matmul_plain(x[None], L, R, q, s))
     args = _paged_inputs(rng, (2, 4, 2, 16, 8, 6, 3), "cpu", torch.float32)
     assert torch.equal(pak.paged_decode(*args), pak.paged_decode_plain(*args))
+    # the slot-id entries: a CPU tensor gathers and runs the plain versions
+    slot_before = (gk.gs_fused_T.launches, gk.gs_fused_T.slot_launches,
+                   qmk.gs_q_matmul.slot_launches)
+    Lb, Rb = _bank(rng, 3, 4, 8)
+    ids = torch.tensor([2, 2], dtype=torch.int64)
+    xb = torch.from_numpy(rng.normal(size=(2, 3, 32)).astype(np.float32))
+    assert torch.equal(qmk.gs_q_matmul_bank(xb, Lb, Rb, ids, q, s),
+                       qmk.gs_q_matmul_bank_plain(xb, Lb, Rb, ids, q, s))
+    assert torch.equal(gk.gs_fused_T_bank(xb, Lb, Rb, ids),
+                       gk.gs_fused_T_bank_plain(xb, Lb, Rb, ids))
     assert (qmk.q_matmul.launches, qmk.gs_q_matmul.launches,
             pak.paged_decode.launches) == before
+    assert (gk.gs_fused_T.launches, gk.gs_fused_T.slot_launches,
+            qmk.gs_q_matmul.slot_launches) == slot_before
 
 
 # ---------------------------------------------------------------------------

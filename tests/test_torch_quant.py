@@ -365,12 +365,16 @@ def test_quant_rotation_hands_gsoft_factors_to_the_fused_kernel(gsoft_q):
     x = torch.randn(2, 3, CFG.d_model,
                     generator=torch.Generator().manual_seed(0))
     xq, factors = rot.quant_rotation("wq", x, torch.float32)
-    assert xq is x and factors is not None and factors[0].shape[0] == 2
+    # the hand-off is the layer's bank entry (every slot, fp32) and the
+    # batch's slot ids, read by the fused kernel itself
+    assert xq is x and factors is not None and len(factors) == 3
+    L, R, ids = factors
+    assert L is layer0["wq"]["gsoft"]["L"] and R is layer0["wq"]["gsoft"]["R"]
+    assert L.dtype == torch.float32 and ids.tolist() == [1, 2]
     # with identity codes (127 I, scale 1/127) the fused kernel's product is
     # the rotation itself: the same x Q_i the plain hook applies
     eye = quant.quantize_tensor(torch.eye(CFG.d_model))
-    got = tops.gs_q_matmul_banked(factors[0], factors[1], x, eye.q,
-                                  eye.scale)
+    got = tops.gs_q_matmul_bank(L, R, ids, x, eye.q, eye.scale)
     _close(got.numpy(), rot("wq", x).numpy(), 1e-5, "fused rotation")
 
 
