@@ -38,9 +38,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    ``gs_q_matmul`` at each adapted projection through its slot-id entry
    (four decode rows of their own slots of a 4-slot fp32 bank, one prefill
    chunk; also d = 33792), ``paged_decode`` at qwen2-72b's heads
-   through page-8 and page-16 tables (one ragged case with a parked row),
-   bf16 and f32, against their plain versions, with times, bounds and
-   library yardsticks
+   through page-8 and page-16 tables (one ragged case with a parked row)
+   and at 4096 keys a row through a page-16 table of 256 columns (each row
+   split over a cluster), bf16 and f32, against their plain versions, with
+   times, bounds, library yardsticks and the splits a row took
 3e. SSD scan — ``ssd`` at zamba2's heads (80, P = N = 64) and mamba2-130m's
    (24, N = 128) at every prefill bucket, T = 2048 (the carried state),
    T = 1000 (no multiple of any power-of-two chunk), batch 1 and 4, bf16
@@ -48,10 +49,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    call computes the scan)
 3f. flash attention — through ``ops.flash_mha`` at qwen2-72b's heads (64 /
    8, D 128) and zamba2's (32 / 32, D 80), S of 128, 512 and 2048, causal
-   and not, a ragged causal S of 1000, bf16 and f32, against its plain
-   version with times, bounds and SDPA as the yardstick; a non-causal
-   ragged Sk must raise; then the entry point driven once per model's heads
-   (flash attention's path: it lies on no model path)
+   and not, a ragged causal S of 1000, gemma-7b's heads (16 / 16, D 256, S
+   of 512 and 2048, causal) and D = 320 (8 / 8, S = 1024, causal), bf16
+   (route ``tc``, the tensor cores) and f32 (route ``cc``), against its
+   plain version with times, bounds and SDPA as the yardstick, and the
+   route and feature splits each call took; a non-causal ragged Sk must
+   raise; then the entry point driven once per model's heads (flash
+   attention's path: it lies on no model path)
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
    the ``gs_fused_T`` kernel must have run, every launch through the bank
@@ -1584,17 +1588,26 @@ def check_gsq_case(B, T, d, N, b, dtype, gen, device) -> dict:
 
 
 PAGED_LENS = {"ctx144": [144, 144, 144, 144],
-              "ragged_parked": [17, 80, 200, None]}     # None: a parked row
+              "ragged_parked": [17, 80, 200, None],     # None: a parked row
+              "ctx4096": [4096, 4096, 4096, 4096]}
+# a case's table holds this many keys a row (the serve phase's tables,
+# W = SERVE_MAX_LEN / page, unless named here)
+PAGED_TABLE_KEYS = {"ctx4096": 4096}
+# (page, lens): the serve phase's page size and page 16 at its table width,
+# and long rows through a page-16 table
+PAGED_CASES = [(page, lens) for page in (8, 16)
+               for lens in ("ctx144", "ragged_parked")] + [(16, "ctx4096")]
 
 
 def check_paged_case(cfg, page: int, lens_name: str, dtype, gen,
                      device) -> dict:
     """B = 4 rows of qwen2-72b's attention (64 query heads over 8 KV heads,
     d_head 128) through a stall-free pool of the serve phase's geometry
-    (W = max_len / page table columns); a parked row has an all-garbage
-    table and kv_len = W * page + 1, as the engine parks it."""
+    (W = max_len / page table columns; ``PAGED_TABLE_KEYS`` for longer
+    rows); a parked row has an all-garbage table and kv_len = W * page + 1,
+    as the engine parks it."""
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
-    W = SERVE_MAX_LEN // page
+    W = PAGED_TABLE_KEYS.get(lens_name, SERVE_MAX_LEN) // page
     lens = PAGED_LENS[lens_name]
     B = len(lens)
     npages = B * W + 1
@@ -1641,7 +1654,11 @@ def check_paged_case(cfg, page: int, lens_name: str, dtype, gen,
     es = q.element_size()
     nbytes = 2 * B * H * D * es + 2 * keys * KH * D * es + 4 * B * (W + 1)
     bound_ms, bound_by = _bytes_bound(nbytes, 4 * H * D * keys, dtype)
+    # kv_len lies on the card: the wrapper plans from the table's width
+    plan = pak.paged_plan(B, KH, W, page, W * page, gk._num_sms(device),
+                          groups=G, d=D)
     return dict(kernel="paged_decode", B=B, H=H, KH=KH, D=D, page=page, W=W,
+                splits=plan["splits"], ctas=plan["ctas"],
                 lens=lens_name, kv_len=kv_len.tolist(),
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1884,10 +1901,18 @@ def check_ssd_case(nb, t, h, p, n, dtype, gen, device) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# gemma-7b's attention heads (src/repro/configs/gemma_7b.py: 16 heads, 16
+# KV heads, head_dim 256), written out: this script imports nothing of the
+# JAX package
+GEMMA_HEADS = (16, 16, 256)
+
+
 def flash_cases(qwen, zamba):
     """(name, B, H, KH, Sq, Sk, D, causal): qwen2-72b's heads (64 / 8, D
     128, through ops.flash_mha's GQA) and zamba2's (32 / 32, D 80) at S of
-    128, 512 and 2048, causal and not, and a ragged causal Sq of 1000."""
+    128, 512 and 2048, causal and not, and a ragged causal Sq of 1000;
+    gemma-7b's (16 / 16, D 256: two feature chunks) at S of 512 and 2048,
+    causal; D = 320 (three chunks, the last half padding), S = 1024."""
     out = []
     for name, cfg in (("qwen2-72b", qwen), ("zamba2-2.7b", zamba)):
         hd = (cfg.num_heads, cfg.num_kv_heads, cfg.d_head)
@@ -1895,6 +1920,10 @@ def flash_cases(qwen, zamba):
             for causal in (True, False):
                 out.append((name, 1, *hd[:2], s_len, s_len, hd[2], causal))
         out.append((name, 1, *hd[:2], 1000, 1000, hd[2], True))
+    for s_len in (512, 2048):
+        out.append(("gemma-7b", 1, *GEMMA_HEADS[:2], s_len, s_len,
+                    GEMMA_HEADS[2], True))
+    out.append(("D=320", 1, 8, 8, 1024, 1024, 320, True))
     return out
 
 
@@ -1943,8 +1972,10 @@ def check_flash_case(name, b, h, kh, sq, sk, d, causal, dtype, gen,
     lib_ms = time_ms(lib, [args])
     lib_err = (lib(*args).float() - want.float()).abs().max().item()
     bound_ms, bound_by = flash_bound(b, h, kh, sq, sk, d, causal, dtype)
+    plan = fak.flash_plan(d, dtype)
     return dict(kernel="flash_attention", heads=name, B=b, H=h, KH=kh, Sq=sq,
-                Sk=sk, D=d, causal=causal,
+                Sk=sk, D=d, causal=causal, route=plan["route"],
+                splits=plan["splits"],
                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_err=lib_err,
@@ -2277,16 +2308,17 @@ def main() -> int:
                 f"{c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
                 f"{c['bound_ms']:.4f} ({c['bound_by']})")
             torch.cuda.empty_cache()
-        for page in (8, 16):
-            for lens_name in PAGED_LENS:
-                c = check_paged_case(full, page, lens_name, dtype, gen, device)
-                qcases.append(c)
-                log(f"kernel paged_decode page={page:2d} W={c['W']} "
-                    f"kv_len={c['kv_len']} {c['dtype']:8s} err "
-                    f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
-                    f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
-                    f"{c['library_ms']:.4f} bound {c['bound_ms']:.5f} "
-                    f"({c['bound_by']})")
+        for page, lens_name in PAGED_CASES:
+            c = check_paged_case(full, page, lens_name, dtype, gen, device)
+            qcases.append(c)
+            torch.cuda.empty_cache()
+            log(f"kernel paged_decode page={page:2d} W={c['W']} "
+                f"splits={c['splits']} ctas={c['ctas']} "
+                f"kv_len={c['kv_len']} {c['dtype']:8s} err "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.5f} "
+                f"({c['bound_by']})")
 
     # 3e. the SSD scan against its plain version
     zamba = get_config("zamba2-2.7b")
@@ -2311,7 +2343,8 @@ def main() -> int:
             flash_run.append(c)
             log(f"kernel flash_attention {c['heads']:11s} H={c['H']}/"
                 f"{c['KH']} D={c['D']:3d} S={c['Sq']:4d} causal="
-                f"{int(c['causal'])} {c['dtype']:8s} err "
+                f"{int(c['causal'])} route={c['route']} splits="
+                f"{c['splits']} {c['dtype']:8s} err "
                 f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
                 f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib (SDPA) "
                 f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "

@@ -8,14 +8,19 @@ with an online softmax over key blocks, causal blocks above the diagonal
 skipped. q (H, Sq, D), k, v (H, Sk, D) as the JAX kernel, or batched
 (B, H, Sq, D) with k, v (B, KH, Sk, D) and H a multiple of KH (GQA: head h
 reads KV head h // (H / KH), as ``ops.flash_mha`` repeats them); any
-strides with D contiguous. D up to 128. It lies on no model path: the
+strides with D contiguous; any head width D. It lies on no model path: the
 public entry point is ``ops.flash_mha``. A CUDA tensor runs the kernel or
 raises; a CPU tensor runs the plain version (``flash_attention_plain``,
 one fp32 softmax through ``ref.flash_ref``). Inference only.
 
+Two routes (``flash_plan``): bf16 on the tensor cores, f32 on the CUDA
+cores. Each CTA owns a block of query rows and one chunk of the output
+features; past one chunk (128 features) the features are split over CTAs,
+each recomputing the scores over all of D.
+
 As the JAX kernel, a ragged Sk is masked when causal and refused when not:
 ``blk_q`` / ``blk_k`` serve only that rule (``Sk % min(blk_k, Sk)``); the
-CUDA kernel tiles 64 x 64 itself. Numerics follow the TPU kernel (p rounded
+CUDA kernel picks its own tiles (64 keys). Numerics follow the TPU kernel (p rounded
 to v's dtype before p . v); in f32 kernel and plain version differ by
 rounding order, in bf16 by that rounding of p.
 """
@@ -27,13 +32,28 @@ import math
 import torch
 
 from . import build, ref
+from .gs_fused import on_device
 
-MAX_D = 128
+CHUNK = 128            # output features a CTA at most (both routes)
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# q, k, v, out, strides[12], B, H, KH, Sq, Sk, D, scale, causal, stream
-_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _INT, _PTR]
+# q, k, v, out, strides[12], B, H, KH, Sq, Sk, D, scale, causal, chunk, stream
+_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _INT, _INT, _PTR]
 _LIB = []
+
+
+def flash_plan(d: int, dtype: torch.dtype) -> dict:
+    """How the kernel covers head width ``d``: ``route`` ("tc": bf16 on the
+    tensor cores; "cc": f32 on the CUDA cores), ``chunk`` (output features
+    a CTA; feature chunk c is [c * chunk, min((c + 1) * chunk, d))) and
+    ``splits`` (CTAs a query block and head, one a chunk, each computing
+    the scores over all of D). bf16 pads D to a multiple of 16 (zeros) and
+    takes it whole up to 128; f32 keeps a 128-wide output chunk."""
+    if dtype == torch.bfloat16:
+        padded = -(-d // 16) * 16
+        chunk = padded if padded <= CHUNK else CHUNK
+        return dict(route="tc", chunk=chunk, splits=-(-d // chunk))
+    return dict(route="cc", chunk=CHUNK, splits=-(-d // CHUNK))
 
 
 def _lib() -> ctypes.CDLL:
@@ -97,9 +117,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(a.requires_grad for a in (q, k, v)):
         raise NotImplementedError("the flash_attention kernel serves "
                                   "inference only (no autograd rule)")
-    if d > MAX_D:
-        raise ValueError(f"the flash_attention kernel takes D <= {MAX_D}, "
-                         f"got {d}")
     q, k, v = (a if a.stride(-1) == 1 else a.contiguous() for a in (q, k, v))
     out = torch.empty_like(q) if sk else torch.zeros_like(q)
     if out.numel() == 0 or sk == 0:
@@ -107,11 +124,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = (ctypes.c_longlong * 12)(
         *(s for a in (q, k, v, out) for s in a.stride()[:3]))
     lib = _lib()
-    with torch.cuda.device(q.device):
+    with on_device(q.device):
         err = getattr(lib, f"fa_flash_attention_{_DTYPES[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), b, h, kh, sq, sk, d,
-            float(scale), int(causal),
+            float(scale), int(causal), flash_plan(d, q.dtype)["chunk"],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         msg = lib.fa_error_string(err).decode()

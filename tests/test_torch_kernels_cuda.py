@@ -697,9 +697,15 @@ QMM_CASES = [(1, 8192, 1024), (3, 8192, 8192), (16, 29568, 1024),
 GSQ_CASES = [(4, 1, 256, 32, 1024), (1, 16, 256, 32, 1000),
              (4, 1, 924, 32, 8192), (2, 3, 6, 4, 40), (3, 5, 3, 16, 24),
              (1, 9, 2, 32, 130)]
-# (B, H, K, D, page, pages in the pool, table width W)
+# (B, H, K, D, page, pages in the pool, table width W): qwen2-72b's heads
+# at the serve phase's tables, 4096 keys a row at page 16 (the rows split
+# over a cluster), GQA groups past 8 and odd, D of 256 and one that is no
+# multiple of 16 (bf16) or of 8 (both dtypes: element loads)
 PAGED_CASES = [(4, 64, 8, 128, 8, 40, 18), (4, 64, 8, 128, 16, 24, 9),
-               (3, 4, 2, 16, 8, 11, 5), (2, 6, 3, 32, 16, 7, 3)]
+               (3, 4, 2, 16, 8, 11, 5), (2, 6, 3, 32, 16, 7, 3),
+               (4, 64, 8, 128, 16, 300, 256), (2, 24, 2, 64, 8, 50, 40),
+               (2, 16, 4, 256, 16, 30, 20), (3, 6, 2, 40, 8, 20, 12),
+               (2, 4, 2, 20, 32, 9, 6)]
 
 
 def _codes(rng, k, n):
@@ -936,19 +942,73 @@ def test_paged_decode_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
-def test_paged_decode_reads_no_page_past_the_table(cuda):
+@pytest.mark.parametrize("w", [3, 32], ids=["one-split", "split"])
+def test_paged_decode_reads_no_page_past_the_table(cuda, w):
     """A parked row's table holds only the garbage page: poisoning every
-    other page must not change its output."""
+    other page must not change its output. With the row split over a
+    cluster (W = 32: 4 CTAs a row), a row of 70 keys reads only the pages
+    of its first 9 columns: poisoning the pages of the others leaves it as
+    it was."""
     rng = np.random.default_rng(11)
-    q, kp, vp, table, kv_len = _paged_inputs(rng, (2, 4, 2, 16, 8, 6, 3),
-                                             cuda, torch.float32)
+    q, kp, vp, table, kv_len = _paged_inputs(
+        rng, (2, 4, 2, 16, 8, 2 * w + 1, w), cuda, torch.float32)
+    table[0] = torch.arange(1, w + 1)
+    kv_len[0] = min(70, w * 8)
     table[1] = 0
-    kv_len[1] = 3 * 8 + 1
+    kv_len[1] = w * 8 + 1
+    plan = pak.paged_plan(2, 2, w, 8, w * 8, pak._num_sms(cuda), groups=2,
+                          d=16)
+    assert (plan["splits"] > 1) == (w == 32)
     first = pak.paged_decode(q, kp, vp, table, kv_len)
+    live = -(-int(kv_len[0]) // 8)
+    kp[table[0, live:].long()] = float("nan")
+    vp[table[0, live:].long()] = float("nan")
+    kp[w + 1:] = float("nan")
+    vp[w + 1:] = float("nan")
+    mid = pak.paged_decode(q, kp, vp, table, kv_len)
+    assert torch.equal(first, mid)
     kp[1:] = float("nan")
     vp[1:] = float("nan")
     again = pak.paged_decode(q, kp, vp, table, kv_len)
     assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_decode_splits_rows_over_a_cluster(cuda, dtype):
+    """qwen2-72b's heads at 4096 keys a row, page 16: 4 CTAs a row; beside
+    them a row shorter than one split (its other splits empty), a row of
+    one token and a parked row (all columns the garbage page). Equal to the
+    plain version, one launch, and equal to itself with kv_len as int32 or
+    int64 and the table as a strided view."""
+    bsz, h, kh, d, page, w = 4, 64, 8, 128, 16, 256
+    rng = np.random.default_rng(21)
+    q, kp, vp, table, kv_len = _paged_inputs(
+        rng, (bsz, h, kh, d, page, 2 * w + 1, w), cuda, dtype)
+    table[:] = torch.arange(1, bsz * w + 1).reshape(bsz, w) % (2 * w) + 1
+    table[3] = 0
+    kv_len[:] = torch.tensor([4096, 70, 1, w * page + 1])
+    plan = pak.paged_plan(bsz, kh, w, page, w * page, pak._num_sms(cuda))
+    assert plan["splits"] > 1 and plan["ctas"] <= pak._num_sms(cuda)
+    # 70 keys: the first two splits take pages 0-3 and 4, the others none
+    spans = pak.paged_split(70, w, page, plan["splits"])
+    assert [e - b for b, e in spans] == [64, 6] + [0] * (plan["splits"] - 2)
+    before = pak.paged_decode.launches
+    out = pak.paged_decode(q, kp, vp, table, kv_len)
+    torch.cuda.synchronize()
+    assert pak.paged_decode.launches == before + 1
+    want = pak.paged_decode_plain(q, kp, vp, table, kv_len)
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= PAGED_F32_TOL * max(1.0, want.abs().max().item())
+    else:
+        assert err <= PAGED_BF16_REL * want.float().abs().max().item()
+    wide = torch.zeros((bsz, w + 1), dtype=torch.int32, device=cuda)
+    wide[:, :w] = table
+    assert torch.equal(pak.paged_decode(q, kp, vp, wide[:, :-1],
+                                        kv_len.long()), out)
 
 
 @pytest.mark.cuda
@@ -1024,13 +1084,20 @@ SSD_CASES = [(1, 16, 80, 64, 64), (1, 128, 80, 64, 64), (1, 64, 24, 64, 128),
              (1, 16, 3, 4, 4), (2, 5, 3, 20, 12)]
 # (B, H, KH, Sq, Sk, D, causal): qwen2-72b heads (64 / 8, D 128) and
 # zamba2's (32 / 32, D 80), long causal, ragged causal Sq, Sq != Sk, the
-# shapes of tests/test_flash_attention.py
+# shapes of tests/test_flash_attention.py; gemma-7b's D = 256 and D = 320
+# (the output features split over CTAs: 2 and 3 chunks), causal, not and
+# ragged causal; D = 160 and 72 (padded to 16), 20 and 21 (element loads)
 FLASH_CASES = [(1, 64, 8, 128, 128, 128, True), (1, 64, 8, 512, 512, 128, False),
                (1, 32, 32, 512, 512, 80, True), (1, 32, 32, 128, 128, 80, False),
                (1, 8, 8, 2048, 2048, 64, True), (1, 4, 4, 1000, 1000, 64, True),
                (2, 4, 2, 64, 128, 16, False), (2, 2, 2, 64, 64, 16, True),
                (3, 3, 3, 100, 100, 16, True), (2, 2, 2, 32, 32, 64, True),
-               (1, 1, 1, 256, 256, 16, True), (1, 2, 1, 70, 130, 32, True)]
+               (1, 1, 1, 256, 256, 16, True), (1, 2, 1, 70, 130, 32, True),
+               (1, 16, 16, 512, 512, 256, True), (1, 4, 2, 256, 256, 256, False),
+               (2, 2, 1, 300, 300, 256, True), (1, 4, 4, 256, 256, 320, True),
+               (1, 2, 1, 256, 256, 320, False), (1, 2, 2, 200, 200, 320, True),
+               (1, 2, 2, 130, 130, 160, True), (1, 2, 1, 100, 100, 72, True),
+               (1, 2, 2, 70, 70, 20, True), (1, 2, 1, 65, 65, 21, False)]
 
 
 def _ssd_inputs(rng, case, device, dtype):
@@ -1152,9 +1219,13 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
                       causal=False, blk=64)
     with pytest.raises(NotImplementedError, match="inference only"):
         fak.flash_attention(q.requires_grad_(), k, v)
-    big = torch.zeros((1, 1, 8, 160), device=cuda)
-    with pytest.raises(ValueError, match="D <= 128"):
-        fak.flash_attention(big, big, big)
+    # D = 160 was refused (D <= 128) before the output features could be
+    # split over CTAs: now it runs and matches the plain version
+    wide = _qkv(np.random.default_rng(5), (1, 2, 2, 8, 8, 160, True), cuda,
+                torch.float32)
+    torch.testing.assert_close(fak.flash_attention(*wide),
+                               fak.flash_attention_plain(*wide),
+                               atol=FLASH_F32_TOL, rtol=FLASH_F32_TOL)
 
 
 def test_ssd_and_flash_cpu_tensors_take_the_plain_versions():
