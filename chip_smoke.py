@@ -17,13 +17,15 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    entry (``gs_fused_T_bank``) from a 4-slot fp32 bank, also at Double
    GSOFT's output-side slabs, the dx slab of the GS backward and d = 33792;
    the fp32 tile route's launch variants (split over a cluster or not, one
-   or several tokens per tile) must each be checked
+   or several tokens per tile) must each be checked; at d = 33792 also
+   route 2's wide passes (f32 at b = 32, bf16 at b = 128)
 3b. backward kernels — ``gs_fused_grads`` against its plain version at every
    (T, d) the training paths give it (the weight slabs of the seven
    projections, both sides), ``gs_fused_bwd`` (with dx) at the weight-side
    slabs, bf16 and f32, with the route each took, times, bounds and a
    partial library yardstick; then both at the wi slab with b = 128 and
-   256 (route 2), bf16; then ``gs_fused_bwd``'s path, once: ``gs_diff``
+   256 (route 2), bf16; at d = 33792 on route 2's wide passes (f32 b = 32,
+   bf16 b = 128); then ``gs_fused_bwd``'s path, once: ``gs_diff``
    through autograd with an input that needs a gradient
 3c. bdmm kernels — ``bdmm`` at the weight slabs (OFT / BOFT training and
    merge), the banked decode rows and every prefill bucket (OFT / BOFT
@@ -94,7 +96,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    launcher (``launch/train.py --peft``); one step each of householder,
    givens and lora at 2 layers (finite loss, no GS or bdmm launch)
 10. OFT / BOFT gradients — as phase 8, f32 at 2 layers
-11. mixed serve — full width, 4 layers, bf16: one bank holding gsoft, oft,
+11. mixed serve — full width, 8 layers, bf16: one bank holding gsoft, oft,
    boft, householder and givens tenants (``attach`` with a
    ``{name: PEFTConfig}`` mapping), 12 requests on 4 slots (the GSOFT
    rotations through the bank read by slot id), median rate of 3 runs and a
@@ -113,7 +115,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    against token-by-token decode (the state-space duality); zamba2-2.7b at
    full width and 12 layers, T = 320: the duality; both: the first served
    token equals the forward's argmax; gaps within 1e-3 of max|logit|
-14. report — one JSON line of kernels, then the ``{"ok": true, ...}`` line
+14. report — where the time went (build, set-up, timed runs, profiled
+   runs), the card's name and power limit, one JSON line of kernels, then
+   the ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
 """
@@ -164,9 +168,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense bf16 tensor-core rate
               torch.float32: 67e12}     # fp32 outside the tensor cores
 SERVE_LAYERS = 8
-# the mixed-method serve's depth: 4 layers, not the other serve phases' 8,
-# keep the whole script near half its time limit
-MIXED_SERVE_LAYERS = 4
+MIXED_SERVE_LAYERS = 8              # the mixed-method serve's depth, as phase 4's
 SERVE_MAX_LEN = 256
 PROMPT_LENS = (16, 128)             # serve phase: prompt lengths drawn in this range
 CHECK_LAYERS = 2
@@ -239,6 +241,7 @@ HYBRID_CHECK_LAYERS = 12            # zamba2: two super-blocks of 6
 HYBRID_CHECK_T = 320
 SSM_LOGIT_REL = 1e-3                # f32 checks, relative to max|logit|
 SLOTS = 4                           # phases 3 and 3d: slots of the fp32 bank
+WIDE_D = 33 * 1024                  # phases 3, 3b, 3d: a width past 32768
 
 KERNELS = {
     "gs_fused_T": dict(fn=gk.gs_fused_T, plain=gk.gs_fused_T_plain,
@@ -305,6 +308,11 @@ GRAD_KERNELS = {
 
 
 _START = time.perf_counter()
+# seconds spent by kind: "timed" (kernel timing loops and the served runs
+# a rate is taken from), "profiled" (runs under torch.profiler and the
+# processing of their traces); the rest of the script, past the build, is
+# set-up (models, weights, data, plain versions, checks)
+_SPENT = {"timed": 0.0, "profiled": 0.0}
 
 
 def log(msg: str) -> None:
@@ -321,6 +329,7 @@ def time_ms(fn, arg_sets) -> float:
     """Mean ms per call over CUDA events, cycling ``arg_sets`` (several sets
     when one fits in L2, so the factors come from device memory as they do
     on the serving path, where every layer has its own)."""
+    t_in = time.perf_counter()
     for a in arg_sets[:2]:
         fn(*a)
     torch.cuda.synchronize()
@@ -335,6 +344,7 @@ def time_ms(fn, arg_sets) -> float:
         fn(*arg_sets[i % len(arg_sets)])
     end.record()
     torch.cuda.synchronize()
+    _SPENT["timed"] += time.perf_counter() - t_in
     return start.elapsed_time(end) / iters
 
 
@@ -496,18 +506,20 @@ def kernel_cases(cfg):
     out += [("gs_fused", 1, kv, D, 32), ("gs_fused", 1, D, kv, 32)]
     # bf16 only (route 1): Double GSOFT's output sides (T = d_in, d = d_out
     # of wq / attn wo, wk / wv, wi / wg and the MLP wo, the last also the
-    # shape of the GS backward's dx slab) and a width past 32768
-    wide = 33 * 1024
+    # shape of the GS backward's dx slab); then a width past 32768 (WIDE_D):
+    # route 1 in bf16 at b = 32, route 2's wide passes in f32 at b = 32 and
+    # in bf16 at b = 128 (decode rows, one prefill bucket, a short slab)
     return out + [("gs_fused_T", 1, t, d, 32)
                   for t, d in ((D, D), (D, kv), (D, F), (F, D))] + [
-        ("gs_fused_T", 4, 1, wide, 32), ("gs_fused_T", 1, 128, wide, 32)]
+        (k, bsz, t, WIDE_D, b) for b in (32, 128)
+        for k, bsz, t in (("gs_fused_T", 4, 1), ("gs_fused_T", 1, 128),
+                          ("gs_fused", 1, 128))]
 
 
 def f32_case(kernel: str, T: int, d: int) -> bool:
     """Phase 3 also runs the case in f32 (route 2): the rows and prefill
     buckets of the transpose rotation and every ``gs_fused`` slab."""
-    return kernel == "gs_fused" or (T <= max(prefill_buckets())
-                                    and d <= gk.MAX_TILE_ELEMS)
+    return kernel == "gs_fused" or T <= max(prefill_buckets())
 
 
 def check_variants(cases) -> None:
@@ -545,7 +557,9 @@ def bwd_cases(cfg):
     GSOFT's output side treats its rows as tokens (T = d_in, d = d_out).
     Both train through ``gs_fused_grads`` (slabs: wq / attn wo, wk / wv,
     wi / wg, MLP wo); ``gs_fused_bwd`` (with dx) is held at the weight-side
-    slabs. Then the wi slab at b = 128 and 256 (route 2, bf16 only)."""
+    slabs. Then the wi slab at b = 128 and 256 (route 2, bf16 only); last
+    (kernel, T, d) at d = WIDE_D, route 2's wide passes (b = 32 in f32, 128
+    in bf16)."""
     D, F = cfg.d_model, cfg.d_ff
     kv = cfg.num_kv_heads * cfg.d_head
     w = [(D, cfg.num_heads * cfg.d_head), (D, kv), (D, F), (F, D)]
@@ -556,7 +570,8 @@ def bwd_cases(cfg):
             grads.append(("gs_fused_grads", T, d, 32))
     return (grads + [("gs_fused_bwd", d_out, d_in, 32) for d_in, d_out in w],
             [(k, F, D, b) for b in (128, 256)
-             for k in ("gs_fused_grads", "gs_fused_bwd")])
+             for k in ("gs_fused_grads", "gs_fused_bwd")],
+            [(k, 128, WIDE_D) for k in ("gs_fused_grads", "gs_fused_bwd")])
 
 
 def check_bwd_case(kernel, T, d, b, dtype, gen, device) -> dict:
@@ -840,16 +855,24 @@ def _profile(run, copy_shapes=None) -> dict:
     """Run ``run()`` under torch.profiler; device time by kernel name, and
     the share of the wall time with a kernel running on the card. With
     ``copy_shapes`` (a set of (T, d)), also the device time of the copies
-    (``aten::clone``) of tensors of those shapes, (T, d) or (1, T, d)."""
+    (``aten::clone``) of tensors of those shapes, (T, d) or (1, T, d): only
+    then are the host's operators traced too (what attributes a copy to its
+    shapes); otherwise the device's activity alone, which keeps the
+    serving runs' host-side traces (hundreds of thousands of operators),
+    their recording cost and their processing out of the run."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    t_in = time.perf_counter()
+    acts = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if copy_shapes is not None else [])
+    with profile(activities=acts,
                  record_shapes=copy_shapes is not None) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    averages = prof.key_averages()
     kernels = []
-    for e in prof.key_averages():
+    for e in averages:
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -863,7 +886,7 @@ def _profile(run, copy_shapes=None) -> dict:
     # the gathers (index_select) and the copies / dtype casts (PyTorch's
     # direct_copy kernels) the run launched, by count and device ms
     moved = {}
-    for e in prof.key_averages():
+    for e in averages:
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
         for what, tag in (("index_select", "indexSelect"),
@@ -902,6 +925,8 @@ def _profile(run, copy_shapes=None) -> dict:
                 ms += (us if us is not None else e.cuda_time_total) / 1e3
                 n += e.count
         out.update(copies_device_ms=ms, copies=n)
+    out["profiler_s"] = time.perf_counter() - t_in
+    _SPENT["profiled"] += out["profiler_s"]
     return out
 
 
@@ -972,6 +997,7 @@ def serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
         walls.append(w)
     toks = eng.stats["tokens_generated"]
     wall_med = float(np.median(walls))
+    _SPENT["timed"] += sum(walls)
     return dict(layers=cfg.num_layers, requests=len(results),
                 prompt_lens=[int(n) for n in lens], tokens=toks,
                 wall_s=walls, wall_median_s=wall_med,
@@ -1384,6 +1410,7 @@ def mixed_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
         walls.append(w)
     toks = eng.stats["tokens_generated"]
     wall_med = float(np.median(walls))
+    _SPENT["timed"] += sum(walls)
     return dict(layers=cfg.num_layers, tenants=list(cfgs),
                 bank_methods=list(methods_in_bank), requests=len(results),
                 prompt_lens=[int(n) for n in lens], tokens=toks,
@@ -1505,9 +1532,10 @@ def check_qmm_case(M, K, N, dtype, gen, device) -> dict:
     es = x.element_size()
     bound_ms, bound_by = _bytes_bound(M * K * es + K * N + 4 * N + M * N * es,
                                       2 * M * K * N, dtype)
-    tt, c, splits, _ = qmk.qmm_geometry(M, K, N)
-    return dict(kernel="q_matmul", M=M, K=K, N=N, tt=tt, codes=c,
-                k_splits=splits, dtype=str(dtype).replace("torch.", ""),
+    plan = qmk.qmm_geometry(M, K, N, es)
+    return dict(kernel="q_matmul", M=M, K=K, N=N, tokens=plan.ntok,
+                boxes=plan.ntw, stages=plan.stages, ctas=plan.grid,
+                k_splits=plan.splits, dtype=str(dtype).replace("torch.", ""),
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, library_what="(x @ q.to(x.dtype)) * scale",
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -1766,6 +1794,7 @@ def paged_quant_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
         walls.append(w)
     toks = eng.stats["tokens_generated"]
     wall_med = float(np.median(walls))
+    _SPENT["timed"] += sum(walls)
     page_bytes = kv_page_bytes(cfg, PAGE_SIZE)
     contiguous_kv = (2 * cfg.num_layers * 4 * SERVE_MAX_LEN
                      * cfg.num_kv_heads * cfg.d_head
@@ -1861,12 +1890,13 @@ def ssd_cases():
 
 def ssd_bound(nb, t, h, p, n, dtype) -> tuple:
     """Bytes (x, loga, B, C read once, y written once) over the memory rate,
-    or the chunked algorithm's 2 Nb T H (Q N + Q P + 2 N P) operations at
-    the kernel's chunk Q over the fp32 rate (all state math is fp32)."""
+    or the function's own operations over the fp32 rate (all state math is
+    fp32): the recurrence S_t = a_t S_{t-1} + B_t x_t^T, y_t = C_t^T S_t,
+    2 Nb T H (N + P + 2 N P), which is the chunked count at a chunk of one
+    step; a longer chunk is the kernel's choice, not the function's work."""
     es = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * nb * t * h * p + nb * t * h + 2 * nb * t * h * n) * es
-    q = min(ssdk.CHUNK, t)
-    flops = 2 * nb * t * h * (q * n + q * p + 2 * n * p)
+    flops = 2 * nb * t * h * (n + p + 2 * n * p)
     return _bytes_bound(nbytes, flops, torch.float32)
 
 
@@ -1893,7 +1923,7 @@ def check_ssd_case(nb, t, h, p, n, dtype, gen, device) -> dict:
     plain_ms = time_ms(ssdk.ssd_plain, [args])
     bound_ms, bound_by = ssd_bound(nb, t, h, p, n, dtype)
     return dict(kernel="ssd", Nb=nb, T=t, H=h, P=p, N=n,
-                p_tile=ssdk.ssd_geometry(nb, h, p, gk._num_sms(device)),
+                p_tile=ssdk.ssd_geometry(p, n),
                 chunk=ssdk.CHUNK, dtype=str(dtype).replace("torch.", ""),
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=None,
@@ -2079,6 +2109,7 @@ def hybrid_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
         walls.append(w)
     toks = eng.stats["tokens_generated"]
     wall_med = float(np.median(walls))
+    _SPENT["timed"] += sum(walls)
     return dict(layers=cfg.num_layers, requests=len(results),
                 prompt_lens=[int(n) for n in lens], tokens=toks,
                 wall_s=walls, wall_median_s=wall_med, tok_s=toks / wall_med,
@@ -2253,10 +2284,12 @@ def main() -> int:
 
     # 3b. backward kernels against their plain versions
     bwd_cases_run = []
-    slabs_bwd, large_bwd = bwd_cases(full)
+    slabs_bwd, large_bwd, wide_bwd = bwd_cases(full)
     for dtype in (torch.bfloat16, torch.float32):
+        wb = 128 if dtype == torch.bfloat16 else 32
         for kernel, T, d, b in slabs_bwd + (
-                large_bwd if dtype == torch.bfloat16 else []):
+                large_bwd if dtype == torch.bfloat16 else []) + [
+                    (k, t, d, wb) for k, t, d in wide_bwd]:
             c = check_bwd_case(kernel, T, d, b, dtype, gen, device)
             bwd_cases_run.append(c)
             log(f"kernel {kernel:14s} T={T:5d} d={d:5d} b={b:3d} "
@@ -2287,15 +2320,16 @@ def main() -> int:
                 continue                    # f32: the decode rows only
             c = check_qmm_case(M, K, N, dtype, gen, device)
             qcases.append(c)
-            log(f"kernel q_matmul     M={M:2d} K={K:5d} N={N:6d} tt={c['tt']} "
-                f"c={c['codes']} splits={c['k_splits']} {c['dtype']:8s} err "
+            log(f"kernel q_matmul     M={M:2d} K={K:5d} N={N:6d} tokens="
+                f"{c['tokens']} ctas={c['ctas']} splits={c['k_splits']} "
+                f"{c['dtype']:8s} err "
                 f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
                 f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
                 f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
                 f"({c['bound_by']})")
         torch.cuda.empty_cache()
         for B, T, d, N in gsq_cases(full):
-            if dtype == torch.float32 and (T != 1 or d > gk.MAX_TILE_ELEMS):
+            if dtype == torch.float32 and T != 1:
                 continue
             c = check_gsq_case(B, T, d, N, 32, dtype, gen, device)
             qcases.append(c)
@@ -2687,7 +2721,12 @@ def main() -> int:
             library_what=c["library_what"], shape=key))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(dict(card=card, build_s=build_s, cases=cases,
+    spent = dict(_SPENT, build=build_s,
+                 total=time.perf_counter() - _START)
+    spent["set-up"] = (spent["total"] - build_s - _SPENT["timed"]
+                       - _SPENT["profiled"])
+    out.write_text(json.dumps(dict(card=card, build_s=build_s, spent=spent,
+                                   cases=cases,
                                    bwd_cases=bwd_cases_run,
                                    bwd_entry=bwd_entry,
                                    bdmm_cases=bdmm_run, serve=serve,
@@ -2705,6 +2744,11 @@ def main() -> int:
                                    ssm_check=scheck,
                                    kernels=kernels), indent=1))
     log(f"details: {out}")
+    total = time.perf_counter() - _START
+    log(f"time: build {build_s:.1f} s, set-up "
+        f"{total - build_s - _SPENT['timed'] - _SPENT['profiled']:.1f} s, "
+        f"timed runs {_SPENT['timed']:.1f} s, profiled runs "
+        f"{_SPENT['profiled']:.1f} s, total {total:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -144,4 +144,89 @@ inline bool bad_shape(int B, int n_tokens, int r, int b, int tt) {
          (long long)tt * r * b > kMaxTileElems;
 }
 
+// ---------------------------------------------------------------------------
+// Route 2 past kMaxTileElems: wide passes through an fp32 workspace
+// ---------------------------------------------------------------------------
+//
+// When a row of d = r * b features does not fit the fp32 tile (tt * d >
+// kMaxTileElems), route 2 of every GS kernel runs as a chain of these
+// passes, each a block-diagonal product with a permuted read and a permuted
+// write, from and into device memory (the intermediate stays fp32):
+//   out[t][k] = sum_j W(g, i, j) * in[t][imap(g*b + j)],  g*b + i = omap(k),
+// W(g, i, j) = F_g[i][j] (ftrans = 0) or F_g[j][i] (ftrans = 1) of the
+// row's factors (its bank slot when ids is given), or the identity (F ==
+// nullptr: out[t][k] = in[t][imap(omap(k))]). The maps: 0 the identity, 1
+// P as a gather (c -> (c % r) b + c / r), 2 P^T (k -> (k % b) r + k / b).
+// One thread owns one feature k of kWideTokens tokens, so a factor element
+// feeds that many FMAs; no width limit. Width is not a speed path (f32
+// checks, b != 32): simple and right.
+constexpr int kWideThreads = 256;
+constexpr int kWideTokens = 8;
+enum { kMapId = 0, kMapP = 1, kMapPT = 2 };
+
+__device__ __forceinline__ int wide_map(int m, int c, int r, int b) {
+  return m == kMapP ? (c % r) * b + c / r : (m == kMapPT ? (c % b) * r + c / b : c);
+}
+
+// TX: the activation type (an fp32 bank entry is rounded to it, Factor);
+// TI / TO: the pass's input / output element types
+template <typename TX, typename TI, typename TF, typename TO>
+__global__ void __launch_bounds__(kWideThreads)
+gs_wide_pass_kernel(const TI* __restrict__ in, const TF* __restrict__ F,
+                    const long long* __restrict__ ids, int slots,
+                    TO* __restrict__ out, int n_tokens, int r, int b, int imap,
+                    int omap, int ftrans) {
+  const int d = r * b;
+  const int k = blockIdx.x * kWideThreads + threadIdx.x;
+  if (k >= d) return;
+  const int row = blockIdx.z;
+  const int t0 = blockIdx.y * kWideTokens;
+  const int nt = min(kWideTokens, n_tokens - t0);
+  const size_t base = ((size_t)row * n_tokens + t0) * d;
+  const int c = wide_map(omap, k, r, b);
+  const int g = c / b, i = c - g * b;
+  float acc[kWideTokens];
+#pragma unroll
+  for (int t = 0; t < kWideTokens; ++t) acc[t] = 0.f;
+  if (F == nullptr) {
+    const int s = wide_map(imap, c, r, b);
+#pragma unroll
+    for (int t = 0; t < kWideTokens; ++t)
+      if (t < nt) acc[t] = to_f32(in[base + (size_t)t * d + s]);
+  } else {
+    const TF* Fg = F + ((size_t)row_slot(ids, row, slots) * r + g) * b * b;
+    const size_t f0 = ftrans ? (size_t)i : (size_t)i * b;
+    const size_t fs = ftrans ? (size_t)b : 1;
+    for (int j = 0; j < b; ++j) {
+      const float w = Factor<TX, TF>::get(Fg[f0 + j * fs]);
+      const int s = wide_map(imap, g * b + j, r, b);
+#pragma unroll
+      for (int t = 0; t < kWideTokens; ++t)
+        if (t < nt) acc[t] = fmaf(w, to_f32(in[base + (size_t)t * d + s]), acc[t]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kWideTokens; ++t)
+    if (t < nt) out[base + (size_t)t * d + k] = from_f32<TO>(acc[t]);
+}
+
+inline bool bad_wide_shape(int B, int n_tokens, int r, int b) {
+  return B <= 0 || n_tokens <= 0 || r <= 0 || b <= 0 || B > 65535 ||
+         (long long)r * b > 2147483647LL - kWideThreads ||
+         (n_tokens + kWideTokens - 1) / kWideTokens > 65535;
+}
+
+template <typename TX, typename TI, typename TF, typename TO>
+cudaError_t wide_pass(const void* in, const void* F, const long long* ids,
+                      int slots, void* out, int B, int n_tokens, int r, int b,
+                      int imap, int omap, int ftrans, cudaStream_t stream) {
+  const long long d = (long long)r * b;
+  const dim3 grid((unsigned)((d + kWideThreads - 1) / kWideThreads),
+                  (n_tokens + kWideTokens - 1) / kWideTokens, B);
+  gs_wide_pass_kernel<TX, TI, TF, TO><<<grid, kWideThreads, 0, stream>>>(
+      (const TI*)in, (const TF*)F, ids, slots, (TO*)out, n_tokens, r, b, imap,
+      omap, ftrans);
+  return cudaGetLastError();
+}
+
 }  // namespace gs

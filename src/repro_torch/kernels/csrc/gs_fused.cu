@@ -68,8 +68,10 @@
 // intermediate in shared memory, never in device memory, the design of
 // gs_fused_T.cu; it takes the TRANSPOSED factors L^T, R^T (the wrapper
 // passes them) so that its block products read the factors coalesced. Each
-// tile re-reads the row's factors from L2, and a tile holds whole rows, so
-// d is limited to kMaxTileElems.
+// tile re-reads the row's factors from L2, and a tile holds whole rows of
+// at most kMaxTileElems features; a wider row (the wrapper passes tt = 0 to
+// gs_fused_wide_*) runs two wide passes of gs_common.cuh through an fp32
+// workspace instead, v = P R x and y = P^T L v: any d.
 
 #include "gs_common.cuh"
 #include "mma.cuh"
@@ -509,6 +511,20 @@ int launch(const void* x, const void* L, const void* R, void* y, int B,
                                         (cudaStream_t)stream)))
 }
 
+// Route 2 at any d (gs_common.cuh wide passes), from L and R as stored:
+// ws = v = P R x (fp32, B * T * d floats), then y = P^T L v.
+template <typename T>
+int launch_wide(const void* x, const void* L, const void* R, float* ws,
+                void* y, int B, int n_tokens, int r, int b, void* stream) {
+  if (bad_wide_shape(B, n_tokens, r, b)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = wide_pass<T, T, T, float>(x, R, nullptr, 0, ws, B, n_tokens,
+                                              r, b, kMapId, kMapP, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wide_pass<T, float, T, T>(ws, L, nullptr, 0, y, B, n_tokens, r, b,
+                                        kMapId, kMapPT, 0, s);
+}
+
 }  // namespace gs
 
 extern "C" {
@@ -545,6 +561,20 @@ int gs_fused_tc_bf16(const void* x, const void* L, const void* R,
 int gs_fused_bf16(const void* x, const void* LT, const void* RT, void* y, int B,
                   int n_tokens, int r, int b, int tt, void* stream) {
   return gs::launch<__nv_bfloat16>(x, LT, RT, y, B, n_tokens, r, b, tt, stream);
+}
+
+// Route 2 past the tile limit: L, R as stored (not transposed), ws an fp32
+// workspace of B * T * d floats
+int gs_fused_wide_f32(const void* x, const void* L, const void* R, float* ws,
+                      void* y, int B, int n_tokens, int r, int b, void* stream) {
+  return gs::launch_wide<float>(x, L, R, ws, y, B, n_tokens, r, b, stream);
+}
+
+int gs_fused_wide_bf16(const void* x, const void* L, const void* R, float* ws,
+                       void* y, int B, int n_tokens, int r, int b,
+                       void* stream) {
+  return gs::launch_wide<__nv_bfloat16>(x, L, R, ws, y, B, n_tokens, r, b,
+                                        stream);
 }
 
 }  // extern "C"

@@ -73,7 +73,10 @@
 // wave of SMs the wrapper splits every tile over a cluster of 8 CTAs: each
 // reads 1/8 of the factors, and the CTAs exchange the intermediate over
 // distributed shared memory. Its factor type is a template parameter of its
-// own (an fp32 bank with bf16 x rounds each element to bf16, as above).
+// own (an fp32 bank with bf16 x rounds each element to bf16, as above). A
+// row wider than kMaxTileElems runs two wide passes of gs_common.cuh
+// through an fp32 workspace instead (gs_fused_T_wide_*: P^T L^T P x, then
+// R^T of it), bank read by slot id alike: any d.
 //
 // Both routes call griddepcontrol.launch_dependents at their start, so a
 // kernel launched behind them with programmatic dependent launch (the int8
@@ -192,6 +195,23 @@ int launch(const void* x, const void* L, const void* R, const long long* ids,
     return (int)cudaErrorInvalidValue;
   GS_DISPATCH_TT(tt, (launch_T<T, F, TT>(x, L, R, ids, slots, y, B, n_tokens, r,
                                          b, cluster, (cudaStream_t)stream)))
+}
+
+// Route 2 at any d (gs_common.cuh wide passes): ws = P^T L^T P x (fp32, B *
+// T * d floats), then y = R^T ws; the factors as stored, per row or a bank
+// read at ids[row].
+template <typename T, typename F>
+int launch_wide(const void* x, const void* L, const void* R,
+                const long long* ids, int slots, float* ws, void* y, int B,
+                int n_tokens, int r, int b, void* stream) {
+  if (bad_wide_shape(B, n_tokens, r, b) || (ids != nullptr && slots <= 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = wide_pass<T, T, F, float>(x, L, ids, slots, ws, B, n_tokens,
+                                              r, b, kMapP, kMapPT, 1, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wide_pass<T, float, F, T>(ws, R, ids, slots, y, B, n_tokens, r, b,
+                                        kMapId, kMapId, 1, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -541,6 +561,20 @@ int gs_fused_T_bf16_f32(const void* x, const void* L, const void* R,
   return gs::launch<__nv_bfloat16, float>(x, L, R, ids, slots, y, B, n_tokens,
                                           r, b, tt, cluster, stream);
 }
+
+// Route 2 past the tile limit (x, factors as above), ws an fp32 workspace of
+// B * T * d floats.
+#define GS_T_WIDE_ENTRY(NAME, T, F)                                            \
+  int NAME(const void* x, const void* L, const void* R, const long long* ids,  \
+           int slots, float* ws, void* y, int B, int n_tokens, int r, int b,   \
+           void* stream) {                                                     \
+    return gs::launch_wide<T, F>(x, L, R, ids, slots, ws, y, B, n_tokens, r,   \
+                                 b, stream);                                   \
+  }
+GS_T_WIDE_ENTRY(gs_fused_T_wide_f32_f32, float, float)
+GS_T_WIDE_ENTRY(gs_fused_T_wide_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+GS_T_WIDE_ENTRY(gs_fused_T_wide_bf16_f32, __nv_bfloat16, float)
+#undef GS_T_WIDE_ENTRY
 
 // Route 1 (bf16 x), factors f32 (a bank, or per row) or bf16 (per row).
 int gs_T_tc_f32(const void* x, const void* L, const void* R,

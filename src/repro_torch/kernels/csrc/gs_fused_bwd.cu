@@ -68,7 +68,8 @@
 //     tiles of the b x b block per thread; blocks above 128 are split over
 //     CTAs along their rows i, so any b <= 256 fits.
 // Its pass 1 rereads the factors for every tile of <= 8 tokens; its speed is
-// later work.
+// later work. A row wider than kMaxTileElems (tt = 0) runs pass 1 as four
+// wide passes of gs_common.cuh into the same workspace: any d.
 //
 // Every output element is owned by one thread of one CTA and summed in a
 // fixed order, so repeated runs are bit-identical (no atomics). dx for route
@@ -766,20 +767,44 @@ int dispatch_reduce(const float* ws, const void* x, float* outL, float* outR,
   return (int)cudaErrorInvalidValue;
 }
 
+// Pass 1 at any d, as a chain of the wide passes of gs_common.cuh through
+// the same workspace: v = P R x, dw = P dy, du = P^T L^T dw, dx = R^T du.
+template <typename T, bool WITH_DX>
+int wide_tile(const void* x, const void* dy, const void* L, const void* R,
+              void* dx, float* ws, int B, int n_tokens, int r, int b,
+              cudaStream_t s) {
+  const size_t n = (size_t)B * n_tokens * r * b;
+  cudaError_t err = wide_pass<T, T, T, float>(x, R, nullptr, 0, ws, B, n_tokens,
+                                              r, b, kMapId, kMapP, 0, s);
+  if (err == cudaSuccess)
+    err = wide_pass<T, T, T, float>(dy, nullptr, nullptr, 0, ws + n, B,
+                                    n_tokens, r, b, kMapId, kMapP, 0, s);
+  if (err == cudaSuccess)
+    err = wide_pass<T, float, T, float>(ws + n, L, nullptr, 0, ws + 2 * n, B,
+                                        n_tokens, r, b, kMapId, kMapPT, 1, s);
+  if (err == cudaSuccess && WITH_DX)
+    err = wide_pass<T, float, T, T>(ws + 2 * n, R, nullptr, 0, dx, B, n_tokens,
+                                    r, b, kMapId, kMapId, 1, s);
+  return (int)err;
+}
+
 // Route 2. ws: 3 * B * T * d floats (v, dw, du); part: 2 * splits * B * r *
 // b * b floats when splits > 1 (unused otherwise); dL, dR: B * r * b * b
-// floats.
+// floats. tt: tokens per pass-1 tile, or 0 for the wide pass 1 (any d).
 template <typename T, bool WITH_DX>
 int launch_bwd(const void* x, const void* dy, const void* L, const void* R,
                const void* RT, void* dx, float* ws, float* part, float* dL,
                float* dR, int B, int n_tokens, int r, int b, int tt, int splits,
                int ichunks, void* stream_ptr) {
-  if (bad_shape(B, n_tokens, r, b, tt) || b > kMaxBwdBlock || splits <= 0 ||
+  if ((tt == 0 ? bad_wide_shape(B, n_tokens, r, b)
+               : bad_shape(B, n_tokens, r, b, tt)) ||
+      b > kMaxBwdBlock || splits <= 0 ||
       splits > 65535 || ichunks <= 0 || (long long)r * ichunks > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err;
   switch (tt) {
+    case 0: err = wide_tile<T, WITH_DX>(x, dy, L, R, dx, ws, B, n_tokens, r, b, stream); break;
     case 1: err = launch_tile<T, 1, WITH_DX>(x, dy, L, R, RT, dx, ws, B, n_tokens, r, b, stream); break;
     case 2: err = launch_tile<T, 2, WITH_DX>(x, dy, L, R, RT, dx, ws, B, n_tokens, r, b, stream); break;
     case 4: err = launch_tile<T, 4, WITH_DX>(x, dy, L, R, RT, dx, ws, B, n_tokens, r, b, stream); break;

@@ -25,8 +25,10 @@ the GS backward) runs on the tensor cores: one CTA per entry of the plan
 window of natural groups it needs: ``t_entry``) and token split, factors
 read once per CTA, any width d. Short T spreads each 32-group tile over 2
 or 4 entries so that the factor read fills a wave of SMs. Route 2 (f32, b
-!= 32, r < b) keeps an fp32 tile of whole rows in shared memory, d <=
-``MAX_TILE_ELEMS``, split over a cluster of 8 CTAs at decode. Both routes
+!= 32, r < b) keeps an fp32 tile of whole rows in shared memory, split
+over a cluster of 8 CTAs at decode; a row wider than ``MAX_TILE_ELEMS``
+(tokens per tile 0 in the plan) runs two wide passes through an fp32
+workspace instead (``csrc/gs_common.cuh``), any d. Both routes
 read a bank by slot id. See ``csrc/gs_fused_T.cu``.
 
 ``fwd_plan`` picks ``gs_fused``'s route. Route 1 (bf16, b = 32, r >= b:
@@ -35,7 +37,7 @@ per tile of the backward's plan (``tc_table``: the output groups whose
 windows of source groups overlap, a super-block of b^2 features when b
 divides r) and token split, factors read once per CTA, any width d. Route 2
 (f32, other b, r < b) is an fp32 tile kernel like the transpose's route 2,
-d <= ``MAX_TILE_ELEMS``.
+and past ``MAX_TILE_ELEMS`` the same two wide passes.
 
 Numerics: the kernels keep the intermediate in fp32 (route 1 of either:
 as bf16 hi + lo, about 2^-17 relative), the plain version (like the JAX
@@ -97,16 +99,26 @@ _TC_ARGTYPES = [_PTR] * 8 + [_INT] * 8 + [_PTR]
 # route 1 of gs_fused: x, L, R, plan table, y, B, T, r, tiles, splits,
 # tokens per split, window, stream
 _FWD_TC_ARGTYPES = [_PTR] * 5 + [_INT] * 7 + [_PTR]
+# route 2 of gs_fused past the tile limit: x, L, R, workspace, y, B, T, r,
+# b, stream
+_FWD_WIDE_ARGTYPES = [_PTR] * 5 + [_INT] * 4 + [_PTR]
+# route 2 of gs_fused_T past the tile limit: x, L, R, ids, slots,
+# workspace, y, B, T, r, b, stream
+_T_WIDE_ARGTYPES = [_PTR] * 4 + [_INT] + [_PTR] * 2 + [_INT] * 4 + [_PTR]
 # the C functions of each source with their argument types
 _ENTRIES = {
     "gs_fused_T": {"gs_fused_T_f32_f32": _T_ARGTYPES,
                    "gs_fused_T_bf16_bf16": _T_ARGTYPES,
                    "gs_fused_T_bf16_f32": _T_ARGTYPES,
                    "gs_T_tc_f32": _T_TC_ARGTYPES,
-                   "gs_T_tc_bf16": _T_TC_ARGTYPES},
+                   "gs_T_tc_bf16": _T_TC_ARGTYPES} | {
+                       f"gs_fused_T_wide_{dt}": _T_WIDE_ARGTYPES
+                       for dt in ("f32_f32", "bf16_bf16", "bf16_f32")},
     "gs_fused": {"gs_fused_f32": _FWD_ARGTYPES,
                  "gs_fused_bf16": _FWD_ARGTYPES,
-                 "gs_fused_tc_bf16": _FWD_TC_ARGTYPES},
+                 "gs_fused_tc_bf16": _FWD_TC_ARGTYPES,
+                 "gs_fused_wide_f32": _FWD_WIDE_ARGTYPES,
+                 "gs_fused_wide_bf16": _FWD_WIDE_ARGTYPES},
     "gs_fused_bwd": {f"{e}_{dt}": _BWD_ARGTYPES
                      for e in ("gs_fused_bwd", "gs_fused_grads")
                      for dt in ("f32", "bf16")} | {
@@ -200,7 +212,10 @@ def _check(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
 
 def _tile_tokens(t: int, d: int, max_tile: int) -> int:
     """Tokens per tile: the largest power of two (<= 8) with tt * d within
-    the kernel's register tile, and no more than T needs."""
+    the kernel's register tile, and no more than T needs; 0 when one token's
+    row is already wider (route 2 then runs its wide passes)."""
+    if d > max_tile:
+        return 0
     tt = 1
     while tt < 8 and 2 * tt * d <= max_tile and tt < t:
         tt *= 2
@@ -222,29 +237,38 @@ def _raise(lib, entry: str, err: int) -> None:
         raise RuntimeError(f"{entry} launch failed: {msg} (code {err})")
 
 
-def _launch_cc(x: torch.Tensor, LT: torch.Tensor, RT: torch.Tensor,
+def _launch_cc(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
                plan: "FwdPlan") -> torch.Tensor:
-    """Route 2 of ``gs_fused`` (the fp32 tile kernel, given L^T and R^T so
-    its factor reads are coalesced), counted on ``gs_fused.launches`` once
-    launched without error."""
+    """Route 2 of ``gs_fused``, counted on ``gs_fused.launches`` once
+    launched without error: the fp32 tile kernel (given L^T and R^T so its
+    factor reads are coalesced) or, for rows past ``MAX_TILE_ELEMS``
+    (``plan.tokens`` 0), the two wide passes through an fp32 workspace."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel takes bf16 or f32, got {x.dtype}")
-    if not (x.is_contiguous() and LT.is_contiguous() and RT.is_contiguous()):
+    if not (x.is_contiguous() and L.is_contiguous() and R.is_contiguous()):
         raise ValueError("kernel needs contiguous x, L, R")
-    bsz, t, d = x.shape
-    if d > MAX_TILE_ELEMS:
-        raise ValueError(f"d={d} exceeds the kernel's tile limit "
-                         f"{MAX_TILE_ELEMS}")
+    bsz, t, _ = x.shape
     y = torch.empty_like(x)
     if bsz == 0 or t == 0:
         return y
     lib = _lib("gs_fused")
+    dt = _DTYPES[x.dtype]
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"gs_fused_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), LT.data_ptr(), RT.data_ptr(), y.data_ptr(), bsz, t,
-            LT.shape[1], LT.shape[2], plan.tokens,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise(lib, "gs_fused", err)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan.tokens == 0:
+            entry = f"gs_fused_wide_{dt}"
+            ws = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+            err = getattr(lib, entry)(
+                x.data_ptr(), L.data_ptr(), R.data_ptr(), ws.data_ptr(),
+                y.data_ptr(), bsz, t, L.shape[1], L.shape[2], stream)
+        else:
+            entry = f"gs_fused_{dt}"
+            LT = L.transpose(-1, -2).contiguous()
+            RT = R.transpose(-1, -2).contiguous()
+            err = getattr(lib, entry)(
+                x.data_ptr(), LT.data_ptr(), RT.data_ptr(), y.data_ptr(), bsz,
+                t, L.shape[1], L.shape[2], plan.tokens, stream)
+    _raise(lib, entry, err)
     gs_fused.launches += 1
     return y
 
@@ -288,10 +312,6 @@ def rotate_T_into(y: torch.Tensor, x: torch.Tensor, L: torch.Tensor,
     if xdt == "f32" and fdt != "f32":
         raise TypeError("f32 x takes f32 factors")
     plan = t_plan(bsz, t, r, b, xdt, _num_sms(x.device))
-    if plan.route == "cc" and d > MAX_TILE_ELEMS:
-        raise ValueError(f"d={d} exceeds route 2's tile limit "
-                         f"{MAX_TILE_ELEMS} (route 1 takes bf16 with b = "
-                         f"{TC_BLOCK}, r >= {TC_BLOCK})")
     idp = ids.data_ptr() if ids is not None else None
     if stream is None:
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -302,6 +322,12 @@ def rotate_T_into(y: torch.Tensor, x: torch.Tensor, L: torch.Tensor,
             _t_table_on(x.device, r, plan.ng).data_ptr(), y.data_ptr(), bsz,
             t, r, plan.entries, plan.splits, plan.tokens, plan.tt,
             plan.window, plan.ng, plan.lu, plan.ru, stream)
+    elif plan.tt == 0:               # route 2 past the tile limit
+        entry = f"gs_fused_T_wide_{xdt}_{fdt}"
+        ws = torch.empty((bsz, t, d), dtype=torch.float32, device=x.device)
+        err = getattr(lib, entry)(
+            x.data_ptr(), L.data_ptr(), R.data_ptr(), idp, slots,
+            ws.data_ptr(), y.data_ptr(), bsz, t, r, b, stream)
     else:
         entry = f"gs_fused_T_{xdt}_{fdt}"
         err = getattr(lib, entry)(
@@ -426,8 +452,7 @@ def gs_fused(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
                     _num_sms(x.device))
     if plan.route == "tc":
         return _launch_tc(x, L, R, plan)
-    return _launch_cc(x, L.transpose(-1, -2).contiguous(),
-                      R.transpose(-1, -2).contiguous(), plan)
+    return _launch_cc(x, L, R, plan)
 
 
 gs_fused_T.launches = 0
@@ -516,9 +541,10 @@ def bwd_plan(bsz: int, t: int, r: int, b: int, dtype: str, sms: int) -> BwdPlan:
     Route 1 ("tc": bf16, b = 32, r >= b): one CTA per (tile part, token
     split, row), each CTA alone on its SM (its shared memory), so the token
     splits fill one wave. Route 2 ("two_pass": any other shape, b <= 256):
-    pass 1 in tiles of up to 8 tokens, pass 2 in splits of 64-token chunks
-    for about two CTAs per SM, a block's rows split over CTAs so each holds
-    at most ``REDUCE_TILES`` 4 x 4 tiles."""
+    pass 1 in tiles of up to 8 tokens (0: a row past ``MAX_TILE_ELEMS``,
+    the wide passes), pass 2 in splits of 64-token chunks for about two
+    CTAs per SM, a block's rows split over CTAs so each holds at most
+    ``REDUCE_TILES`` 4 x 4 tiles."""
     if dtype == "bf16" and b == TC_BLOCK and r >= b:
         _, tiles, parts, maxw, maxdq = _tc_geometry(r)
         entries = tiles * parts
@@ -565,7 +591,8 @@ def fwd_plan(bsz: int, t: int, r: int, b: int, dtype: str, sms: int) -> FwdPlan:
     Route 1 ("tc": bf16, b = 32, r >= b): one CTA per (tile, token split,
     row), each alone on its SM (its shared memory), the splits filling one
     wave. Route 2 ("cc": any other shape): one CTA per tile of up to 8
-    tokens, whole rows of d <= ``MAX_TILE_ELEMS``."""
+    tokens, whole rows of d <= ``MAX_TILE_ELEMS``; past it tokens 0, the
+    wide passes."""
     if dtype == "bf16" and b == TC_BLOCK and r >= b:
         tiles = -(-r // b)
         window = max(w for _, w in tile_windows(r))
@@ -666,7 +693,8 @@ def t_plan(bsz: int, t: int, r: int, b: int, dtype: str, sms: int) -> TPlan:
     ("cc"): tiles of up to 8 tokens of whole rows, each split over a
     cluster of ``T_CLUSTER`` CTAs when the split grid still fits in one
     wave (decode rows, short prefills: a CTA then reads 1/8 of the
-    factors; past one wave the split only repeats the tile loads)."""
+    factors; past one wave the split only repeats the tile loads); a row
+    past ``MAX_TILE_ELEMS`` takes tt 0, the wide passes."""
     if dtype == "bf16" and b == TC_BLOCK and r >= b:
         tt = 16 if r % TC_BLOCK == 0 else 8
         ntok = -(-t // tt)
@@ -682,7 +710,7 @@ def t_plan(bsz: int, t: int, r: int, b: int, dtype: str, sms: int) -> TPlan:
         return TPlan("tc", entries, ng, tt, -(-t // tps), tps, window, 1, lu,
                      ru)
     tt = _tile_tokens(t, r * b, MAX_TILE_ELEMS)
-    cluster = T_CLUSTER if bsz * -(-t // tt) * T_CLUSTER <= sms else 1
+    cluster = T_CLUSTER if tt and bsz * -(-t // tt) * T_CLUSTER <= sms else 1
     return TPlan("cc", 0, 0, tt, 1, t, 0, cluster)
 
 
@@ -758,10 +786,6 @@ def _launch_bwd(wrapper, with_dx: bool, x: torch.Tensor, dy: torch.Tensor,
         raise ValueError("kernel needs contiguous x, dy, L, R")
     bsz, t, d = x.shape
     r, b = L.shape[1], L.shape[2]
-    if d > MAX_TILE_ELEMS and not (x.dtype == torch.bfloat16
-                                   and b == TC_BLOCK and r >= b):
-        raise ValueError(f"d={d} exceeds route 2's tile limit "
-                         f"{MAX_TILE_ELEMS}")
     if b > BWD_MAX_BLOCK:
         raise ValueError(f"block size b={b} exceeds the backward kernel's "
                          f"limit {BWD_MAX_BLOCK}")

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,17 +44,26 @@ from . import build, gs_fused, ref
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# x, q, scale, y, ws, M, K, N, tt, c, splits, k_per_split, vec, stream
-_QMM_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [_PTR]
+# x, q, scale, y, M, K, N, tokens per tile, boxes across a tile, ring
+# stages, K splits, K rows per split, CTAs, stream
+_QMM_ARGTYPES = [_PTR] * 4 + [_INT] * 9 + [_PTR]
 # xr, q, scale, y, M, K, N, tokens per tile, columns per CTA, K splits, K
 # rows per split, vec, stream
 _GSQ_ARGTYPES = [_PTR] * 4 + [_INT] * 8 + [_PTR]
-K_SPLIT_MIN_ROWS = 256      # fewest K rows one split of q_matmul takes
+QMM_BOX_N = 128             # q_matmul: columns a TMA box of codes (csrc)
+QMM_KT = 64                 # ... K rows a stage
+QMM_MAX_SPLITS = 16         # ... K splits (a cluster along K)
+QMM_MAX_STAGES = 8          # ... deepest ring
+QMM_SPLIT_MIN_ROWS = 512    # ... fewest K rows a split takes
+QMM_TILE = (1, 6)           # ... (boxes across a tile, ring stages)
+QMM_DECODE_TILE = (2, 4)    # ... decode rows that leave CTAs idle
 GSQ_KT = 64                 # gs_q_matmul's product: K rows a stage (csrc)
 GSQ_MAX_SPLITS = 8          # ... K splits (a cluster along K; csrc)
 GSQ_SPLIT_MIN_ROWS = 512    # ... fewest K rows a split takes
 _LIB = []
 _SMS = {}
+_OCC = {}
+_PLANS = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -68,12 +78,20 @@ def _lib() -> ctypes.CDLL:
         lib.qmm_error_string.restype = ctypes.c_char_p
         lib.qmm_gsq_constants.argtypes = [_PTR]
         lib.qmm_gsq_constants.restype = None
+        lib.qmm_constants.argtypes = [_PTR]
+        lib.qmm_constants.restype = None
+        lib.qmm_occupancy.argtypes = [_INT] * 5 + [_PTR]
+        lib.qmm_occupancy.restype = ctypes.c_int
         got = (ctypes.c_int * 2)()
         lib.qmm_gsq_constants(got)
-        if tuple(got) != (GSQ_KT, GSQ_MAX_SPLITS):
-            raise RuntimeError(f"q_matmul.cu constants {tuple(got)} differ "
-                               f"from the launch plan's "
-                               f"{(GSQ_KT, GSQ_MAX_SPLITS)}")
+        got4 = (ctypes.c_int * 4)()
+        lib.qmm_constants(got4)
+        want4 = (QMM_BOX_N, QMM_KT, QMM_MAX_SPLITS, QMM_MAX_STAGES)
+        if (tuple(got) != (GSQ_KT, GSQ_MAX_SPLITS)
+                or tuple(got4) != want4):
+            raise RuntimeError(f"q_matmul.cu constants {tuple(got)} / "
+                               f"{tuple(got4)} differ from the launch plans' "
+                               f"{(GSQ_KT, GSQ_MAX_SPLITS)} / {want4}")
         _LIB.append(lib)
     return _LIB[0]
 
@@ -97,19 +115,82 @@ def scale_vector(scale, n: int, device) -> torch.Tensor:
     return (s.reshape(-1) if s.dim() else s.reshape(1)).expand(n).contiguous()
 
 
-def qmm_geometry(m: int, k: int, n: int) -> tuple:
-    """(tokens per tile, codes per thread, K splits, K rows per split) of
-    ``q_matmul`` for x (m, k), q (k, n): token tiles of up to 16 tokens with
-    up to 64 fp32 sums a thread; K split over CTAs only when the column
-    tiles alone would not give two CTAs per SM."""
-    tt, c = next((tt, c) for lim, tt, c in ((1, 1, 16), (2, 2, 16),
-                                            (4, 4, 16), (8, 8, 8),
-                                            (1 << 30, 16, 4)) if m <= lim)
-    tiles = -(-n // (32 * c)) * -(-m // tt)
-    splits = max(1, min(-(-2 * _num_sms() // tiles),
-                        k // K_SPLIT_MIN_ROWS, 65535))
-    per = -(-k // splits)
-    return tt, c, -(-k // per), per
+def _occupancy(es: int, ntok: int, ntw: int, stages: int,
+               splits: int = 1) -> tuple:
+    """(CTAs resident an SM, largest cluster the card places, clusters of
+    ``splits`` CTAs resident at once) of ``q_matmul``'s kernel in that
+    configuration on the current device (the occupancy calculator: shared
+    memory, registers, threads, the GPCs' room for clusters); zeros where
+    a CTA does not fit."""
+    key = (torch.cuda.current_device(), es, ntok, ntw, stages, splits)
+    if key not in _OCC:
+        lib = _lib()
+        got = (ctypes.c_int * 3)()
+        _err(lib, "q_matmul occupancy query",
+             lib.qmm_occupancy(es, ntok, ntw, stages, splits, got))
+        _OCC[key] = tuple(got)
+    return _OCC[key]
+
+
+class QmmPlan(NamedTuple):
+    """``q_matmul``'s launch: tokens a tile, 128-column boxes across a tile,
+    ring stages, K splits, K rows a split, CTAs."""
+    ntok: int
+    ntw: int
+    stages: int
+    splits: int
+    per: int
+    grid: int
+
+
+def qmm_geometry(m: int, k: int, n: int, es: int = 2, *, ntw: int = None,
+                 stages: int = None, splits: int = None) -> QmmPlan:
+    """``q_matmul``'s launch for x (m, k) of ``es``-byte elements, q (k, n).
+    8-token tiles for m <= 8 (decode rows), else 16. Items (a tile of
+    ``ntw`` boxes of ``QMM_BOX_N`` columns x a token tile) that fill the
+    card's resident CTAs (``_occupancy`` x the SMs: the slots) are walked by
+    those CTAs, persistent, each keeping the whole of K: tiles of
+    ``QMM_TILE`` (the LM head: 1188 items, 3 rounds of 396). Fewer items
+    split K over a cluster (one item a CTA, at least ``QMM_SPLIT_MIN_ROWS``
+    rows of whole stages a split), as deep as the card still holds every
+    cluster at once (``_occupancy``'s clusters resident, at most
+    ``QMM_MAX_SPLITS``): one split deeper leaves clusters for a second wave
+    and ran 20-70 % slower on the H100 at every tile (``PERF.md`` §6,
+    ``tools/ssd_qmm_sweep.py``). Decode rows whose ``QMM_TILE`` items leave
+    CTAs idle take ``QMM_DECODE_TILE`` (wider tiles, a shallower ring: 5-10
+    % faster at wq, MLP wo and wi). ``ntw``, ``stages`` and ``splits``
+    force those fields (the sweep; a split within the cluster the card
+    places)."""
+    ntok = 8 if m <= 8 else 16
+    sms = _num_sms()
+
+    def items_of(w: int) -> int:
+        return -(-n // (QMM_BOX_N * w)) * -(-m // ntok)
+
+    tile = QMM_TILE
+    if (ntok == 8 and items_of(tile[0])
+            < _occupancy(es, ntok, *tile)[0] * sms):
+        tile = QMM_DECODE_TILE
+    ntw = tile[0] if ntw is None else ntw
+    stages = tile[1] if stages is None else stages
+    per_sm, cluster, _ = _occupancy(es, ntok, ntw, stages)
+    if per_sm <= 0:
+        raise ValueError(f"q_matmul: {ntw} boxes across and {stages} stages "
+                         f"do not fit an SM at {ntok} tokens of {es} bytes")
+    items, max_splits = items_of(ntw), min(QMM_MAX_SPLITS, cluster)
+    if splits is None:
+        splits = 1
+        if items < per_sm * sms:
+            while (splits < max_splits
+                   and k >= (splits + 1) * QMM_SPLIT_MIN_ROWS
+                   and items <= _occupancy(es, ntok, ntw, stages,
+                                           splits + 1)[2]):
+                splits += 1
+    splits = max(1, min(splits, max_splits))
+    per = -(-(-(-k // splits)) // QMM_KT) * QMM_KT
+    splits = -(-k // per)
+    grid = items * splits if splits > 1 else min(items, per_sm * sms)
+    return QmmPlan(ntok, ntw, stages, splits, per, grid)
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,6 +241,23 @@ def _vec(q: torch.Tensor, n: int, c: int) -> int:
     return int(n % c == 0 and q.data_ptr() % 16 == 0)
 
 
+def _launch_qmm(lib, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                y: torch.Tensor, m: int, k: int, n: int, stream: int,
+                plan: QmmPlan = None) -> int:
+    """``q_matmul``'s kernel on x (m, k) into y (m, n) by ``plan``
+    (``qmm_geometry``'s, cached per device and shape, unless given); its
+    error code."""
+    p = plan
+    if p is None:
+        key = (x.device.index, m, k, n, x.element_size())
+        p = _PLANS.get(key)
+        if p is None:
+            p = _PLANS[key] = qmm_geometry(m, k, n, x.element_size())
+    return getattr(lib, f"qmm_q_matmul_{_DTYPES[x.dtype]}")(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, k, n,
+        p.ntok, p.ntw, p.stages, p.splits, p.per, p.grid, stream)
+
+
 def q_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale) -> torch.Tensor:
     """Plain version of ``q_matmul`` (``ref.q_matmul_ref``)."""
     return ref.q_matmul_ref(x, q, scale)
@@ -184,16 +282,10 @@ def q_matmul(x: torch.Tensor, q: torch.Tensor, scale) -> torch.Tensor:
     if m == 0:
         return y
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with gs_fused.on_device(x.device):
         s = scale_vector(scale, n, x.device)
-        tt, c, splits, per = qmm_geometry(m, k, n)
-        ws = (torch.empty((splits, m, n), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None)
-        err = getattr(lib, f"qmm_q_matmul_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-            ws.data_ptr() if ws is not None else None, m, k, n, tt, c,
-            splits, per, _vec(q, n, c),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        err = _launch_qmm(lib, x, q, s, y, m, k, n,
+                          torch.cuda.current_stream(x.device).cuda_stream)
     _err(lib, "q_matmul", err)
     q_matmul.launches += 1
     return y
@@ -247,14 +339,8 @@ def _gsq_launch(x: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
             err = lib.qmm_gsq_product_bf16(
                 xr.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, d,
                 n, ntok, nt, splits, per, _vec(q, n, 16), stream)
-        else:                           # f32: q_matmul's fp32 kernel on xr
-            tt, c, splits, per = qmm_geometry(m, d, n)
-            ws = (torch.empty((splits, m, n), dtype=torch.float32,
-                              device=dev) if splits > 1 else None)
-            err = lib.qmm_q_matmul_f32(
-                xr.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-                ws.data_ptr() if ws is not None else None, m, d, n, tt, c,
-                splits, per, _vec(q, n, c), stream)
+        else:                           # f32: q_matmul's kernel on xr
+            err = _launch_qmm(lib, xr, q, s, y, m, d, n, stream)
     _err(lib, "gs_q_matmul", err)
     gs_q_matmul.launches += 1
     return y

@@ -17,8 +17,14 @@ for an autograd rule).
 The chunk is the kernel's own (``CHUNK`` = 64 steps, any T, the last chunk
 padded); the plain version takes ``ref.ssd_chunked_ref`` at
 ``pick_chunk(T, chunk)``, as the JAX package's default path. The two agree
-up to rounding. ``ssd_geometry`` picks the P tile: a row's P columns split
-over CTAs while the grid would leave SMs idle.
+up to rounding. The kernel runs every chunk of a (row, head) at once and
+hands the N x P state from chunk to chunk through device memory (see
+``csrc/ssd.cu``); ``ssd_geometry`` picks the P tile: the fewest tiles of at
+most ``MAX_P_TILE`` columns that fit shared memory. The
+hand-off's ticket counter and chain flags live in one int64 buffer per
+(device, stream), never reset: the wrapper passes the counter's running
+total and a fresh epoch with each launch. So a launch must not be captured
+in a CUDA graph (a replay would reuse the epoch).
 """
 from __future__ import annotations
 
@@ -26,17 +32,22 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, gs_fused, ref
 from .dispatch import pick_chunk
-from .gs_fused import _num_sms
 
-CHUNK = 64                   # the kernel's steps per chunk (csrc/ssd.cu kQ)
-MIN_P_TILE = 16
+# constants of csrc/ssd.cu the wrapper mirrors (checked when it loads)
+CHUNK = 64                   # steps per chunk (kQ)
+MAX_P_TILE = 64              # P columns a unit (kMaxPT)
+MAX_N = 256                  # largest state width N (kMaxN)
+SMEM_LIMIT = 232448 - 16     # a unit's dynamic shared memory, bytes
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# x, loga, B, C, y, Nb, T, H, P, N, pt, stream
-_ARGTYPES = [_PTR] * 5 + [_INT] * 6 + [_PTR]
+# x, loga, B, C, y, hand-off slots, sync buffer, counter base, epoch, Nb, T,
+# H, P, N, pt, warps a unit, stream
+_ARGTYPES = ([_PTR] * 7 + [ctypes.c_ulonglong, ctypes.c_uint] + [_INT] * 7
+             + [_PTR])
 _LIB = []
+_SYNC = {}                   # (device, stream) -> [buffer, base, epoch]
 
 
 def _lib() -> ctypes.CDLL:
@@ -48,17 +59,60 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ssd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_error_string.restype = ctypes.c_char_p
+        lib.ssd_constants.argtypes = [_PTR]
+        lib.ssd_constants.restype = None
+        lib.ssd_smem.argtypes = [_INT, _INT]
+        lib.ssd_smem.restype = _INT
+        got = (ctypes.c_int * 3)()
+        lib.ssd_constants(got)
+        smem = [(lib.ssd_smem(n, pt), ssd_smem(n, pt))
+                for n, pt in ((64, 64), (128, 40), (256, 10))]
+        if (tuple(got) != (CHUNK, MAX_P_TILE, MAX_N)
+                or any(a != b for a, b in smem)):
+            raise RuntimeError(f"ssd.cu constants {tuple(got)} / shared "
+                               f"memory {smem} differ from the wrapper's")
         _LIB.append(lib)
     return _LIB[0]
 
 
-def ssd_geometry(nb: int, h: int, p: int, sms: int) -> int:
-    """The P tile: halved (from P, down to MIN_P_TILE) while the grid of
-    nb * h * (P / tile) CTAs is smaller than the card's SM count."""
-    pt = p
-    while pt % 2 == 0 and pt > MIN_P_TILE and nb * h * (p // pt) < sms:
-        pt //= 2
+def ssd_smem(n: int, pt: int) -> int:
+    """Bytes of dynamic shared memory of a unit (csrc/ssd.cu ``Layout``)."""
+    np_ = -(-n // 16) * 16
+    xp = -(-pt // 16) * 16 + 8
+    return 4 * (2 * CHUNK * (np_ + 4) + CHUNK * xp
+                + max(CHUNK * (CHUNK + 4), np_ * xp) + 3 * CHUNK)
+
+
+def ssd_geometry(p: int, n: int = 0) -> int:
+    """The P tile: P cut into the fewest tiles of at most ``MAX_P_TILE``
+    columns, halved while a unit of state width ``n`` would not fit in
+    shared memory. Every chunk is a unit of its own, so the units fill the
+    card without a narrower tile (which recomputes C B^T: slower at every
+    shape measured on the H100, ``tools/ssd_qmm_sweep.py``)."""
+    pt = -(-p // -(-p // MAX_P_TILE))
+    while pt > 8 and ssd_smem(n, pt) > SMEM_LIMIT:
+        pt = -(-pt // 2)
     return pt
+
+
+def ssd_warps(units: int, sms: int) -> int:
+    """Warps a unit: 16 while the units fit two an SM (each then runs its
+    phases on more warps: a zamba2 prefill), else 8 (more units resident
+    an SM, less repeated fragment work: long T, large batches)."""
+    return 16 if units <= 2 * sms else 8
+
+
+def _sync_buffer(device: torch.device, stream: int, chains: int) -> list:
+    """The (device, stream)'s ticket counter and chain flags, [buffer,
+    counter base, epoch] with the epoch advanced for this launch."""
+    key = (device.index, stream)
+    rec = _SYNC.get(key)
+    if rec is None or rec[0].numel() < 1 + chains or rec[2] >= 0xFFFFFFFF:
+        rec = _SYNC[key] = [torch.zeros(1 + max(chains, 1024),
+                                        dtype=torch.int64, device=device),
+                            0, 0]
+    rec[2] += 1
+    return rec
 
 
 def ssd_plain(x: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
@@ -97,22 +151,43 @@ def ssd(x: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
         raise NotImplementedError(
             "the ssd kernel has no autograd rule yet (SSM training is a "
             "later slice of the port)")
+    if n > MAX_N:
+        raise ValueError(f"state width N={n} exceeds the kernel's {MAX_N}")
     x, loga, B, C = (a.contiguous() for a in (x, loga, B, C))
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    pt = ssd_geometry(p, n)
+    units = nb * h * -(-p // pt) * -(-t // CHUNK)
+    y = _launch(x, loga, B, C, pt,
+                ssd_warps(units, gs_fused._num_sms(x.device)))
+    ssd.launches += 1
+    return y
+
+
+def _launch(x: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, pt: int, warps: int) -> torch.Tensor:
+    """The kernel on contiguous CUDA inputs at P tile ``pt`` and ``warps``
+    a unit (``ssd``'s rules pick them); y."""
+    nb, t, h, p = x.shape
+    n = B.shape[-1]
     y = torch.empty_like(x)
-    if y.numel() == 0:
-        return y
-    pt = ssd_geometry(nb, h, p, _num_sms(x.device))
+    chunks = -(-t // CHUNK)
+    chains = nb * h * -(-p // pt)
     lib = _lib()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        hand = torch.empty(chains * 2 * (-(-n // 16) * 16) * (-(-pt // 8) * 8),
+                           dtype=torch.float32, device=x.device)
+        rec = _sync_buffer(x.device, stream, chains)
         err = getattr(lib, f"ssd_chunked_scan_{_DTYPES[x.dtype]}")(
             x.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), nb, t, h, p, n, pt,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            y.data_ptr(), hand.data_ptr(), rec[0].data_ptr(), rec[1], rec[2],
+            nb, t, h, p, n, pt, warps, stream)
     if err != 0:
         msg = lib.ssd_error_string(err).decode()
         raise RuntimeError(f"ssd launch failed: {msg} (code {err}; "
                            f"Nb={nb} T={t} H={h} P={p} N={n} tile={pt})")
-    ssd.launches += 1
+    rec[1] += chains * chunks
     return y
 
 

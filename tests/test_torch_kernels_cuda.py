@@ -176,17 +176,67 @@ def test_forward_route2_keeps_f32_other_blocks_and_short_rows(cuda):
     assert gk.fwd_plan(1, 29568, 256, 32, "f32", sms).route == "cc"
     assert gk.fwd_plan(1, 29568, 64, 128, "bf16", sms).route == "cc"
     assert gk.fwd_plan(1, 300, 16, 32, "bf16", sms).route == "cc"
-    # route 2 (of both rotations) still holds whole fp32 rows; route 1 of
-    # the transpose rotation (bf16, b = 32) takes any width
-    x = torch.zeros((1, 2, 33792), device=cuda)
-    L = torch.zeros((1, 1056, 32, 32), device=cuda)
-    with pytest.raises(ValueError, match="tile limit"):
-        gk.gs_fused(x, L, L)
-    with pytest.raises(ValueError, match="tile limit"):
-        gk.gs_fused_T(x, L, L)
+    # route 2 (of both rotations) holds whole fp32 rows up to
+    # MAX_TILE_ELEMS and takes a wider row through its wide passes (tokens
+    # per tile 0); route 1 of the transpose rotation (bf16, b = 32) takes
+    # any width
+    assert gk.fwd_plan(1, 2, 1056, 32, "f32", sms) == ("cc", 0, 1, 0, 0)
+    assert gk.t_plan(1, 2, 1056, 32, "f32", sms).tt == 0
+    rng = np.random.default_rng(33792)
+    x = torch.from_numpy(rng.normal(size=(1, 2, 33792)).astype(np.float32))
+    L = _factors(rng, 1, 1056, 32).to(cuda)
+    x = x.to(cuda)
+    for fn, plain in ((gk.gs_fused, gk.gs_fused_plain),
+                      (gk.gs_fused_T, gk.gs_fused_T_plain)):
+        y = fn(x, L, L)
+        torch.cuda.synchronize()
+        assert (y - plain(x, L, L)).abs().max().item() <= F32_TOL
     y = gk.gs_fused_T(x.bfloat16(), L.bfloat16(), L.bfloat16())
     torch.cuda.synchronize()
-    assert y.shape == x.shape and y.float().abs().max().item() == 0.0
+    assert y.shape == x.shape and torch.isfinite(y.float()).all()
+
+
+# route 2 past MAX_TILE_ELEMS: d = 33792 in f32 at b = 32 and in bf16 at
+# b = 128, rows of their own factors, 9 tokens (two wide token tiles)
+WIDE_CASES = [(torch.float32, 32), (torch.bfloat16, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b", WIDE_CASES,
+                         ids=lambda v: str(v).split(".")[-1])
+def test_route2_takes_d_past_the_tile_limit(cuda, dtype, b):
+    """gs_fused, gs_fused_T (per row and by slot id from a bank) and the GS
+    backward at d = 33792 on route 2's wide passes, against their plain
+    versions, one launch a call, bit-identical reruns."""
+    d = 33792
+    r = d // b
+    rng = np.random.default_rng(b)
+    sms = gk._num_sms(cuda)
+    assert gk.fwd_plan(2, 9, r, b, "bf16" if b != 32 else "f32",
+                       sms).tokens == 0
+    x, dy, L, R = _bwd_inputs(rng, 2, 9, r, b, cuda, dtype)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for fn, plain in ((gk.gs_fused, gk.gs_fused_plain),
+                      (gk.gs_fused_T, gk.gs_fused_T_plain)):
+        before = fn.launches
+        y = fn(x, L, R)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert (y.float() - plain(x, L, R).float()).abs().max().item() <= tol
+        assert torch.equal(fn(x, L, R), y)
+    Lb, Rb = (a.to(cuda) for a in _bank(rng, 3, r, b))
+    ids = torch.tensor([2, 0], dtype=torch.int64, device=cuda)
+    y = gk.gs_fused_T_bank(x, Lb, Rb, ids)
+    want = gk.gs_fused_T_bank_plain(x, Lb, Rb, ids)
+    assert (y.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(y[1], x[1])
+    dx, dL, dR = gk.gs_fused_bwd(x, dy, L, R)
+    gL, gR = gk.gs_fused_grads(x, dy, L, R)
+    want = gk.gs_fused_bwd_plain(x, dy, L, R)
+    assert (dx.float() - want[0].float()).abs().max().item() <= tol
+    _assert_grads_close(dL, want[1], "dL")
+    _assert_grads_close(dR, want[2], "dR")
+    assert torch.equal(gL, dL) and torch.equal(gR, dR)
 
 
 # ---------------------------------------------------------------------------
@@ -865,9 +915,8 @@ GSQ_BANK_CASES = [(4, 1, 256, 32, 8192), (4, 1, 256, 32, 1024),
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "case,dtype",
-    # f32 rotates on route 2, which holds d <= 32768: bf16 alone past it
-    [(c, dt) for c in GSQ_BANK_CASES for dt in (torch.float32, torch.bfloat16)
-     if dt == torch.bfloat16 or c[2] * c[3] <= 32768],
+    # f32 rotates on route 2 (past d = 32768 through its wide passes)
+    [(c, dt) for c in GSQ_BANK_CASES for dt in (torch.float32, torch.bfloat16)],
     ids=lambda v: ("B%d-T%d-r%d-b%d-N%d" % v if isinstance(v, tuple)
                    else str(v).split(".")[1]))
 def test_gs_q_matmul_bank_is_one_call_and_matches_plain(cuda, case, dtype):
@@ -1155,11 +1204,227 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_ssd_geometry_splits_p_only_while_sms_idle():
-    assert ssdk.ssd_geometry(1, 80, 64, 132) == 32      # zamba2, batch 1
-    assert ssdk.ssd_geometry(4, 80, 64, 132) == 64      # 320 CTAs already
-    assert ssdk.ssd_geometry(1, 24, 64, 132) == 16      # mamba2-130m
-    assert ssdk.ssd_geometry(1, 3, 4, 132) == 4
-    assert ssdk.ssd_geometry(1, 2, 20, 132) == 10       # 20 -> 10, odd
+    """Every chunk of a head is a unit of its own, so P is no longer split
+    over CTAs for idle SMs (a narrower tile recomputes C B^T and ran slower
+    at every shape measured on the H100): P is cut only into the fewest
+    tiles of at most MAX_P_TILE columns."""
+    assert ssdk.ssd_geometry(64, 64) == 64          # zamba2
+    assert ssdk.ssd_geometry(64, 128) == 64         # mamba2-130m
+    assert ssdk.ssd_geometry(4, 4) == 4
+    assert ssdk.ssd_geometry(20, 12) == 20
+    assert ssdk.ssd_geometry(128, 64) == 64         # two tiles
+    assert ssdk.ssd_geometry(80, 64) == 40
+
+
+@pytest.mark.parametrize("case", [(64, 64, 64), (64, 128, 64), (200, 64, 50),
+                                  (64, 256, 64), (128, 256, 64), (16, 256, 16)],
+                         ids=lambda c: "P%d-N%d" % c[:2])
+def test_ssd_geometry_counts_the_chunks_and_fits_shared_memory(case):
+    """A tile is at most MAX_P_TILE columns and a unit of state width N fits
+    shared memory; the chunks, each a unit, fill the card."""
+    p, n, want = case
+    pt = ssdk.ssd_geometry(p, n)
+    assert pt == want
+    assert pt <= ssdk.MAX_P_TILE and ssdk.ssd_smem(n, pt) <= ssdk.SMEM_LIMIT
+
+
+# (Nb, T, H, P, N): one step, a chunk short of, exactly and one past 64
+# steps, 1000 and 2048 steps (16 and 32 chunks of a chain), batch 4 with
+# N = 128, P past the 64-column tile (two tiles) and a P split over CTAs,
+# N = 256 (the widest state); units of 16 warps (few units) and of 8 (more
+# than two an SM: batch 4 of mamba2-130m's heads at T = 512)
+SSD_PAR_CASES = [(1, 1, 8, 64, 64), (1, 63, 8, 64, 64), (1, 64, 8, 64, 64),
+                 (1, 65, 8, 64, 64), (1, 1000, 4, 64, 64),
+                 (1, 2048, 8, 64, 64), (4, 130, 6, 64, 128),
+                 (2, 200, 3, 128, 64), (1, 96, 2, 64, 32), (1, 70, 2, 16, 256),
+                 (4, 512, 24, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_PAR_CASES,
+                         ids=lambda c: "Nb%d-T%d-H%d-P%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_chunks_in_parallel_match_plain_and_rerun_bit_identical(
+        cuda, case, dtype):
+    """Every chunk of a chain runs at once and hands the state on: the
+    result matches the plain version at the unchanged tolerances, one call
+    counts one launch, and a rerun (and one on another stream) is bit for
+    bit the same."""
+    args = _ssd_inputs(np.random.default_rng(sum(case) + 1), case, cuda, dtype)
+    before = ssdk.ssd.launches
+    y = ssdk.ssd(*args)
+    torch.cuda.synchronize()
+    assert ssdk.ssd.launches == before + 1
+    want = ssdk.ssd_plain(*args)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    err = (y.float() - want.float()).abs().max().item()
+    rel = SSD_F32_REL if dtype == torch.float32 else SSD_BF16_REL
+    assert err <= rel * want.float().abs().max().item()
+    assert torch.equal(ssdk.ssd(*args), y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = ssdk.ssd(*args)
+    side.synchronize()
+    assert torch.equal(again, y)
+
+
+@pytest.mark.cuda
+def test_ssd_refuses_a_state_past_the_widest(cuda):
+    x, la, B, C = _ssd_inputs(np.random.default_rng(2), (1, 8, 2, 4, 264),
+                              cuda, torch.float32)
+    with pytest.raises(ValueError, match="state width"):
+        ssdk.ssd(x, la, B, C)
+
+
+# q_matmul's stream at its edges (M, K, N): one decode row at the MLP
+# width, four rows at wk / wv (K split over a cluster), a 16-token tile and
+# a 17th token (two tiles), N no multiple of the 128-column tile, K no
+# multiple of the 64-row stage, K % 8 != 0 (x copied by the producer warp),
+# N % 16 != 0 (codes copied by the producer warp)
+QMM_EDGE_CASES = [(1, 8192, 29568), (4, 8192, 1024), (16, 8192, 1000),
+                  (17, 1000, 1100), (4, 1000, 130), (17, 100, 130),
+                  (1, 64, 16), (9, 520, 8200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QMM_EDGE_CASES,
+                         ids=lambda c: "M%d-K%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["aligned", "offset", "scalar"])
+def test_q_matmul_stream_matches_plain_at_its_edges(cuda, case, dtype,
+                                                    layout):
+    """The TMA ring at ragged edges, codes at a base that is not 16-byte
+    aligned ("offset": copied by the producer warp), a scalar scale; one
+    launch a call and bit-identical reruns (the K split adds in rank
+    order)."""
+    m, k, n = case
+    rng = np.random.default_rng(m * 7 + k + n)
+    q, s = _codes(rng, k, n)
+    if layout == "scalar":
+        s = 0.02
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                         / np.sqrt(k)).to(cuda, dtype)
+    q = q.to(cuda)
+    if layout == "offset":
+        buf = torch.empty(k * n + 1, dtype=torch.int8, device=cuda)
+        buf[1:].copy_(q.reshape(-1))
+        q = buf[1:].view(k, n)
+        assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    if isinstance(s, torch.Tensor):
+        s = s.to(cuda)
+    before = qmk.q_matmul.launches
+    y = qmk.q_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert qmk.q_matmul.launches == before + 1
+    want = qmk.q_matmul_plain(x, q, s)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=QMM_F32_TOL,
+                                   rtol=QMM_F32_TOL)
+    else:
+        err = (y.float() - want.float()).abs().max().item()
+        assert err <= QMM_BF16_REL * want.float().abs().max().item()
+    assert torch.equal(qmk.q_matmul(x, q, s), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(w, st) for w in (1, 2, 4)
+                                  for st in (2, 4, 6, 8)],
+                         ids=lambda t: "boxes%d-stages%d" % t)
+@pytest.mark.parametrize("case", [(1, 4160, 1100), (17, 1000, 600),
+                                  (4, 520, 130)],
+                         ids=lambda c: "M%d-K%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q_matmul_every_tile_and_ring_matches_plain(cuda, tile, case, dtype):
+    """Every tile width (1, 2, 4 boxes of 128 columns) and ring depth the
+    kernel takes, persistent and with K split over a cluster of 3 and of
+    up to 16 (past the portable 8), at ragged M, K and N, against the plain
+    version; a depth that does not fit an SM is refused by the plan."""
+    m, k, n = case
+    ntw, stages = tile
+    rng = np.random.default_rng(m + k + n + ntw)
+    q, s = _codes(rng, k, n)
+    q, s = q.to(cuda), qmk.scale_vector(s.to(cuda), n, cuda)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                         / np.sqrt(k)).to(cuda, dtype)
+    want = qmk.q_matmul_plain(x, q, s)
+    lib = qmk._lib()
+    for splits in (None, 3, 16):
+        try:
+            plan = qmk.qmm_geometry(m, k, n, x.element_size(), ntw=ntw,
+                                    stages=stages, splits=splits)
+        except ValueError:
+            assert qmk._occupancy(x.element_size(), 8 if m <= 8 else 16,
+                                  ntw, stages)[0] == 0
+            return
+        y = torch.empty_like(want)
+        qmk._err(lib, "q_matmul", qmk._launch_qmm(
+            lib, x, q, s, y, m, k, n,
+            torch.cuda.current_stream().cuda_stream, plan))
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, want, atol=QMM_F32_TOL,
+                                       rtol=QMM_F32_TOL)
+        else:
+            err = (y.float() - want.float()).abs().max().item()
+            assert err <= QMM_BF16_REL * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("case", [(4, 8192, 152064), (1, 8192, 152064),
+                                  (4, 8192, 1024), (4, 8192, 8192),
+                                  (16, 29568, 8192), (4, 8192, 29568),
+                                  (17, 100, 130), (250, 24, 40)],
+                         ids=lambda c: "M%d-K%d-N%d" % c)
+def test_qmm_geometry_is_within_the_kernel_limits(case, monkeypatch):
+    """Persistent CTAs (as many as the occupancy calculator puts on an SM)
+    walk the items when they fill the card, each with the whole of K (the
+    LM head: 3 rounds of 396 in bf16); otherwise K splits over a cluster of
+    whole 64-row stages, one item a CTA, as deep as the card holds every
+    cluster at once and no deeper; decode rows that leave CTAs idle take
+    the decode tile. A forced split is taken as given."""
+    m, k, n = case
+    gpcs = [16] * 6 + [18] * 2             # 132 SMs: a model of the card
+
+    def occupancy(es, ntok, ntw, stages, splits=1):
+        per_sm = {(1, 6): 3, (2, 4): 2}.get((ntw, stages), 1)
+        if es == 4:
+            per_sm = max(1, per_sm - 1)
+        return per_sm, 16, sum(per_sm * g // splits for g in gpcs)
+
+    monkeypatch.setattr(qmk, "_num_sms", lambda: 132)
+    monkeypatch.setattr(qmk, "_occupancy", occupancy)
+    for es in (2, 4):
+        p = qmk.qmm_geometry(m, k, n, es)
+        per_sm = occupancy(es, p.ntok, p.ntw, p.stages)[0]
+        slots = per_sm * 132
+        items = -(-n // (qmk.QMM_BOX_N * p.ntw)) * -(-m // p.ntok)
+        wide = -(-n // (qmk.QMM_BOX_N * qmk.QMM_TILE[0])) * -(-m // p.ntok)
+        assert p.ntok == (8 if m <= 8 else 16)
+        decode = p.ntok == 8 and wide < occupancy(es, 8, *qmk.QMM_TILE)[0] * 132
+        assert (p.ntw, p.stages) == (qmk.QMM_DECODE_TILE if decode
+                                     else qmk.QMM_TILE)
+        assert 1 <= p.splits <= qmk.QMM_MAX_SPLITS and p.per % qmk.QMM_KT == 0
+        assert (p.splits - 1) * p.per < k <= p.splits * p.per
+        if p.splits > 1:
+            active = occupancy(es, p.ntok, p.ntw, p.stages, p.splits)[2]
+            assert p.grid == items * p.splits <= slots and items <= active
+            deeper = occupancy(es, p.ntok, p.ntw, p.stages, p.splits + 1)[2]
+            assert (p.splits == qmk.QMM_MAX_SPLITS or items > deeper
+                    or k < (p.splits + 1) * qmk.QMM_SPLIT_MIN_ROWS)
+        else:
+            assert p.grid == min(items, slots)
+        if n == 152064:
+            assert (p.ntw, p.splits, p.grid) == (1, 1, slots)
+        if n == 1024:
+            assert p.splits == 16 and p.grid == items * 16
+        forced = qmk.qmm_geometry(m, k, n, es, ntw=4, stages=4, splits=2)
+        if k >= 2 * qmk.QMM_KT:
+            assert (forced.ntw, forced.stages, forced.splits) == (4, 4, 2)
+            assert forced.grid == -(-n // 512) * -(-m // p.ntok) * 2
 
 
 def _qkv(rng, case, device, dtype):
@@ -1228,14 +1493,36 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
                                atol=FLASH_F32_TOL, rtol=FLASH_F32_TOL)
 
 
-def test_ssd_and_flash_cpu_tensors_take_the_plain_versions():
+def test_ssd_and_flash_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """A CPU tensor runs the plain version: the wrapper returns what the
+    plain version returned for the very same tensors, and moves no launch
+    counter. The plain versions' calls are recorded, not run a second time
+    to compare: two CPU runs of one plain version need not be bit-identical
+    on every host (the CPU's matrix products)."""
     rng = np.random.default_rng(6)
     args = _ssd_inputs(rng, (2, 40, 3, 8, 4), "cpu", torch.float32)
     q, k, v = _qkv(rng, (2, 4, 2, 40, 40, 16, True), "cpu", torch.float32)
+    calls = []
+
+    def recorded(name, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((name, a, out))
+            return out
+        return run
+
+    monkeypatch.setattr(ssdk, "ssd_plain", recorded("ssd", ssdk.ssd_plain))
+    monkeypatch.setattr(fak, "flash_attention_plain",
+                        recorded("flash", fak.flash_attention_plain))
     before = (ssdk.ssd.launches, fak.flash_attention.launches)
-    assert torch.equal(ssdk.ssd(*args), ssdk.ssd_plain(*args))
-    assert torch.equal(fak.flash_attention(q, k, v),
-                       fak.flash_attention_plain(q, k, v))
+    y = ssdk.ssd(*args)
+    assert [c[0] for c in calls] == ["ssd"] and calls[0][2] is y
+    assert all(a is b for a, b in zip(calls[0][1], args))
+    o = fak.flash_attention(q, k, v)
+    assert [c[0] for c in calls] == ["ssd", "flash"] and calls[1][2] is o
+    assert all(a is b for a, b in zip(calls[1][1], (q, k, v)))
+    assert y.shape == args[0].shape and torch.isfinite(y).all()
+    assert o.shape == q.shape and torch.isfinite(o).all()
     with pytest.raises(ValueError, match="Sk % blk_k"):
         fak.flash_attention(q, k[:, :, :30], v[:, :, :30], causal=False,
                             blk_k=16)
