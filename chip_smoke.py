@@ -58,6 +58,16 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    route and feature splits each call took; a non-causal ragged Sk must
    raise; then the entry point driven once per model's heads (flash
    attention's path: it lies on no model path)
+3g. GS-class library — ``gs_apply``, ``gs_apply_T`` and ``gs_matmul`` at d =
+   8192 for ``gsoft_layout(8192, 32)`` and a layout with rectangular blocks,
+   and ``gs_factors_apply`` for ``gs_order_layout(8192, 32, 3)``, f32 and
+   bf16, against their plain versions (bdmm's plain version underneath),
+   with times, a dense matmul of the materialized A as the library call and
+   bounds; each must launch ``bdmm`` once per factor and never the plain
+   version; then ``project_to_gs`` (Algorithm 1) at d = 8192, b = 32 in f32
+   on the card recovers a materialized GS matrix (error within 1e-3 of
+   ||A||_F), timed, and on a random dense orthogonal A at d = 1024 its error
+   equals the CPU float64 projection's within 1e-4 relative
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
    the ``gs_fused_T`` kernel must have run, every launch through the bank
@@ -103,6 +113,33 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    profile; then f32 at 2 layers: every tenant's tokens equal
    its solo offline-merged run, decode logits within tolerance, and the
    base slot equals the bankless model
+12. checkpoints — full width, 4 layers, bf16, GSOFT b = 32: ``train()``
+   with ``ckpt_dir`` for 2 steps (async saves), the saved {"trainable",
+   "opt"} restored bit for bit, ``train()`` again resuming to step 4 against
+   an uninterrupted 4-step run (losses of steps 2-3 within 1e-3 relative,
+   the largest adapter difference recorded); then ``launch/train.py
+   --ckpt-dir`` twice (2 steps, then 3, resumed)
+12b. adapter and int8 checkpoints — full width, 2 layers, f32, TF32 off: 3
+   GSOFT tenants through ``save_adapters`` and ``attach(<dir>)`` serve the
+   tokens of ``attach({name: adapters}, cfg)``; ``save_quantized`` and
+   ``ModelRuntime.load_quantized`` give bit-equal codes and scales and the
+   paged int8 engine serves the saved runtime's tokens (``q_matmul``,
+   ``gs_q_matmul``)
+12c. store-paged serve — full width, 8 layers, bf16: 24 tenants (gsoft,
+   boft, householder round-robin, b = 32; about 160 MB of fp32 factors per
+   GSOFT or BOFT tenant) saved with ``save_adapters`` and opened lazily by
+   ``attach(<dir>, hbm_budget=6)``: a cold sweep of one request per tenant
+   (seeded order), then 12 revisits of 4 tenants, prompts of 16-128 tokens,
+   8 new tokens, 4 slots of ``ServeEngine``; every GSOFT rotation through
+   the slot-id entry with compact ids, ``bdmm`` for the BOFT tenants,
+   evictions and page-ins, finite first-token logits for every tenant;
+   median rate of 3 runs, page-in p50 / p95, hit rate, resident against
+   padded bank bytes, peak memory, a profile of the first 12 requests;
+   then f32 at 2 layers: 6
+   tenants under budget 3 equal their solo merged runs (one evicted and
+   paged in again) and the store-paged bank equals the eager padded bank,
+   unquantized and over int8; finally ``launch/serve.py --store-dir
+   --hbm-adapter-budget 6`` serves 8 requests
 13. hybrid serve — zamba2-2.7b at full width and full depth (54 layers),
    bf16, random weights from the seed, the serve launcher's continuous lane:
    8 requests (prompts of 16-128 tokens, 16 new tokens) on 4 slots of
@@ -116,8 +153,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    full width and 12 layers, T = 320: the duality; both: the first served
    token equals the forward's argmax; gaps within 1e-3 of max|logit|
 14. report — where the time went (build, set-up, timed runs, profiled
-   runs), the card's name and power limit, one JSON line of kernels, then
-   the ``{"ok": true, ...}`` line
+   runs, and phases 3g, 12, 12b and 12c whole), the card's name and power
+   limit, one JSON line of kernels, then the ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
 """
@@ -130,7 +167,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter as Counter_
 from pathlib import Path
 
 import numpy as np
@@ -141,9 +180,14 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import optim  # noqa: E402
+from repro_torch import store as store_lib  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core import adapters as ad_lib  # noqa: E402
+from repro_torch.core import gs as gs_lib  # noqa: E402
+from repro_torch.core import projection as gs_proj  # noqa: E402
 from repro_torch.core import peft as peft_lib  # noqa: E402
+from repro_torch.core.permutations import PermSpec  # noqa: E402
 from repro_torch.core.runtime import ModelRuntime  # noqa: E402
 from repro_torch.data import DataConfig, LMDataSource  # noqa: E402
 from repro_torch.kernels import bdmm as bk  # noqa: E402
@@ -157,7 +201,8 @@ from repro_torch.kernels import ssd as ssdk  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.quant import quantize_int8, tree_bytes  # noqa: E402
+from repro_torch.obs import REGISTRY  # noqa: E402
+from repro_torch.quant import is_quant_tensor, quantize_int8, tree_bytes  # noqa: E402
 from repro_torch.serve.engine import (PagedServeEngine, ServeEngine,  # noqa: E402
                                       prompt_bucket)
 from repro_torch.serve.kv import kv_page_bytes  # noqa: E402
@@ -313,6 +358,8 @@ _START = time.perf_counter()
 # processing of their traces); the rest of the script, past the build, is
 # set-up (models, weights, data, plain versions, checks)
 _SPENT = {"timed": 0.0, "profiled": 0.0}
+# seconds of each phase this script added last (all kinds of time)
+_PHASE_S = {}
 
 
 def log(msg: str) -> None:
@@ -2216,6 +2263,630 @@ def ssm_check_phase(ssm_cfg, hybrid_cfg, seed: int, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3g: the GS-class library on the card (its block products are bdmm
+# launches) and Algorithm 1
+# ---------------------------------------------------------------------------
+
+GS_LIB_D = 8192                     # qwen2-72b's width
+GS_LIB_B = 32
+GS_LIB_T = 128                      # gs_apply / gs_apply_T tokens (a prefill bucket)
+GS_LIB_N = 8192                     # gs_matmul: the columns of W (the wq slab)
+GS_LIB_ORDER = 3                    # gs_factors_apply: factors of gs_order_layout
+PROJ_REL = 1e-3                     # a GS member's recovery: error / ||A||_F
+PROJ_D = 1024                       # the dense orthogonal A held against the CPU
+PROJ_MATCH = 1e-4                   # card f32 error against CPU f64 error, relative
+
+
+def gs_lib_layouts() -> dict:
+    """GSOFT's square layout at d = 8192, b = 32, and one with rectangular
+    blocks on both factors: L of r/2 blocks of 2b x b, R of r blocks of
+    b/2 x b (d -> d/2 -> d)."""
+    d, b = GS_LIB_D, GS_LIB_B
+    r = d // b
+    return {"gsoft": gs_lib.gsoft_layout(d, b),
+            "rect": gs_lib.GSLayout(gs_lib.BlockDiagSpec(r // 2, 2 * b, b),
+                                    gs_lib.BlockDiagSpec(r, b // 2, b),
+                                    PermSpec.identity(), PermSpec.gs(r // 2),
+                                    PermSpec.identity())}
+
+
+def _plain_block_diag(blocks, x):
+    """``block_diag_matmul`` through bdmm's plain version."""
+    xt = x.reshape(-1, x.shape[-1]).contiguous()
+    y = bk.bdmm_plain(xt[None], blocks.to(x.dtype).contiguous()[None])[0]
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+@contextlib.contextmanager
+def _gs_plain():
+    """The GS-class functions with their block products on the plain
+    version (the yardstick and oracle of phase 3g)."""
+    real = gs_lib.block_diag_matmul
+    gs_lib.block_diag_matmul = _plain_block_diag
+    try:
+        yield
+    finally:
+        gs_lib.block_diag_matmul = real
+
+
+def _gs_blocks(gen, spec, dtype, device):
+    """Random blocks scaled by 1/sqrt(cols), so activations stay O(1)."""
+    w = torch.randn(spec.param_shape, generator=gen, device=device)
+    return (w / math.sqrt(spec.cols)).to(dtype).contiguous()
+
+
+def check_gs_lib_case(fn_name, layout_name, dtype, gen, device) -> dict:
+    """One GS-class function at d = 8192 against its plain version (the
+    same function with bdmm's plain version), with times, the dense matmul
+    of the materialized A as the library call, and the bound. It must
+    launch bdmm once per factor and never the plain version."""
+    if fn_name == "gs_factors_apply":
+        lay = gs_lib.gs_order_layout(GS_LIB_D, GS_LIB_B, GS_LIB_ORDER)
+        specs, d_in, d_out = lay.specs, lay.in_dim, lay.out_dim
+    else:
+        lay = gs_lib_layouts()[layout_name]
+        specs, d_in, d_out = (lay.rspec, lay.lspec), lay.in_dim, lay.out_dim
+    tokens = GS_LIB_N if fn_name == "gs_matmul" else GS_LIB_T
+
+    def make():
+        fs = [_gs_blocks(gen, s, dtype, device) for s in specs]
+        if fn_name == "gs_matmul":
+            x = torch.randn((d_in, tokens), generator=gen, device=device)
+        elif fn_name == "gs_apply_T":
+            x = torch.randn((1, tokens, d_out), generator=gen, device=device)
+        else:
+            x = torch.randn((1, tokens, d_in), generator=gen, device=device)
+        return (*fs, x.to(dtype))
+
+    def call(*a):
+        if fn_name == "gs_factors_apply":
+            return gs_lib.gs_factors_apply(lay, list(a[:-1]), a[-1])
+        R, L, x = a
+        return getattr(gs_lib, fn_name)(lay, L, R, x)
+
+    def dense(*a):                       # A (d_out, d_in) in a's dtype
+        if fn_name == "gs_factors_apply":
+            return gs_lib.gs_factors_materialize(lay, list(a[:-1]))
+        return gs_lib.gs_materialize(lay, a[1], a[0])
+
+    def library(A, x):
+        if fn_name == "gs_matmul":
+            return A @ x
+        if fn_name == "gs_apply_T":
+            return x @ A
+        return x @ A.T
+
+    first = make()
+    plain_calls = []
+    real_plain = bk.bdmm_plain
+    bk.bdmm_plain = lambda *a, **k: plain_calls.append(1) or real_plain(*a, **k)
+    try:
+        before = bk.bdmm.launches
+        y = call(*first)
+        torch.cuda.synchronize()
+        launched = bk.bdmm.launches - before
+    finally:
+        bk.bdmm_plain = real_plain
+    if launched != len(specs) or plain_calls:
+        raise AssertionError(f"{fn_name} ({layout_name}): {launched} bdmm "
+                             f"launches for {len(specs)} factors, "
+                             f"{len(plain_calls)} plain-version calls")
+    with _gs_plain():
+        want = call(*first)
+    scale = max(1.0, want.float().abs().max().item())
+    err = (y.float() - want.float()).abs().max().item()
+    tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * scale
+    if not _err_ok(err, tol):
+        raise AssertionError(f"{fn_name} ({layout_name}, {dtype}): max|err| "
+                             f"{err} > {tol}")
+    es = torch.finfo(dtype).bits // 8
+    nnz = sum(s.num_params for s in specs)
+    nbytes = (tokens * (d_in + d_out) + nnz) * es
+    sets = _weight_sets(first, make, nbytes)
+    ms = time_ms(call, sets)
+    with _gs_plain():
+        plain_ms = time_ms(call, sets)
+    A = dense(*first).to(dtype)
+    lib_ms = time_ms(library, [(A, first[-1])])
+    lib_err = (library(A, first[-1]).float() - want.float()).abs().max().item()
+    del A
+    bound_ms, bound_by = _bytes_bound(nbytes, 2 * tokens * nnz, dtype)
+    return dict(kernel="bdmm", fn=fn_name, layout=layout_name,
+                d_in=d_in, d_out=d_out, tokens=tokens,
+                blocks=[list(s.param_shape) for s in specs],
+                dtype=str(dtype).replace("torch.", ""), bdmm_launches=launched,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_err=lib_err,
+                library_what="one dense matmul with the materialized A",
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def gs_lib_cases():
+    return ([(fn, lay) for fn in ("gs_apply", "gs_apply_T", "gs_matmul")
+             for lay in ("gsoft", "rect")]
+            + [("gs_factors_apply", f"order{GS_LIB_ORDER}")])
+
+
+def projection_phase(seed: int, gen, device) -> dict:
+    """Algorithm 1 on the card (f32): ``project_to_gs`` recovers a
+    materialized GSOFT matrix at d = 8192, b = 32 (error within PROJ_REL of
+    ||A||_F), timed; on a random dense orthogonal A at d = 1024 its error
+    equals the CPU float64 projection's within PROJ_MATCH."""
+    lay = gs_lib.gsoft_layout(GS_LIB_D, GS_LIB_B)
+    r = GS_LIB_D // GS_LIB_B
+    L0, R0 = _orth_factors(gen, 1, r, GS_LIB_B, torch.float32, device)
+    A = gs_lib.gs_materialize(lay, L0[0], R0[0])
+    L, R = gs_proj.project_to_gs(A, lay)
+    torch.cuda.synchronize()
+    if L.device != A.device or L.dtype != gs_proj.compute_dtype(A.device):
+        raise AssertionError(f"project_to_gs ran on {L.device} in {L.dtype}")
+    norm = torch.linalg.norm(A).item()
+    err = gs_proj.gs_reconstruction_error(A, lay, L, R)
+    if not (math.isfinite(err) and err <= PROJ_REL * norm):
+        raise AssertionError(f"project_to_gs at d = {GS_LIB_D}: error {err} "
+                             f"> {PROJ_REL} * ||A||_F = {PROJ_REL * norm}")
+    ms = time_ms(lambda a: gs_proj.project_to_gs(a, lay), [(A,)])
+    del A, L, R
+    lay_s = gs_lib.gsoft_layout(PROJ_D, GS_LIB_B)
+    g = np.random.default_rng(seed).normal(size=(PROJ_D, PROJ_D))
+    q, rr = np.linalg.qr(g)
+    q = q * np.sign(np.diag(rr))[None, :]
+    Lc, Rc = gs_proj.project_to_gs(q, lay_s)                  # CPU, float64
+    err_cpu = gs_proj.gs_reconstruction_error(q, lay_s, Lc, Rc)
+    qd = torch.as_tensor(q, dtype=torch.float32, device=device)
+    Lg, Rg = gs_proj.project_to_gs(qd, lay_s)
+    err_card = gs_proj.gs_reconstruction_error(qd, lay_s, Lg, Rg)
+    rel = abs(err_card - err_cpu) / err_cpu
+    if not rel <= PROJ_MATCH:
+        raise AssertionError(f"project_to_gs of a dense orthogonal A at d = "
+                             f"{PROJ_D}: card f32 error {err_card} against "
+                             f"CPU f64 {err_cpu} ({rel:.2e} > {PROJ_MATCH})")
+    return dict(d=GS_LIB_D, b=GS_LIB_B, recovery_err=err, a_norm=norm,
+                recovery_rel=err / norm, tol_rel=PROJ_REL, ms=ms,
+                dense_d=PROJ_D, dense_err_card=err_card,
+                dense_err_cpu_f64=err_cpu, dense_rel_gap=rel,
+                dense_tol=PROJ_MATCH)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: checkpoints and a resumed training run
+# ---------------------------------------------------------------------------
+
+RESUME_STEPS = 4                    # the uninterrupted run; the first stops at 2
+RESUME_LOSS_REL = 1e-3
+
+
+def _bit_equal(a: dict, b: dict, what: str) -> None:
+    fa, fb = peft_lib.flatten_paths(a), peft_lib.flatten_paths(b)
+    if sorted(fa) != sorted(fb):
+        raise AssertionError(f"{what}: leaves {sorted(fa)} != {sorted(fb)}")
+    for k in fa:
+        if fa[k].dtype != fb[k].dtype or not torch.equal(fa[k], fb[k]):
+            raise AssertionError(f"{what}: leaf {k} differs")
+
+
+def _launcher_ckpt_run(cfg, seed: int, steps_n: int, ckpt_dir: str) -> dict:
+    """``launch/train.py --ckpt-dir`` (GSOFT, b = 32) up to ``steps_n``,
+    resuming from the directory's latest checkpoint when there is one."""
+    argv = ["--arch", "qwen2-72b", "--peft", "gsoft", "--block-size",
+            str(BDMM_BLOCK), "--steps", str(steps_n), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--warmup", "1", "--seed", str(seed), "--ckpt-dir", ckpt_dir,
+            "--set", f"num_layers={cfg.num_layers}", f"remat={cfg.remat}"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_train.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  launcher: {line}")
+    final = [float(line.split()[2]) for line in out.splitlines()
+             if line.startswith("final loss")]
+    if rc != 0 or len(final) != 1 or not math.isfinite(final[0]):
+        raise AssertionError(f"launcher --ckpt-dir returned {rc}: {out}")
+    return dict(final_loss=final[0], resumed="resumed from step" in out,
+                latest=CheckpointManager(ckpt_dir).latest_step())
+
+
+def ckpt_resume_phase(cfg, seed: int, device) -> dict:
+    """GSOFT (b = 32) through ``train()`` with ``ckpt_dir``: 2 steps with
+    async saves, the saved {"trainable", "opt"} restored bit for bit, then
+    ``train()`` again resuming to step 4, against an uninterrupted 4-step
+    run (losses of steps 2-3 within RESUME_LOSS_REL; the largest adapter
+    difference recorded); then the launcher twice (2 steps, then 3,
+    resumed)."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=BDMM_BLOCK)
+    tcfg = steps.TrainStepConfig(
+        peft=pcfg, opt=optim.OptimizerConfig(learning_rate=TRAIN_LR))
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed,
+                      vocab_size=min(cfg.vocab_size, 256))
+    quiet = lambda msg: log(f"  train(): {msg}")  # noqa: E731
+
+    def run(steps_n, ckpt_dir=None, logs=None):
+        out = train_loop.train(
+            cfg, tcfg, dcfg,
+            train_loop.LoopConfig(steps=steps_n, log_every=1,
+                                  ckpt_dir=ckpt_dir, async_ckpt=True),
+            log_fn=logs.append if logs is not None else quiet, device=device)
+        keep = {k: out[k] for k in ("trainable", "opt_state", "history")}
+        del out
+        torch.cuda.empty_cache()
+        return keep
+
+    t0 = time.perf_counter()
+    full = run(RESUME_STEPS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        first = run(2, d)
+        mgr = CheckpointManager(d)
+        if mgr.latest_step() != 2 or mgr.extra() != {"data_step": 2}:
+            raise AssertionError(f"checkpoint after 2 steps: latest "
+                                 f"{mgr.latest_step()}, extra {mgr.extra()}")
+        saved = mgr.restore(device=device)
+        _bit_equal(saved["trainable"], first["trainable"], "restored trainable")
+        _bit_equal(saved["opt"], first["opt_state"], "restored opt")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                         if f.is_file())
+        logs = []
+        _reset_launches()
+        second = run(RESUME_STEPS, d, logs)
+        resume_launches = _launches()
+        for line in logs:
+            log(f"  train(): {line}")
+        if "resumed from step 2" not in logs:
+            raise AssertionError(f"the second train() did not resume: {logs}")
+    want = {h["step"]: h["loss"] for h in full["history"]}
+    got = {h["step"]: h["loss"] for h in second["history"]}
+    if sorted(got) != [2, 3]:
+        raise AssertionError(f"the resumed run logged steps {sorted(got)}")
+    loss_rel = {s: abs(got[s] - want[s]) / abs(want[s]) for s in got}
+    if not all(math.isfinite(v) and v <= RESUME_LOSS_REL
+               for v in loss_rel.values()):
+        raise AssertionError(f"resumed losses {got} against uninterrupted "
+                             f"{want}")
+    fa = peft_lib.flatten_paths(second["trainable"])
+    fb = peft_lib.flatten_paths(full["trainable"])
+    adapter_diff = max((fa[k].float() - fb[k].float()).abs().max().item()
+                       for k in fa)
+    train_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as d:
+        l1 = _launcher_ckpt_run(cfg, seed, 2, d)
+        l2 = _launcher_ckpt_run(cfg, seed, 3, d)
+    if l1["latest"] != 2 or not l2["resumed"] or l2["latest"] != 3:
+        raise AssertionError(f"launcher --ckpt-dir runs {l1} {l2}")
+    return dict(layers=cfg.num_layers, steps=RESUME_STEPS,
+                losses_uninterrupted=[want[s] for s in sorted(want)],
+                losses_resumed=[got[s] for s in sorted(got)],
+                loss_rel_gap=loss_rel, loss_tol=RESUME_LOSS_REL,
+                adapter_max_abs_diff=adapter_diff,
+                checkpoint_bytes=ckpt_bytes, launches_resumed=resume_launches,
+                train_s=train_s, launcher=[l1, l2])
+
+
+def adapters_quant_ckpt_phase(cfg, seed: int, device) -> dict:
+    """f32, TF32 off: 3 GSOFT tenants saved with ``save_adapters``;
+    ``attach(<dir>)`` serves the tokens of ``attach({name: adapters},
+    cfg)``. Then ``save_quantized`` of the int8 runtime and
+    ``ModelRuntime.load_quantized``: codes and scales bit-equal, and the
+    paged int8 engine serves the saved runtime's tokens (``q_matmul`` and
+    ``gs_q_matmul`` run)."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    names = ["tenant_a", "tenant_b", "tenant_c"]
+    adapters = {n: perturbed_adapters(pcfg, base.params, seed + 20 + i,
+                                      MIXED_SCALE, device)
+                for i, n in enumerate(names)}
+    prompt = np.random.default_rng(seed + 8).integers(1, cfg.vocab_size,
+                                                      24).tolist()
+
+    def serve(rt, engine):
+        eng = engine(rt)
+        rids = {n: eng.add_request(prompt, max_new_tokens=8, adapter=n)
+                for n in names + [None]}
+        res = eng.run()
+        return {str(n): res[r] for n, r in rids.items()}
+
+    contiguous = lambda rt: ServeEngine(rt, max_batch=4, max_len=64,  # noqa: E731
+                                        eos_id=-1)
+    paged = lambda rt: _paged_engine(rt, 4, 64)  # noqa: E731
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_adapters_") as d:
+        CheckpointManager(d).save_adapters(0, adapters, pcfg)
+        from_dir = serve(base.attach(d), contiguous)
+    eager = serve(base.attach(adapters, pcfg), contiguous)
+    if from_dir != eager:
+        raise AssertionError(f"attach(<dir>) served {from_dir}, attach("
+                             f"adapters) {eager}")
+    adapters_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qrt = base.quantized("int8")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as d:
+        CheckpointManager(d).save_quantized(0, qrt.params, qrt.quant_cfg)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                         if f.is_file())
+        save_s = time.perf_counter() - t0
+        lrt = ModelRuntime.load_quantized(d, cfg, device=device)
+    load_s = time.perf_counter() - t0 - save_s
+    if lrt.quant_cfg != qrt.quant_cfg:
+        raise AssertionError(f"restored {lrt.quant_cfg} != {qrt.quant_cfg}")
+    n_quant = 0
+    for path, leaf in peft_lib.flatten_paths(qrt.params).items():
+        other = peft_lib.flatten_paths(lrt.params)[path]
+        pairs = ([(leaf.q, other.q), (leaf.scale, other.scale)]
+                 if is_quant_tensor(leaf) else [(leaf, other)])
+        n_quant += is_quant_tensor(leaf)
+        if not is_quant_tensor(other) == is_quant_tensor(leaf) or not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"load_quantized: leaf {path} differs")
+    _reset_launches()
+    want = serve(qrt.attach(adapters, pcfg), paged)
+    got = serve(lrt.attach(adapters, pcfg), paged)
+    launches = _launches()
+    if got != want:
+        raise AssertionError(f"load_quantized runtime served {got}, the "
+                             f"saved runtime {want}")
+    if launches["q_matmul"] == 0 or launches["gs_q_matmul"] == 0:
+        raise AssertionError(f"the int8 runs launched {launches}")
+    return dict(layers=cfg.num_layers, tenants=names, tokens=from_dir,
+                adapters_s=adapters_s, int8_tokens=got,
+                quant_leaves=n_quant, int8_checkpoint_bytes=ckpt_bytes,
+                int8_save_s=save_s, int8_load_s=load_s, launches=launches,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
+# ---------------------------------------------------------------------------
+# phase 12c: the store-paged serve lane
+# ---------------------------------------------------------------------------
+
+STORE_LAYERS = 8
+STORE_TENANTS = 24
+STORE_BUDGET = 6                    # adapters resident on the card at once
+STORE_HOT = 4                       # tenants revisited after the cold sweep
+STORE_REVISITS = 12
+STORE_METHODS = ("gsoft", "boft", "householder")   # as benchmarks/store_bench.py
+STORE_NEW = 8
+STORE_CHECK_TENANTS = 6             # the f32 check: two per method, budget 3
+# the profiled run serves the first requests of the cold sweep only: the
+# trace of the whole traffic (some 10^5 device events) takes over a minute
+# to process
+STORE_PROFILED = 12
+
+
+def store_cfgs(n: int) -> dict:
+    return {f"tenant{i:02d}": peft_lib.PEFTConfig(
+                method=STORE_METHODS[i % len(STORE_METHODS)],
+                block_size=BDMM_BLOCK) for i in range(n)}
+
+
+def _save_store(cfgs, params, seed: int, scale: float, device, d) -> dict:
+    """Perturbed adapters for ``cfgs`` saved as one adapter-bank checkpoint
+    in ``d``; returns {name: adapters} (on the card)."""
+    adapters = {n: perturbed_adapters(c, params, seed + 1 + i, scale, device)
+                for i, (n, c) in enumerate(cfgs.items())}
+    CheckpointManager(d).save_adapters(0, adapters, cfgs)
+    return adapters
+
+
+def store_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
+    """24 tenants (gsoft / boft / householder round-robin, b = 32) saved
+    with ``save_adapters`` and opened lazily by ``attach(<dir>,
+    hbm_budget=6)``; a cold sweep (one request per tenant, seeded order),
+    then 12 revisits of 4 tenants, prompts of 16-128 tokens, 8 new tokens,
+    4 slots of ``ServeEngine``. Every run attaches the directory anew, so
+    each repeats the same page-ins. The first run is the counted main-path
+    run; ``repeats`` runs give the median rate; one more runs under the
+    profiler (the first STORE_PROFILED requests); then the launcher serves
+    the directory."""
+    cfgs = store_cfgs(STORE_TENANTS)
+    names = list(cfgs)
+    t0 = time.perf_counter()
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    d = tmp.name
+    adapters = _save_store(cfgs, base.params, seed + 300, 0.05, device, d)
+    fp32_bytes = {m: max(sum(v.numel() * 4 for e in adapters[n].values()
+                             for v in e.values())
+                         for n in names if cfgs[n].method == m)
+                  for m in STORE_METHODS}
+    del adapters
+    torch.cuda.empty_cache()
+    disk_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                     if f.is_file())
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 400)
+    sweep = [names[i] for i in rng.permutation(len(names))]
+    hot = [names[i] for i in rng.permutation(len(names))[:STORE_HOT]]
+    order = sweep + [hot[i % STORE_HOT] for i in range(STORE_REVISITS)]
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=len(order))
+    work = [(rng.integers(1, cfg.vocab_size, size=int(n)).tolist(), a)
+            for a, n in zip(order, lens)]
+    state = {}
+
+    def drive(n=len(work)):
+        rt = base.attach(d, hbm_budget=STORE_BUDGET)
+        eng = ServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN, eos_id=-1)
+        for prompt, adapter in work[:n]:
+            eng.add_request(prompt, max_new_tokens=STORE_NEW, adapter=adapter)
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        state["rt"] = rt
+        return eng, results, time.perf_counter() - t0
+
+    # every GSOFT rotation reads the bank by slot id: record the ids and the
+    # bank's slot count of each call (checked after the run, no sync in it)
+    seen = []
+    real_bank = ops.gs_fused_T_bank
+
+    def recording(x, L, R, ids):
+        seen.append((ids, L.shape[0]))
+        return real_bank(x, L, R, ids)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    ops.gs_fused_T_bank = recording
+    try:
+        eng, results, wall = drive()
+    finally:
+        ops.gs_fused_T_bank = real_bank
+    launches = _launches()
+    slot = _slot_launches()
+    rt = state["rt"]
+    bank = rt.bank
+    stats = bank.stats()
+    snap = REGISTRY.snapshot(
+        prefix=bank._page_in_ms.name.rsplit("/", 1)[0] + "/")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(results) != len(work) or any(len(v) != STORE_NEW
+                                        for v in results.values()):
+        raise AssertionError(f"served {len(results)} of {len(work)} requests")
+    check_slot_path("store serve", launches, slot, ("gs_fused_T",))
+    caps = bank.caps
+    if len(seen) != launches["gs_fused_T"] or any(
+            a != caps["gsoft"] + 1 for _, a in seen):
+        raise AssertionError(f"gs_fused_T_bank saw banks of "
+                             f"{sorted({a for _, a in seen})} slots, "
+                             f"{len(seen)} calls of {launches['gs_fused_T']}")
+    max_id = int(torch.stack([i.max() for i, _ in seen]).max().item())
+    if max_id > caps["gsoft"]:
+        raise AssertionError(f"a gs_fused_T_bank id {max_id} is no compact "
+                             f"id of a {caps['gsoft'] + 1}-slot stack")
+    if launches["bdmm"] == 0:
+        raise AssertionError(f"the BOFT tenants never launched bdmm: "
+                             f"{launches}")
+    if stats["evictions"] == 0 or stats["misses"] == 0:
+        raise AssertionError(f"no paging under the budget: {stats}")
+    # each tenant's first token comes from finite prefill logits
+    prefill = steps.build_prefill_step(cfg)
+    first_ok = {}
+    for name in names:
+        prompt, _ = next(w for w in work if w[1] == name)
+        uslot = bank.acquire(name)
+        if uslot is None:
+            raise AssertionError(f"{name} stalled on an idle bank")
+        req = peft_lib.PrefillRequest(
+            batch={"tokens": torch.as_tensor([prompt], device=device)},
+            last_idx=torch.as_tensor(len(prompt) - 1), ctx=rt.context([uslot]))
+        logits, _ = prefill(rt.params, req, rt.decode_state(1, len(prompt) + 1))
+        bank.release(name)
+        first_ok[name] = bool(torch.isfinite(logits.float()).all())
+    if not all(first_ok.values()):
+        raise AssertionError(f"non-finite first-token logits: {first_ok}")
+    walls = [wall]
+    for _ in range(repeats - 1):
+        _, again, w = drive()
+        if again != results:
+            raise AssertionError("a repeated store run served other tokens")
+        walls.append(w)
+    toks = eng.stats["tokens_generated"]
+    wall_med = float(np.median(walls))
+    _SPENT["timed"] += sum(walls)
+    state.clear()
+    del rt, bank
+    prof = _profile(lambda: drive(STORE_PROFILED))
+    prof["requests"] = STORE_PROFILED
+    state.clear()
+    torch.cuda.empty_cache()
+    out = dict(layers=cfg.num_layers, tenants=len(names),
+               methods=dict(sorted(Counter_(c.method for c in cfgs.values())
+                                   .items())),
+               budget=STORE_BUDGET, caps=caps, requests=len(results),
+               cold=len(sweep), revisits=STORE_REVISITS, hot=hot,
+               tokens=toks, wall_s=walls, wall_median_s=wall_med,
+               tok_s=toks / wall_med, decode_steps=eng.stats["decode_steps"],
+               admission_stalls=eng.stats["admission_stalls"],
+               launches=launches, slot_launches=slot,
+               gs_fused_T_bank_max_id=max_id, bank_stats=stats,
+               bank_snapshot=snap, fp32_tenant_bytes=fp32_bytes,
+               store_disk_bytes=disk_bytes, peak_mem_gb=peak_gb,
+               setup_s=setup_s, profile=prof)
+    del base
+    torch.cuda.empty_cache()
+    out["launcher"] = store_launcher_run(d)
+    tmp.cleanup()
+    return out
+
+
+def store_launcher_run(d: str) -> dict:
+    """``launch/serve.py --store-dir <dir> --hbm-adapter-budget 6`` at
+    full width and 8 layers: 8 requests round-robin over the store's
+    first tenants; its output is echoed into this log."""
+    argv = ["--arch", "qwen2-72b", "--set", f"num_layers={STORE_LAYERS}",
+            "--store-dir", d, "--hbm-adapter-budget", str(STORE_BUDGET),
+            "--requests", "8", "--prompt-len", "64", "--max-new",
+            str(STORE_NEW)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  launcher: {line[:300]}")
+    if rc != 0 or "served 8 requests" not in out or "adapter store:" not in out:
+        raise AssertionError(f"serve launcher --store-dir returned {rc}: {out}")
+    torch.cuda.empty_cache()
+    return dict(argv=argv, report=[line for line in out.splitlines()
+                                   if "served" in line or "store" in line])
+
+
+def store_check_phase(cfg, seed: int, device) -> dict:
+    """f32, TF32 off: 6 tenants (two per method) under budget 3 (one compact
+    slot per method). On 2 slots of ``ServeEngine``, tenants of one method
+    queue back to back, so every admission past the first of a method
+    evicts; tenant00 comes back after its eviction. Every request's tokens
+    equal the tenant's solo merged run; then the store-paged bank serves the
+    eager padded bank's tokens, unquantized and over int8."""
+    cfgs = store_cfgs(STORE_CHECK_TENANTS)
+    names = list(cfgs)
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    prompt = np.random.default_rng(seed + 9).integers(1, cfg.vocab_size,
+                                                      24).tolist()
+    order = [names[i] for i in (0, 3, 1, 4, 2, 5, 0)]
+
+    def serve(rt, names_):
+        eng = ServeEngine(rt, max_batch=2, max_len=64, eos_id=-1)
+        rids = [(n, eng.add_request(prompt, max_new_tokens=8, adapter=n))
+                for n in names_]
+        res = eng.run()
+        return [(str(n), res[r]) for n, r in rids], eng
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_check_") as d:
+        adapters = _save_store(cfgs, base.params, seed + 500, MIXED_SCALE,
+                               device, d)
+        paged = base.attach(d, hbm_budget=3)
+        got, eng = serve(paged, order)
+        stats = paged.bank.stats()
+    if stats["evictions"] == 0 or stats["build_cache_hits"] == 0:
+        raise AssertionError(f"tenant00 was not evicted and paged in again: "
+                             f"{stats}")
+    solo = {}
+    for name in names:
+        merged = ModelRuntime(cfg, base.params, device=device,
+                              adapters=adapters[name], peft_cfg=cfgs[name])
+        solo[name] = _one(merged, prompt, None)
+        del merged
+        torch.cuda.empty_cache()
+    bad = [(n, t, solo[n]) for n, t in got if t != solo[n]]
+    if bad:
+        raise AssertionError(f"store tokens differ from solo merged: {bad}")
+    everyone = names + [None]
+    padded = {}
+    for label, rt in (("f32", base), ("int8", base.quantized("int8"))):
+        eager, _ = serve(rt.attach(adapters, cfgs), everyone)
+        store, _ = serve(rt.attach(
+            store_lib.AdapterStore.from_adapters(adapters, cfgs),
+            hbm_budget=3), everyone)
+        if store != eager:
+            raise AssertionError(f"{label}: store-paged {store} != padded "
+                                 f"{eager}")
+        padded[label] = eager
+    return dict(layers=cfg.num_layers, tenants=names, order=order,
+                tokens=got, solo=solo, bank_stats=stats,
+                admission_stalls=eng.stats["admission_stalls"],
+                distinct_tokens=len({tuple(t) for _, t in got}),
+                padded_tokens=padded,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -2390,6 +3061,35 @@ def main() -> int:
     log(f"flash_attention entry point ops.flash_mha: launches "
         f"{ {k: v for k, v in flash_entry['launches'].items() if v} }")
 
+    # 3g. the GS-class library (block products through bdmm) and Algorithm 1
+    t_phase = time.perf_counter()
+    gs_lib_run = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for fn_name, layout_name in gs_lib_cases():
+            c = check_gs_lib_case(fn_name, layout_name, dtype, gen, device)
+            gs_lib_run.append(c)
+            log(f"gs library {fn_name:16s} {layout_name:6s} d={c['d_in']}->"
+                f"{c['d_out']} tokens={c['tokens']} blocks={c['blocks']} "
+                f"{c['dtype']:8s} bdmm launches {c['bdmm_launches']} err "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib (dense) "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+    # the launches of the gated call of each case (not the timing loops')
+    gs_lib_launches = dict({name: 0 for name in KERNELS},
+                           bdmm=sum(c["bdmm_launches"] for c in gs_lib_run))
+    proj = projection_phase(args.seed, gen, device)
+    log(f"project_to_gs d={proj['d']} b={proj['b']} f32 on the card: "
+        f"recovery error {proj['recovery_err']:.3e} of ||A||_F "
+        f"{proj['a_norm']:.1f} ({proj['recovery_rel']:.2e}, tol "
+        f"{PROJ_REL:.0e}), {proj['ms']:.2f} ms; dense orthogonal d="
+        f"{proj['dense_d']}: error card {proj['dense_err_card']:.6f} vs CPU "
+        f"f64 {proj['dense_err_cpu_f64']:.6f} (rel gap "
+        f"{proj['dense_rel_gap']:.1e}, tol {PROJ_MATCH:.0e})")
+    torch.cuda.empty_cache()
+    _PHASE_S["3g gs library"] = time.perf_counter() - t_phase
+
     # 4. serve, bf16, full width, depth cut
     cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
     log(f"serve: qwen2-72b full width, depth cut 80 -> {SERVE_LAYERS} layers, "
@@ -2561,6 +3261,77 @@ def main() -> int:
         f"; {mcheck['distinct_tenant_tokens']} distinct token lists of 6")
     torch.cuda.empty_cache()
 
+    # 12. checkpoints: a resumed training run, bf16, full width, 4 layers
+    t_phase = time.perf_counter()
+    log(f"checkpoints: qwen2-72b full width, {TRAIN_LAYERS} layers, bf16, "
+        f"GSOFT b={BDMM_BLOCK}: train() 2 steps with async saves, resumed to "
+        f"{RESUME_STEPS}, against {RESUME_STEPS} uninterrupted")
+    resume = ckpt_resume_phase(cfg4, args.seed, device)
+    log(f"checkpoints: restored state bit-equal to step 2's; losses resumed "
+        f"{['%.6f' % v for v in resume['losses_resumed']]} vs uninterrupted "
+        f"{['%.6f' % v for v in resume['losses_uninterrupted'][2:]]} (rel "
+        f"gaps {['%.1e' % v for v in resume['loss_rel_gap'].values()]}, tol "
+        f"{RESUME_LOSS_REL:.0e}); final adapters max|diff| "
+        f"{resume['adapter_max_abs_diff']:.3e}; checkpoint "
+        f"{resume['checkpoint_bytes'] / 1e6:.1f} MB; launcher final losses "
+        f"{[round(x['final_loss'], 5) for x in resume['launcher']]}, resumed "
+        f"{[x['resumed'] for x in resume['launcher']]}")
+    torch.cuda.empty_cache()
+    _PHASE_S["12 checkpoints + resume"] = time.perf_counter() - t_phase
+
+    # 12b. adapters and int8 weights through checkpoints, f32
+    t_phase = time.perf_counter()
+    log(f"adapter / int8 checkpoints: qwen2-72b full width, {CHECK_LAYERS} "
+        f"layers, f32, TF32 off")
+    ackpt = adapters_quant_ckpt_phase(cfg2, args.seed, device)
+    log(f"adapter / int8 checkpoints: attach(<dir>) == attach(adapters) "
+        f"tokens for {ackpt['tenants']}; int8 checkpoint "
+        f"{ackpt['int8_checkpoint_bytes'] / 1e9:.2f} GB (save "
+        f"{ackpt['int8_save_s']:.1f} s, load {ackpt['int8_load_s']:.1f} s), "
+        f"{ackpt['quant_leaves']} int8 leaves bit-equal, paged int8 tokens "
+        f"equal; launches { {k: v for k, v in ackpt['launches'].items() if v} }")
+    torch.cuda.empty_cache()
+    _PHASE_S["12b adapter / int8 checkpoints"] = time.perf_counter() - t_phase
+
+    # 12c. the store-paged serve lane, bf16, full width, depth cut
+    t_phase = time.perf_counter()
+    cfg_store = full.with_overrides(num_layers=STORE_LAYERS)
+    log(f"store serve: qwen2-72b full width, {STORE_LAYERS} layers, bf16, "
+        f"{STORE_TENANTS} tenants {STORE_METHODS} (b={BDMM_BLOCK}) on disk, "
+        f"hbm_budget {STORE_BUDGET}")
+    sserve = store_serve_phase(cfg_store, args.seed, device)
+    sprof, sst = sserve["profile"], sserve["bank_stats"]
+    log(f"store serve: {sserve['requests']} requests ({sserve['cold']} cold, "
+        f"{sserve['revisits']} revisits of {STORE_HOT}), {sserve['tokens']} "
+        f"tokens; wall {['%.3f' % w for w in sserve['wall_s']]} s, median "
+        f"{sserve['tok_s']:.1f} tok/s; caps {sserve['caps']}; page-in p50 "
+        f"{sst['page_in_ms_p50']:.1f} ms p95 {sst['page_in_ms_p95']:.1f} ms; "
+        f"hit rate {sst['hit_rate']:.3f}; evictions {sst['evictions']}, "
+        f"stalls {sst['admission_stalls']}; resident "
+        f"{sst['resident_bank_bytes'] / 1e9:.3f} GB vs padded "
+        f"{sst['padded_bank_bytes'] / 1e9:.3f} GB; peak "
+        f"{sserve['peak_mem_gb']:.1f} GB; launches "
+        f"{ {k: v for k, v in sserve['launches'].items() if v} }; slot-id "
+        f"launches {sserve['slot_launches']}, largest id "
+        f"{sserve['gs_fused_T_bank_max_id']}")
+    log(f"store serve profile ({sprof['requests']} cold requests): wall "
+        f"{sprof['wall_s']:.3f} s, device busy "
+        f"{sprof['device_busy_s']:.3f} s (idle share {sprof['idle_share']}), "
+        f"port kernels {sprof['port_kernels_device_s']:.4f} s; "
+        f"{_moved(sprof)}")
+    log(f"store serve launcher: {sserve['launcher']['report']}")
+    torch.cuda.empty_cache()
+    log(f"store check: {CHECK_LAYERS} layers, f32, TF32 off, "
+        f"{STORE_CHECK_TENANTS} tenants, budget 3")
+    scheck_store = store_check_phase(cfg2, args.seed, device)
+    log(f"store check: every request == its tenant's solo merged run "
+        f"({scheck_store['distinct_tokens']} distinct token lists; bank "
+        f"evictions {scheck_store['bank_stats']['evictions']}, page-cache "
+        f"hits {scheck_store['bank_stats']['build_cache_hits']}); store-paged "
+        f"== padded bank, f32 and int8")
+    torch.cuda.empty_cache()
+    _PHASE_S["12c store lane + check"] = time.perf_counter() - t_phase
+
     # 13. hybrid serve: zamba2-2.7b at full width and depth, bf16
     log(f"hybrid serve: zamba2-2.7b full width, {zamba.num_layers} layers "
         f"(no cut), bf16, seed {args.seed}, {HYBRID_REQUESTS} requests on 4 "
@@ -2609,7 +3380,11 @@ def main() -> int:
                "train_boft": trains_bdmm["boft"]["launches"],
                "serve_mixed": mserve["launches"],
                "serve_paged_int8": qserve["launches"],
-               "check_paged_int8": qcheck["launches"]}
+               "check_paged_int8": qcheck["launches"],
+               "gs_library": gs_lib_launches,
+               "train_resumed": resume["launches_resumed"],
+               "serve_store": sserve["launches"],
+               "ckpt_paged_int8": ackpt["launches"]}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
@@ -2639,7 +3414,8 @@ def main() -> int:
     # slot id (all of them: phases 4, 4b and 11 check it)
     slot_by_path = {"serve": serve["slot_launches"],
                     "serve_mixed": mserve["slot_launches"],
-                    "serve_paged_int8": qserve["slot_launches"]}
+                    "serve_paged_int8": qserve["slot_launches"],
+                    "serve_store": sserve["slot_launches"]}
     for name, key in main_case.items():
         c = next(c for c in all_cases
                  if (c["kernel"], c["B"], c["T"], c["d"], c["b"],
@@ -2721,7 +3497,7 @@ def main() -> int:
             library_what=c["library_what"], shape=key))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    spent = dict(_SPENT, build=build_s,
+    spent = dict(_SPENT, build=build_s, phases=dict(_PHASE_S),
                  total=time.perf_counter() - _START)
     spent["set-up"] = (spent["total"] - build_s - _SPENT["timed"]
                        - _SPENT["profiled"])
@@ -2742,13 +3518,21 @@ def main() -> int:
                                    hybrid_serve=hserve,
                                    hybrid_launcher=hlaunch,
                                    ssm_check=scheck,
-                                   kernels=kernels), indent=1))
+                                   gs_library_cases=gs_lib_run,
+                                   projection=proj, ckpt_resume=resume,
+                                   adapters_int8_ckpt=ackpt,
+                                   store_serve=sserve,
+                                   store_check=scheck_store,
+                                   kernels=kernels), indent=1,
+                              default=str))
     log(f"details: {out}")
     total = time.perf_counter() - _START
     log(f"time: build {build_s:.1f} s, set-up "
         f"{total - build_s - _SPENT['timed'] - _SPENT['profiled']:.1f} s, "
         f"timed runs {_SPENT['timed']:.1f} s, profiled runs "
-        f"{_SPENT['profiled']:.1f} s, total {total:.1f} s")
+        f"{_SPENT['profiled']:.1f} s, total {total:.1f} s; of it the phases "
+        f"3g, 12, 12b, 12c "
+        f"{ {k: round(v, 1) for k, v in _PHASE_S.items()} } s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -161,7 +161,8 @@ def gsoft_init(spec: AdapterSpec, generator: Optional[torch.Generator] = None,
     del generator  # orthogonal methods start at Q = I
     device = resolve_device(device)
     b_in = spec.resolved_block(spec.d_in, spec.block_size)
-    shape = tuple(spec.batch) + gsoft_layout(spec.d_in, b_in).param_shape
+    shape = (tuple(spec.batch)
+             + gsoft_layout(spec.d_in, b_in).lspec.param_shape)
     return {"L": torch.zeros(shape, dtype=dtype, device=device),
             "R": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -192,7 +193,8 @@ def gsoft_bank_build(spec: AdapterSpec, params_by_slot: Sequence[Optional[Params
     (the Cayley map runs once at build time; adapters are frozen when
     serving). A None slot holds the identity."""
     b = spec.resolved_block(spec.d_in, spec.block_size)
-    shape = tuple(spec.batch) + gsoft_layout(spec.d_in, b).param_shape
+    shape = tuple(spec.batch) + gsoft_layout(spec.d_in,
+                                             b).lspec.param_shape
     eye = torch.eye(b, dtype=torch.float32, device=device).expand(shape)
     processed = [None if p is None else
                  {k: cayley(skew(p[k].to(device=device, dtype=torch.float32)),
@@ -239,8 +241,8 @@ def double_gsoft_init(spec: AdapterSpec,
                       device: DeviceLike = "cuda") -> Params:
     """GSOFT's input-side blocks plus zero output-side blocks L_v, R_v."""
     p = gsoft_init(spec, generator, dtype, device)
-    shape = tuple(spec.batch) + gsoft_layout(spec.d_out,
-                                             _out_block(spec)).param_shape
+    shape = (tuple(spec.batch)
+             + gsoft_layout(spec.d_out, _out_block(spec)).lspec.param_shape)
     p["L_v"] = torch.zeros(shape, dtype=dtype, device=p["L"].device)
     p["R_v"] = torch.zeros(shape, dtype=dtype, device=p["L"].device)
     return p

@@ -352,10 +352,13 @@ def build_adapter_bank(cfg: PEFTConfigs, params: Tree,
 
 @dataclasses.dataclass(frozen=True)
 class AdapterContext:
-    """The bank subtree and the (B,) slot ids of the current batch, carried
-    through prefill/decode as one object."""
+    """The bank subtree and the slot ids of the current batch, carried
+    through prefill/decode as one object. ``slots`` is one (B,) id tensor
+    indexing every method stack (an eager bank, whose stacks all span its
+    slots) or ``{method: (B,) compact ids}`` (a store-paged bank, whose
+    stacks hold only their own method's members)."""
     bank: Tree
-    slots: torch.Tensor
+    slots: Union[torch.Tensor, Dict[str, torch.Tensor]]
 
     def group(self, *names) -> Optional[Dict]:
         """Bank subtree under ``names`` (e.g. ``"layers"``), or None."""
@@ -389,12 +392,18 @@ class BankRotator:
         self._group = group
         self.slots = slots
 
+    def ids(self, method: str) -> torch.Tensor:
+        """The slot ids that index ``method``'s stack."""
+        if isinstance(self.slots, dict):
+            return self.slots[method]
+        return self.slots
+
     def __call__(self, name: str, x: torch.Tensor) -> torch.Tensor:
         entry = self._group.get(name)
         if entry is None:
             return x
         for m in sorted(entry):
-            x = methods_lib.get(m).bank_rotator(entry[m], self.slots, x)
+            x = methods_lib.get(m).bank_rotator(entry[m], self.ids(m), x)
         return x
 
     def quant_rotation(self, name: str, x: torch.Tensor, dtype: torch.dtype
@@ -410,9 +419,9 @@ class BankRotator:
         for m in sorted(entry):
             ops = methods_lib.get(m)
             if fused is None and ops.quant_fuse is not None:
-                fused = ops.quant_fuse(entry[m], self.slots, dtype)
+                fused = ops.quant_fuse(entry[m], self.ids(m), dtype)
             else:
-                x = ops.bank_rotator(entry[m], self.slots, x)
+                x = ops.bank_rotator(entry[m], self.ids(m), x)
         return x, fused
 
 

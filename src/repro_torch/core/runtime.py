@@ -3,16 +3,18 @@
 Binds ``ModelConfig + params + optional AdapterBank`` on one device.
 ``adapters`` + ``peft_cfg`` merge ONE adapter into the weights offline (the
 paper's zero-overhead serving mode, §6.1, through the forward GS kernel);
-``attach({name: adapters}, peft_cfg)`` serves per-request adapters from an
-eager bank, activation-side (GSOFT through the transpose GS kernel, OFT and
-BOFT through the banked bdmm kernel, Householder and Givens in plain
-torch); ``peft_cfg`` is one PEFTConfig or a ``{name: PEFTConfig}`` mapping
-for a mixed-method bank. Merging and banking are mutually exclusive.
+``attach`` serves per-request adapters activation-side (GSOFT through the
+transpose GS kernel, OFT and BOFT through the banked bdmm kernel,
+Householder and Givens in plain torch) from an eager bank
+(``{name: adapters}`` with one PEFTConfig or a ``{name: PEFTConfig}``
+mapping) or from a store-paged bank under a device budget
+(``hbm_budget=``, an ``AdapterStore``, or a checkpoint directory opened as
+a disk-backed store). Merging and banking are mutually exclusive.
 ``quantized("int8")`` serves the same model over int8 base weights (the
 bank, if any, carried over untouched: rotations stay in float and GSOFT's
 fuse with the int8 matmul in one kernel). ``paged_state`` /
 ``paged_decode_fn`` / ``chunk_prefill_fn`` are the paged-KV engine's
-surface.
+surface. ``load_quantized`` serves a checkpoint over int8 weights.
 
 The ``ssm`` and ``hybrid`` families build, prefill and decode here like the
 decoder; as in the JAX package they serve no adapter bank (``attach``
@@ -20,9 +22,7 @@ builds one over mamba2 and its first prefill raises ValueError; zamba2's
 (nsuper, per)-stacked weights refuse the bank when it is built) and have
 no paged surface.
 
-Sources this slice does not port raise NotImplementedError naming the
-slice they wait for: adapter stores and checkpoints (the store slice, which
-also brings quantized checkpoints), meshes (the scale-out slice).
+Meshes raise NotImplementedError (the scale-out slice).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from repro_torch.models import api
 Tree = Any
 
 
-def _check_bank_quant_compatible(bank: peft_lib.AdapterBank) -> None:
+def _check_bank_quant_compatible(bank) -> None:
     """Every method in the bank must be flagged ``quant_compatible`` (its
     rotation applies activation-side, in float, before the int8 matmul)."""
     bad = [m for m in bank.bank_methods
@@ -126,35 +126,64 @@ class ModelRuntime:
                peft_cfg: Optional[peft_lib.PEFTConfigs] = None, *,
                hbm_budget: Optional[int] = None) -> "ModelRuntime":
         """New runtime over the same params serving per-request adapters
-        (slot 0 stays the identity). ``source`` is ``{name: adapter_tree}``
-        with ``peft_cfg`` — one PEFTConfig, or ``{name: PEFTConfig}`` for a
-        mixed-method bank — (eager bank) or a pre-built ``AdapterBank``.
-        ``hbm_budget`` (a store-paged bank) waits for the store slice."""
-        if hbm_budget is not None:
-            raise NotImplementedError(
-                "hbm_budget (a store-paged adapter bank) is not ported yet "
-                "(store slice)")
+        (universal slot 0 stays the identity). ``source`` may be:
+
+          * an ``AdapterStore``: host-offloaded adapters, LRU-paged into a
+            slot-compacted device bank of ``hbm_budget`` adapters (default:
+            everything resident, still compact);
+          * a pre-built eager ``AdapterBank``;
+          * ``{name: adapter_tree}`` + ``peft_cfg`` (one PEFTConfig or a
+            ``{name: PEFTConfig}`` mapping): an eager bank, or store-paged
+            when ``hbm_budget`` is given;
+          * a checkpoint directory (str), opened as a disk-backed store: only
+            the index is read now, each adapter's leaves on its page-in;
+          * a list of ``"name=ckpt_dir"`` / ``"ckpt_dir"`` entries (the
+            launcher's ``--adapters``), loaded onto this runtime's device.
+        """
+        from repro_torch import store as store_lib
         if self._merged:
             raise ValueError(
                 "this runtime's params already contain a merged adapter; "
                 "banking on top would rotate already-rotated activations — "
                 "attach to the unmerged base runtime")
-        if isinstance(source, peft_lib.AdapterBank):
+        if isinstance(source, (list, tuple)):
             if peft_cfg is not None:
-                raise ValueError("a pre-built AdapterBank is attached as-is "
-                                 "— peft_cfg does not apply")
+                raise ValueError("checkpoint entries carry their own "
+                                 "PEFTConfigs — do not pass peft_cfg")
+            source, peft_cfg = store_lib.load_adapter_checkpoints(
+                source, device=self.device)
+        if isinstance(source, str):
+            if peft_cfg is not None:
+                raise ValueError("a checkpoint directory carries its own "
+                                 "PEFTConfigs — do not pass peft_cfg")
+            source = store_lib.AdapterStore.open(source)
+        if isinstance(source, peft_lib.AdapterBank):
+            if peft_cfg is not None or hbm_budget is not None:
+                raise ValueError("a pre-built AdapterBank is attached "
+                                 "as-is — peft_cfg/hbm_budget do not apply")
             bank = source
+        elif isinstance(source, store_lib.AdapterStore):
+            if peft_cfg is not None:
+                raise ValueError("an AdapterStore carries its own "
+                                 "PEFTConfigs — do not pass peft_cfg")
+            bank = store_lib.PagedAdapterBank(source, self.params,
+                                              hbm_budget=hbm_budget)
         elif isinstance(source, Mapping):
             if peft_cfg is None:
-                raise ValueError("attach({name: adapters}) needs peft_cfg")
-            bank = peft_lib.build_adapter_bank(peft_cfg, self.params, source)
-        elif isinstance(source, (str, list, tuple)):
-            raise NotImplementedError(
-                "attaching checkpoints is not ported yet (store slice)")
+                raise ValueError(
+                    "attach({name: adapters}) needs peft_cfg — a single "
+                    "PEFTConfig or a {name: PEFTConfig} mapping")
+            if hbm_budget is not None:
+                bank = store_lib.PagedAdapterBank(
+                    store_lib.AdapterStore.from_adapters(source, peft_cfg),
+                    self.params, hbm_budget=hbm_budget)
+            else:
+                bank = peft_lib.build_adapter_bank(peft_cfg, self.params,
+                                                   source)
         else:
-            raise NotImplementedError(
-                f"attaching {type(source).__name__} is not ported yet; the "
-                "adapter store arrives with the store slice")
+            raise TypeError(f"cannot attach {type(source).__name__}: expected "
+                            "AdapterStore, AdapterBank, {name: adapters}, a "
+                            "checkpoint dir, or checkpoint entries")
         if self.is_quantized:
             _check_bank_quant_compatible(bank)
         rt = ModelRuntime(self.cfg, self.params, device=self.device,
@@ -196,6 +225,27 @@ class ModelRuntime:
                           device=self.device, bank=self.bank)
         rt._merged = self._merged
         rt.quant_cfg = qcfg
+        return rt
+
+    @classmethod
+    def load_quantized(cls, directory: str, cfg: ModelConfig, *,
+                       qcfg: Optional[quant.QuantConfig] = None,
+                       step: Optional[int] = None,
+                       device: DeviceLike = "cuda") -> "ModelRuntime":
+        """Runtime from a checkpoint, served quantized, on ``device``.
+
+        A quantized checkpoint (``CheckpointManager.save_quantized``)
+        restores its codes and scales as they are under its saved
+        QuantConfig (``use_pallas`` follows ``cfg`` / ``qcfg``); a plain
+        float checkpoint is quantized on load with ``qcfg`` (default
+        int8)."""
+        from repro_torch.checkpoint.manager import CheckpointManager
+        dev = resolve_device(device)
+        qparams, used_cfg = CheckpointManager(directory).restore_quantized(
+            cfg.weight_dtype, qcfg=qcfg, step=step,
+            use_pallas=cfg.use_pallas, device=dev)
+        rt = cls(cfg, qparams, device=dev)
+        rt.quant_cfg = used_cfg
         return rt
 
     # -- state + step closures ------------------------------------------------

@@ -7,13 +7,19 @@
     # the Mamba2 families on the continuous lane
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --smoke --device cpu
+    # named adapters from checkpoints; requests round-robin over them
+    ... --adapters alice=/ckpts/alice bob=/ckpts/bob
+    # a thousand-tenant adapter checkpoint as a disk-backed store, paged
+    # into device memory under a fixed budget (LRU eviction)
+    ... --store-dir /ckpts/tenants --hbm-adapter-budget 64
 
 Same flags as the JAX launcher for this path plus ``--device`` (default
 ``cuda``: without a card it raises unless ``--device cpu`` is given) and
 ``--max-len`` (default: prompt + new tokens + 8, as the JAX launcher
-computes it). Flags of lanes not ported yet raise NotImplementedError naming
-the slice they wait for: ``--engine static``, ``--quantize fp8``,
-``--adapters`` / ``--store-dir`` (the store slice), ``--replicas`` (the
+computes it). ``--adapters``, ``--demo-adapters`` and ``--store-dir`` are
+exclusive; ``--hbm-adapter-budget`` pages the first two's bank too. Flags
+of lanes not ported yet raise NotImplementedError naming the slice they
+wait for: ``--engine static``, ``--quantize fp8``, ``--replicas`` (the
 scale-out slice), ``--trace`` (the observability slice), ``--family image``
 (the image slice). ``--family`` is checked against the arch's family, as
 in the JAX launcher; ``ssm`` / ``hybrid`` archs fail as there on
@@ -34,6 +40,7 @@ from repro_torch.core.runtime import ModelRuntime
 from repro_torch.models import registry
 from repro_torch.quant import tree_bytes
 from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+from repro_torch.store import AdapterStore, load_adapter_checkpoints
 
 
 def make_demo_adapters(names, params, peft_cfg, device, seed: int = 1,
@@ -75,10 +82,6 @@ def _refuse_unported(args) -> None:
     if args.quantize == "fp8":
         raise NotImplementedError(
             "--quantize fp8 is not ported (the JAX fp8 path is a stub)")
-    if args.adapters or args.store_dir:
-        raise NotImplementedError(
-            "--adapters / --store-dir (adapter checkpoints and the store) "
-            "are not ported yet (store slice)")
     if args.replicas != 1:
         raise NotImplementedError(
             "--replicas (EngineCluster) is not ported yet (scale-out slice)")
@@ -114,8 +117,16 @@ def main(argv=None) -> int:
     ap.add_argument("--mixed-lengths", action="store_true",
                     help="prompt lens U[4, prompt_len], budgets U[2, max_new]")
     ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--adapters", nargs="*", default=[])
-    ap.add_argument("--store-dir", default=None)
+    ap.add_argument("--adapters", nargs="*", default=[],
+                    help="load named adapters into a per-request bank "
+                         "(name=ckpt_dir or ckpt_dir)")
+    ap.add_argument("--store-dir", default=None,
+                    help="serve an adapter-bank checkpoint as a disk-backed "
+                         "store: adapters page into device memory on "
+                         "admission")
+    ap.add_argument("--hbm-adapter-budget", type=int, default=0,
+                    help="most adapters resident on the device at once "
+                         "(slot-compacted, LRU-paged); 0 = all")
     ap.add_argument("--demo-adapters", type=int, default=0,
                     help="fabricate N random GSOFT adapters as a demo bank")
     ap.add_argument("--quantize", choices=("none", "int8", "fp8"),
@@ -143,14 +154,31 @@ def main(argv=None) -> int:
     rt = ModelRuntime(cfg, device=args.device)
     max_len = args.max_len or args.prompt_len + args.max_new + 8
 
+    budget = args.hbm_adapter_budget or None
     adapter_names = []
-    if args.demo_adapters:
-        names = [f"a{i}" for i in range(args.demo_adapters)]
-        bank_peft = peft_lib.PEFTConfig(method="gsoft", block_size=8,
-                                        use_pallas=cfg.use_pallas)
-        rt = rt.attach(make_demo_adapters(names, rt.params, bank_peft,
-                                          rt.device), bank_peft)
-        adapter_names = names
+    if sum(map(bool, (args.adapters, args.demo_adapters,
+                      args.store_dir))) > 1:
+        raise SystemExit("--adapters / --demo-adapters / --store-dir are "
+                         "exclusive: load a saved bank, fabricate one, OR "
+                         "serve a checkpoint dir as a paged store")
+    if args.store_dir:
+        store = AdapterStore.open(args.store_dir)
+        rt = rt.attach(store, hbm_budget=budget)
+        adapter_names = list(store.names)
+        print(f"adapter store: {len(store)} adapters on disk/host, device "
+              f"capacity {rt.bank.capacity} (per-method {rt.bank.caps})")
+    elif args.adapters or args.demo_adapters:
+        if args.demo_adapters:
+            names = [f"a{i}" for i in range(args.demo_adapters)]
+            bank_peft = peft_lib.PEFTConfig(method="gsoft", block_size=8,
+                                            use_pallas=cfg.use_pallas)
+            adapters_by_name = make_demo_adapters(names, rt.params,
+                                                  bank_peft, rt.device)
+        else:
+            adapters_by_name, bank_peft = load_adapter_checkpoints(
+                args.adapters, device=rt.device)
+        rt = rt.attach(adapters_by_name, bank_peft, hbm_budget=budget)
+        adapter_names = list(adapters_by_name)
         print(f"adapter bank: {rt.bank.num_slots} slots "
               f"{list(rt.bank.names)}, methods {list(rt.bank.bank_methods)}")
 
@@ -194,6 +222,8 @@ def main(argv=None) -> int:
     describe(eng, results, args.engine, time.perf_counter() - t0)
     if args.engine == "paged":
         print(f"kv pages: {eng.kv_stats()}")
+    if hasattr(rt.bank, "stats"):
+        print(f"adapter store: {rt.bank.stats()}")
     return 0
 
 

@@ -4,9 +4,11 @@
         --arch qwen2-72b --smoke --peft gsoft --steps 3 --device cpu
 
 Same flags as the JAX launcher plus ``--device`` (default ``cuda``: without
-a card it raises unless ``--device cpu`` is given). ``--mesh`` and
-``--ckpt-dir`` raise NotImplementedError until the scale-out slice and the
-checkpoint manager are ported.
+a card it raises unless ``--device cpu`` is given). ``--ckpt-dir`` saves the
+adapters and the optimizer state every ``--ckpt-every`` steps and at the
+end, in the JAX package's checkpoint layout, and a later run with the same
+directory resumes from the latest one (``--no-resume`` starts over).
+``--mesh`` raises NotImplementedError until the scale-out slice.
 """
 from __future__ import annotations
 

@@ -20,8 +20,9 @@ slots of one ``ModelRuntime`` of any ported family (decoder, ``ssm``,
 pool (``serve/kv.py``), prefills prompts in fixed-width chunks one per tick,
 and shares full prompt pages between requests of one adapter.
 
-Counters are held on the engine (``EngineMetrics``) until the metrics plane
-is ported; there is no tracer yet.
+An engine's counters live in the process metrics plane
+(``repro_torch.obs.REGISTRY``, scope ``serve`` or ``paged``);
+``EngineMetrics`` is the dict-style view. There is no tracer yet.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 
 from repro_torch.core.peft import PrefillRequest
 from repro_torch.core.runtime import ModelRuntime
+from repro_torch.obs.metrics import REGISTRY
 from .kv import KVPagePool, SlotPages, pages_for_budget
 
 
@@ -51,26 +53,30 @@ class Request:
 
 
 class EngineMetrics:
-    """An engine's stats, read dict-style (``eng.stats["requests"]``) with
-    the same keys as the JAX engine's."""
+    """An engine's stats, backed by the process metrics plane: writes go to
+    counters of ``REGISTRY.scope(kind)``, reads keep the dict-style surface
+    (``eng.stats["requests"]``) with the JAX engine's keys.
+    ``admission_log`` stays a bounded list of ``(rid, decode_step)``
+    tuples, a diagnostics ring rather than an instrument."""
 
     COUNTER_KEYS = ("requests", "tokens_generated", "decode_steps",
                     "prefills", "admission_stalls")
 
-    def __init__(self):
-        self._c: Dict[str, int] = {k: 0 for k in self.COUNTER_KEYS}
-        self._wall = 0.0
+    def __init__(self, kind: str = "serve"):
+        scope = REGISTRY.scope(kind)
+        self._c = scope.counters(*self.COUNTER_KEYS)
+        self._wall = scope.counter("wall_s")
         self.admission_log: List[Any] = []
 
     def inc(self, key: str, n: int = 1) -> None:
-        self._c[key] += n
+        self._c[key].inc(n)
 
     def add_wall(self, dt: float) -> None:
-        self._wall += dt
+        self._wall.inc(dt)
 
     def log_admission(self, rid: int) -> None:
         log = self.admission_log
-        log.append((rid, self._c["decode_steps"]))
+        log.append((rid, self._c["decode_steps"].value))
         if len(log) > 4096:          # diagnostics ring, not a ledger
             del log[:-2048]
 
@@ -78,8 +84,8 @@ class EngineMetrics:
         if key == "admission_log":
             return self.admission_log
         if key == "wall_s":
-            return self._wall
-        return self._c[key]
+            return self._wall.value
+        return self._c[key].value
 
 
 def prompt_bucket(plen: int, max_len: int) -> int:
@@ -103,6 +109,8 @@ class ServeEngine:
     It serves on the runtime's device, which the runtime resolved from its
     own ``device=`` (the card unless the CPU was asked for)."""
 
+    _kind = "serve"          # metrics-scope prefix
+
     def __init__(self, runtime: ModelRuntime, *, max_batch: int = 8,
                  max_len: int = 256, eos_id: int = 0):
         self.rt = runtime
@@ -124,7 +132,7 @@ class ServeEngine:
         self._next_id = 0
         self._results: Dict[int, List[int]] = {}
         self.finished: List[Request] = []
-        self.stats = EngineMetrics()
+        self.stats = EngineMetrics(self._kind)
         self._ctx_key: Any = None
         self._ctx_val = None
 
@@ -206,9 +214,13 @@ class ServeEngine:
                 self._finish(slot)
 
     def _context(self):
-        """AdapterContext for the current slot ids, rebuilt only when the
-        ids change."""
-        key = tuple(int(i) for i in self._slot_ids)
+        """AdapterContext for the current slot ids, cached across decode
+        steps under the key (slot ids, bank version): a store-paged bank
+        bumps its version on every page-in and eviction, which remaps
+        universal slots to compact ones while the ids stay the same, so a
+        context built before can never serve another tenant's factors."""
+        key = (tuple(int(i) for i in self._slot_ids),
+               getattr(self.rt.bank, "version", 0))
         if key != self._ctx_key:
             self._ctx_val = self.rt.context(self._slot_ids)
             self._ctx_key = key
@@ -302,6 +314,8 @@ class PagedServeEngine(ServeEngine):
     decode kernel on the card. Decoder-family runtimes only: a family
     without a paged surface (``ssm``, ``hybrid``) is refused up front.
     """
+
+    _kind = "paged"
 
     def __init__(self, runtime: ModelRuntime, *, max_batch: int = 8,
                  max_len: int = 256, eos_id: int = 0, page_size: int = 8,

@@ -22,8 +22,8 @@ them, and decode writes land after the prompt, so a shared page is
 read-only for its whole life. Pages whose refcount drops to zero park in an
 LRU and are evicted (hash retired) only when the free list runs dry.
 
-The counters live on the pool (``stats()``) until the metrics registry of
-the JAX package is ported.
+The counters live in the process metrics plane (``repro_torch.obs``,
+scope ``kvpool``); ``stats()`` is a view over them with the JAX pool's keys.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.obs.metrics import REGISTRY
 
 GARBAGE_PAGE = 0
 
@@ -84,7 +85,12 @@ class KVPagePool:
         self._page_hash: Dict[int, str] = {}
         # refcount-0 pages with still-published content, LRU order
         self._reusable: "OrderedDict[int, None]" = OrderedDict()
-        self._c: Dict[str, int] = {k: 0 for k in _COUNTERS}
+        # instruments live in the process metrics plane; stats() is a view
+        scope = REGISTRY.scope("kvpool")
+        self._c = scope.counters(*_COUNTERS)
+        self._g_in_use = scope.gauge("in_use")
+        self._g_free = scope.gauge("free")
+        self._g_cached = scope.gauge("cached")
 
     # -- capacity -------------------------------------------------------------
     @property
@@ -127,7 +133,7 @@ class KVPagePool:
         # never claim the page holding the prompt's last token: its logits
         # seed generation, so at least one suffix token is always prefilled
         n_claimable = min(len(hashes), (plen - 1) // ps) if plen else 0
-        self._c["prefix_queries"] += 1
+        self._c["prefix_queries"].inc()
         claim: List[int] = []
         for h in hashes[:n_claimable]:
             pid = self._by_hash.get(h)
@@ -137,7 +143,7 @@ class KVPagePool:
         n_fresh = total - len(claim)
         if n_fresh > len(self._free) + len(self._reusable) - sum(
                 1 for p in claim if p in self._reusable):
-            self._c["kv_stalls"] += 1
+            self._c["kv_stalls"].inc()
             return None
         for pid in claim:                  # pin cached pages, then allocate
             if self._refs[pid] == 0:
@@ -146,8 +152,8 @@ class KVPagePool:
         pages = list(claim)
         for _ in range(n_fresh):
             pages.append(self._take_free())
-        self._c["prefix_hits"] += len(claim)
-        self._c["alloc"] += n_fresh
+        self._c["prefix_hits"].inc(len(claim))
+        self._c["alloc"].inc(n_fresh)
         return SlotPages(pages=pages, n_cached=len(claim) * ps,
                          hashes=hashes, n_prompt_full=len(hashes))
 
@@ -160,7 +166,7 @@ class KVPagePool:
             h = self._page_hash.pop(pid, None)
             if h is not None:
                 self._by_hash.pop(h, None)
-            self._c["cache_evictions"] += 1
+            self._c["cache_evictions"].inc()
         self._refs[pid] = 1
         return pid
 
@@ -190,7 +196,7 @@ class KVPagePool:
                 self._reusable.move_to_end(pid)
             else:
                 self._free.append(pid)
-                self._c["freed"] += 1
+                self._c["freed"].inc()
         sp.pages = []
 
     # -- device view ----------------------------------------------------------
@@ -205,8 +211,13 @@ class KVPagePool:
         return row
 
     def stats(self) -> Dict[str, int]:
-        """Counters plus live occupancy (the JAX pool's keys)."""
-        out = dict(self._c)
+        """View over the pool's registry instruments (the JAX pool's keys)
+        plus live occupancy, mirrored into gauges so
+        ``REGISTRY.snapshot()`` sees it too."""
+        self._g_in_use.set(self.in_use)
+        self._g_free.set(len(self._free))
+        self._g_cached.set(len(self._reusable))
+        out = {k: c.value for k, c in self._c.items()}
         out.update(in_use=self.in_use, free=len(self._free),
                    cached=len(self._reusable), num_pages=self.num_pages,
                    page_size=self.page_size)

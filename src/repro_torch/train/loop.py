@@ -1,10 +1,9 @@
 """The training loop (port of ``repro/train/loop.py``): deterministic data
-by (seed, step), heartbeat and step-time straggler detection, and a serving
+by (seed, step), so a resume replays exactly; checkpoints of the trainable
+tree and the optimizer state (``{"trainable", "opt"}`` with the data cursor
+as ``extra={"data_step": ...}``, JAX's layout) every ``ckpt_every`` steps
+and at the end; heartbeat and step-time straggler detection; and a serving
 runtime over the merged trained weights at the end.
-
-Checkpoints (``LoopConfig.ckpt_dir``) wait for the port of
-``checkpoint/manager.py``: a set ``ckpt_dir`` raises NotImplementedError, so
-a run never silently trains without the checkpoints it asked for.
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch import optim
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ModelConfig
 from repro_torch.core import peft as peft_lib
 from repro_torch.core.runtime import ModelRuntime
@@ -37,17 +37,15 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
           loop: LoopConfig, mesh=None, resume: bool = True,
           log_fn: Callable[[str], None] = print,
           device: DeviceLike = "cuda") -> Dict[str, Any]:
-    """Train for ``loop.steps`` steps on ``device`` (default the card; the
-    CPU only when asked). Returns {"trainable", "opt_state", "frozen",
-    "history", "runtime"}, the runtime serving the trained weights."""
-    del resume  # nothing to resume from until checkpoints are ported
+    """Train up to step ``loop.steps`` on ``device`` (default the card; the
+    CPU only when asked). With ``loop.ckpt_dir`` set and ``resume``, the
+    latest checkpoint there restores the trainable tree and the optimizer
+    state and the data replays from its ``data_step``. Returns
+    {"trainable", "opt_state", "frozen", "history", "runtime"}, the runtime
+    serving the trained weights."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded training is not ported yet (scale-out slice)")
-    if loop.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (checkpoint/manager.py); run "
-            "without ckpt_dir")
     dev = resolve_device(device)
     params = ModelRuntime(cfg, seed=dcfg.seed, device=dev).params
     adapters = peft_lib.init_peft(tcfg.peft, params, device=dev,
@@ -59,11 +57,21 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
     opt_state = optim.init(tcfg.opt, trainable)
     step_fn = build_train_step(cfg, tcfg)
     data = LMDataSource(dcfg)
+    start_step = 0
+    mgr = None
+    if loop.ckpt_dir:
+        mgr = CheckpointManager(loop.ckpt_dir)
+        if resume and mgr.latest_step() is not None:
+            state = mgr.restore({"trainable": trainable, "opt": opt_state},
+                                device=dev)
+            trainable, opt_state = state["trainable"], state["opt"]
+            start_step = mgr.extra().get("data_step", mgr.latest_step())
+            log_fn(f"resumed from step {start_step}")
 
     hb = Heartbeat(loop.heartbeat_path) if loop.heartbeat_path else None
     timer = StepTimer()
     history = []
-    for step in range(loop.steps):
+    for step in range(start_step, loop.steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch_at(step).items()}
         timer.start()
@@ -80,6 +88,15 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
                             "straggler": t["straggler"]})
             log_fn(f"step {step:5d} loss {loss:.4f} acc {acc:.3f} "
                    f"({t['step_time_s']:.2f}s)")
+        if mgr and ((step + 1) % loop.ckpt_every == 0 or
+                    step == loop.steps - 1):
+            # the leaves reach host memory before save() returns, also when
+            # the write itself runs on the async thread
+            mgr.save(step + 1, {"trainable": trainable, "opt": opt_state},
+                     blocking=not loop.async_ckpt,
+                     extra={"data_step": step + 1})
+    if mgr:
+        mgr.wait()
     # serving runtime over the TRAINED weights: adapters merged into the
     # frozen base (PEFT) or the trained tree itself (full FT)
     with torch.no_grad():

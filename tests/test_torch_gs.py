@@ -77,7 +77,8 @@ def test_gs_fused_matches_dense_q(r, b):
     rng = np.random.default_rng(r + 31 * b)
     L, R = _orth(rng, r, b, b), _orth(rng, r, b, b)
     x = rng.normal(size=(5, r * b)).astype(np.float32)
-    Q = tgs.gsoft_layout(r * b, b).materialize(L, R)
+    Q = tgs.gs_materialize(tgs.gsoft_layout(r * b, b), L.astype(np.float64),
+                           R.astype(np.float64)).numpy()
     np.testing.assert_allclose(tref.gs_fused_ref(_t(L), _t(R), _t(x)).numpy(),
                                x @ Q.T, atol=F32_TOL)
     np.testing.assert_allclose(tref.gs_fused_T_ref(_t(L), _t(R), _t(x)).numpy(),

@@ -1,5 +1,5 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+neither JAX, nor ``ml_dtypes``, nor anything of the JAX package ``repro``."""
 import os
 import pathlib
 import re
@@ -13,10 +13,11 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
-# `import jax`, `from jax...`, `import repro` / `from repro.` / `from repro `
-# — but not the port's own `repro_torch` prefix
+# `import jax`, `from jax...`, `import ml_dtypes`, `import repro` /
+# `from repro.` / `from repro ` — but not the port's own `repro_torch` prefix
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ml_dtypes\b"
+    r"|from\s+ml_dtypes\b|import\s+repro\b(?!_torch)"
     r"|from\s+repro\b(?!_torch))", re.MULTILINE)
 
 
@@ -28,8 +29,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.quant, repro_torch.serve.kv, "
             "repro_torch.launch.serve, repro_torch.kernels.q_matmul, "
             "repro_torch.kernels.paged_attention, repro_torch.models.ssm, "
-            "repro_torch.kernels.ssd, repro_torch.kernels.flash_attention; "
+            "repro_torch.kernels.ssd, repro_torch.kernels.flash_attention, "
+            "repro_torch.core, repro_torch.core.projection, "
+            "repro_torch.checkpoint, repro_torch.store, repro_torch.obs; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')"
             " or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -49,6 +53,8 @@ def test_forbidden_pattern_catches_what_it_should():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from repro.core import gs")
     assert FORBIDDEN.search("    import repro")
+    assert FORBIDDEN.search("import ml_dtypes")
+    assert FORBIDDEN.search("from ml_dtypes import bfloat16")
     assert not FORBIDDEN.search("from repro_torch.core import gs")
     assert not FORBIDDEN.search("import repro_torch")
 

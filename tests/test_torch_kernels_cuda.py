@@ -716,6 +716,94 @@ def test_bdmm_cpu_tensors_take_the_plain_version_without_counting():
 
 
 # ---------------------------------------------------------------------------
+# the GS-class library on the card: its block products are bdmm launches
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import gs as tgs  # noqa: E402
+from repro_torch.core.permutations import PermSpec  # noqa: E402
+
+
+def _gs_layouts():
+    """GSOFT's square layout, one with rectangular blocks on both factors
+    (L: 8 blocks of 24 x 48, R: 12 of 32 x 16) and one with 64-row blocks
+    against 16-column ones (the shapes the tensor-core route takes)."""
+    return {
+        "gsoft": tgs.gsoft_layout(256, 32),
+        "rect": tgs.GSLayout(tgs.BlockDiagSpec(8, 24, 48),
+                             tgs.BlockDiagSpec(12, 32, 16),
+                             PermSpec.identity(), PermSpec.gs(8),
+                             PermSpec.gs_inv(12)),
+        "wide": tgs.GSLayout(tgs.BlockDiagSpec(4, 64, 32),
+                             tgs.BlockDiagSpec(8, 16, 16),
+                             PermSpec.gs_inv(4), PermSpec.gs(4),
+                             PermSpec.identity()),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gsoft", "rect", "wide"])
+@pytest.mark.parametrize("t", [1, 16, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gs_apply_and_matmul_run_bdmm_against_their_plain_versions(
+        cuda, monkeypatch, name, t, dtype):
+    """gs_apply, gs_apply_T and gs_matmul on CUDA tensors launch the bdmm
+    kernel twice each (one per factor) and never its plain version; the
+    same calls on CPU tensors (the plain versions) agree to the bdmm
+    tolerances."""
+    lay = _gs_layouts()[name]
+    rng = np.random.default_rng(t + len(name))
+    L = torch.from_numpy(rng.normal(0, 0.2, size=lay.lspec.param_shape)
+                         .astype(np.float32))
+    R = torch.from_numpy(rng.normal(0, 0.2, size=lay.rspec.param_shape)
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(2, t, lay.in_dim))
+                         .astype(np.float32))
+    xo = torch.from_numpy(rng.normal(size=(2, t, lay.out_dim))
+                          .astype(np.float32))
+    W = torch.from_numpy(rng.normal(size=(lay.in_dim, 24)).astype(np.float32))
+    calls = {
+        "gs_apply": lambda L, R, x, xo, W: tgs.gs_apply(lay, L, R, x),
+        "gs_apply_T": lambda L, R, x, xo, W: tgs.gs_apply_T(lay, L, R, xo),
+        "gs_matmul": lambda L, R, x, xo, W: tgs.gs_matmul(lay, L, R, W),
+    }
+    plain = []
+    real_plain = bk.bdmm_plain
+    monkeypatch.setattr(bk, "bdmm_plain",
+                        lambda *a, **k: plain.append(1) or real_plain(*a, **k))
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for what, fn in calls.items():
+        dev_args = [a.to(cuda, dtype) for a in (L, R, x, xo, W)]
+        before = bk.bdmm.launches
+        y = fn(*dev_args)
+        torch.cuda.synchronize()
+        assert bk.bdmm.launches == before + 2, what
+        assert not plain, what
+        want = fn(*[a.to(dtype) for a in (L, R, x, xo, W)])
+        plain.clear()
+        assert torch.isfinite(y.float()).all()
+        err = (y.float().cpu() - want.float()).abs().max().item()
+        assert err <= tol * max(1.0, want.float().abs().max().item()), (
+            what, err)
+
+
+@pytest.mark.cuda
+def test_gs_factors_apply_runs_one_bdmm_per_factor(cuda):
+    f = tgs.gs_order_layout(512, 8, 3)
+    rng = np.random.default_rng(3)
+    blocks = [torch.from_numpy(rng.normal(0, 0.3, size=s.param_shape)
+                               .astype(np.float32)) for s in f.specs]
+    x = torch.from_numpy(rng.normal(size=(3, 512)).astype(np.float32))
+    before = bk.bdmm.launches
+    y = tgs.gs_factors_apply(f, [b.to(cuda) for b in blocks], x.to(cuda))
+    torch.cuda.synchronize()
+    assert bk.bdmm.launches == before + 3
+    want = tgs.gs_factors_apply(f, blocks, x)
+    assert (y.cpu() - want).abs().max().item() <= F32_TOL * max(
+        1.0, want.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
 # quantized matmuls and paged decode attention
 # ---------------------------------------------------------------------------
 

@@ -523,8 +523,9 @@ def test_bank_config_consistency_errors(world):
             {"a": gs_cfg, "b": dataclasses.replace(TMIXED["dave"],
                                                    use_pallas=True)},
             rt.params, {"a": tadp["alice"], "b": tadp["dave"]})
-    with pytest.raises(NotImplementedError, match="store slice"):
-        rt.attach(tadp, TMIXED, hbm_budget=1 << 20)
+    # a store-paged bank needs one device slot per method (five here)
+    with pytest.raises(ValueError, match="one adapter per method"):
+        rt.attach(tadp, TMIXED, hbm_budget=2)
 
 
 # ---------------------------------------------------------------------------

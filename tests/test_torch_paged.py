@@ -321,7 +321,7 @@ def test_launcher_serves_paged_int8_bank_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [["--engine", "static"],
                                    ["--quantize", "fp8"],
-                                   ["--store-dir", "x"],
+                                   ["--family", "vlm"],
                                    ["--replicas", "2"], ["--trace"],
                                    ["--family", "image"]])
 def test_launcher_refuses_unported_lanes(flags):

@@ -403,7 +403,7 @@ def _loop_tcfg():
 
 def test_training_reduces_loss(tmp_path):
     """As tests/test_train_loop.py test_training_reduces_loss, without
-    checkpoints (not ported yet)."""
+    checkpoints (tests/test_torch_checkpoint.py trains with them)."""
     loop = tloop.LoopConfig(steps=30, log_every=5, ckpt_every=100,
                             heartbeat_path=str(tmp_path / "hb"))
     out = tloop.train(TINY, _loop_tcfg(),
@@ -421,10 +421,19 @@ def test_training_reduces_loss(tmp_path):
 
 
 def test_train_with_ckpt_dir_raises(tmp_path):
-    loop = tloop.LoopConfig(steps=1, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    """Checkpoints are ported: a ckpt_dir that is a plain file raises before
+    any step trains (a run never trains without the checkpoints it asked
+    for), and a directory receives the final step's checkpoint."""
+    path = tmp_path / "a_file"
+    path.write_text("")
+    with pytest.raises(FileExistsError):
         tloop.train(TINY, _loop_tcfg(), DataConfig(seq_len=8, global_batch=2),
-                    loop, device=CPU)
+                    tloop.LoopConfig(steps=1, ckpt_dir=str(path)),
+                    log_fn=lambda s: None, device=CPU)
+    tloop.train(TINY, _loop_tcfg(), DataConfig(seq_len=8, global_batch=2),
+                tloop.LoopConfig(steps=1, ckpt_dir=str(tmp_path / "ck")),
+                log_fn=lambda s: None, device=CPU)
+    assert (tmp_path / "ck" / "LATEST").read_text() == "step_0000000001"
 
 
 @pytest.mark.parametrize("peft", ["gsoft", "double_gsoft"])
