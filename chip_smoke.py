@@ -68,6 +68,14 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    on the card recovers a materialized GS matrix (error within 1e-3 of
    ||A||_F), timed, and on a random dense orthogonal A at d = 1024 its error
    equals the CPU float64 projection's within 1e-4 relative
+3h. image lane kernels — at every (channels d, pixels a row) of
+   lipconvnet-15's ``wc`` channel mixes (d = 32-1024, 1024-1 pixels), 8
+   rows, b = 8, bf16: ``gs_fused_T`` through its slot-id entry,
+   ``gs_q_matmul`` through its slot-id entry (N = d), ``q_matmul`` (M = 8 x
+   pixels, K = N = d) and ``bdmm`` (blocks as stored and transposed); then
+   ``gs_fused`` in f32 at b = 8 on the d x d merge slab of each width;
+   against their plain versions, with times, bounds, library yardsticks
+   and the route or plan of each call
 4. serve  — full-width qwen2-72b, depth cut to 8 layers, bf16, random weights
    from a seed: 3 GSOFT adapters banked, 8 requests through ``ServeEngine``;
    the ``gs_fused_T`` kernel must have run, every launch through the bank
@@ -152,9 +160,41 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    against token-by-token decode (the state-space duality); zamba2-2.7b at
    full width and 12 layers, T = 320: the duality; both: the first served
    token equals the forward's argmax; gaps within 1e-3 of max|logit|
-14. report — where the time went (build, set-up, timed runs, profiled
-   runs, and phases 3g, 12, 12b and 12c whole), the card's name and power
-   limit, one JSON line of kernels, then the ``{"ok": true, ...}`` line
+14. static, streaming and traced serving — qwen2-72b at full width, 8
+   layers, bf16: (a) ``StaticServeEngine`` on a runtime with one GSOFT
+   adapter merged (b = 32; the merge must launch ``gs_fused``), 8
+   mixed-length requests, 4 a batch, median rate of 3 runs beside
+   ``ServeEngine`` on the same runtime and requests, a profile with the
+   dispatches named (``profiler_annotations``); (b) ``ServeEngine`` over a
+   3-tenant GSOFT bank: tracing off and on in turns, 3 runs each (tokens
+   equal, the rate ratio reported), then ``drive_streaming`` with Poisson
+   arrivals at 0.7x the up-front request rate under a ``TraceRecorder`` +
+   ``SLOMonitor``: TTFT / TPOT p50 / p95 / p99, stalls by reason, every
+   trace complete, Chrome and JSONL exports parsed back; (c) the paged int8
+   lane traced under a 24-page KV pool: at least one ``kv`` stall,
+   ``q_matmul``, ``gs_q_matmul`` (by slot id) and ``paged_decode`` must
+   launch; (d) the launcher with ``--engine static --peft-demo`` and with
+   ``--arrival-rate 4 --trace --trace-out --log-json``; (e) f32 at 2
+   layers: the static engine's tokens on the merged runtime equal
+   ``ServeEngine``'s on it and on a banked runtime serving that tenant
+15. image serving — lipconvnet-15 full (widths 32-512, ``down`` convs to
+   2048 channels, 100 classes), bf16, random params from the seed: (a)
+   ``ImageServeEngine`` (8 a batch) over a bank of 6 tenants (gsoft, boft,
+   householder round-robin, b = 8) and the base slot, 64 images, median
+   images/s of 3 runs, peak memory, a profile of the first 12 requests;
+   ``gs_fused_T`` only by slot id, ``bdmm`` must launch; (b) the same over
+   int8 weights (``gs_q_matmul`` by slot id, no ``gs_fused_T``), and the
+   bankless int8 model (``q_matmul``); (c) the launcher ``--family image
+   --demo-adapters 3 --trace``; (d) f32, TF32 off: every tenant's banked
+   logits within 1e-3 of max|logit| of its solo merged runtime's, the base
+   slot equal to the bankless model bit for bit, the banked net 1-Lipschitz
+   on seeded pairs (1e-3), banked int8 within 1e-3 of max|logit| of each
+   tenant's exact model and within 10 % of "merge, then quantize" (GSOFT
+   and BOFT tenants; a Householder tenant's dense merged Q is recorded)
+16. report — where the time went (build, set-up, timed runs, profiled
+   runs, and phases 3g, 3h, 12, 12b, 12c, 14 and 15 whole), the card's
+   name and power limit, one JSON line of kernels, then the ``{"ok":
+   true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
 """
@@ -184,12 +224,14 @@ from repro_torch import store as store_lib  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core import adapters as ad_lib  # noqa: E402
+from repro_torch.core import conv as conv_lib  # noqa: E402
 from repro_torch.core import gs as gs_lib  # noqa: E402
 from repro_torch.core import projection as gs_proj  # noqa: E402
 from repro_torch.core import peft as peft_lib  # noqa: E402
 from repro_torch.core.permutations import PermSpec  # noqa: E402
 from repro_torch.core.runtime import ModelRuntime  # noqa: E402
 from repro_torch.data import DataConfig, LMDataSource  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import bdmm as bk  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
@@ -201,10 +243,12 @@ from repro_torch.kernels import ssd as ssdk  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.obs import REGISTRY  # noqa: E402
+from repro_torch.models import image as image_model  # noqa: E402
+from repro_torch.obs import REGISTRY, SLOMonitor, TraceRecorder  # noqa: E402
 from repro_torch.quant import is_quant_tensor, quantize_int8, tree_bytes  # noqa: E402
 from repro_torch.serve.engine import (PagedServeEngine, ServeEngine,  # noqa: E402
-                                      prompt_bucket)
+                                      StaticServeEngine, prompt_bucket)
+from repro_torch.serve.image import ImageServeEngine  # noqa: E402
 from repro_torch.serve.kv import kv_page_bytes  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
@@ -898,19 +942,24 @@ def perturbed_adapters(pcfg, params, seed: int, scale: float, device):
             for path, entry in ad.items()}
 
 
-def _profile(run, copy_shapes=None) -> dict:
+def _profile(run, copy_shapes=None, ranges=()) -> dict:
     """Run ``run()`` under torch.profiler; device time by kernel name, and
     the share of the wall time with a kernel running on the card. With
     ``copy_shapes`` (a set of (T, d)), also the device time of the copies
-    (``aten::clone``) of tensors of those shapes, (T, d) or (1, T, d): only
-    then are the host's operators traced too (what attributes a copy to its
-    shapes); otherwise the device's activity alone, which keeps the
+    (``aten::clone``) of tensors of those shapes, (T, d) or (1, T, d); with
+    ``ranges`` (names of ``record_function`` ranges, as a tracer with
+    ``profiler_annotations`` opens them around the engines' dispatches),
+    the count, the host ms, the device ms (the kernels' own time, summed
+    over the operators nested in the range) and the device span ms (the
+    range on the card's timeline, first kernel to last, gaps included) of
+    each, kept out of the kernels' sums. Only then are the host's operators
+    traced too; otherwise the device's activity alone, which keeps the
     serving runs' host-side traces (hundreds of thousands of operators),
     their recording cost and their processing out of the run."""
     from torch.profiler import ProfilerActivity, profile
     t_in = time.perf_counter()
     acts = [ProfilerActivity.CUDA] + (
-        [ProfilerActivity.CPU] if copy_shapes is not None else [])
+        [ProfilerActivity.CPU] if copy_shapes is not None or ranges else [])
     with profile(activities=acts,
                  record_shapes=copy_shapes is not None) as prof:
         t0 = time.perf_counter()
@@ -920,7 +969,8 @@ def _profile(run, copy_shapes=None) -> dict:
     averages = prof.key_averages()
     kernels = []
     for e in averages:
-        if "CUDA" not in str(getattr(e, "device_type", "")):
+        if ("CUDA" not in str(getattr(e, "device_type", ""))
+                or e.key in ranges):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -972,6 +1022,29 @@ def _profile(run, copy_shapes=None) -> dict:
                 ms += (us if us is not None else e.cuda_time_total) / 1e3
                 n += e.count
         out.update(copies_device_ms=ms, copies=n)
+    if ranges:
+        out["ranges"] = {}
+        for e in averages:
+            if e.key not in ranges:
+                continue
+            r = out["ranges"].setdefault(e.key, dict(
+                count=0, host_ms=0.0, device_ms=0.0, device_span_ms=0.0))
+            if "CUDA" in str(getattr(e, "device_type", "")):
+                # the range's annotation on the card's timeline: from its
+                # first kernel to its last, the gaps between them included
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(e, "self_cuda_time_total", 0.0)
+                r["device_span_ms"] += us / 1e3
+            else:
+                # the host range: its kernels' device time, summed over
+                # every operator nested in it
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = getattr(e, "cuda_time_total", 0.0)
+                r["count"] = e.count
+                r["host_ms"] += e.cpu_time_total / 1e3
+                r["device_ms"] += us / 1e3
     out["profiler_s"] = time.perf_counter() - t_in
     _SPENT["profiled"] += out["profiler_s"]
     return out
@@ -2887,6 +2960,714 @@ def store_check_phase(cfg, seed: int, device) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the image lane's kernel shapes
+# ---------------------------------------------------------------------------
+
+IMAGE_ROWS = 8                      # the image engine's batch (max_batch)
+IMAGE_BLOCK = 8                     # the launcher's demo bank: block size 8
+
+
+def image_pairs(cfg) -> list:
+    """(channels d, tokens a row = pixels) of every ``wc`` channel mix of
+    the image family at ``cfg``: the conv layers' (width, HxW) and the
+    down layers' (2 width, HxW / 4) of each block."""
+    lc = image_model.lip_cfg(cfg)
+    pairs = set()
+    for bi, width in enumerate(lc.block_widths()):
+        side = lc.image_size // 2 ** bi
+        if lc.depth // 5 > 1:
+            pairs.add((width, side * side))
+        pairs.add((2 * width, (side // 2) ** 2))
+    return sorted(pairs)
+
+
+def image_kernel_phase(cfg, gen, device) -> list:
+    """Phase 3h: the kernels the image lane runs, at its shapes, against
+    their plain versions: the banked rotation (``gs_fused_T_bank``), the
+    fused int8 product (``gs_q_matmul_bank``, N = d), ``q_matmul`` (M = 8
+    rows x pixels, K = N = d) and ``bdmm`` (blocks as stored and read
+    transposed) at 8 rows, b = 8, bf16, every (d, pixels) pair; then
+    ``gs_fused`` in f32 at b = 8 on a d x d slab (the merge of a tenant into
+    a ``wc``) for every width."""
+    run = []
+    bf = torch.bfloat16
+    for d, t in image_pairs(cfg):
+        c = check_case("gs_fused_T", IMAGE_ROWS, t, d, IMAGE_BLOCK, bf, gen,
+                       device)
+        run.append(c)
+        log(f"image kernel gs_fused_T  B={IMAGE_ROWS} T={t:4d} d={d:4d} b=8 "
+            f"route {c['route']} tt={c['tt']} cluster={c['cluster']} err "
+            f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms {c['ms']:.4f} "
+            f"plain {c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
+            f"{c['bound_ms']:.5f} ({c['bound_by']})")
+        c = check_gsq_case(IMAGE_ROWS, t, d, d, IMAGE_BLOCK, bf, gen, device)
+        run.append(c)
+        log(f"image kernel gs_q_matmul B={IMAGE_ROWS} T={t:4d} d=N={d:4d} b=8 "
+            f"plan={c['plan']} rotation {c['rotation_route']} err "
+            f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms {c['ms']:.4f} "
+            f"plain {c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
+            f"{c['bound_ms']:.5f} ({c['bound_by']})")
+        c = check_qmm_case(IMAGE_ROWS * t, d, d, bf, gen, device)
+        run.append(c)
+        log(f"image kernel q_matmul    M={IMAGE_ROWS * t:4d} K=N={d:4d} "
+            f"tokens={c['tokens']} boxes={c['boxes']} stages={c['stages']} "
+            f"ctas={c['ctas']} splits={c['k_splits']} err "
+            f"{c['max_abs_err']:.2e} (tol {c['tol']:.1e}) ms {c['ms']:.4f} "
+            f"plain {c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
+            f"{c['bound_ms']:.5f} ({c['bound_by']})")
+        for trans in (False, True):
+            c = check_bdmm_case(IMAGE_ROWS, t, d, IMAGE_BLOCK, bf, gen,
+                                device, trans)
+            run.append(c)
+            log(f"image kernel bdmm        B={IMAGE_ROWS} T={t:4d} d={d:4d} "
+                f"b=8 {'T ' if trans else '  '}{c['route']} "
+                f"{c['geometry']} err {c['max_abs_err']:.2e} (tol "
+                f"{c['tol']:.0e}) ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
+                f"lib {c['library_ms']:.4f} bound {c['bound_ms']:.5f} "
+                f"({c['bound_by']})")
+        torch.cuda.empty_cache()
+    for d in sorted({d for d, _ in image_pairs(cfg)}):
+        c = check_case("gs_fused", 1, d, d, IMAGE_BLOCK, torch.float32, gen,
+                       device)
+        run.append(c)
+        log(f"image kernel gs_fused    merge T=d={d:4d} b=8 f32 route "
+            f"{c['route']} err {c['max_abs_err']:.2e} (tol {c['tol']:.0e}) "
+            f"ms {c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+            f"{c['library_ms']:.4f} bound {c['bound_ms']:.5f} "
+            f"({c['bound_by']})")
+    torch.cuda.empty_cache()
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phase 14: static, streaming and traced serving (qwen2-72b, 8 layers)
+# ---------------------------------------------------------------------------
+
+TRACED_REQUESTS = 8
+TRACED_NEW = (4, 16)                # new tokens drawn in this range
+STREAM_LOAD = 0.7                   # arrivals at 0.7x the up-front request rate
+KV_STALL_PAGES = 24                 # phase 14c's pool: one request takes <= 18
+PROFILE_RANGES = ("prefill", "decode")  # what the static engine opens
+
+
+def _slo_summary(slo) -> dict:
+    rep = slo.report()
+    return dict(ttft_ms=rep["ttft_ms"], tpot_ms=rep["tpot_ms"],
+                tok_s=rep["tok_s"], stall_rate=rep["stall_rate"],
+                stalls=rep["stalls"], requests=rep["window_requests"])
+
+
+def _check_traces(tracer, results, phase: str) -> None:
+    """Every request has one complete trace: submit, a prefill span, one
+    first token (the first token time), and as many tokens as it served."""
+    if tracer.pending_count or len(tracer.finished) != len(results):
+        raise AssertionError(f"{phase}: {len(tracer.finished)} traces "
+                             f"finished, {tracer.pending_count} pending, for "
+                             f"{len(results)} requests")
+    for tr in tracer.finished:
+        if not (tr.complete and tr.token_times[0] == tr.t_first
+                and tr.n_tokens == len(results[tr.rid])):
+            raise AssertionError(f"{phase}: trace of request {tr.rid} is not "
+                                 f"complete: {tr.events()[:4]}")
+
+
+def _traced_work(cfg, seed: int, names) -> list:
+    """(prompt, new tokens, adapter): prompts of 16-128 tokens, 4-16 new
+    tokens, round-robin over ``names``."""
+    rng = np.random.default_rng(seed + 300)
+    return [(rng.integers(1, cfg.vocab_size, size=int(
+                rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))).tolist(),
+             int(rng.integers(TRACED_NEW[0], TRACED_NEW[1] + 1)),
+             names[i % len(names)]) for i in range(TRACED_REQUESTS)]
+
+
+def _drive(make, work, tracer=None):
+    """One engine from ``make(tracer)`` serving ``work`` queued up front:
+    (engine, {rid: tokens}, wall seconds)."""
+    eng = make(tracer)
+    for prompt, n, adapter in work:
+        kw = {} if adapter is None else {"adapter": adapter}
+        eng.add_request(prompt, max_new_tokens=n, **kw)
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    return eng, results, time.perf_counter() - t0
+
+
+def static_traced_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
+    """Phase 14 a-c at full width. (a) ``StaticServeEngine`` on a runtime
+    with one GSOFT adapter merged (b = 32: the merge launches ``gs_fused``)
+    serves 8 mixed-length requests, 4 a batch; median rate of 3 runs beside
+    ``ServeEngine`` on the same merged runtime and requests; a profile of
+    one static run with the dispatches named. (b) ``ServeEngine`` over a
+    3-tenant GSOFT bank (the merged runtime freed first): up-front runs
+    with tracing off and on in turns (3 each; the rate ratio is reported,
+    not gated; tokens equal), then ``drive_streaming`` with Poisson
+    arrivals at 0.7x the up-front request rate under a ``TraceRecorder``
+    and ``SLOMonitor``: TTFT / TPOT percentiles, stalls, every trace
+    complete, Chrome and JSONL exports that parse. (c) the paged int8 lane
+    with the tracer under a KV pool of 24 pages: at least one ``kv`` stall,
+    ``q_matmul``, ``gs_q_matmul`` and ``paged_decode`` launched."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    out = dict(layers=cfg.num_layers)
+
+    # (a) one adapter merged offline: the static engine against the
+    # continuous one on the same runtime
+    adapter = perturbed_adapters(pcfg, base.params, seed + 11, 0.05, device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    merged = ModelRuntime(cfg, base.params, device=device, adapters=adapter,
+                          peft_cfg=pcfg)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merge_launches = _launches()
+    if merge_launches["gs_fused"] == 0:
+        raise AssertionError("the static lane's merge never launched gs_fused")
+    del adapter
+    work = _traced_work(cfg, seed, [None])
+    engines = {
+        "static": lambda tr: StaticServeEngine(merged, max_batch=4,
+                                               max_len=SERVE_MAX_LEN,
+                                               eos_id=-1, tracer=tr),
+        "continuous": lambda tr: ServeEngine(merged, max_batch=4,
+                                             max_len=SERVE_MAX_LEN, eos_id=-1,
+                                             tracer=tr)}
+    rates, tokens, steps_ = {}, {}, {}
+    for name, make in engines.items():
+        _drive(make, [([1, 2, 3], 2, None)])                   # warm
+        walls = []
+        for _ in range(repeats):
+            eng, res, wall = _drive(make, work)
+            walls.append(wall)
+            if name in tokens and res != tokens[name]:
+                raise AssertionError(f"a repeated {name} run served other "
+                                     "tokens")
+            tokens[name] = res
+        if len(tokens[name]) != TRACED_REQUESTS or any(
+                len(tokens[name][i]) != work[i][1]
+                for i in range(TRACED_REQUESTS)):
+            raise AssertionError(f"{name}: served {tokens[name]}")
+        _SPENT["timed"] += sum(walls)
+        toks = eng.stats["tokens_generated"]
+        rates[name] = dict(wall_s=walls, tok_s=toks / float(np.median(walls)),
+                           tokens=toks, decode_steps=eng.stats["decode_steps"],
+                           prefills=eng.stats["prefills"])
+    tracer = TraceRecorder(profiler_annotations=True)
+    out["static"] = dict(
+        rates, merge_s=merge_s, merge_launches=merge_launches,
+        weight_slices=_slices(pcfg, base.params),
+        static_equals_continuous=tokens["static"] == tokens["continuous"],
+        profile=_profile(lambda: _drive(engines["static"], work, tracer),
+                         ranges=PROFILE_RANGES))
+    del merged, engines
+    torch.cuda.empty_cache()
+
+    # (b) a 3-tenant bank: tracing off / on, then streaming arrivals
+    names = ["tenant_a", "tenant_b", "tenant_c"]
+    banked = base.attach({n: perturbed_adapters(pcfg, base.params,
+                                                seed + 21 + i, 0.05, device)
+                          for i, n in enumerate(names)}, pcfg)
+    work = _traced_work(cfg, seed + 1, names + [None])
+
+    def make(tr):
+        return ServeEngine(banked, max_batch=4, max_len=SERVE_MAX_LEN,
+                           eos_id=-1, tracer=tr)
+
+    _drive(make, [([1, 2, 3], 2, n) for n in names])           # warm
+    _reset_launches()
+    _, upfront, wall = _drive(make, work)
+    launches, slot = _launches(), _slot_launches()
+    check_slot_path("traced serve", launches, slot, ("gs_fused_T",))
+    walls = {"off": [wall], "on": []}
+    for i in range(2 * repeats - 1):      # on, off, on, ...: in turns
+        traced = i % 2 == 0
+        tracer = TraceRecorder(slo=SLOMonitor()) if traced else None
+        eng, res, w = _drive(make, work, tracer)
+        if res != upfront:
+            raise AssertionError("tracing changed the served tokens")
+        walls["on" if traced else "off"].append(w)
+        if traced:
+            _check_traces(tracer, upfront, "traced serve")
+    _SPENT["timed"] += sum(walls["off"]) + sum(walls["on"])
+    toks = eng.stats["tokens_generated"]
+    rate = {k: toks / float(np.median(v)) for k, v in walls.items()}
+    req_per_s = TRACED_REQUESTS / float(np.median(walls["off"]))
+    arrival_rate = STREAM_LOAD * req_per_s
+    arrivals = np.cumsum(np.random.default_rng(seed + 400).exponential(
+        1.0 / arrival_rate, size=TRACED_REQUESTS))
+    slo = SLOMonitor()
+    tracer = TraceRecorder(slo=slo)
+    eng = make(tracer)
+    t0 = time.perf_counter()
+    streamed = launch_serve.drive_streaming(
+        eng, [dict(prompt=p, max_new_tokens=n,
+                   **({} if a is None else {"adapter": a}))
+              for p, n, a in work], arrivals)
+    torch.cuda.synchronize()
+    stream_wall = time.perf_counter() - t0
+    _SPENT["timed"] += stream_wall
+    _check_traces(tracer, streamed, "streaming serve")
+    with tempfile.TemporaryDirectory() as d:
+        n_jsonl = tracer.export_jsonl(f"{d}/trace.jsonl")
+        n_chrome = tracer.export_chrome(f"{d}/trace.json")
+        with open(f"{d}/trace.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        with open(f"{d}/trace.json") as f:
+            doc = json.load(f)
+    if len(rows) != n_jsonl or len(doc["traceEvents"]) != n_chrome:
+        raise AssertionError("a trace export does not parse back whole")
+    out["traced"] = dict(
+        launches=launches, slot_launches=slot, wall_s=walls,
+        tok_s_off=rate["off"], tok_s_on=rate["on"],
+        rate_ratio_on_off=rate["on"] / rate["off"],
+        request_rate_upfront=req_per_s, arrival_rate=arrival_rate,
+        arrivals_s=arrivals.tolist(), stream_wall_s=stream_wall,
+        stream_tok_s=eng.stats["tokens_generated"] / stream_wall,
+        stream_tokens_equal_upfront=streamed == upfront,
+        slo=_slo_summary(slo), jsonl_events=n_jsonl,
+        chrome_events=n_chrome)
+
+    # (c) the paged int8 lane with the tracer, under a small KV pool
+    qrt = banked.quantized("int8", release_source=True)
+    del banked, base
+    torch.cuda.empty_cache()
+    budget = KV_STALL_PAGES * kv_page_bytes(cfg, PAGE_SIZE)
+    slo = SLOMonitor()
+    tracer = TraceRecorder(slo=slo)
+    _reset_launches()
+    eng, res, wall = _drive(
+        lambda tr: PagedServeEngine(qrt, max_batch=4, max_len=SERVE_MAX_LEN,
+                                    eos_id=-1, page_size=PAGE_SIZE,
+                                    prefill_chunk=PREFILL_CHUNK,
+                                    hbm_kv_budget=budget, tracer=tr),
+        work, tracer)
+    launches, slot = _launches(), _slot_launches()
+    for name in ("q_matmul", "gs_q_matmul", "paged_decode"):
+        if launches[name] == 0:
+            raise AssertionError(f"the traced paged int8 lane never launched "
+                                 f"{name}: {launches}")
+    check_slot_path("traced paged int8", launches, slot, ("gs_q_matmul",))
+    _check_traces(tracer, res, "traced paged int8")
+    kv_stalls = slo.report()["stalls"].get("kv", 0)
+    if kv_stalls < 1 or eng.kv_stats()["kv_stalls"] < 1:
+        raise AssertionError(f"the {eng.num_pages}-page pool never stalled "
+                             f"admission: {eng.kv_stats()}")
+    out["paged_int8"] = dict(launches=launches, slot_launches=slot,
+                             wall_s=wall, num_pages=eng.num_pages,
+                             kv_stats=eng.kv_stats(), slo=_slo_summary(slo),
+                             tok_s=eng.stats["tokens_generated"] / wall)
+    del qrt, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_lane_run(argv, must) -> dict:
+    """``launch/serve.py`` with ``argv`` on the card: it must return 0 and
+    print every string of ``must``; its output is echoed into this log."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  launcher: {line[:300]}")
+    if rc != 0 or not all(m in out for m in must):
+        raise AssertionError(f"serve launcher {argv} returned {rc}: {out}")
+    torch.cuda.empty_cache()
+    return dict(argv=argv, wall_s=time.perf_counter() - t0,
+                report=[line for line in out.splitlines()
+                        if line.startswith(("[", "slo", "trace"))])
+
+
+def static_check_phase(cfg, seed: int, device) -> dict:
+    """Phase 14e, f32 (TF32 off): on one GSOFT adapter (b = 32), the static
+    engine's greedy tokens on the merged runtime equal ``ServeEngine``'s on
+    the same runtime and ``ServeEngine``'s on a banked runtime serving that
+    tenant (three ragged prompts)."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    adapter = perturbed_adapters(pcfg, base.params, seed + 13, 0.05, device)
+    merged = ModelRuntime(cfg, base.params, device=device, adapters=adapter,
+                          peft_cfg=pcfg)
+    banked = base.attach({"a": adapter}, pcfg)
+    rng = np.random.default_rng(seed + 8)
+    work = [(rng.integers(1, cfg.vocab_size, n).tolist(), m)
+            for n, m in ((24, 8), (9, 6), (17, 8))]
+    tokens = {}
+    for name, eng, adapter_name in (
+            ("static", StaticServeEngine(merged, max_batch=3, max_len=64,
+                                         eos_id=-1), None),
+            ("continuous", ServeEngine(merged, max_batch=2, max_len=64,
+                                       eos_id=-1), None),
+            ("banked", ServeEngine(banked, max_batch=2, max_len=64,
+                                   eos_id=-1), "a")):
+        rids = [eng.add_request(p, max_new_tokens=m,
+                                **({} if adapter_name is None
+                                   else {"adapter": adapter_name}))
+                for p, m in work]
+        res = eng.run()
+        tokens[name] = [res[r] for r in rids]
+    if not tokens["static"] == tokens["continuous"] == tokens["banked"]:
+        raise AssertionError(f"static {tokens['static']}, continuous "
+                             f"{tokens['continuous']}, banked "
+                             f"{tokens['banked']} differ")
+    return dict(layers=cfg.num_layers, tokens=tokens["static"],
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: image serving (lipconvnet-15)
+# ---------------------------------------------------------------------------
+
+IMAGE_TENANTS = 6
+IMAGE_METHODS = ("gsoft", "boft", "householder")   # as --demo-methods
+IMAGE_REQUESTS = 64
+IMAGE_PROFILED = 12                 # the profile: the first dozen requests
+IMAGE_LOGIT_REL = 1e-3              # f32 banked vs solo merged, of max|logit|
+LIPSCHITZ_TOL = 1e-3                # six Taylor terms: near-isometric convs
+ISOMETRY_TOL = 1e-4                 # f32: an orthogonal channel mix keeps
+                                    # every row's norm to rounding
+
+
+def image_cfgs() -> dict:
+    return {f"t{i}": peft_lib.PEFTConfig(
+        method=IMAGE_METHODS[i % len(IMAGE_METHODS)], block_size=IMAGE_BLOCK)
+        for i in range(IMAGE_TENANTS)}
+
+
+def _image_bank(cfg, seed: int, device):
+    """(base runtime, banked runtime, adapters, their PEFTConfigs): the
+    launcher's demo bank of ``IMAGE_TENANTS`` tenants."""
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    cfgs = image_cfgs()
+    ads = launch_serve.make_demo_adapters(list(cfgs), base.params, cfgs,
+                                          device, seed=seed + 1)
+    return base, base.attach(ads, cfgs), ads, cfgs
+
+
+def _images(cfg, n: int, seed: int, device) -> np.ndarray:
+    return synthetic.image_batch(cfg, n, seed, device)["images"].cpu().numpy()
+
+
+def _serve_images(rt, images, names) -> tuple:
+    """(engine, logits (n, C) in request order, classes, wall seconds)."""
+    eng = ImageServeEngine(rt, max_batch=IMAGE_ROWS)
+    rids = [eng.add_request(img, adapter=names[i % len(names)])
+            for i, img in enumerate(images)]
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (eng, np.stack([eng.result_logits[r] for r in rids]),
+            [res[r][0] for r in rids], wall)
+
+
+def image_serve_phase(cfg, seed: int, device, repeats: int = 3) -> dict:
+    """Phase 15 a-b: ``ImageServeEngine`` (8 rows a batch) over a bank of 6
+    tenants (gsoft, boft, householder round-robin, b = 8) and the base slot,
+    64 images; every GSOFT rotation through the bank read by slot id,
+    ``bdmm`` for the BOFT rows; median images/s of 3 runs, peak memory, a
+    profile of the first 12 requests. Then the same over int8 weights (the
+    GSOFT rotation fused: ``gs_q_matmul`` by slot id, no ``gs_fused_T``),
+    and the bankless int8 model (``q_matmul`` on every ``wc``)."""
+    t0 = time.perf_counter()
+    base, rt, _, cfgs = _image_bank(cfg, seed, device)
+    setup_s = time.perf_counter() - t0
+    names = list(cfgs) + [None]
+    images = _images(cfg, IMAGE_REQUESTS, seed + 2, device)
+    out = dict(params_bytes=tree_bytes(base.params), setup_s=setup_s)
+    for lane, run_rt, gate in (("bf16", rt, ("gs_fused_T", "bdmm")),
+                               ("int8", None, ("gs_q_matmul", "bdmm"))):
+        if lane == "int8":
+            run_rt = rt.quantized("int8")
+        _serve_images(run_rt, images[:IMAGE_ROWS], names)        # warm
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        eng, logits, classes, wall = _serve_images(run_rt, images, names)
+        launches, slot = _launches(), _slot_launches()
+        for name in gate:
+            if launches[name] == 0:
+                raise AssertionError(f"image {lane} lane never launched "
+                                     f"{name}: {launches}")
+        check_slot_path(f"image {lane}", launches, slot, gate[:1])
+        if lane == "int8" and launches["gs_fused_T"]:
+            raise AssertionError(f"the int8 image lane rotated outside the "
+                                 f"fused product: {launches}")
+        if not (np.isfinite(logits).all() and len(classes) == IMAGE_REQUESTS
+                and all(0 <= c < cfg.num_classes for c in classes)):
+            raise AssertionError(f"image {lane}: bad logits or classes")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        walls = [wall]
+        for _ in range(repeats - 1):
+            _, lg, cl, w = _serve_images(run_rt, images, names)
+            if cl != classes or not np.array_equal(lg, logits):
+                raise AssertionError(f"a repeated image {lane} run differs")
+            walls.append(w)
+        _SPENT["timed"] += sum(walls)
+        out[lane] = dict(
+            requests=IMAGE_REQUESTS, wall_s=walls,
+            images_s=IMAGE_REQUESTS / float(np.median(walls)),
+            batches=eng.stats["decode_steps"], launches=launches,
+            slot_launches=slot, peak_mem_gb=peak_gb,
+            bdmm_by_route=dict(bk.bdmm.launches_by_route),
+            profile=_profile(lambda: _serve_images(
+                run_rt, images[:IMAGE_PROFILED], names)))
+    bare = ModelRuntime(cfg, run_rt.params, device=device)
+    _reset_launches()
+    _, _, cl, w = _serve_images(bare, images[:2 * IMAGE_ROWS], [None])
+    if _launches()["q_matmul"] == 0:
+        raise AssertionError("the bankless int8 image model never launched "
+                             "q_matmul")
+    out["int8_bankless"] = dict(launches=_launches(), wall_s=w,
+                                requests=2 * IMAGE_ROWS)
+    del base, rt, run_rt, bare
+    torch.cuda.empty_cache()
+    return out
+
+
+def image_check_phase(cfg, seed: int, device) -> dict:
+    """Phase 15d, f32 (TF32 off): 16 images (two a tenant, four on the base
+    slot) through the banked engine: each tenant's logits equal its solo
+    merged runtime's within IMAGE_LOGIT_REL of max|logit|, the base slot's
+    equal the bankless engine's bit for bit; the banked net stays
+    1-Lipschitz on seeded pairs (every tenant and the base). Over int8
+    weights: every tenant's banked logits equal its exact (unquantized)
+    merged model's within IMAGE_LOGIT_REL (an identity ``wc`` quantizes
+    exactly and the rotation stays in float), and lie within
+    QUANT_LOGIT_REL of max|logit| of "merge, then quantize" for the tenants
+    whose merged Q is block-diagonal (GSOFT, BOFT, as phase 5b holds
+    qwen2's GSOFT); a Householder tenant's merged Q is dense, so its int8
+    codes round every entry of it, and that gap is recorded, not gated."""
+    base, banked, ads, cfgs = _image_bank(cfg, seed, device)
+    names = list(cfgs) + [None, None]
+    images = _images(cfg, 2 * IMAGE_ROWS, seed + 3, device)
+    _, logits, _, _ = _serve_images(banked, images, names)
+    _, bare, _, _ = _serve_images(base, images, [None])
+    idx = {n: [i for i in range(len(images)) if names[i % len(names)] == n]
+           for n in set(names)}
+    if not np.array_equal(logits[idx[None]], bare[idx[None]]):
+        raise AssertionError("the base slot's logits differ from the "
+                             "bankless model's")
+    qbanked = banked.quantized("int8")
+    _, qlogits, _, _ = _serve_images(qbanked, images, names)
+    gaps, qgap, mq_gap = {}, {}, {}
+    for name, pcfg in cfgs.items():
+        merged = ModelRuntime(cfg, base.params, device=device,
+                              adapters=ads[name], peft_cfg=pcfg)
+        x = torch.as_tensor(images[idx[name]], device=device)
+        want = merged.infer(x).float().cpu().numpy()
+        scale = max(1.0, float(np.abs(want).max()))
+        tol = IMAGE_LOGIT_REL * scale
+        gaps[name] = float(np.abs(logits[idx[name]] - want).max())
+        qgap[name] = float(np.abs(qlogits[idx[name]] - want).max()) / scale
+        if not (_err_ok(gaps[name], tol)
+                and _err_ok(qgap[name], IMAGE_LOGIT_REL)):
+            raise AssertionError(f"{name}: banked logits differ from its "
+                                 f"solo merged run by {gaps[name]} (tol "
+                                 f"{tol}), over int8 by {qgap[name]} of "
+                                 f"max|logit| (tol {IMAGE_LOGIT_REL})")
+        mq = merged.quantized("int8").infer(x).float().cpu().numpy()
+        mq_gap[name] = float(np.abs(qlogits[idx[name]] - mq).max()) / scale
+        if pcfg.method != "householder" and not _err_ok(mq_gap[name],
+                                                        QUANT_LOGIT_REL):
+            raise AssertionError(f"{name}: banked int8 logits "
+                                 f"{mq_gap[name]:.3f} of max|logit| from "
+                                 f"merge-then-quantize")
+        del merged
+    # 1-Lipschitz: one row per tenant and the base, x and a nearby y
+    rows = list(cfgs) + [None, None]
+    ids = torch.as_tensor([banked.bank.slot(n) for n in rows], device=device)
+    x = torch.as_tensor(_images(cfg, IMAGE_ROWS, seed + 4, device),
+                        device=device)
+    y = x + 0.1 * torch.as_tensor(_images(cfg, IMAGE_ROWS, seed + 5, device),
+                                  device=device)
+    ctx = banked.context(ids)
+    fx, fy = banked.infer(x, ctx), banked.infer(y, ctx)
+    ratio = _ratio(fx, fy, x, y).cpu()
+    if not bool((ratio <= 1 + LIPSCHITZ_TOL).all()):
+        raise AssertionError(f"a banked row is not 1-Lipschitz: {ratio}")
+    return dict(logit_max_abs_err=gaps, lipschitz_ratio=ratio.tolist(),
+                isometry=_layer_isometry(cfg, banked.params, ctx, seed + 6,
+                                         device),
+                int8_rel_gap_to_exact=qgap, int8_rel_gap_to_merge_quant=mq_gap,
+                allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+
+def _ratio(fx, fy, x, y) -> torch.Tensor:
+    """||f(x) - f(y)|| / ||x - y|| for each row."""
+    return (fx - fy).flatten(1).norm(dim=1) / (x - y).flatten(1).norm(dim=1)
+
+
+def _layer_isometry(cfg, params, ctx, seed: int, device) -> dict:
+    """The banked net where it should be an isometry: at every layer, on
+    seeded feature maps of that layer's shape (one row a slot of ``ctx``),
+    the ratio of the GS-SOC convs (plain ``F.conv2d``, six Taylor terms:
+    recorded) and of the channel mix behind them (``wc`` through each
+    row's rotation from the bank: ``gs_fused_T_bank`` for GSOFT, ``bdmm``
+    for BOFT, plain torch for Householder). Every row of every mix must
+    keep its norm within ``ISOMETRY_TOL``: a rotation that is not
+    orthogonal fails here, whatever the head and the channel selection
+    contract."""
+    lc = image_model.lip_cfg(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rows = int(ctx.slots.shape[0])
+    mix_dev, conv, n = 0.0, [], 0
+    for bi, width in enumerate(lc.block_widths()):
+        block = params[f"block{bi}"]
+        h = lc.image_size >> bi
+        layers = [(f"conv{li}", lc.layer_spec(width), h, width)
+                  for li in range(lc.depth // 5 - 1)]
+        # down: the conv on 4w channels after space-to-depth, then the mix
+        # on the 2w channels it keeps
+        layers.append(("down", lc.layer_spec(4 * width), h // 2, 2 * width))
+        for name, spec, hw, kept in layers:
+            x, y = (torch.randn((rows, hw, hw, spec.channels), generator=gen,
+                                device=device) for _ in range(2))
+            kernels = {k: block[name][k].float() for k in ("m1", "m2")
+                       if k in block[name]}
+            u = conv_lib.gs_soc_layer(spec, kernels, x)
+            v = conv_lib.gs_soc_layer(spec, kernels, y)
+            conv.append(_ratio(u, v, x, y))
+            u, v = u[..., :kept].contiguous(), v[..., :kept].contiguous()
+            rot = ctx.rotator(ctx.group(f"block{bi}", name))
+            mu = image_model._channel_mix(u, block[name]["wc"], rot, "wc")
+            mv = image_model._channel_mix(v, block[name]["wc"], rot, "wc")
+            dev = float((_ratio(mu, mv, u, v) - 1).abs().max())
+            if not dev <= ISOMETRY_TOL:
+                raise AssertionError(
+                    f"block{bi}.{name}: a banked channel mix changed a row's "
+                    f"norm by {dev:.2e} (tol {ISOMETRY_TOL})")
+            mix_dev = max(mix_dev, dev)
+            n += 1
+    conv = torch.cat(conv)
+    return dict(layers=n, mix_max_dev=mix_dev, conv_min=float(conv.min()),
+                conv_max=float(conv.max()))
+
+
+def phase_14(full, seed: int, device) -> dict:
+    """Phase 14 as ``main()`` runs it, gates and log included: the static,
+    traced and streaming lanes (14a-c) of qwen2-72b at ``SERVE_LAYERS``
+    layers, bf16; the launcher's static and streaming lanes (14d); the
+    f32 check at ``CHECK_LAYERS`` layers (14e)."""
+    cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
+    cfg2 = full.with_overrides(num_layers=CHECK_LAYERS, dtype="f32",
+                               param_dtype="f32")
+    log(f"static / traced serve: qwen2-72b full width, {SERVE_LAYERS} layers, "
+        f"bf16, {TRACED_REQUESTS} requests, 4 a batch")
+    traced = static_traced_phase(cfg8, seed, device)
+    st, tr, pq = traced["static"], traced["traced"], traced["paged_int8"]
+    log(f"static lane: merge {st['merge_s']:.1f} s, launches "
+        f"{ {k: v for k, v in st['merge_launches'].items() if v} } "
+        f"({st['weight_slices']} weight slices); static "
+        f"{['%.3f' % w for w in st['static']['wall_s']]} s, median "
+        f"{st['static']['tok_s']:.1f} tok/s ({st['static']['decode_steps']} "
+        f"decode steps, {st['static']['prefills']} prefills); continuous on "
+        f"the same runtime {['%.3f' % w for w in st['continuous']['wall_s']]}"
+        f" s, median {st['continuous']['tok_s']:.1f} tok/s "
+        f"({st['continuous']['decode_steps']} decode steps); equal tokens "
+        f"{st['static_equals_continuous']}")
+    sp = st["profile"]
+    log(f"static lane profile: wall {sp['wall_s']:.3f} s, device busy "
+        f"{sp['device_busy_s']:.3f} s (idle share {sp['idle_share']}, the "
+        f"host's operators traced too); ranges (count, host ms, kernels' "
+        f"device ms, device span ms) "
+        f"{ {k: (v['count'], round(v['host_ms'], 1), round(v['device_ms'], 1), round(v['device_span_ms'], 1)) for k, v in sp['ranges'].items()} }"
+        f"; top {[(k['name'][:40], round(k['device_ms'], 1), k['count']) for k in sp['top'][:6]]}")
+    log(f"traced serve: tracing off {tr['tok_s_off']:.1f} / on "
+        f"{tr['tok_s_on']:.1f} tok/s (ratio {tr['rate_ratio_on_off']:.3f}); "
+        f"streaming at {tr['arrival_rate']:.2f} req/s ({STREAM_LOAD} x "
+        f"{tr['request_rate_upfront']:.2f}): {tr['stream_tok_s']:.1f} tok/s, "
+        f"TTFT ms {tr['slo']['ttft_ms']}, TPOT ms {tr['slo']['tpot_ms']}, "
+        f"stalls {tr['slo']['stalls']}; tokens equal the up-front run "
+        f"{tr['stream_tokens_equal_upfront']}; exports {tr['jsonl_events']} "
+        f"JSONL / {tr['chrome_events']} Chrome events; slot-id launches "
+        f"{tr['slot_launches']}")
+    log(f"traced paged int8: {pq['num_pages']} pages, kv_stats "
+        f"{pq['kv_stats']}; TTFT ms {pq['slo']['ttft_ms']}, TPOT ms "
+        f"{pq['slo']['tpot_ms']}, stalls {pq['slo']['stalls']}; launches "
+        f"{ {k: v for k, v in pq['launches'].items() if v} }")
+    static_launch = launcher_lane_run(
+        ["--arch", "qwen2-72b", "--set", f"num_layers={SERVE_LAYERS}",
+         "--engine", "static", "--peft-demo", "--requests", "8",
+         "--prompt-len", "64", "--max-new", "8", "--mixed-lengths"],
+        ["[static] served 8 requests"])
+    with tempfile.TemporaryDirectory() as launch_dir:
+        trace_out = Path(launch_dir) / "trace.jsonl"
+        stream_launch = launcher_lane_run(
+            ["--arch", "qwen2-72b", "--set", f"num_layers={SERVE_LAYERS}",
+             "--requests", "8", "--prompt-len", "64", "--max-new", "8",
+             "--mixed-lengths", "--arrival-rate", "4", "--trace",
+             "--trace-out", str(trace_out), "--log-json",
+             "--report-interval", "0.5"],
+            ["[continuous] served 8 requests", "trace: 8 requests",
+             '"event": "summary"'])
+        with open(trace_out) as f:
+            stream_launch["jsonl_events"] = len([json.loads(line)
+                                                 for line in f])
+    log(f"static / traced check: {CHECK_LAYERS} layers, f32, TF32 off")
+    scheck14 = static_check_phase(cfg2, seed, device)
+    log(f"static check: static == continuous (merged) == banked tokens "
+        f"{scheck14['tokens']}")
+    torch.cuda.empty_cache()
+    return dict(static_traced=traced,
+                launchers_14=[static_launch, stream_launch],
+                static_check=scheck14)
+
+
+def phase_15(lip, seed: int, device) -> dict:
+    """Phase 15 as ``main()`` runs it, gates and log included: image
+    serving of ``lip`` (lipconvnet-15 full) in bf16 and int8 (15a-b), the
+    launcher's image lane (15c), the f32 checks (15d)."""
+    log(f"image serve: lipconvnet-15 full (widths {lip.base_width}-"
+        f"{lip.base_width * 16}, {lip.num_classes} classes), bf16, "
+        f"{IMAGE_TENANTS} tenants {IMAGE_METHODS} b={IMAGE_BLOCK}, "
+        f"{IMAGE_REQUESTS} images, {IMAGE_ROWS} a batch")
+    image = image_serve_phase(lip, seed, device)
+    for lane in ("bf16", "int8"):
+        im = image[lane]
+        ip = im["profile"]
+        log(f"image {lane}: {['%.3f' % w for w in im['wall_s']]} s, median "
+            f"{im['images_s']:.1f} images/s; {im['batches']} batches; peak "
+            f"{im['peak_mem_gb']:.2f} GB; launches "
+            f"{ {k: v for k, v in im['launches'].items() if v} } (slot-id "
+            f"{im['slot_launches']}; bdmm by route {im['bdmm_by_route']})")
+        log(f"image {lane} profile ({IMAGE_PROFILED} requests): wall "
+            f"{ip['wall_s']:.3f} s, device busy {ip['device_busy_s']:.3f} s "
+            f"(idle share {ip['idle_share']}), port kernels "
+            f"{ip['port_kernels_device_s']:.4f} s "
+            f"{ {k: round(v, 2) for k, v in ip['port_device_ms_by_kernel'].items()} }"
+            f" ms; top {[(k['name'][:40], round(k['device_ms'], 2), k['count']) for k in ip['top'][:6]]}")
+    log(f"image int8 bankless: launches "
+        f"{ {k: v for k, v in image['int8_bankless']['launches'].items() if v} }")
+    image_launch = launcher_lane_run(
+        ["--arch", "lipconvnet-15", "--family", "image", "--demo-adapters",
+         "3", "--trace"], ["[continuous] served 8 requests", "ttft_ms"])
+    log("image check: lipconvnet-15 full, f32, TF32 off")
+    icheck = image_check_phase(lip.with_overrides(dtype="f32",
+                                                  param_dtype="f32"),
+                               seed, device)
+    iso = icheck["isometry"]
+    log(f"image check: banked == solo merged within {IMAGE_LOGIT_REL} of "
+        f"max|logit| (max|diff| "
+        f"{ {k: '%.2e' % v for k, v in icheck['logit_max_abs_err'].items()} }"
+        f"); base slot == bankless bit for bit; every channel mix an "
+        f"isometry per row: |ratio - 1| <= {iso['mix_max_dev']:.2e} (tol "
+        f"{ISOMETRY_TOL}) over {iso['layers']} layers; the GS-SOC convs' "
+        f"ratios {iso['conv_min']:.5f}-{iso['conv_max']:.5f}; whole-net "
+        f"ratios {['%.4f' % v for v in icheck['lipschitz_ratio']]} (<= 1 + "
+        f"{LIPSCHITZ_TOL}); banked int8 vs the exact model "
+        f"{ {k: '%.1e' % v for k, v in icheck['int8_rel_gap_to_exact'].items()} }"
+        f" of max|logit| (tol {IMAGE_LOGIT_REL}), vs merge-then-quantize "
+        f"{ {k: '%.3f' % v for k, v in icheck['int8_rel_gap_to_merge_quant'].items()} }"
+        f" (tol {QUANT_LOGIT_REL}, GSOFT and BOFT tenants)")
+    torch.cuda.empty_cache()
+    return dict(image_serve=image, image_launcher=image_launch,
+                image_check=icheck)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -3089,6 +3870,12 @@ def main() -> int:
         f"{proj['dense_rel_gap']:.1e}, tol {PROJ_MATCH:.0e})")
     torch.cuda.empty_cache()
     _PHASE_S["3g gs library"] = time.perf_counter() - t_phase
+
+    # 3h. the image lane's kernels at its shapes
+    t_phase = time.perf_counter()
+    lip = get_config("lipconvnet-15")
+    image_run = image_kernel_phase(lip, gen, device)
+    _PHASE_S["3h image kernels"] = time.perf_counter() - t_phase
 
     # 4. serve, bf16, full width, depth cut
     cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
@@ -3370,7 +4157,19 @@ def main() -> int:
             f"(tol {SSM_LOGIT_REL:.0e}); first served token {r['first_token']}"
             f" == forward argmax; decode {r['decode_s']:.1f} s")
 
-    # 14. report
+    # 14. static, streaming and traced serving, bf16, full width, depth cut
+    t_phase = time.perf_counter()
+    p14 = phase_14(full, args.seed, device)
+    traced = p14["static_traced"]
+    _PHASE_S["14 static / streaming / traced"] = time.perf_counter() - t_phase
+
+    # 15. image serving: lipconvnet-15 full, bf16, then f32 checks
+    t_phase = time.perf_counter()
+    p15 = phase_15(lip, args.seed, device)
+    image = p15["image_serve"]
+    _PHASE_S["15 image"] = time.perf_counter() - t_phase
+
+    # 16. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
@@ -3384,7 +4183,14 @@ def main() -> int:
                "gs_library": gs_lib_launches,
                "train_resumed": resume["launches_resumed"],
                "serve_store": sserve["launches"],
-               "ckpt_paged_int8": ackpt["launches"]}
+               "ckpt_paged_int8": ackpt["launches"],
+               "serve_static_merge": traced["static"]["merge_launches"],
+               "serve_traced": traced["traced"]["launches"],
+               "serve_paged_int8_traced": traced["paged_int8"]["launches"],
+               "serve_image": image["bf16"]["launches"],
+               "serve_image_int8": image["int8"]["launches"],
+               "serve_image_int8_bankless":
+                   image["int8_bankless"]["launches"]}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
@@ -3415,7 +4221,12 @@ def main() -> int:
     slot_by_path = {"serve": serve["slot_launches"],
                     "serve_mixed": mserve["slot_launches"],
                     "serve_paged_int8": qserve["slot_launches"],
-                    "serve_store": sserve["slot_launches"]}
+                    "serve_store": sserve["slot_launches"],
+                    "serve_traced": traced["traced"]["slot_launches"],
+                    "serve_paged_int8_traced":
+                        traced["paged_int8"]["slot_launches"],
+                    "serve_image": image["bf16"]["slot_launches"],
+                    "serve_image_int8": image["int8"]["slot_launches"]}
     for name, key in main_case.items():
         c = next(c for c in all_cases
                  if (c["kernel"], c["B"], c["T"], c["d"], c["b"],
@@ -3523,6 +4334,8 @@ def main() -> int:
                                    adapters_int8_ckpt=ackpt,
                                    store_serve=sserve,
                                    store_check=scheck_store,
+                                   image_cases=image_run,
+                                   **p14, **p15,
                                    kernels=kernels), indent=1,
                               default=str))
     log(f"details: {out}")
@@ -3531,7 +4344,6 @@ def main() -> int:
         f"{total - build_s - _SPENT['timed'] - _SPENT['profiled']:.1f} s, "
         f"timed runs {_SPENT['timed']:.1f} s, profiled runs "
         f"{_SPENT['profiled']:.1f} s, total {total:.1f} s; of it the phases "
-        f"3g, 12, 12b, 12c "
         f"{ {k: round(v, 1) for k, v in _PHASE_S.items()} } s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,16 @@
 """Model configuration + the arch registry (port of ``repro/config.py``).
 
-Only the fields the ported families read (the decoder, and the ``ssm`` /
-``hybrid`` Mamba2 families) are kept; their names and defaults equal
-``repro.config.ModelConfig`` so configs convert one for one.
+Only the fields the ported families read (the decoder, the ``ssm`` /
+``hybrid`` Mamba2 families and the ``image`` family) are kept; their names
+and defaults equal ``repro.config.ModelConfig`` so configs convert one for
+one.
 ``use_pallas`` stays a field for that reason alone: kernel choice in the
 port follows the tensors' device, not this flag (``kernels/ops.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -19,7 +20,7 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str              # decoder | ssm | hybrid
+    family: str              # decoder | ssm | hybrid | image
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -43,6 +44,18 @@ class ModelConfig:
     ssm_groups: int = 1
     ssm_conv: int = 4
     attn_every: int = 0              # hybrid: shared attn block every k layers
+
+    # image family (1-Lipschitz GS-SOC convnet; models/image.py)
+    image_size: int = 0              # input H = W
+    in_channels: int = 3
+    num_classes: int = 0
+    base_width: int = 0              # stage-0 conv width (doubles per block)
+    conv_layer: str = "gs_soc"       # gs_soc | soc
+    conv_groups: Tuple[int, int] = (1, 1)   # GS group counts (g1, g2)
+    conv_kernel: int = 3
+    conv_terms: int = 6              # conv-exponential Taylor terms
+    conv_activation: str = "maxmin"  # maxmin | maxmin_permuted
+    paired_shuffle: bool = False
 
     dtype: str = "bf16"
     param_dtype: str = "bf16"

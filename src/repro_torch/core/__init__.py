@@ -1,7 +1,7 @@
 """repro_torch.core — the paper's contribution: GS matrices, orthogonal
 parametrization, projection (Algorithm 1), PEFT adapters and the serving
-runtime. The public names of ``repro.core`` (GS orthogonal convolutions
-wait for the image family)."""
+runtime, and the GS orthogonal convolutions (``core/conv.py``). The public
+names of ``repro.core``."""
 from .permutations import (PermSpec, apply_perm, apply_perm_T, gs_sigma,
                            paired_sigma, inverse_sigma, compose_sigma,
                            perm_matrix, is_permutation)

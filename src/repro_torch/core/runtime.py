@@ -15,6 +15,9 @@ bank, if any, carried over untouched: rotations stay in float and GSOFT's
 fuse with the int8 matmul in one kernel). ``paged_state`` /
 ``paged_decode_fn`` / ``chunk_prefill_fn`` are the paged-KV engine's
 surface. ``load_quantized`` serves a checkpoint over int8 weights.
+``prefill_fn`` is the static engine's batched prefill; ``infer_fn`` /
+``infer`` the stateless families' one whole-input forward (the image
+family, served per request through the same bank and int8 weights).
 
 The ``ssm`` and ``hybrid`` families build, prefill and decode here like the
 decoder; as in the JAX package they serve no adapter bank (``attach``
@@ -27,6 +30,8 @@ Meshes raise NotImplementedError (the scale-out slice).
 from __future__ import annotations
 
 from typing import Any, Mapping, Optional
+
+import torch
 
 from repro_torch import quant
 from repro_torch.config import ModelConfig
@@ -96,6 +101,16 @@ class ModelRuntime:
         self._slot_prefill = {}
 
     # -- adapter bank ---------------------------------------------------------
+    @property
+    def banked(self) -> bool:
+        return self.bank is not None
+
+    @property
+    def stateless(self) -> bool:
+        """True for families with no token-level decode state (they serve
+        whole inputs through ``infer_fn`` — the image family)."""
+        return self._ops.stateless
+
     def context(self, slot_ids) -> Optional[peft_lib.AdapterContext]:
         """AdapterContext binding the bank to a batch of slot ids (None when
         this runtime serves the bare/merged model)."""
@@ -251,6 +266,10 @@ class ModelRuntime:
     # -- state + step closures ------------------------------------------------
     def decode_state(self, batch: int, max_len: int):
         """Contiguous decode state (one max_len KV region per slot)."""
+        if self._ops.init_decode_state is None:
+            raise ValueError(
+                f"family {self.cfg.family!r} is stateless — it has no "
+                "decode state; serve it through infer_fn / ImageServeEngine")
         return self._ops.init_decode_state(self.cfg, batch, max_len,
                                            self.device)
 
@@ -281,6 +300,32 @@ class ModelRuntime:
         """(params, ctx, tokens, state, pos) -> (next_tok, logits, state)."""
         from repro_torch.train.steps import build_decode_step
         return build_decode_step(self.cfg)
+
+    def prefill_fn(self):
+        """(params, PrefillRequest, state) -> (logits, state): a batched
+        prefill, each row's logits at its own ``last_idx``."""
+        from repro_torch.train.steps import build_prefill_step
+        return build_prefill_step(self.cfg)
+
+    def infer_fn(self):
+        """(params, ctx, inputs) -> logits — the STATELESS serving entry
+        point (``FamilyOps.infer``): one whole-input batched forward, no KV.
+        ``ctx`` is the AdapterContext the decode path takes, so per-request
+        banked adapters work identically."""
+        if self._ops.infer is None:
+            raise ValueError(
+                f"family {self.cfg.family!r} has no stateless infer entry "
+                "point — serve it through prefill/decode")
+        cfg, fam = self.cfg, self._ops
+
+        @torch.inference_mode()
+        def infer(params, ctx, inputs):
+            return fam.infer(cfg, params, inputs, ctx=ctx)
+
+        return infer
+
+    def infer(self, inputs, ctx: Optional[peft_lib.AdapterContext] = None):
+        return self.infer_fn()(self.params, ctx, inputs)
 
     def slot_prefill_fn(self, max_len: int):
         """(params, PrefillRequest, state, slot) -> (first, state)."""

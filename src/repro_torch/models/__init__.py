@@ -1,1 +1,2 @@
-"""Model families (decoder so far), their layers and the family registry."""
+"""Model families (decoder, ssm, hybrid, image), their layers and the
+family registry."""

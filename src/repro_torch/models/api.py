@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike
-from . import registry, transformer  # noqa: F401  (registers FamilyOps)
+from . import image, registry, transformer  # noqa: F401  (registers FamilyOps)
 
 
 def family_ops(cfg: ModelConfig) -> registry.FamilyOps:

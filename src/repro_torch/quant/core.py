@@ -68,7 +68,10 @@ def quantize_int8(x: torch.Tensor, axis: Optional[int] = None,
             q[i:i + 1] = qi
             scales.append(si)
         return q, torch.cat(scales)
-    x32 = x.to(torch.float32, copy=True)
+    # a contiguous copy: the codes are what the kernels stream, row-major,
+    # whatever the layout of x (a merged weight comes as a transposed view)
+    x32 = x.to(torch.float32, memory_format=torch.contiguous_format,
+               copy=True)
     scale = _absmax_scale(x32, axis, INT8_MAX, batch_dims)
     x32.div_(scale).round_().clamp_(-INT8_MAX, INT8_MAX)
     return x32.to(torch.int8), scale

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engines (port of ``ServeEngine`` and
-``PagedServeEngine`` from ``repro/serve/engine.py``).
+"""Serving engines (port of ``ServeEngine``, ``PagedServeEngine`` and
+``StaticServeEngine`` from ``repro/serve/engine.py``).
 
 ``ServeEngine`` schedules requests over ``max_batch`` persistent decode
 slots of one ``ModelRuntime`` of any ported family (decoder, ``ssm``,
@@ -20,13 +20,28 @@ slots of one ``ModelRuntime`` of any ported family (decoder, ``ssm``,
 pool (``serve/kv.py``), prefills prompts in fixed-width chunks one per tick,
 and shares full prompt pages between requests of one adapter.
 
-An engine's counters live in the process metrics plane
-(``repro_torch.obs.REGISTRY``, scope ``serve`` or ``paged``);
-``EngineMetrics`` is the dict-style view. There is no tracer yet.
+``StaticServeEngine`` is the drain-queue -> pad -> prefill -> lockstep
+decode reference (the paper's merged-weight serving story, §6.1): one
+adapter merged into the weights offline (``ModelRuntime(adapters=...,
+peft_cfg=...)``, the forward GS kernel on the card), zero per-token
+overhead. It refuses a banked runtime.
+
+Every engine samples each row's first token at its own last prompt
+position. An engine's counters live in the process metrics plane
+(``repro_torch.obs.REGISTRY``, scope ``serve``, ``paged`` or ``static``);
+``EngineMetrics`` is the dict-style view. ``tracer=`` takes a
+``repro_torch.obs.TraceRecorder``: the engine then records each request's
+lifecycle (submit, stalls by reason, prefill spans, tokens, finish), from
+which the recorder's SLO monitor reads TTFT and TPOT. ``tracer=None`` (the
+default) skips every hook. The engines also carry the surface a
+multi-replica driver and the streaming launcher need (``queue_depth``,
+``load``, ``add_wall``, ``steal_queued``, ``submit``, ``drain_finished``,
+``adapter_stats``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional
@@ -34,8 +49,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.config import ModelConfig
 from repro_torch.core.peft import PrefillRequest
 from repro_torch.core.runtime import ModelRuntime
+from repro_torch.models import registry
 from repro_torch.obs.metrics import REGISTRY
 from .kv import KVPagePool, SlotPages, pages_for_budget
 
@@ -47,9 +64,14 @@ class Request:
     max_new_tokens: int = 16
     adapter: Optional[str] = None        # bank adapter name (None = base)
     output: Optional[List[int]] = None
+    # timing (perf_counter seconds; filled by the engines)
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+
+    @property
+    def latency_s(self) -> float:
+        return self.t_done - self.t_submit
 
 
 class EngineMetrics:
@@ -97,28 +119,70 @@ def prompt_bucket(plen: int, max_len: int) -> int:
     return min(b, max_len)
 
 
-def _check_capacity(prompt: List[int], max_new: int, max_len: int) -> None:
-    if len(prompt) + max_new > max_len:
-        raise ValueError(f"prompt ({len(prompt)}) + max_new ({max_new}) "
+def _stream_prefix(cfg: ModelConfig) -> int:
+    """Non-text positions prepended to the decode stream (vlm patches; 0
+    for every family the port has, none of which has patches)."""
+    return cfg.frontend_tokens if registry.get(cfg.family).has_patches else 0
+
+
+def _check_token_family(cfg: ModelConfig) -> None:
+    """Token engines need a prefill/decode surface; stateless families
+    (``FamilyOps.stateless`` — whole-input forward, no KV) are served by
+    ``serve.image.ImageServeEngine`` instead."""
+    if registry.get(cfg.family).stateless:
+        raise ValueError(
+            f"family {cfg.family!r} is stateless (no prefill/decode "
+            "surface) — serve it through serve.image.ImageServeEngine")
+
+
+def _check_capacity(cfg: ModelConfig, prompt: List[int], max_new: int,
+                    max_len: int) -> None:
+    plen = len(prompt) + _stream_prefix(cfg)
+    if plen + max_new > max_len:
+        raise ValueError(f"prompt ({plen}) + max_new ({max_new}) "
                          f"exceeds max_len={max_len}")
+
+
+def latency_percentiles(requests: List[Request],
+                        qs=(50, 95)) -> Dict[int, float]:
+    """{q: seconds} request-latency percentiles over finished Requests."""
+    lats = [r.latency_s for r in requests]
+    if not lats:
+        return {q: 0.0 for q in qs}
+    return {q: float(np.percentile(lats, q)) for q in qs}
+
+
+def _tracer_hooks(tracer, kind: str):
+    """(engine tag, annotate) of an engine: the tag registers the engine
+    with the tracer; annotate wraps a dispatch in a named profiler range
+    when the tracer asks for it (a no-op without a tracer)."""
+    if tracer is None:
+        return "", lambda name: contextlib.nullcontext()
+    return tracer.register_engine(kind), tracer.annotate
 
 
 class ServeEngine:
     """Continuous-batching engine over ``max_batch`` slots of one runtime.
 
     It serves on the runtime's device, which the runtime resolved from its
-    own ``device=`` (the card unless the CPU was asked for)."""
+    own ``device=`` (the card unless the CPU was asked for). ``tracer``: an
+    optional ``repro_torch.obs.TraceRecorder`` (see the module docstring).
+    """
 
-    _kind = "serve"          # metrics-scope prefix
+    _kind = "serve"          # metrics-scope prefix + tracer tag family
 
     def __init__(self, runtime: ModelRuntime, *, max_batch: int = 8,
-                 max_len: int = 256, eos_id: int = 0):
+                 max_len: int = 256, eos_id: int = 0, tracer=None):
+        _check_token_family(runtime.cfg)
         self.rt = runtime
         self.cfg = runtime.cfg
         self.device = runtime.device
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos_id = eos_id
+        self.tracer = tracer
+        self._ttag, self._annot = _tracer_hooks(tracer, self._kind)
+        self._prefix = _stream_prefix(self.cfg)
 
         self._setup_compute()
 
@@ -131,6 +195,8 @@ class ServeEngine:
         self._queue: "collections.deque[Request]" = collections.deque()
         self._next_id = 0
         self._results: Dict[int, List[int]] = {}
+        # completed Requests (latency accounting): grows until drained, so
+        # long-running streaming drivers call drain_finished()
         self.finished: List[Request] = []
         self.stats = EngineMetrics(self._kind)
         self._ctx_key: Any = None
@@ -146,12 +212,15 @@ class ServeEngine:
     def add_request(self, prompt: List[int], max_new_tokens: int = 16,
                     adapter: Optional[str] = None) -> int:
         self.rt.validate_adapter(adapter)
-        _check_capacity(prompt, max_new_tokens, self.max_len)
+        _check_capacity(self.cfg, prompt, max_new_tokens, self.max_len)
         rid = self._next_id
         self._next_id += 1
-        self._queue.append(Request(rid, list(prompt), max_new_tokens,
-                                   adapter=adapter,
-                                   t_submit=time.perf_counter()))
+        req = Request(rid, list(prompt), max_new_tokens, adapter=adapter,
+                      t_submit=time.perf_counter())
+        self._queue.append(req)
+        if self.tracer is not None:
+            self.tracer.submit(self._ttag, rid, adapter=adapter,
+                               prompt_len=len(prompt), t_submit=req.t_submit)
         return rid
 
     @property
@@ -159,12 +228,55 @@ class ServeEngine:
         return sum(r is not None for r in self._slot_req)
 
     @property
+    def queue_depth(self) -> int:
+        """Requests submitted but not yet slotted (a router's load signal)."""
+        return len(self._queue)
+
+    @property
+    def load(self) -> int:
+        """Queued + in-flight work — a router's balance metric."""
+        return self.queue_depth + self.num_active
+
+    @property
     def idle(self) -> bool:
         return not self._queue and self.num_active == 0
 
+    def add_wall(self, dt: float) -> None:
+        """Account driver wall time (drivers call this instead of poking
+        ``stats``)."""
+        self.stats.add_wall(dt)
+
+    # -- multi-replica hooks ---------------------------------------------------
+    def steal_queued(self) -> Optional[Request]:
+        """Pop the YOUNGEST queued (never-admitted) request so a router can
+        move it to a less-loaded replica; None when empty. Stealing from
+        the tail keeps FIFO order for what stays."""
+        if not self._queue:
+            return None
+        req = self._queue.pop()
+        if self.tracer is not None:        # re-submits on the new engine
+            self.tracer.drop(self._ttag, req.rid)
+        return req
+
+    def submit(self, req: Request) -> int:
+        """Enqueue an existing Request under a FRESH local rid (a moved
+        request keeps its submit timestamp and adapter)."""
+        self.rt.validate_adapter(req.adapter)
+        _check_capacity(self.cfg, req.prompt, req.max_new_tokens,
+                        self.max_len)
+        req.rid = self._next_id
+        self._next_id += 1
+        self._queue.append(req)
+        if self.tracer is not None:        # keeps the ORIGINAL submit time
+            self.tracer.submit(self._ttag, req.rid, adapter=req.adapter,
+                               prompt_len=len(req.prompt),
+                               t_submit=req.t_submit)
+        return req.rid
+
     # -- internals ------------------------------------------------------------
     def _feed(self, prompt: List[int]) -> Dict[str, torch.Tensor]:
-        toks = np.zeros((1, prompt_bucket(len(prompt), self.max_len)),
+        toks = np.zeros((1, prompt_bucket(len(prompt),
+                                          self.max_len - self._prefix)),
                         np.int64)
         toks[0, :len(prompt)] = prompt
         return {"tokens": torch.as_tensor(toks, device=self.device)}
@@ -177,13 +289,17 @@ class ServeEngine:
         self.finished.append(req)
         self.stats.inc("requests")
         self.stats.inc("tokens_generated", len(req.output))
+        if self.tracer is not None:
+            self.tracer.finish(self._ttag, req.rid)
         self._slot_req[slot] = None
         self._slot_ids[slot] = 0            # identity until re-admitted
         self.rt.release_adapter(req.adapter)
 
     def _admit(self) -> None:
         """Fill free slots from the queue: batch-1 prefill copied into the
-        slot, first token sampled at the prompt's own last position."""
+        slot, first token sampled at the prompt's own last position. On a
+        store-paged bank a full bank STALLS admission (FIFO head-of-line):
+        keep decoding, which is what unpins slots."""
         for slot in range(self.max_batch):
             if not self._queue:
                 return
@@ -193,25 +309,37 @@ class ServeEngine:
             aid = self.rt.acquire_adapter(req.adapter)
             if aid is None:                  # admission stall, not an error
                 self.stats.inc("admission_stalls")
+                if self.tracer is not None:
+                    self.tracer.stall(self._ttag, req.rid, "adapter")
                 return
             self._queue.popleft()
             feed = PrefillRequest(
                 batch=self._feed(req.prompt),
-                last_idx=torch.as_tensor(len(req.prompt) - 1,
+                last_idx=torch.as_tensor(self._prefix + len(req.prompt) - 1,
                                          device=self.device),
                 ctx=self.rt.context([aid]))
-            first, self._state = self._slot_prefill(self.rt.params, feed,
-                                                    self._state, slot)
+            if self.tracer is not None:
+                self.tracer.prefill_start(self._ttag, req.rid)
+            with self._annot("prefill"):
+                first, self._state = self._slot_prefill(
+                    self.rt.params, feed, self._state, slot)
             req.t_first = time.perf_counter()
+            if self.tracer is not None:
+                self.tracer.prefill_end(self._ttag, req.rid)
+                self.tracer.first_token(self._ttag, req.rid)
             self.stats.inc("prefills")
             self.stats.log_admission(req.rid)
             self._slot_req[slot] = req
             self._outs[slot] = [first]
-            self._pos[slot] = len(req.prompt)
+            self._pos[slot] = self._prefix + len(req.prompt)
             self._last[slot] = first
             self._slot_ids[slot] = aid
             if first == self.eos_id or req.max_new_tokens <= 1:
                 self._finish(slot)
+        # every slot is occupied and work is still queued: head-of-line
+        # wait on a decode slot, not on a resource
+        if self._queue and self.tracer is not None:
+            self.tracer.stall(self._ttag, self._queue[0].rid, "queue")
 
     def _context(self):
         """AdapterContext for the current slot ids, cached across decode
@@ -236,8 +364,10 @@ class ServeEngine:
         next-token tensor without reading it on the host."""
         tokens = torch.as_tensor(self._last[:, None], device=self.device)
         pos = torch.as_tensor(self._pos, device=self.device)
-        nt, _, self._state = self._decode(self.rt.params, self._context(),
-                                          tokens, self._state, pos)
+        ctx = self._context()
+        with self._annot("decode"):
+            nt, _, self._state = self._decode(self.rt.params, ctx, tokens,
+                                              self._state, pos)
         self.stats.inc("decode_steps")
         return nt
 
@@ -252,6 +382,8 @@ class ServeEngine:
             self._outs[slot].append(tok)
             self._pos[slot] += 1
             self._last[slot] = tok
+            if self.tracer is not None:
+                self.tracer.token(self._ttag, req.rid)
             if tok == self.eos_id or len(self._outs[slot]) >= req.max_new_tokens:
                 self._finish(slot)
 
@@ -272,8 +404,24 @@ class ServeEngine:
 
     def step(self) -> bool:
         """One scheduler tick: admit into free slots, then one decode step
-        over all slots. Returns True while work remains."""
+        over all slots. Returns True while work remains (the streaming
+        driver's loop condition)."""
         return self.step_commit(self.step_launch())
+
+    def drain_finished(self) -> List[Request]:
+        """Hand over (and forget) everything completed so far — the
+        bounded-memory accessor for long-running streaming loops (also
+        releases the corresponding pending run() results)."""
+        out, self.finished = self.finished, []
+        for r in out:
+            self._results.pop(r.rid, None)
+        return out
+
+    def adapter_stats(self) -> Optional[Dict[str, Any]]:
+        """Residency counters of a store-paged bank — hit rate, page-in
+        latency, evictions, resident / padded bytes (None on eager banks)."""
+        stats = getattr(self.rt.bank, "stats", None)
+        return stats() if callable(stats) else None
 
     def run(self) -> Dict[int, List[int]]:
         """Drain the queue to completion; returns {rid: tokens}."""
@@ -283,6 +431,134 @@ class ServeEngine:
         self.stats.add_wall(time.perf_counter() - t0)
         res, self._results = self._results, {}
         return res
+
+
+class StaticServeEngine:
+    """Static-batch reference: drain queue -> pad -> prefill -> lockstep
+    decode. One adapter (per deployment) is merged into the runtime's
+    weights offline — the paper's zero-overhead serving mode. A banked
+    runtime is refused."""
+
+    _kind = "static"
+
+    def __init__(self, runtime: ModelRuntime, *, max_batch: int = 8,
+                 max_len: int = 256, eos_id: int = 0, tracer=None):
+        _check_token_family(runtime.cfg)
+        if runtime.banked:
+            raise ValueError(
+                "static serving merges ONE adapter offline "
+                "(ModelRuntime(adapters=..., peft_cfg=...)); per-request "
+                "banks need the continuous ServeEngine")
+        self.rt = runtime
+        self.cfg = runtime.cfg
+        self.device = runtime.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.tracer = tracer
+        self._ttag, self._annot = _tracer_hooks(tracer, self._kind)
+        self._queue: List[Request] = []
+        self._next_id = 0
+        self.finished: List[Request] = []    # completed Requests (latency)
+        self._prefill = runtime.prefill_fn()
+        self._decode = runtime.decode_fn()
+        self.stats = EngineMetrics(self._kind)
+
+    def add_request(self, prompt: List[int], max_new_tokens: int = 16) -> int:
+        _check_capacity(self.cfg, prompt, max_new_tokens, self.max_len)
+        rid = self._next_id
+        self._next_id += 1
+        req = Request(rid, list(prompt), max_new_tokens,
+                      t_submit=time.perf_counter())
+        self._queue.append(req)
+        if self.tracer is not None:
+            self.tracer.submit(self._ttag, rid, prompt_len=len(prompt),
+                               t_submit=req.t_submit)
+        return rid
+
+    def drain_finished(self) -> List[Request]:
+        """Hand over (and forget) the completed-Request history."""
+        out, self.finished = self.finished, []
+        return out
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    def add_wall(self, dt: float) -> None:
+        self.stats.add_wall(dt)
+
+    # -- internals ------------------------------------------------------------
+    def _run_batch(self, batch: List[Request]) -> None:
+        b = len(batch)
+        prefix = _stream_prefix(self.cfg)
+        plen = max(len(r.prompt) for r in batch)
+        toks = np.zeros((b, plen), np.int64)
+        for i, r in enumerate(batch):
+            toks[i, :len(r.prompt)] = r.prompt          # right-padded
+        state = self.rt.decode_state(b, self.max_len)
+        # each row samples at its OWN last prompt position and decodes from
+        # its own position counter: padded rows never read the pad tail
+        last_idx = np.asarray([prefix + len(r.prompt) - 1 for r in batch],
+                              np.int64)
+        if self.tracer is not None:
+            for r in batch:
+                self.tracer.prefill_start(self._ttag, r.rid)
+        req = PrefillRequest(
+            batch={"tokens": torch.as_tensor(toks, device=self.device)},
+            last_idx=torch.as_tensor(last_idx, device=self.device))
+        with self._annot("prefill"):
+            logits, state = self._prefill(self.rt.params, req, state)
+        last = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        first = last[:, 0].cpu().numpy()
+        self.stats.inc("prefills")
+        for r in batch:
+            r.t_first = time.perf_counter()
+            if self.tracer is not None:
+                self.tracer.prefill_end(self._ttag, r.rid)
+                self.tracer.first_token(self._ttag, r.rid)
+
+        max_new = max(r.max_new_tokens for r in batch)
+        outs = [[int(first[i])] for i in range(b)]
+        done = np.asarray([outs[i][0] == self.eos_id or r.max_new_tokens <= 1
+                           for i, r in enumerate(batch)])
+        pos0 = np.asarray([prefix + len(r.prompt) for r in batch], np.int64)
+        for t in range(max_new - 1):
+            if done.all():
+                break
+            with self._annot("decode"):
+                last, _, state = self._decode(
+                    self.rt.params, None, last, state,
+                    torch.as_tensor(pos0 + t, device=self.device))
+            self.stats.inc("decode_steps")
+            vals = last[:, 0].cpu().numpy()
+            for i in range(b):
+                if not done[i]:
+                    outs[i].append(int(vals[i]))
+                    if self.tracer is not None:
+                        self.tracer.token(self._ttag, batch[i].rid)
+                    done[i] |= (vals[i] == self.eos_id
+                                or len(outs[i]) >= batch[i].max_new_tokens)
+        for i, r in enumerate(batch):
+            r.output = outs[i][:r.max_new_tokens]
+            r.t_done = time.perf_counter()
+            self.stats.inc("tokens_generated", len(r.output))
+            if self.tracer is not None:
+                self.tracer.finish(self._ttag, r.rid)
+
+    def run(self) -> Dict[int, List[int]]:
+        t0 = time.perf_counter()
+        results: Dict[int, List[int]] = {}
+        while self._queue:
+            batch = self._queue[:self.max_batch]
+            self._queue = self._queue[self.max_batch:]
+            self._run_batch(batch)
+            for r in batch:
+                results[r.rid] = r.output
+                self.finished.append(r)
+                self.stats.inc("requests")
+        self.stats.add_wall(time.perf_counter() - t0)
+        return results
 
 
 @dataclasses.dataclass
@@ -320,7 +596,7 @@ class PagedServeEngine(ServeEngine):
     def __init__(self, runtime: ModelRuntime, *, max_batch: int = 8,
                  max_len: int = 256, eos_id: int = 0, page_size: int = 8,
                  prefill_chunk: int = 16, num_pages: Optional[int] = None,
-                 hbm_kv_budget: Optional[int] = None):
+                 hbm_kv_budget: Optional[int] = None, tracer=None):
         if runtime._ops.init_paged_state is None:
             raise ValueError(
                 f"family {runtime.cfg.family!r} has no paged KV serve path "
@@ -339,7 +615,7 @@ class PagedServeEngine(ServeEngine):
                 num_pages = max_batch * self.max_pages + 1
         self.num_pages = num_pages
         super().__init__(runtime, max_batch=max_batch, max_len=max_len,
-                         eos_id=eos_id)
+                         eos_id=eos_id, tracer=tracer)
         self._pos[:] = self._parked
         self._decoding = np.zeros(max_batch, bool)
         self._slot_pages: List[Optional[SlotPages]] = [None] * max_batch
@@ -373,11 +649,15 @@ class PagedServeEngine(ServeEngine):
             aid = self.rt.acquire_adapter(req.adapter)
             if aid is None:
                 self.stats.inc("admission_stalls")
+                if self.tracer is not None:
+                    self.tracer.stall(self._ttag, req.rid, "adapter")
                 return
             sp = self.pool.admit(req.adapter, req.prompt, req.max_new_tokens)
             if sp is None:                        # KV stall, not an error
                 self.rt.release_adapter(req.adapter)
                 self.stats.inc("admission_stalls")
+                if self.tracer is not None:
+                    self.tracer.stall(self._ttag, req.rid, "kv")
                 return
             self._queue.popleft()
             self._set_table_row(slot, self.pool.table_row(
@@ -390,6 +670,8 @@ class PagedServeEngine(ServeEngine):
             self._pos[slot] = self._parked        # writes park in garbage
             self._prefill_q.append(_PrefillPlan(slot, req, sp,
                                                 next_start=sp.n_cached))
+        if self._queue and self.tracer is not None:     # all slots occupied
+            self.tracer.stall(self._ttag, self._queue[0].rid, "queue")
 
     def _feed_one_chunk(self) -> None:
         """Advance the HEAD prefill plan by one fixed-width chunk. The last
@@ -410,8 +692,13 @@ class PagedServeEngine(ServeEngine):
             batch={"tokens": torch.as_tensor(toks, device=self.device)},
             last_idx=torch.as_tensor(last_local, device=self.device),
             ctx=self.rt.context([self._slot_ids[slot]]))
-        first, self._state = self._chunk_prefill(self.rt.params, feed,
-                                                 self._state, slot, start)
+        if self.tracer is not None:                # span per prompt chunk
+            self.tracer.prefill_start(self._ttag, req.rid)
+        with self._annot("prefill_chunk"):
+            first, self._state = self._chunk_prefill(
+                self.rt.params, feed, self._state, slot, start)
+        if self.tracer is not None:
+            self.tracer.prefill_end(self._ttag, req.rid)
         plan.next_start = end
         if not final:
             return
@@ -419,6 +706,8 @@ class PagedServeEngine(ServeEngine):
         self.pool.register(plan.sp)               # publish full prompt pages
         first = int(first)
         req.t_first = time.perf_counter()
+        if self.tracer is not None:
+            self.tracer.first_token(self._ttag, req.rid)
         self.stats.inc("prefills")
         self.stats.log_admission(req.rid)
         self._outs[slot] = [first]

@@ -31,7 +31,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.paged_attention, repro_torch.models.ssm, "
             "repro_torch.kernels.ssd, repro_torch.kernels.flash_attention, "
             "repro_torch.core, repro_torch.core.projection, "
-            "repro_torch.checkpoint, repro_torch.store, repro_torch.obs; "
+            "repro_torch.checkpoint, repro_torch.store, repro_torch.obs, "
+            "repro_torch.obs.trace, repro_torch.obs.slo, "
+            "repro_torch.core.conv, repro_torch.models.lipconvnet, "
+            "repro_torch.models.image, repro_torch.serve.image, "
+            "repro_torch.data.synthetic, repro_torch.configs.lipconvnet_15; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')"
             " or m == 'repro' or m.startswith('repro.')]; "
@@ -92,3 +96,32 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch):
                            "paged", "--quantize", "int8"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelRuntime(get_smoke_config("qwen2-72b"))
+
+
+def test_image_and_static_entry_points_raise_without_a_card(monkeypatch):
+    """The image lane and the static engine default to the card as well:
+    the image family's runtime, its launcher lane, the static launcher
+    lane, the GS-SOC initialiser and the synthetic batches raise without
+    one."""
+    import torch
+    from repro_torch.config import get_smoke_config
+    from repro_torch.core.conv import GSSOCSpec, init_gs_soc
+    from repro_torch.core.runtime import ModelRuntime
+    from repro_torch.data import image_batch, lm_batch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import image
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("lipconvnet-15")
+    for call in (lambda: ModelRuntime(cfg),
+                 lambda: image.init_image(cfg),
+                 lambda: init_gs_soc(GSSOCSpec(channels=8),
+                                     torch.Generator()),
+                 lambda: image_batch(cfg, 2),
+                 lambda: lm_batch(get_smoke_config("qwen2-72b"), 2, 8),
+                 lambda: launch_serve.main(["--arch", "lipconvnet-15",
+                                            "--smoke", "--family", "image"]),
+                 lambda: launch_serve.main(["--arch", "qwen2-72b", "--smoke",
+                                            "--engine", "static",
+                                            "--peft-demo"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -1615,3 +1615,138 @@ def test_ssd_and_flash_cpu_tensors_take_the_plain_versions(monkeypatch):
         fak.flash_attention(q, k[:, :, :30], v[:, :, :30], causal=False,
                             blk_k=16)
     assert (ssdk.ssd.launches, fak.flash_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the image lane's shapes (lipconvnet-15 served per tenant, phase 15 of
+# chip_smoke.py): 8 image rows, b = 8 (route 2 of the GS kernels), the wc
+# channel mix at (d, tokens a row) = (32, 1024) ... (1024, 1), int8 products
+# with K = N = d from 32 up, shorter than one ring stage (64 rows) and one
+# box (128 columns) at the narrow end
+# ---------------------------------------------------------------------------
+
+IMAGE_ROWS = 8
+IMAGE_SLOTS = 7                     # 6 tenants + the identity slot 0
+IMAGE_PAIRS = [(32, 1024), (64, 256), (128, 64), (256, 16), (512, 4),
+               (1024, 1)]
+
+
+def _image_ids(device):
+    """Eight rows over the 7-slot bank: repeats, the identity, every slot."""
+    return torch.tensor([1, 2, 3, 0, 4, 5, 6, 1], dtype=torch.int64,
+                        device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t", IMAGE_PAIRS, ids=lambda v: str(v))
+def test_image_lane_transpose_bank_at_b8(cuda, d, t):
+    rng = np.random.default_rng(d + t)
+    Lb, Rb = (a.to(cuda) for a in _bank(rng, IMAGE_SLOTS, d // 8, 8))
+    x = torch.from_numpy(rng.normal(size=(IMAGE_ROWS, t, d))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    ids = _image_ids(cuda)
+    before = gk.gs_fused_T.slot_launches
+    y = gk.gs_fused_T_bank(x, Lb, Rb, ids)
+    torch.cuda.synchronize()
+    assert gk.gs_fused_T.slot_launches == before + 1
+    want = gk.gs_fused_T_bank_plain(x, Lb, Rb, ids)
+    assert (y.float() - want.float()).abs().max().item() <= BF16_TOL
+    assert torch.equal(y[3], x[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t", IMAGE_PAIRS, ids=lambda v: str(v))
+def test_image_lane_gs_q_matmul_bank_at_b8(cuda, d, t):
+    rng = np.random.default_rng(2 * d + t)
+    q, s = _codes(rng, d, d)
+    Lb, Rb = (a.to(cuda) for a in _bank(rng, IMAGE_SLOTS, d // 8, 8))
+    x = torch.from_numpy(rng.normal(size=(IMAGE_ROWS, t, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    ids = _image_ids(cuda)
+    q, s = q.to(cuda), s.to(cuda)
+    y = qmk.gs_q_matmul_bank(x, Lb, Rb, ids, q, s)
+    torch.cuda.synchronize()
+    want = qmk.gs_q_matmul_bank_plain(x, Lb, Rb, ids, q, s)
+    assert y.shape == (IMAGE_ROWS, t, d) and torch.isfinite(y.float()).all()
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= GSQ_BF16_REL * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t", IMAGE_PAIRS + [(2048, 1)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_image_lane_q_matmul_narrow_k_and_n(cuda, d, t, dtype):
+    """M = 8 rows x tokens (up to 8192), K = N = d: K shorter than a ring
+    stage and N than a box at d = 32 must read zeros past K and N, never
+    the next row's codes."""
+    m = IMAGE_ROWS * t
+    rng = np.random.default_rng(3 * d + t)
+    q, s = _codes(rng, d, d)
+    x = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)
+                         / np.sqrt(d)).to(cuda, dtype)
+    q, s = q.to(cuda), s.to(cuda)
+    y = qmk.q_matmul(x, q, s)
+    torch.cuda.synchronize()
+    want = qmk.q_matmul_plain(x, q, s)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, atol=QMM_F32_TOL,
+                                   rtol=QMM_F32_TOL)
+    else:
+        err = (y.float() - want.float()).abs().max().item()
+        assert err <= QMM_BF16_REL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t", IMAGE_PAIRS, ids=lambda v: str(v))
+@pytest.mark.parametrize("trans", [False, True], ids=["stored", "transposed"])
+def test_image_lane_bdmm_at_b8(cuda, d, t, trans):
+    """BOFT tenants' rows: per-row (r, 8, 8) blocks, bf16, read as stored
+    and transposed in place."""
+    rng = np.random.default_rng(4 * d + t)
+    blocks = _factors(rng, IMAGE_ROWS, d // 8, 8).to(cuda, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(IMAGE_ROWS, t, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    before = bk.bdmm.launches
+    y = bk.bdmm(x, blocks, transpose_blocks=trans)
+    torch.cuda.synchronize()
+    assert bk.bdmm.launches == before + 1
+    want = bk.bdmm_plain(x, blocks, transpose_blocks=trans)
+    assert (y.float() - want.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 512, 1024, 2048])
+def test_image_lane_gs_fused_merge_at_b8_f32(cuda, d):
+    """The merge of a GSOFT tenant into wc (identity base): T = d tokens of
+    width d, f32, b = 8 (route 2)."""
+    rng = np.random.default_rng(5 * d)
+    x = torch.eye(d, device=cuda)[None]
+    L, R = (_factors(rng, 1, d // 8, 8).to(cuda) for _ in range(2))
+    y = gk.gs_fused(x, L, R)
+    torch.cuda.synchronize()
+    want = gk.gs_fused_plain(x, L, R)
+    assert (y - want).abs().max().item() <= F32_TOL
+    eye = torch.eye(d, device=cuda)
+    assert (y[0] @ y[0].T - eye).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_merged_then_quantized_weight_runs_q_matmul(cuda):
+    """A merged GSOFT weight comes out of the weight-side rotation as a
+    transposed view; its int8 codes must still be row-major, which
+    ``q_matmul`` streams (it refused them before: "q_matmul needs
+    contiguous x and q", on the image lane's "merge, then quantize")."""
+    rng = np.random.default_rng(9)
+    L, R = (_factors(rng, 1, 8, 8).to(cuda) for _ in range(2))
+    w = gk.gs_fused(torch.eye(64, device=cuda)[None], L, R)[0].T
+    assert not w.is_contiguous()
+    qt = quant.quantize_tensor(w)
+    assert qt.q.is_contiguous()
+    x = torch.from_numpy(rng.normal(size=(40, 64)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    y = qmk.q_matmul(x, qt.q, qt.scale)
+    want = qmk.q_matmul_plain(x, qt.q, qt.scale)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= QMM_BF16_REL * want.float().abs().max().item()

@@ -319,11 +319,11 @@ def test_launcher_serves_paged_int8_bank_on_the_cpu(capsys):
     assert "kv pages:" in out
 
 
-@pytest.mark.parametrize("flags", [["--engine", "static"],
+@pytest.mark.parametrize("flags", [["--mesh", "1,1"],
                                    ["--quantize", "fp8"],
                                    ["--family", "vlm"],
-                                   ["--replicas", "2"], ["--trace"],
-                                   ["--family", "image"]])
+                                   ["--replicas", "2"], ["--tp", "2"],
+                                   ["--family", "encdec"]])
 def test_launcher_refuses_unported_lanes(flags):
     with pytest.raises(NotImplementedError):
         tlaunch.main(["--arch", "qwen2-72b", "--smoke", "--device", "cpu"]

@@ -2,6 +2,7 @@
 between two trees of this repository, on one GPU.
 
     python3 tools/banked_rot_ab.py --tree DIR [--label NAME] [--seed N] [--out FILE]
+                                  [--lanes-only serve,paged_int8,mixed]
 
 Imports ``chip_smoke.py`` from the tree at DIR (with the loader of
 ``tools/gs_bwd_ab.py``, which puts that tree's ``src`` first on the path,
@@ -28,7 +29,9 @@ each with the tree's own code:
   layers, ``gs_bwd_ab``'s ``_grad_step``) with ``gs_fused_T``'s device
   time.
 
-Prints the card's name and power limit, then one JSON line of the results
+With ``--lanes-only`` it runs the named serve lanes of the last-but-one
+item alone, nothing else. Prints the card's name and power limit, then
+one JSON line of the results
 (also written to ``--out``). Hosts differ between calls, so compare trees
 inside one call, in turns: ``for t in parent change change parent``.
 """
@@ -178,7 +181,10 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
+    ap.add_argument("--lanes-only", default="",
+                    help="comma-separated serve lanes to run alone")
     args = ap.parse_args()
+    only = [x for x in args.lanes_only.split(",") if x]
     tree = Path(args.tree).resolve()
     cs = _load(tree)
     torch = cs.torch
@@ -208,8 +214,8 @@ def main() -> int:
     full = cs.get_config("qwen2-72b")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    rot = _rot_cases(cs, full, gen, device)
-    gsq = _gsq_cases(cs, full, gen, device)
+    rot = [] if only else _rot_cases(cs, full, gen, device)
+    gsq = [] if only else _gsq_cases(cs, full, gen, device)
     cfg8 = full.with_overrides(num_layers=cs.SERVE_LAYERS)
     lanes = {}
     for name, phase, cfg in (
@@ -217,15 +223,19 @@ def main() -> int:
             ("paged_int8", cs.paged_quant_serve_phase, cfg8),
             ("mixed", cs.mixed_serve_phase,
              full.with_overrides(num_layers=cs.MIXED_SERVE_LAYERS))):
+        if only and name not in only:
+            continue
         r = phase(cfg, args.seed, device)
         lanes[name] = _lane(r)
         torch.cuda.empty_cache()
-    g = _grad_step(cs, full.with_overrides(
-        num_layers=cs.GRAD_LAYERS, dtype="bf16", param_dtype="bf16",
-        remat="full"), args.seed, device, "double_gsoft")
-    g["gs_fused_T_device_ms"] = sum(
-        v for k, v in g["port_device_ms_by_kernel"].items()
-        if "gs_fused_T" in k or "gs_T_tc" in k)
+    g = None
+    if not only:
+        g = _grad_step(cs, full.with_overrides(
+            num_layers=cs.GRAD_LAYERS, dtype="bf16", param_dtype="bf16",
+            remat="full"), args.seed, device, "double_gsoft")
+        g["gs_fused_T_device_ms"] = sum(
+            v for k, v in g["port_device_ms_by_kernel"].items()
+            if "gs_fused_T" in k or "gs_T_tc" in k)
     result = dict(label=args.label, tree=str(tree), card=card,
                   build_s=build_s, rotation_cases=rot, gsq_cases=gsq,
                   lanes=lanes, grad_step_double_gsoft_bf16=g)
@@ -244,9 +254,10 @@ def main() -> int:
               f"{lane['idle_share']:.3f}, index_select kernels "
               f"{lane['index_select_kernels']}, copy kernels "
               f"{lane['copy_kernels']}")
-    print(f"{args.label} grad step double_gsoft bf16: median "
-          f"{g['step_median_s']:.4f} s; gs_fused_T "
-          f"{g['gs_fused_T_device_ms']:.2f} ms on the card")
+    if g is not None:
+        print(f"{args.label} grad step double_gsoft bf16: median "
+              f"{g['step_median_s']:.4f} s; gs_fused_T "
+              f"{g['gs_fused_T_device_ms']:.2f} ms on the card")
     print(line)
     return 0
 
