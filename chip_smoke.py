@@ -191,8 +191,30 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    on seeded pairs (1e-3), banked int8 within 1e-3 of max|logit| of each
    tenant's exact model and within 10 % of "merge, then quantize" (GSOFT
    and BOFT tenants; a Householder tenant's dense merged Q is recorded)
-16. report — where the time went (build, set-up, timed runs, profiled
-   runs, and phases 3g, 3h, 12, 12b, 12c, 14 and 15 whole), the card's
+16. scale-out — qwen2-72b full width: (a) the ``EngineCluster`` at 1 and 2
+   replicas sharing the card (8 layers bf16, 8 tenants GSOFT / BOFT at
+   b = 8 in a store, 4 device slots a replica, 32 mixed-length requests
+   up front, a warm-up run, median tok/s of 3, page-ins, affinity hit
+   rate): tokens equal, each replica reads its GSOFT bank by slot id in
+   ``gs_fused_T`` and launches ``bdmm``, the speedup reported, not gated;
+   (b) the launcher's ``--replicas 2 --store-dir --hbm-adapter-budget`` and
+   ``--tp 1 --engine paged --quantize int8`` lanes and their cluster
+   reports; (c) a runtime on the degenerate tp = 1 mesh (a world of one)
+   serving a 3-tenant GSOFT bank, then paged int8: tokens equal the
+   unmeshed runtime's bit for bit; (d) tp = 2 as two processes on the card
+   over gloo (CUDA tensors staged through the host: a check of the split
+   kernels at their local shapes, never a speed): the contiguous bank lane
+   (3 GSOFT tenants + BOFT, b = 32), int8 banked and paged int8 at 2
+   layers f32 (TF32 off) give tp = 1's tokens on both ranks, every one of
+   ``gs_fused_T``, ``bdmm``, ``q_matmul``, ``gs_q_matmul`` and
+   ``paged_decode`` launches on the split path; zamba2-2.7b full in f32
+   (40 of 80 SSD heads a rank, ``ssd`` on them) gives tp = 1's tokens; at
+   8 layers bf16 the logits lie within 2^-4 of max|logit| of tp = 1's and
+   the differing tokens are counted; then ``q_matmul`` (local N and K),
+   ``gs_q_matmul`` (local N), ``paged_decode`` (32 / 4 heads) and ``ssd``
+   (40 heads) against their plain versions, timed
+17. report — where the time went (build, set-up, timed runs, profiled
+   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15 and 16 whole), the card's
    name and power limit, one JSON line of kernels, then the ``{"ok":
    true, ...}`` line
 
@@ -202,6 +224,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
@@ -232,6 +255,8 @@ from repro_torch.core.permutations import PermSpec  # noqa: E402
 from repro_torch.core.runtime import ModelRuntime  # noqa: E402
 from repro_torch.data import DataConfig, LMDataSource  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.distrib import EngineCluster  # noqa: E402
+from repro_torch.distrib.tp import serve_mesh  # noqa: E402
 from repro_torch.kernels import bdmm as bk  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
@@ -3668,6 +3693,484 @@ def phase_15(lip, seed: int, device) -> dict:
                 image_check=icheck)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: scale-out — the EngineCluster (replicas sharing the card) and
+# tensor-parallel serving (the degenerate tp = 1 mesh, then tp = 2 as two
+# gloo ranks on the one card)
+# ---------------------------------------------------------------------------
+
+CLUSTER_TENANTS = 8                 # benchmarks/serve_bench.py _lane_cluster
+CLUSTER_BUDGET = 4                  # device slots a replica: half the tenants
+CLUSTER_REQUESTS = 32
+CLUSTER_BATCH = 4
+CLUSTER_MAX_LEN = 40
+CLUSTER_BLOCK = 8
+CLUSTER_PROMPTS = (4, 12)           # prompt lengths, U[4, 12]
+TP_BLOCK = 32                       # the TP lanes' GSOFT / BOFT block size
+TP_REQUESTS = 8
+TP_NEW = 8
+TP_MAX_LEN = 64
+TP_METHODS = ("gsoft", "gsoft", "gsoft", "boft")   # 3 GSOFT tenants + BOFT
+TP_LOGIT_REL = 2.0 ** -4            # bf16, 8 layers: tp = 2 vs tp = 1 logits,
+                                    # of max|logit| (partials round to bf16
+                                    # and add in fp32 in another order)
+TP_KERNELS = ("gs_fused_T", "bdmm", "q_matmul", "gs_q_matmul",
+              "paged_decode", "ssd")
+
+
+def _cluster_work(names, seed: int) -> list:
+    """Mixed lengths, round-robin over the tenants: prompts U[4, 12], new
+    tokens U[2, 16] (as ``_lane_cluster``'s ``mixed_workload(n, 12, 16)``)."""
+    rng = np.random.default_rng(seed + 3)
+    lo, hi = CLUSTER_PROMPTS
+    return [{"prompt": rng.integers(1, 200, size=int(rng.integers(lo, hi + 1)))
+             .tolist(), "max_new_tokens": int(rng.integers(2, 17)),
+             "adapter": names[i % len(names)]}
+            for i in range(CLUSTER_REQUESTS)]
+
+
+def _serve_all(eng, work) -> list:
+    rids = [eng.add_request(**w) for w in work]
+    out = eng.run()
+    return [out[r] for r in rids]
+
+
+def _per_replica_launches(cl) -> list:
+    """Count each replica's kernel launches: every launch of a tick is made
+    inside the replica's ``step_launch`` (admission, prefill, decode)."""
+    per = [Counter_() for _ in cl.engines]
+    for i, eng in enumerate(cl.engines):
+        def wrapped(orig=eng.step_launch, i=i):
+            before, slot0 = _launches(), _slot_launches()
+            out = orig()
+            after, slot1 = _launches(), _slot_launches()
+            per[i].update({k: after[k] - before[k] for k in after})
+            per[i]["gs_fused_T_slot"] += (slot1["gs_fused_T"]
+                                          - slot0["gs_fused_T"])
+            return out
+        eng.step_launch = wrapped
+    return per
+
+
+def cluster_phase(base, seed: int, device, repeats: int = 3) -> dict:
+    """16a: 8 tenants (4 GSOFT, 4 BOFT, b = 8) in a store, each replica a
+    store-paged bank of 4 slots; 32 mixed-length requests queued up front
+    through 1 and then 2 replicas on the one card, each after a warm-up
+    run. Greedy tokens must be equal; each replica of the pair must read
+    the GSOFT bank by slot id in ``gs_fused_T`` and launch ``bdmm``."""
+    names = [f"t{i}" for i in range(CLUSTER_TENANTS)]
+    cfgs = {n: peft_lib.PEFTConfig(
+                method="gsoft" if i < CLUSTER_TENANTS // 2 else "boft",
+                block_size=CLUSTER_BLOCK)
+            for i, n in enumerate(names)}
+    ads = launch_serve.make_demo_adapters(names, base.param_shapes, cfgs,
+                                          device, seed=seed + 16)
+    store = store_lib.AdapterStore.from_adapters(ads, cfgs)
+    work = _cluster_work(names, seed)
+    out, outputs = {}, {}
+    for n in (1, 2):
+        cl = EngineCluster([ServeEngine(base.attach(store,
+                                                    hbm_budget=CLUSTER_BUDGET),
+                                        max_batch=CLUSTER_BATCH,
+                                        max_len=CLUSTER_MAX_LEN, eos_id=-1)
+                            for _ in range(n)])
+        warm = _serve_all(cl, work)          # page-ins, homes, allocator
+        per = _per_replica_launches(cl)
+        walls, toks = [], []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            toks.append(_serve_all(cl, work))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        _SPENT["timed"] += sum(walls)
+        if any(t != warm for t in toks):
+            raise AssertionError(f"cluster of {n}: reruns changed tokens")
+        outputs[n] = warm
+        ntok = sum(len(t) for t in warm)
+        ad = cl.adapter_stats()
+        out[f"replicas_{n}"] = dict(
+            wall_s=walls, tok_s=ntok / float(np.median(walls)),
+            tokens=ntok, page_ins=ad["misses"], bank_hits=ad["hits"],
+            evictions=ad["evictions"],
+            affinity_hit_rate=cl.affinity_hit_rate(), routing=cl.routing,
+            per_replica_launches=[{k: v for k, v in p.items() if v}
+                                  for p in per])
+        if n == 2:
+            for i, p in enumerate(per):
+                if not (p["gs_fused_T_slot"] > 0 and p["bdmm"] > 0
+                        and p["gs_fused_T_slot"] == p["gs_fused_T"]):
+                    raise AssertionError(
+                        f"cluster replica {i}: launches {dict(p)} — each "
+                        "replica must read its GSOFT bank by slot id in "
+                        "gs_fused_T and launch bdmm")
+        del cl
+        torch.cuda.empty_cache()
+    if outputs[1] != outputs[2]:
+        raise AssertionError("cluster: tokens at 2 replicas differ from 1")
+    out["tokens_equal"] = True
+    out["speedup"] = out["replicas_2"]["tok_s"] / out["replicas_1"]["tok_s"]
+    out["store"] = store
+    return out
+
+
+def cluster_kernel_phase(full, gen, device) -> list:
+    """16a's kernels against their plain versions at the cluster lane's
+    shapes (bf16): b = 8 (``CLUSTER_BLOCK``) on qwen2-72b's whole rows, d =
+    d_model (r = 1024 blocks) and d = d_ff (r = 3696), for the decode rows
+    (B = ``CLUSTER_BATCH``, T = 1) and each prefill bucket of the lane's
+    prompts (B = 1): ``gs_fused_T`` by slot id (the GSOFT tenants) and
+    ``bdmm`` with the blocks read as stored and transposed (BOFT)."""
+    lo, hi = CLUSTER_PROMPTS
+    buckets = sorted({prompt_bucket(n, CLUSTER_MAX_LEN)
+                      for n in range(lo, hi + 1)})
+    rows = []
+    for d in (full.d_model, full.d_ff):
+        for B, T in [(CLUSTER_BATCH, 1)] + [(1, t) for t in buckets]:
+            rows.append(check_case("gs_fused_T", B, T, d, CLUSTER_BLOCK,
+                                   torch.bfloat16, gen, device))
+            for trans in (False, True):
+                rows.append(check_bdmm_case(B, T, d, CLUSTER_BLOCK,
+                                            torch.bfloat16, gen, device,
+                                            trans=trans))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _tp_adapters(params, device, seed: int):
+    names = [f"a{i}" for i in range(len(TP_METHODS))]
+    cfgs = {n: peft_lib.PEFTConfig(method=m, block_size=TP_BLOCK)
+            for n, m in zip(names, TP_METHODS)}
+    return launch_serve.make_demo_adapters(names, params, cfgs, device,
+                                           seed=seed + 61), cfgs
+
+
+def _tp_work(names, seed: int) -> list:
+    rng = np.random.default_rng(seed + 7)
+    keys = list(names) + [None]
+    return [{"prompt": rng.integers(1, 200, size=int(rng.integers(8, 33)))
+             .tolist(), "max_new_tokens": TP_NEW,
+             "adapter": keys[i % len(keys)]} for i in range(TP_REQUESTS)]
+
+
+def _probe_logits(rt, seed: int, device) -> torch.Tensor:
+    """Last-position logits of one (4, 16) prefill, rows on slots 1..4."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 5)
+    toks = torch.randint(1, 200, (4, 16), generator=gen, device=device)
+    req = peft_lib.PrefillRequest(batch={"tokens": toks},
+                                  ctx=rt.context(torch.arange(1, 5,
+                                                              device=device)))
+    logits, _ = rt.prefill_fn()(rt.params, req, rt.decode_state(4, 16))
+    return logits[:, -1].float()
+
+
+def _bank_gather_probe(rt, device) -> dict:
+    """One decode step of 4 rows on slots 1..4 through a split runtime's
+    bank: the bytes this rank received to gather the GSOFT blocks of the
+    batch's slots (``TPShard.count_bank_gather``), per layer."""
+    before = rt.shard.bank_gather_bytes
+    rt.decode_fn()(rt.params, rt.context(torch.arange(1, 5, device=device)),
+                   torch.ones((4, 1), dtype=torch.int64, device=device),
+                   rt.decode_state(4, 16),
+                   torch.zeros(4, dtype=torch.int64, device=device))
+    return dict(rows=4, layers=rt.cfg.num_layers,
+                bytes_per_layer=(rt.shard.bank_gather_bytes - before)
+                / rt.cfg.num_layers)
+
+
+def tp_lanes(cfg2, cfg8, cfgz, seed: int, device, mesh=None,
+             base8=None) -> dict:
+    """The TP lanes, split or whole: at ``CHECK_LAYERS`` f32 (TF32 off) the
+    contiguous bank lane (3 GSOFT tenants + BOFT, b = 32), int8 banked and
+    paged int8; zamba2-2.7b full in f32 (``cfgz``: the Mamba2 super-blocks
+    and the shared attention block); at ``SERVE_LAYERS`` bf16 the bank
+    lane's tokens and one prefill's logits. Each lane's launches are
+    counted from zero."""
+    out = {}
+    rt = ModelRuntime(cfg2, seed=seed, device=device, mesh=mesh)
+    ads, cfgs = _tp_adapters(rt.param_shapes, device, seed)
+    banked = rt.attach(ads, cfgs)
+    qrt = banked.quantized("int8")
+    work = _tp_work(cfgs, seed)
+    lanes = (("bank", banked, ServeEngine), ("int8", qrt, ServeEngine),
+             ("paged_int8", qrt, None))
+    for name, r, eng_cls in lanes:
+        eng = (eng_cls(r, max_batch=4, max_len=TP_MAX_LEN, eos_id=-1)
+               if eng_cls else _paged_engine(r, 4, TP_MAX_LEN))
+        _reset_launches()
+        toks = _serve_all(eng, work)
+        out[name] = dict(tokens=toks, launches=_launches(),
+                         slot_launches=_slot_launches())
+    if banked.shard is not None:
+        out["bank_gather"] = _bank_gather_probe(banked, device)
+    p = rt.params["layers"]
+    out["local"] = dict(wq=tuple(p["attn"]["wq"].shape),
+                        wo=tuple(p["attn"]["wo"].shape),
+                        mlp_wo=tuple(p["mlp"]["wo"].shape),
+                        kv_heads=rt.kv_heads)
+    del rt, banked, qrt, eng, lanes, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    zrt = ModelRuntime(cfgz, seed=seed, device=device, mesh=mesh)
+    _reset_launches()
+    zwork = _tp_work({}, seed)
+    out["hybrid"] = dict(tokens=_serve_all(ServeEngine(
+        zrt, max_batch=4, max_len=TP_MAX_LEN, eos_id=-1), zwork),
+        launches=_launches(),
+        ssd_heads=zrt.params["blocks"]["mamba"]["A_log"].shape[-1])
+    del zrt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt8 = base8 if base8 is not None else ModelRuntime(
+        cfg8, seed=seed, device=device, mesh=mesh)
+    ads8, cfgs8 = _tp_adapters(rt8.param_shapes, device, seed)
+    b8 = rt8.attach(ads8, cfgs8)
+    _reset_launches()
+    out["bf16"] = dict(tokens=_serve_all(ServeEngine(
+        b8, max_batch=4, max_len=TP_MAX_LEN, eos_id=-1), work),
+        launches=_launches())
+    out["bf16"]["logits"] = _probe_logits(b8, seed, device).cpu().numpy()
+    del b8, rt8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank: int, world: int, port: int, seed: int, cfgs, device,
+             queue) -> None:
+    """One rank of 16d: two processes on the one card over gloo."""
+    import os
+    import traceback
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    try:
+        torch.set_num_threads(2)        # two ranks share the host's cores
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = serve_mesh(world, device=device, backend="gloo")
+        res = tp_lanes(*cfgs, seed, device, mesh=mesh)
+        queue.put((rank, res))
+    except Exception:                                # noqa: BLE001
+        queue.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_tp(world: int, seed: int, cfgs, device,
+              timeout: float = 600) -> list:
+    import socket
+    import torch.multiprocessing as mp
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank,
+                         args=(r, world, port, seed, cfgs, device, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=timeout) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return [got[r] for r in range(world)]
+
+
+def tp_kernel_phase(full, gen, device) -> list:
+    """16d's kernels against their plain versions at tp = 2's local shapes
+    (bf16, timed in this process): ``q_matmul`` at the local N (wq, wk /
+    wv, wi / wg, the LM head) and K (attention and MLP wo), ``gs_q_matmul``
+    at the local N of wq and wi, ``paged_decode`` at 32 / 4 heads. The
+    rotations (``gs_fused_T``, ``bdmm``) run on whole rows under TP, the
+    shapes of phases 3 and 3c."""
+    D, F, hd = full.d_model, full.d_ff, full.d_head
+    H, K, V = full.num_heads // 2, full.num_kv_heads // 2, full.padded_vocab()
+    rows = []
+    for k, n in ((D, H * hd), (D, K * hd), (D, F // 2), (D, V // 2),
+                 (H * hd, D), (F // 2, D)):
+        rows.append(check_qmm_case(4, k, n, torch.bfloat16, gen, device))
+    for n in (H * hd, F // 2):
+        rows.append(check_gsq_case(4, 1, D, n, TP_BLOCK, torch.bfloat16,
+                                   gen, device))
+    local = full.with_overrides(num_heads=H, num_kv_heads=K, head_dim=hd)
+    rows.append(check_paged_case(local, PAGE_SIZE, "ctx144", torch.bfloat16,
+                                 gen, device))
+    # zamba2 at tp = 2: 40 of its 80 SSD heads, P = N = 64, fp32 as the
+    # model feeds the scan, one prefill bucket
+    zamba = get_config("zamba2-2.7b")
+    rows.append(check_ssd_case(1, 128, zamba.ssm_heads // 2,
+                               zamba.ssm_headdim, zamba.ssm_state,
+                               torch.float32, gen, device))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_16(full, seed: int, device, gen) -> dict:
+    """Phase 16 as ``main()`` runs it, gates and log included: (a) the
+    cluster at 1 and 2 replicas, (b) the launcher's ``--replicas 2`` and
+    ``--tp 1`` lanes, (c) the degenerate tp = 1 mesh bit-equal to no mesh,
+    (d) tp = 2 as two gloo ranks on the card against tp = 1, and the TP
+    kernel shapes against their plain versions."""
+    t_phase = time.perf_counter()
+    cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
+    cfg2 = full.with_overrides(num_layers=CHECK_LAYERS, dtype="f32",
+                               param_dtype="f32")
+    base = ModelRuntime(cfg8, seed=seed, device=device)
+    log(f"cluster: qwen2-72b full width, {SERVE_LAYERS} layers, bf16; "
+        f"{CLUSTER_TENANTS} tenants (GSOFT / BOFT, b = {CLUSTER_BLOCK}), "
+        f"{CLUSTER_BUDGET} slots a replica, {CLUSTER_REQUESTS} requests")
+    cl = cluster_phase(base, seed, device)
+    for n in (1, 2):
+        r = cl[f"replicas_{n}"]
+        log(f"cluster {n} replica(s): {['%.3f' % w for w in r['wall_s']]} s, "
+            f"median {r['tok_s']:.1f} tok/s, {r['tokens']} tokens, page-ins "
+            f"{r['page_ins']}, evictions {r['evictions']}, affinity hit rate "
+            f"{r['affinity_hit_rate']:.3f}, routing {r['routing']}; "
+            f"launches a replica {r['per_replica_launches']}")
+    log(f"cluster: tokens equal at 1 and 2 replicas; speedup "
+        f"{cl['speedup']:.3f} (not gated: one card, one host thread)")
+    ccases = cluster_kernel_phase(full, gen, device)
+    for c in ccases:
+        log(f"cluster kernel {c['kernel']:10s} B={c['B']} T={c['T']} "
+            f"d={c['d']} b={c['b']} trans={c.get('trans', '-')} err "
+            f"{c['max_abs_err']:.2e} ms {c['ms']:.4f} plain "
+            f"{c['plain_ms']:.4f} lib {c['library_ms']:.4f} bound "
+            f"{c['bound_ms']:.4f} ({c['bound_by']})")
+    with tempfile.TemporaryDirectory() as d:
+        cl.pop("store").save(d)
+        launch_replicas = launcher_lane_run(
+            ["--arch", "qwen2-72b", "--set", f"num_layers={SERVE_LAYERS}",
+             "--replicas", "2", "--store-dir", d, "--hbm-adapter-budget",
+             str(CLUSTER_BUDGET), "--requests", "16", "--prompt-len", "12",
+             "--max-new", "8", "--mixed-lengths"],
+            ["cluster: 2 replica(s), 16 requests", "replica[0]",
+             "replica[1]", "bank: hit_rate=", "routing: 16 routed"])
+    launch_tp1 = launcher_lane_run(
+        ["--arch", "qwen2-72b", "--set", f"num_layers={SERVE_LAYERS}",
+         "--tp", "1", "--engine", "paged", "--quantize", "int8",
+         "--requests", "8", "--prompt-len", "64", "--max-new", "8"],
+        ["cluster: 1 replica(s), 8 requests", "kv: pool=",
+         "quantized base weights (int8)", "[paged] served 8 requests"])
+    # (c) the degenerate mesh: the same runtime, bit for bit
+    mesh1 = serve_mesh(1, device=device)
+    meshed = ModelRuntime(cfg8, base.params, device=device, mesh=mesh1)
+    if meshed.shard is not None:
+        raise AssertionError("a tp = 1 mesh split the model")
+    ads, cfgs = _tp_adapters(base.param_shapes, device, seed)
+    cfgs = {k: v for k, v in cfgs.items() if v.method == "gsoft"}
+    ads = {k: ads[k] for k in cfgs}
+    work = _tp_work(cfgs, seed)
+    tp1 = {}
+    for name in ("bank", "paged_int8"):
+        pair = []
+        for rt in (base, meshed):
+            r = rt.attach(ads, cfgs)
+            if name == "paged_int8":
+                r = r.quantized("int8")
+                eng = _paged_engine(r, 4, TP_MAX_LEN)
+            else:
+                eng = ServeEngine(r, max_batch=4, max_len=TP_MAX_LEN,
+                                  eos_id=-1)
+            pair.append(_serve_all(eng, work))
+            del r, eng
+            torch.cuda.empty_cache()
+        if pair[0] != pair[1]:
+            raise AssertionError(f"tp = 1 {name}: the meshed runtime's tokens "
+                                 "differ from the unmeshed runtime's")
+        tp1[name] = pair[1]
+    del meshed
+    log(f"tp = 1 (a world of one, {torch.distributed.get_backend()}): "
+        f"3-tenant GSOFT bank and paged int8 tokens equal the unmeshed "
+        f"runtime's bit for bit")
+    # (d) tp = 2: the whole model's lanes here, the split ones in two ranks
+    t_ref = time.perf_counter()
+    cfgz = get_config("zamba2-2.7b").with_overrides(dtype="f32",
+                                                    param_dtype="f32")
+    ref = tp_lanes(cfg2, cfg8, cfgz, seed, device, base8=base)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"this process holds {torch.cuda.memory_allocated(device) / 1e9:.1f} "
+        "GB before the ranks start")
+    log(f"tp = 1 reference lanes: {time.perf_counter() - t_ref:.1f} s")
+    t_spawn = time.perf_counter()
+    ranks = _spawn_tp(2, seed, (cfg2, cfg8, cfgz), device)
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError(f"tp = 2 rank failed:\n{errors[0]}")
+    log(f"tp = 2 ranks (gloo, one card): {time.perf_counter() - t_spawn:.1f} s")
+    tp2 = {"local": ranks[0]["local"], "launches": {}}
+    for lane in ("bank", "int8", "paged_int8", "hybrid"):
+        for i, r in enumerate(ranks):
+            if r[lane]["tokens"] != ref[lane]["tokens"]:
+                raise AssertionError(f"tp = 2 {lane} (f32): rank {i}'s tokens "
+                                     "differ from tp = 1")
+        tp2["launches"][lane] = [{k: v for k, v in r[lane]["launches"].items()
+                                  if v} for r in ranks]
+    seen = Counter_()
+    for lane in tp2["launches"].values():
+        for per_rank in lane:
+            seen.update(per_rank)
+    missing = [k for k in TP_KERNELS if seen[k] < 2]
+    if missing:
+        raise AssertionError(f"tp = 2: kernels {missing} never launched on "
+                             f"the split path: {tp2['launches']}")
+    want = ref["bf16"]["logits"]
+    scale = float(np.abs(want).max())
+    gaps = [float(np.abs(r["bf16"]["logits"] - want).max()) for r in ranks]
+    if not all(g <= TP_LOGIT_REL * scale for g in gaps):
+        raise AssertionError(f"tp = 2 bf16 logits: max|gap| {gaps} > "
+                             f"{TP_LOGIT_REL} x {scale}")
+    diff = [sum(a != b for ra, rb in zip(r["bf16"]["tokens"],
+                                         ref["bf16"]["tokens"])
+                for a, b in zip(ra, rb)) for r in ranks]
+    ntok = sum(len(t) for t in ref["bf16"]["tokens"])
+    tp2.update(bf16_logit_gap=gaps, bf16_logit_scale=scale,
+               bf16_tokens_differing=diff, bf16_tokens=ntok,
+               bf16_launches=[{k: v for k, v in r["bf16"]["launches"].items()
+                               if v} for r in ranks])
+    tp2["hybrid_ssd_heads"] = [r["hybrid"]["ssd_heads"] for r in ranks]
+    tp2["bank_gather"] = [r["bank_gather"] for r in ranks]
+    if not all(g["bytes_per_layer"] > 0 for g in tp2["bank_gather"]):
+        raise AssertionError(f"tp = 2: the split GSOFT bank gathered "
+                             f"nothing: {tp2['bank_gather']}")
+    log(f"tp = 2: f32 tokens equal tp = 1 on both ranks (bank, int8, paged "
+        f"int8, zamba2 full: SSD heads a rank {tp2['hybrid_ssd_heads']}); "
+        f"local wq {tp2['local']['wq']}, wo {tp2['local']['wo']}, MLP "
+        f"wo {tp2['local']['mlp_wo']}, kv heads {tp2['local']['kv_heads']}; "
+        f"launches {tp2['launches']}")
+    log(f"tp = 2 GSOFT bank gather (b = {TP_BLOCK}, fp32 factors split "
+        f"over r): one decode step of 4 rows received "
+        f"{[g['bytes_per_layer'] for g in tp2['bank_gather']]} bytes a "
+        f"layer on ranks 0, 1")
+    log(f"tp = 2 bf16 ({SERVE_LAYERS} layers): logits max|gap| {gaps} of "
+        f"max|logit| {scale:.3f} (tol {TP_LOGIT_REL}); tokens differing "
+        f"{diff} of {ntok}")
+    kcases = tp_kernel_phase(full, gen, device)
+    for c in kcases:
+        shape = {k: c[k] for k in ("M", "K", "N", "B", "T", "d", "H", "KH",
+                                   "D", "P") if k in c}
+        lib = ("none" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f}")
+        log(f"tp kernel {c['kernel']:12s} {shape} err {c['max_abs_err']:.2e} "
+            f"ms {c['ms']:.4f} plain {c['plain_ms']:.4f} lib {lib} bound "
+            f"{c['bound_ms']:.4f} ({c['bound_by']})")
+    _PHASE_S["16 scale-out"] = time.perf_counter() - t_phase
+    if torch.distributed.is_initialized():      # the world of one of (b), (c)
+        torch.distributed.destroy_process_group()
+    return dict(cluster=cl, cluster_kernel_cases=ccases,
+                launcher_16=[launch_replicas, launch_tp1],
+                tp1=tp1, tp2=tp2, tp_kernel_cases=kcases)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -4169,7 +4672,10 @@ def main() -> int:
     image = p15["image_serve"]
     _PHASE_S["15 image"] = time.perf_counter() - t_phase
 
-    # 16. report
+    # 16. scale-out: the cluster, the launcher's lanes, tp = 1 and tp = 2
+    p16 = phase_16(full, args.seed, device, gen)
+
+    # 17. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
@@ -4306,6 +4812,26 @@ def main() -> int:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             library_what=c["library_what"], shape=key))
+    # tensor-parallel serving (16d): launches on each rank of tp = 2 and
+    # the kernels at their local shapes
+    case_fields = ("M", "K", "N", "B", "T", "d", "b", "trans", "H", "KH",
+                   "D", "P", "dtype", "max_abs_err", "ms", "plain_ms",
+                   "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        # the cluster lane (16a): b = 8 on whole rows
+        cc = [{f: c.get(f) for f in case_fields}
+              for c in p16["cluster_kernel_cases"] if c["kernel"] == k["name"]]
+        if cc:
+            k["cluster_b8_cases"] = cc
+        if k["name"] not in TP_KERNELS:
+            continue
+        k["tp2"] = dict(
+            launches_by_lane={lane: [r.get(k["name"], 0) for r in ranks]
+                              for lane, ranks in
+                              p16["tp2"]["launches"].items()},
+            local_cases=[{f: c.get(f) for f in case_fields}
+                         for c in p16["tp_kernel_cases"]
+                         if c["kernel"] == k["name"]])
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     spent = dict(_SPENT, build=build_s, phases=dict(_PHASE_S),
@@ -4335,7 +4861,7 @@ def main() -> int:
                                    store_serve=sserve,
                                    store_check=scheck_store,
                                    image_cases=image_run,
-                                   **p14, **p15,
+                                   **p14, **p15, scale_out=p16,
                                    kernels=kernels), indent=1,
                               default=str))
     log(f"details: {out}")

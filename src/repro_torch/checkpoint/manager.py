@@ -149,13 +149,26 @@ def _get(flat: Dict[str, Any], key: str) -> Any:
     return flat[key]
 
 
-def _quant_nodes(tree: Tree, meta: QuantMeta) -> Tree:
-    """Every {"q": int8, "scale"} node of a nested tree -> a QuantTensor."""
-    if not isinstance(tree, Mapping):
-        return tree
-    if set(tree) == {"q", "scale"} and tree["q"].dtype == torch.int8:
-        return QuantTensor(tree["q"], tree["scale"], meta)
-    return {k: _quant_nodes(v, meta) for k, v in tree.items()}
+def _quant_nodes(tree: Tree, meta: QuantMeta, load, keep,
+                 prefix: str = "") -> Tree:
+    """``tree`` of flat keys, each leaf read by ``load(key)`` and handed to
+    ``keep(path, leaf)`` before the next is read; every {"q": int8,
+    "scale"} node is one QuantTensor leaf."""
+    if isinstance(tree, Mapping):
+        if set(tree) == {"q", "scale"}:
+            q = load(tree["q"])
+            if q.dtype == torch.int8:
+                return keep(prefix, QuantTensor(q, load(tree["scale"]), meta))
+            return {"q": keep(f"{prefix}/q", q),
+                    "scale": keep(f"{prefix}/scale", load(tree["scale"]))}
+        return {k: _quant_nodes(v, meta, load, keep,
+                                f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return keep(prefix, load(tree))
+
+
+def _keep_all(_path, leaf):
+    return leaf
 
 
 def _peft_cfg(d: Mapping):
@@ -239,19 +252,24 @@ class CheckpointManager:
             return d, json.load(f)
 
     def _load(self, d: str, index: Dict, device: torch.device,
-              only=None) -> Dict[str, torch.Tensor]:
-        return {k: _load_leaf(os.path.join(d, k + ".npy"), v["dtype"], device)
+              only=None, keep=_keep_all) -> Dict[str, torch.Tensor]:
+        """{flat key: leaf}, each leaf handed to ``keep(path, leaf)`` (its
+        "/"-joined path) before the next is read."""
+        return {k: keep(k.replace(_SEP, "/"), _load_leaf(
+                    os.path.join(d, k + ".npy"), v["dtype"], device))
                 for k, v in index["leaves"].items()
                 if only is None or only(k)}
 
     def restore(self, tree_like: Optional[Tree] = None,
                 step: Optional[int] = None, *,
-                device: DeviceLike = "cuda") -> Tree:
+                device: DeviceLike = "cuda", keep=_keep_all) -> Tree:
         """Load step ``step`` (default the latest) onto ``device``, in the
         structure of ``tree_like`` when given (its leaves are not read), else
-        as the nested dicts the index's keys spell."""
+        as the nested dicts the index's keys spell. ``keep(path, leaf)``
+        takes each leaf as it is read and returns what the tree holds (a
+        split model keeps its slice, so no whole tree is ever held)."""
         d, index = self._step_dir(step)
-        flat = self._load(d, index, resolve_device(device))
+        flat = self._load(d, index, resolve_device(device), keep=keep)
         if tree_like is None:
             return _nest(flat)
         return _like(tree_like, flat)
@@ -272,7 +290,7 @@ class CheckpointManager:
     def restore_quantized(self, weight_dtype: torch.dtype = torch.bfloat16,
                           qcfg=None, step: Optional[int] = None,
                           use_pallas: Optional[bool] = None, *,
-                          device: DeviceLike = "cuda"):
+                          device: DeviceLike = "cuda", keep=_keep_all):
         """-> (quantized tree, QuantConfig) from either checkpoint kind.
 
         A ``save_quantized`` checkpoint restores codes and scales as they
@@ -280,7 +298,10 @@ class CheckpointManager:
         except for ``use_pallas``, which the loader picks); a plain float
         checkpoint is restored and quantized on load with ``qcfg`` (default
         int8). ``weight_dtype`` is the logical dtype of the float weights
-        the codes stand for (JAX reads it from an abstract base tree)."""
+        the codes stand for (JAX reads it from an abstract base tree).
+        ``keep(path, leaf)`` takes each restored leaf (a QuantTensor whole)
+        as in ``restore``; it is refused for a float checkpoint, whose
+        quantization needs the whole weights."""
         from repro_torch import quant
         d, index = self._step_dir(step)
         ex = index.get("extra", {})
@@ -305,8 +326,16 @@ class CheckpointManager:
                              dtype=dtype_name(weight_dtype),
                              axis=used_cfg.axis,
                              use_pallas=used_cfg.use_pallas)
-            tree = _nest(self._load(d, index, resolve_device(device)))
-            return _quant_nodes(tree, meta), used_cfg
+            dev = resolve_device(device)
+            return _quant_nodes(
+                _nest({k: k for k in index["leaves"]}), meta,
+                lambda k: _load_leaf(os.path.join(d, k + ".npy"),
+                                     index["leaves"][k]["dtype"], dev),
+                keep), used_cfg
+        if keep is not _keep_all:
+            raise ValueError("a float checkpoint is quantized whole on "
+                             "load: restore it with restore(keep=) and "
+                             "quantize the kept leaves")
         qcfg = qcfg or quant.QuantConfig(use_pallas=bool(use_pallas))
         params = _nest(self._load(d, index, resolve_device(device)))
         return quant.quantize_params(params, qcfg), qcfg

@@ -204,6 +204,33 @@ def gsoft_bank_build(spec: AdapterSpec, params_by_slot: Sequence[Optional[Params
     return _stack_slots(spec, {"L": eye, "R": eye}, processed)
 
 
+def gsoft_bank_shard_axes(factor: str, shape) -> Optional[int]:
+    """Serve-time TP hook (``MethodOps.bank_shard_axes``): a GSOFT bank
+    stack {"L"/"R": (..., A, r, b, b)} may split its BLOCK axis r over the
+    mesh 'model' axis. Only worth it for banks that outgrow replication
+    (thousands of resident slots)."""
+    if factor in ("L", "R") and len(shape) >= 4:
+        return len(shape) - 3            # ...the r (block) axis
+    return None
+
+
+def gsoft_bank_gather(entry: Params, ids: torch.Tensor, width: int,
+                      all_gather) -> Tuple[Params, torch.Tensor]:
+    """The factors of a batch's slots, whole, from a bank split over r
+    (``gsoft_bank_shard_axes``): the rotation's permutation crosses
+    blocks, so a rank holding r / tp blocks needs the rest. Each rank
+    takes its blocks of the batch's slots and ``all_gather(t, dim)``
+    joins them in rank order; the result is a (B, r, b, b) bank read by
+    ids 0..B-1. ``width`` is the rotated row's d = r * b; an entry that
+    already holds every block (not split) comes back as it is."""
+    L = entry["L"]
+    if L.shape[-3] * L.shape[-1] == width:
+        return entry, ids
+    out = {k: all_gather(v.index_select(0, ids).contiguous(), v.dim() - 3)
+           for k, v in entry.items()}
+    return out, torch.arange(ids.shape[0], device=ids.device)
+
+
 def gs_rotate_banked(entry: Params, ids: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
     """Per-row activation-side GSOFT: row i of x gets x_i Q_{ids[i]}.

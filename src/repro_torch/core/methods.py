@@ -5,8 +5,6 @@ each. ``core.adapters`` and ``core.peft`` dispatch only through
 registered. This is the one module of the port that compares method
 strings (``tests/test_torch_methods.py`` guards it, as
 ``tests/test_methods.py`` guards the JAX package).
-
-Not ported yet: ``bank_shard_axes`` (the scale-out slice).
 """
 from __future__ import annotations
 
@@ -39,6 +37,13 @@ class MethodOps:
       rotation applies activation-side, in float, before the int8 matmul)
     * ``banked_kernel`` — the kernel family the banked rotation rides
       ("gs" / "bdmm"; "" = plain torch only)
+    * ``bank_shard_axes(factor, shape)`` — serve-time tensor parallelism:
+      which axis of a built bank-factor stack may split over the mesh
+      'model' axis (None / absent: replicate; ``sharding.specs.
+      bank_spec_tree`` is its one reader)
+    * ``bank_gather(entry, ids, width, all_gather)`` — the batch's slots of
+      a stack split per ``bank_shard_axes``, whole, and the ids that read
+      them (a rank holds only its part of every slot)
     """
     method: str
     structure: str
@@ -53,6 +58,8 @@ class MethodOps:
     quant_fuse: Optional[Callable] = None
     quant_compatible: bool = False
     banked_kernel: str = ""
+    bank_shard_axes: Optional[Callable] = None
+    bank_gather: Optional[Callable] = None
 
 
 _METHODS: Dict[str, MethodOps] = {}
@@ -100,6 +107,8 @@ register(MethodOps(
     bank_build=_ad.gsoft_bank_build,
     bank_rotator=_ad.gs_rotate_banked,
     quant_fuse=_ad.gsoft_quant_fuse,
+    bank_shard_axes=_ad.gsoft_bank_shard_axes,
+    bank_gather=_ad.gsoft_bank_gather,
     quant_compatible=True,
     banked_kernel="gs",
 ))

@@ -369,11 +369,14 @@ class AdapterContext:
                 return None
         return node or None
 
-    def rotator(self, group: Optional[Dict]) -> Optional["BankRotator"]:
-        """Rotation hook over one (layer-sliced) module subtree, or None."""
+    def rotator(self, group: Optional[Dict],
+                shard=None) -> Optional["BankRotator"]:
+        """Rotation hook over one (layer-sliced) module subtree, or None.
+        ``shard`` (a ``distrib.tp.TPShard``) lets a rank rotate with a
+        bank stack it holds only part of (``MethodOps.bank_gather``)."""
         if group is None or self.slots is None:
             return None
-        return BankRotator(group, self.slots)
+        return BankRotator(group, self.slots, shard)
 
 
 class BankRotator:
@@ -384,13 +387,18 @@ class BankRotator:
     ``quant_rotation`` splits the work for a quantized base matmul: the
     method that can fuse with the quantized kernel (GSOFT) hands back its
     bank and the slot ids, so rotation and int8 matmul run as one
-    ``gs_q_matmul_bank`` call; the other stacks apply to x first."""
+    ``gs_q_matmul_bank`` call; the other stacks apply to x first.
 
-    __slots__ = ("_group", "slots")
+    Under tensor parallelism (``shard``) x is always a whole row; a stack
+    the rank holds only part of (GSOFT split over its blocks) is gathered
+    for the batch's slots first (``MethodOps.bank_gather``)."""
 
-    def __init__(self, group: Dict, slots: torch.Tensor):
+    __slots__ = ("_group", "slots", "shard")
+
+    def __init__(self, group: Dict, slots: torch.Tensor, shard=None):
         self._group = group
         self.slots = slots
+        self.shard = shard
 
     def ids(self, method: str) -> torch.Tensor:
         """The slot ids that index ``method``'s stack."""
@@ -398,12 +406,28 @@ class BankRotator:
             return self.slots[method]
         return self.slots
 
+    def adapts(self, name: str) -> bool:
+        """Does the bank hold a rotation for projection ``name``?"""
+        return self._group.get(name) is not None
+
+    def _stack(self, method: str, entry, width: int):
+        """(stack, ids) of ``method`` for a row of ``width`` features."""
+        ops = methods_lib.get(method)
+        ids = self.ids(method)
+        if self.shard is None or ops.bank_gather is None:
+            return entry, ids
+        got, ids = ops.bank_gather(entry, ids, width, self.shard.all_gather)
+        if got is not entry:
+            self.shard.count_bank_gather(got)
+        return got, ids
+
     def __call__(self, name: str, x: torch.Tensor) -> torch.Tensor:
         entry = self._group.get(name)
         if entry is None:
             return x
         for m in sorted(entry):
-            x = methods_lib.get(m).bank_rotator(entry[m], self.ids(m), x)
+            e, ids = self._stack(m, entry[m], x.shape[-1])
+            x = methods_lib.get(m).bank_rotator(e, ids, x)
         return x
 
     def quant_rotation(self, name: str, x: torch.Tensor, dtype: torch.dtype
@@ -418,10 +442,11 @@ class BankRotator:
         fused = None
         for m in sorted(entry):
             ops = methods_lib.get(m)
+            e, ids = self._stack(m, entry[m], x.shape[-1])
             if fused is None and ops.quant_fuse is not None:
-                fused = ops.quant_fuse(entry[m], self.ids(m), dtype)
+                fused = ops.quant_fuse(e, ids, dtype)
             else:
-                x = ops.bank_rotator(entry[m], self.ids(m), x)
+                x = ops.bank_rotator(e, ids, x)
         return x, fused
 
 

@@ -31,6 +31,13 @@ arrivals, per-request adapter banks, and the image lane.
         --trace-out /tmp/trace.json --report-interval 1 --log-json
     # the Mamba2 families on the continuous lane
     ... --arch zamba2-2.7b --smoke
+    # N engine replicas behind one EngineCluster (adapter-affinity routing;
+    # each replica its own KV and its own paged bank, the params shared)
+    ... --arch qwen2-72b --smoke --replicas 2 --demo-adapters 8 \
+        --hbm-adapter-budget 2
+    # tensor-parallel serving, one process per rank
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen2-72b --smoke --tp 2 --engine paged --quantize int8
 
 The JAX launcher's flags for these lanes plus ``--device`` (default
 ``cuda``: without a card it raises unless ``--device cpu`` is given) and
@@ -40,17 +47,31 @@ exclusive, ``--peft-demo`` excludes all three; ``--hbm-adapter-budget``
 pages the first two's bank too. ``--arrival-rate`` streams Poisson arrivals
 (seeded) into the continuous engine (and the image lane); the static engine
 drains one queue. ``--trace``, ``--trace-out`` and ``--report-interval``
-attach one ``TraceRecorder`` + ``SLOMonitor`` to the engine. One engine
-serves; ``--replicas`` (a multi-replica cluster), ``--mesh`` / ``--tp``
-(tensor-parallel serving) and ``--quantize fp8`` raise NotImplementedError
-naming the slice they wait for, as does a ``--family`` the port does not
-register. ``--family`` is checked against the arch's family; ``ssm`` / ``hybrid`` archs fail as in the JAX launcher on
-``--engine paged`` (no paged KV surface) and ``--demo-adapters`` (no bank
-serving: the first prefill raises).
+attach one ``TraceRecorder`` + ``SLOMonitor`` to the engine.
+
+Every lane but the static one serves through an ``EngineCluster``, also at
+``--replicas 1``, and prints ``format_cluster_report(cluster_stats())``
+as its report. ``--replicas N`` shares one runtime across the replicas
+unless the bank is store-paged, which gets a fresh ``attach`` per replica;
+``--replicas`` with ``--engine static`` is refused. ``--tp N`` (or
+``--mesh 1,N``) serves the model split over N ranks, one process each
+(started by ``torchrun``): every rank builds ``serve_mesh`` and its
+runtime, draws the same seeded requests, and rank 0 decides each
+streaming tick's admissions and broadcasts them; rank 0 alone prints.
+``--tp 1`` runs the degenerate mesh in one process. The decoder, ``ssm``
+and ``hybrid`` families split. ``--tp`` with ``--mesh`` is refused; a
+'data' axis above 1 (the mesh-training slice) and ``--tp`` over the
+``image`` family raise NotImplementedError, as do ``--quantize fp8`` and
+a ``--family`` the port does not register. ``--family`` is checked against the arch's family;
+``ssm`` / ``hybrid`` archs fail as in the JAX launcher on ``--engine
+paged`` (no paged KV surface) and ``--demo-adapters`` (no bank serving:
+the first prefill raises).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import time
 
@@ -60,13 +81,16 @@ import torch
 from repro_torch.config import get_config, get_smoke_config, parse_overrides
 from repro_torch.core import peft as peft_lib
 from repro_torch.core.runtime import ModelRuntime
+from repro_torch.distrib.cluster import EngineCluster, format_cluster_report
+from repro_torch.distrib.tp import SPLIT_FAMILIES, serve_mesh
 from repro_torch.models import registry
 from repro_torch.obs import SLOMonitor, TraceRecorder
 from repro_torch.quant import tree_bytes
 from repro_torch.serve.engine import (PagedServeEngine, ServeEngine,
                                       StaticServeEngine, latency_percentiles)
 from repro_torch.serve.image import ImageServeEngine
-from repro_torch.store import AdapterStore, load_adapter_checkpoints
+from repro_torch.store import (AdapterStore, PagedAdapterBank,
+                               load_adapter_checkpoints)
 
 
 def make_demo_adapters(names, params, peft_cfg, device, seed: int = 1,
@@ -88,21 +112,29 @@ def make_demo_adapters(names, params, peft_cfg, device, seed: int = 1,
     return out
 
 
-def drive_streaming(eng, requests, arrivals, tick_hook=None):
+def drive_streaming(eng, requests, arrivals, tick_hook=None, sync=None):
     """Admit requests as they 'arrive' (``arrivals``: seconds from the start,
     non-decreasing) while stepping the engine; returns {rid: output} once
     traffic drains. ``tick_hook`` (optional) runs after every scheduler
     tick — the launcher's periodic SLO report / --log-json emitter. A
     driver that holds admission (``eng.accepting`` False) HOLDS arrivals
-    until it accepts again — backpressure, not drops."""
+    until it accepts again — backpressure, not drops. ``sync`` (ranks of a
+    split model: ``TPShard.broadcast_ints``) hands every rank rank 0's
+    count of admitted requests each tick, so clocks that differ between
+    ranks never admit different requests."""
     t0 = time.perf_counter()
     i = 0
     while i < len(requests) or not eng.idle:
         now = time.perf_counter() - t0
-        while (i < len(requests) and arrivals[i] <= now
+        n = i
+        while (n < len(requests) and arrivals[n] <= now
                and getattr(eng, "accepting", True)):
-            eng.add_request(**requests[i])
-            i += 1
+            n += 1
+        if sync is not None:
+            n = sync([n])[0]
+        for req in requests[i:n]:
+            eng.add_request(**req)
+        i = n
         if eng.idle:                     # nothing in flight: wait for traffic
             time.sleep(min(0.005, max(arrivals[i] - now, 0.0)))
             continue
@@ -158,13 +190,10 @@ def _refuse_unported(args) -> None:
             "--quantize fp8 is not ported (the JAX fp8 path is a stub)")
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
-    if args.replicas != 1:
-        raise NotImplementedError(
-            "--replicas (EngineCluster) is not ported yet (scale-out slice)")
-    if args.mesh or args.tp:
-        raise NotImplementedError(
-            "--mesh / --tp (tensor-parallel serving) are not ported yet "
-            "(scale-out slice)")
+    if args.replicas > 1 and args.engine == "static":
+        raise SystemExit("--replicas needs a steppable engine "
+                         "(continuous/paged) — the static engine drains "
+                         "one batch at a time")
     if args.family is not None and args.family not in registry.families():
         raise NotImplementedError(
             f"--family {args.family} is not ported yet (the port serves "
@@ -197,10 +226,14 @@ def _parse(argv):
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="Poisson arrivals (req/s); 0 = all queued up front")
     ap.add_argument("--mesh", default=None,
-                    help="'data,model' mesh shape (not ported yet)")
+                    help="'data,model' mesh shape for tensor-parallel "
+                         "serving (one process per rank, via torchrun)")
     ap.add_argument("--tp", type=int, default=0,
-                    help="shorthand for --mesh 1,N (not ported yet)")
-    ap.add_argument("--replicas", type=int, default=1)
+                    help="shorthand for --mesh 1,N: split the model over N "
+                         "ranks at serve time")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="run N engine replicas behind an EngineCluster "
+                         "with adapter-affinity routing")
     ap.add_argument("--adapters", nargs="*", default=[],
                     help="load named adapters into a per-request bank "
                          "(name=ckpt_dir or ckpt_dir)")
@@ -289,8 +322,8 @@ def _bank(args, cfg, rt):
                          method=meths[i % len(meths)], block_size=8,
                          use_pallas=cfg.use_pallas)
                      for i, name in enumerate(names)}
-        adapters_by_name = make_demo_adapters(names, rt.params, bank_peft,
-                                              rt.device)
+        adapters_by_name = make_demo_adapters(names, rt.param_shapes,
+                                              bank_peft, rt.device)
     else:
         adapters_by_name, bank_peft = load_adapter_checkpoints(
             args.adapters, device=rt.device)
@@ -329,6 +362,24 @@ def _traffic(args, cfg, stateless: bool, names, rng):
     return requests
 
 
+def _mesh(args, cfg):
+    """The serve mesh of ``--tp`` / ``--mesh`` (None without either)."""
+    if not (args.tp or args.mesh):
+        return None
+    if args.tp and args.mesh:
+        raise SystemExit("--tp is shorthand for --mesh 1,N — pass one or "
+                         "the other")
+    if args.tp:
+        dp, tp = 1, args.tp
+    else:
+        dp, tp = (int(x) for x in args.mesh.split(","))
+    if tp > 1 and cfg.family not in SPLIT_FAMILIES:
+        raise NotImplementedError(
+            f"tensor-parallel serving of the {cfg.family!r} family is not "
+            f"ported (the {SPLIT_FAMILIES} families split)")
+    return serve_mesh(tp, dp, device=args.device)
+
+
 def main(argv=None) -> int:
     args = _parse(argv)
     _refuse_unported(args)
@@ -342,16 +393,29 @@ def main(argv=None) -> int:
         raise SystemExit(f"family {cfg.family!r} is stateless (no KV) — "
                          "it serves through the batched image engine "
                          "(--engine continuous, the default)")
-    rt = ModelRuntime(cfg, device=args.device)
-    max_len = args.max_len or args.prompt_len + args.max_new + 8
+    mesh = _mesh(args, cfg)
+    base_rt = ModelRuntime(cfg, device=args.device, mesh=mesh)
+    # every rank of a split model serves; rank 0 alone prints
+    quiet = base_rt.shard is not None and base_rt.shard.rank != 0
+    with contextlib.redirect_stdout(io.StringIO()) if quiet else \
+            contextlib.nullcontext():
+        return _serve(args, cfg, stateless, mesh, base_rt)
 
-    rt, adapter_names = _bank(args, cfg, rt)
+
+def _serve(args, cfg, stateless: bool, mesh, base_rt) -> int:
+    max_len = args.max_len or args.prompt_len + args.max_new + 8
+    budget = args.hbm_adapter_budget or None
+
+    rt, adapter_names = _bank(args, cfg, base_rt)
     if args.peft_demo:          # merged single-adapter demo (static story)
         peft_cfg = peft_lib.PEFTConfig(method="gsoft", block_size=8)
-        adapters = peft_lib.init_peft(peft_cfg, rt.params, device=rt.device,
-                                      seed=1)
-        rt = ModelRuntime(cfg, rt.params, device=rt.device,
-                          adapters=adapters, peft_cfg=peft_cfg)
+        adapters = peft_lib.init_peft(peft_cfg, rt.param_shapes,
+                                      device=rt.device, seed=1)
+        # a split model draws each weight again, merges it and keeps its
+        # slice before the next
+        rt = ModelRuntime(cfg, None if rt.shard is not None else rt.params,
+                          device=rt.device, mesh=mesh, adapters=adapters,
+                          peft_cfg=peft_cfg)
     if args.quantize != "none":     # after any merge / bank: rotations float
         before = tree_bytes(rt.params)
         rt = rt.quantized(args.quantize, release_source=True)
@@ -359,6 +423,19 @@ def main(argv=None) -> int:
         print(f"quantized base weights ({args.quantize}): params "
               f"{before / 1e6:.2f} MB -> {after / 1e6:.2f} MB "
               f"({before / max(after, 1):.2f}x smaller)")
+
+    def replica_runtimes(n: int):
+        """Runtimes for N engine replicas. A bankless, eager-bank, merged
+        or quantized runtime is SHARED (each engine keeps its own KV state;
+        the params exist once). Only a store-paged bank gets a fresh
+        ``attach`` per replica: paging state (residency, pins, LRU order)
+        must be per replica for affinity routing to mean anything."""
+        if n == 1 or not isinstance(rt.bank, PagedAdapterBank):
+            return [rt] * n
+        out = [rt]
+        for _ in range(n - 1):
+            out.append(rt.attach(rt.bank.store, hbm_budget=budget))
+        return out
 
     want_trace = (args.trace or args.trace_out is not None
                   or args.report_interval > 0)
@@ -370,17 +447,26 @@ def main(argv=None) -> int:
                              "(static serving merges ONE adapter offline)")
         eng = StaticServeEngine(rt, max_batch=args.max_batch,
                                 max_len=max_len, tracer=tracer)
-    elif stateless:
-        eng = ImageServeEngine(rt, max_batch=args.max_batch, tracer=tracer)
-    elif args.engine == "paged":
-        eng = PagedServeEngine(rt, max_batch=args.max_batch, max_len=max_len,
-                               page_size=args.page_size,
-                               prefill_chunk=args.prefill_chunk,
-                               hbm_kv_budget=args.hbm_kv_budget or None,
-                               tracer=tracer)
     else:
-        eng = ServeEngine(rt, max_batch=args.max_batch, max_len=max_len,
-                          tracer=tracer)
+        rts = replica_runtimes(args.replicas)
+        if stateless:
+            engines = [ImageServeEngine(r, max_batch=args.max_batch,
+                                        tracer=tracer) for r in rts]
+        elif args.engine == "paged":
+            engines = [PagedServeEngine(r, max_batch=args.max_batch,
+                                        max_len=max_len,
+                                        page_size=args.page_size,
+                                        prefill_chunk=args.prefill_chunk,
+                                        hbm_kv_budget=args.hbm_kv_budget
+                                        or None, tracer=tracer)
+                       for r in rts]
+        else:
+            engines = [ServeEngine(r, max_batch=args.max_batch,
+                                   max_len=max_len, tracer=tracer)
+                       for r in rts]
+        # N=1 rides the same cluster path: the report below IS
+        # cluster_stats(), a single replica being its degenerate case
+        eng = EngineCluster(engines, slo=slo)
 
     rng = np.random.default_rng(0)
     names = adapter_names if rt.banked else []
@@ -394,7 +480,8 @@ def main(argv=None) -> int:
     if args.arrival_rate > 0 and args.engine == "continuous":
         arrivals = np.cumsum(rng.exponential(1.0 / args.arrival_rate,
                                              size=args.requests))
-        results = drive_streaming(eng, requests, arrivals, tick_hook)
+        sync = rt.shard.broadcast_ints if rt.shard is not None else None
+        results = drive_streaming(eng, requests, arrivals, tick_hook, sync)
     else:
         if args.arrival_rate > 0:
             print(f"note: the {args.engine} engine ignores arrival times "
@@ -414,11 +501,11 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
 
     describe(eng, results, args.engine, dt)
-    if args.engine == "paged":
-        print(f"kv pages: {eng.kv_stats()}")
-    if hasattr(rt.bank, "stats"):
-        print(f"adapter store: {rt.bank.stats()}")
-    if slo is not None:
+    if isinstance(eng, EngineCluster):
+        # the one residency / routing report: replica rows carry the bank
+        # and KV-pool residency (and the SLO block when tracing is on)
+        print(format_cluster_report(eng.cluster_stats()))
+    elif slo is not None:
         print(SLOMonitor.format_report(slo.report()))
     if args.log_json:
         print(json.dumps({

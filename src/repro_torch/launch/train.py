@@ -8,7 +8,7 @@ a card it raises unless ``--device cpu`` is given). ``--ckpt-dir`` saves the
 adapters and the optimizer state every ``--ckpt-every`` steps and at the
 end, in the JAX package's checkpoint layout, and a later run with the same
 directory resumes from the latest one (``--no-resume`` starts over).
-``--mesh`` raises NotImplementedError until the scale-out slice.
+``--mesh`` raises NotImplementedError until the mesh-training slice.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ def main(argv=None):
 
     if args.mesh:
         raise NotImplementedError(
-            "--mesh is not ported yet (scale-out slice)")
+            "--mesh is not ported yet (the mesh-training slice)")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.with_overrides(**parse_overrides(args.set))
 

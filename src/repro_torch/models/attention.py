@@ -11,6 +11,13 @@ The KV sequence is processed in ``attn_chunk`` slices with running
 heads. The decode path writes this step's K/V into the cache IN PLACE (the
 JAX package returns a new cache; the port saves the copy); the paged path
 writes its pages in place too (``index_put_`` on the pools).
+
+Under tensor parallelism (``tp``, a ``distrib.tp.TPShard``) every tensor
+has the rank's local head count: wq / wk / wv are column-parallel, ``wo``
+row-parallel (its partial outputs all-reduce), and where the kv heads do
+not split the rank computes all K and keeps the ones its q heads read
+(``TPShard.select_kv``), so caches and pools hold local kv heads and every
+kernel sees a uniform local grouping. With ``tp`` None nothing changes.
 """
 from __future__ import annotations
 
@@ -21,30 +28,34 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from .layers import Rot, apply_rope, qlinear, stacked_dense_init
+from .layers import (Rot, apply_rope, keep_all, qlinear, row_linear,
+                     stacked_dense_init)
 
 NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, stacked: int,
-                   device, dtype=None) -> Dict[str, torch.Tensor]:
+                   device, dtype=None, keep=keep_all,
+                   prefix: str = "") -> Dict[str, torch.Tensor]:
     """Layer-stacked weights (stacked, d_in, d_out), or one layer's
-    (d_in, d_out) when ``stacked`` is 0 (the hybrid's shared block)."""
+    (d_in, d_out) when ``stacked`` is 0 (the hybrid's shared block).
+    ``keep(path, leaf)`` takes each weight as it is drawn."""
     d = cfg.d_model
     dtype = dtype or cfg.weight_dtype
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     n = max(stacked, 1)
 
-    def mk(di, do):
+    def mk(name, di, do):
         w = stacked_dense_init(gen, n, di, do, dtype, device)
-        return w if stacked else w[0]
+        return keep(prefix + name, w if stacked else w[0])
 
-    p = {"wq": mk(d, H * hd), "wk": mk(d, K * hd), "wv": mk(d, K * hd),
-         "wo": mk(H * hd, d)}
+    p = {"wq": mk("wq", d, H * hd), "wk": mk("wk", d, K * hd),
+         "wv": mk("wv", d, K * hd), "wo": mk("wo", H * hd, d)}
     if cfg.qkv_bias:
         lead = (stacked,) if stacked else ()
-        zeros = lambda do: torch.zeros(lead + (do,), dtype=dtype, device=device)
-        p["bq"], p["bk"], p["bv"] = zeros(H * hd), zeros(K * hd), zeros(K * hd)
+        for name, do in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
+            p[name] = keep(prefix + name, torch.zeros(
+                lead + (do,), dtype=dtype, device=device))
     return p
 
 
@@ -105,11 +116,30 @@ def _proj(x, w, bias=None, rot: Rot = None, name=""):
     return y
 
 
+def _qkv(p, x, hd: int, rot: Rot, tp):
+    """q, k, v as (B, S, heads, hd) at the rank's local head counts."""
+    b, s, _ = x.shape
+    q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, s, -1, hd)
+    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, s, -1, hd)
+    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, s, -1, hd)
+    if tp is not None:
+        k, v = tp.select_kv(k), tp.select_kv(v)
+    return q, k, v
+
+
+def _out(p, out: torch.Tensor, rot: Rot, tp) -> torch.Tensor:
+    """The ``wo`` projection: row-parallel when the q heads split."""
+    out = out.reshape(out.shape[0], out.shape[1], -1)
+    if tp is not None and tp.heads_split:
+        return row_linear(out, p["wo"], rot, "wo", tp)
+    return qlinear(out, p["wo"], rot, "wo")
+
+
 def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     cfg: ModelConfig, *,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     cache_pos: Optional[torch.Tensor] = None,
-                    causal: bool = True, rot: Rot = None
+                    causal: bool = True, rot: Rot = None, tp=None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self-attention with an optional contiguous KV cache.
 
@@ -121,10 +151,8 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     Returns (output, cache).
     """
     b, sq, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
-    q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, sq, H, hd)
-    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, sq, K, hd)
-    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, sq, K, hd)
+    hd = cfg.d_head
+    q, k, v = _qkv(p, x, hd, rot, tp)
 
     positions = _positions(b, sq, x.device)
     if cache_pos is not None:
@@ -150,14 +178,15 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
             cache["v"][:, :sq] = v.to(cache["v"].dtype)
         out = online_attention(q, k, v, positions, sq, causal=causal,
                                chunk=cfg.attn_chunk, scale=scale)
-    out = out.reshape(b, sq, H * hd)
-    return qlinear(out, p["wo"], rot, "wo"), cache
+    return _out(p, out, rot, tp), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-               dtype=None) -> Dict[str, torch.Tensor]:
+               dtype=None, kv_heads: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
+    """``kv_heads``: the rank's local kv heads (default all)."""
     dtype = dtype or cfg.act_dtype
-    K, hd = cfg.num_kv_heads, cfg.d_head
+    K, hd = kv_heads or cfg.num_kv_heads, cfg.d_head
     return {"k": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, max_len, K, hd), dtype=dtype, device=device)}
 
@@ -167,12 +196,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 # ---------------------------------------------------------------------------
 
 def init_paged_kv(cfg: ModelConfig, num_pages: int, page_size: int, device,
-                  dtype=None) -> Dict[str, torch.Tensor]:
-    """One layer's shared page pools. Page 0 is the GARBAGE page: parked /
+                  dtype=None, kv_heads: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """One layer's shared page pools (``kv_heads``: the rank's local kv
+    heads, default all). Page 0 is the GARBAGE page: parked /
     out-of-range table entries resolve there, so full-batch decode can write
     through every row's table unconditionally."""
     dtype = dtype or cfg.act_dtype
-    K, hd = cfg.num_kv_heads, cfg.d_head
+    K, hd = kv_heads or cfg.num_kv_heads, cfg.d_head
     return {"k": torch.zeros((num_pages, page_size, K, hd), dtype=dtype,
                              device=device),
             "v": torch.zeros((num_pages, page_size, K, hd), dtype=dtype,
@@ -182,7 +213,7 @@ def init_paged_kv(cfg: ModelConfig, num_pages: int, page_size: int, device,
 def paged_attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                           cfg: ModelConfig, *, pages: Dict[str, torch.Tensor],
                           table: torch.Tensor, pos: torch.Tensor,
-                          rot: Rot = None
+                          rot: Rot = None, tp=None
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step through the paged KV cache.
 
@@ -192,10 +223,8 @@ def paged_attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     its write there; pos: (B,) write positions. The pages are written in
     place. Returns (out, pages)."""
     b, sq, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
-    q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, sq, H, hd)
-    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, sq, K, hd)
-    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, sq, K, hd)
+    hd = cfg.d_head
+    q, k, v = _qkv(p, x, hd, rot, tp)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64).reshape(-1)
     positions = pos[:, None]
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -207,18 +236,18 @@ def paged_attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     pages["k"].index_put_((pid, off), k[:, 0].to(pages["k"].dtype))
     pages["v"].index_put_((pid, off), v[:, 0].to(pages["v"].dtype))
 
-    out = kernel_ops.paged_attention(
-        q[:, 0], pages["k"], pages["v"], table[:, :-1], pos + 1,
-        scale=1.0 / math.sqrt(hd))[:, None]          # sentinel column dropped
-    out = out.reshape(b, sq, H * hd)
-    return qlinear(out, p["wo"], rot, "wo"), pages
+    # under tp the kernel behind ``head_shard_map``: the rank's own heads
+    attend = kernel_ops.paged_attention if tp is None else tp.paged_attention
+    out = attend(q[:, 0], pages["k"], pages["v"], table[:, :-1], pos + 1,
+                 scale=1.0 / math.sqrt(hd))[:, None]  # sentinel column dropped
+    return _out(p, out, rot, tp), pages
 
 
 def paged_prefill_chunk_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                               cfg: ModelConfig, *,
                               pages: Dict[str, torch.Tensor],
                               table_row: torch.Tensor, start: int,
-                              rot: Rot = None
+                              rot: Rot = None, tp=None
                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One prompt CHUNK for one slot (batch of 1) through the paged cache.
 
@@ -229,10 +258,9 @@ def paged_prefill_chunk_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     with the chunked online softmax over the gathered row (plain torch, as
     in the JAX package)."""
     b, c, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
-    q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, c, H, hd)
-    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, c, K, hd)
-    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, c, K, hd)
+    hd = cfg.d_head
+    q, k, v = _qkv(p, x, hd, rot, tp)
+    K = k.shape[2]
     start = int(start)
     positions = start + _positions(b, c, x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -252,5 +280,4 @@ def paged_prefill_chunk_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     vt = pages["v"][row[:-1]].reshape(1, -1, K, hd)
     out = online_attention(q, kt, vt, positions, start + c, causal=True,
                            chunk=cfg.attn_chunk, scale=1.0 / math.sqrt(hd))
-    out = out.reshape(b, c, H * hd)
-    return qlinear(out, p["wo"], rot, "wo"), pages
+    return _out(p, out, rot, tp), pages

@@ -48,6 +48,20 @@ def qlinear(x: torch.Tensor, w, rot: Rot = None, name: str = "",
     return x @ (w.to(x.dtype) if cast else w)
 
 
+def row_linear(x: torch.Tensor, w, rot: Rot, name: str, tp) -> torch.Tensor:
+    """Row-parallel projection under tensor parallelism (``tp`` a
+    ``distrib.tp.TPShard``): x holds this rank's slice of the input
+    features, w the matching rows, and the partial products all-reduce.
+    A rotation mixes every feature of its input, so a rotated input is
+    all-gathered, rotated whole (the banked kernels at the full width) and
+    cut back to the rank's window before the local matmul (for int8:
+    ``q_matmul`` at the local K; the fused ``gs_q_matmul_bank`` needs the
+    whole row)."""
+    if rot is not None and getattr(rot, "adapts", lambda _n: True)(name):
+        x = tp.local_cols(rot(name, tp.all_gather(x, -1)))
+    return tp.all_reduce(qlinear(x, w))
+
+
 # ---------------------------------------------------------------------------
 # layer stacks: one tensor (L, ...) per weight, used one layer at a time
 # ---------------------------------------------------------------------------
@@ -159,29 +173,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 
+def keep_all(_path: str, leaf):
+    """The default ``keep`` of the init functions: every leaf whole."""
+    return leaf
+
+
 def init_mlp(gen: torch.Generator, d: int, f: int, mlp_type: str, dtype,
-             device) -> Dict[str, torch.Tensor]:
+             device, keep=keep_all,
+             prefix: str = "") -> Dict[str, torch.Tensor]:
     """One unstacked MLP (the hybrid's shared block)."""
-    return {k: v[0] for k, v in init_stacked_mlp(gen, 1, d, f, mlp_type,
-                                                 dtype, device).items()}
+    return {k: keep(prefix + k, v[0])
+            for k, v in init_stacked_mlp(gen, 1, d, f, mlp_type, dtype,
+                                         device).items()}
 
 
 def init_stacked_mlp(gen: torch.Generator, n: int, d: int, f: int,
-                     mlp_type: str, dtype, device) -> Dict[str, torch.Tensor]:
+                     mlp_type: str, dtype, device, keep=keep_all,
+                     prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``keep(path, leaf)`` takes each weight as it is drawn (a split
+    model keeps its rank's slice and drops the rest before the next)."""
     if mlp_type != "swiglu":
         raise ValueError(f"mlp_type {mlp_type!r} is not ported yet (swiglu)")
-    return {"wi": stacked_dense_init(gen, n, d, f, dtype, device),
-            "wo": stacked_dense_init(gen, n, f, d, dtype, device),
-            "wg": stacked_dense_init(gen, n, d, f, dtype, device)}
+    return {k: keep(f"{prefix}{k}", stacked_dense_init(gen, n, di, do, dtype,
+                                                      device))
+            for k, di, do in (("wi", d, f), ("wo", f, d), ("wg", d, f))}
 
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, mlp_type: str,
-              rot: Rot = None) -> torch.Tensor:
+              rot: Rot = None, tp=None) -> torch.Tensor:
     """SwiGLU MLP; ``rot(name, x)`` optionally rotates the inputs of
-    wi / wg / wo."""
+    wi / wg / wo. Under tensor parallelism with d_ff split, wi / wg are
+    column-parallel (local d_ff) and wo row-parallel."""
     if mlp_type != "swiglu":
         raise ValueError(f"mlp_type {mlp_type!r} is not ported yet (swiglu)")
     h = F.silu(qlinear(x, p["wg"], rot, "wg")) * qlinear(x, p["wi"], rot, "wi")
+    if tp is not None and tp.ff_split:
+        return row_linear(h, p["wo"], rot, "wo", tp)
     return qlinear(h, p["wo"], rot, "wo")
 
 

@@ -12,6 +12,14 @@ Weights are drawn from a seeded ``torch.Generator`` with the JAX tree's
 keys, shapes, dtypes and scales; the values differ from JAX's, so the tests
 carry JAX's params across. ``mamba_decode_step`` returns the new state, as
 JAX's does; the model's decode writes it into the stacked state in place.
+
+Under tensor parallelism (``tp``, a ``distrib.tp.TPShard`` whose
+``mamba_split`` is set) a rank holds its share of the SSD heads: wz / wx /
+wdt columns, A_log / D / dt_bias / gate_norm entries and out_proj rows
+(row-parallel: its partial output all-reduces); wb / wc and the conv stay
+whole, and the rank convolves only its own x channels with B and C. The
+gated RMSNorm's mean over d_inner sums the ranks' squares (all-reduce).
+The decode state holds the rank's heads and conv channels.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from .layers import stacked_dense_init
+from .layers import keep_all, stacked_dense_init
 
 
 def _conv_dim(cfg: ModelConfig) -> int:
@@ -37,8 +45,10 @@ def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, stacked, dtype,
-               device) -> Dict[str, torch.Tensor]:
-    """stacked: tuple of leading dims, (L,) or (nsuper, per_super)."""
+               device, keep=keep_all,
+               prefix: str = "") -> Dict[str, torch.Tensor]:
+    """stacked: tuple of leading dims, (L,) or (nsuper, per_super).
+    ``keep(path, leaf)`` takes each weight as it is drawn."""
     d, di = cfg.d_model, cfg.d_inner
     G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     lead = tuple(stacked)
@@ -48,8 +58,9 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, stacked, dtype,
         return stacked_dense_init(gen, n, di_, do_, dtype,
                                   device).reshape(lead + (di_, do_))
 
-    p = {"wz": w(d, di), "wx": w(d, di), "wb": w(d, G * N),
-         "wc": w(d, G * N), "wdt": w(d, H)}
+    p = {k: keep(prefix + k, w(d, do))
+         for k, do in (("wz", di), ("wx", di), ("wb", G * N),
+                       ("wc", G * N), ("wdt", H))}
     p["conv_w"] = stacked_dense_init(
         gen, n, cfg.ssm_conv, _conv_dim(cfg), dtype, device,
         scale=1.0 / math.sqrt(cfg.ssm_conv)).reshape(
@@ -59,11 +70,15 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, stacked, dtype,
     # dt bias so that softplus(dt_bias) spans [1e-3, 1e-1] (mamba2)
     u = _uniform(gen, lead + (H,), 0.0, 1.0, device)
     dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
-    p["dt_bias"] = dt0 + torch.log(-torch.expm1(-dt0))
-    p["A_log"] = torch.log(_uniform(gen, lead + (H,), 1.0, 16.0, device))
-    p["D"] = torch.ones(lead + (H,), dtype=torch.float32, device=device)
-    p["gate_norm"] = torch.zeros(lead + (di,), dtype=dtype, device=device)
-    p["out_proj"] = {"wo": w(di, d)}
+    p["dt_bias"] = keep(prefix + "dt_bias",
+                        dt0 + torch.log(-torch.expm1(-dt0)))
+    p["A_log"] = keep(prefix + "A_log", torch.log(
+        _uniform(gen, lead + (H,), 1.0, 16.0, device)))
+    p["D"] = keep(prefix + "D", torch.ones(lead + (H,), dtype=torch.float32,
+                                           device=device))
+    p["gate_norm"] = keep(prefix + "gate_norm", torch.zeros(
+        lead + (di,), dtype=dtype, device=device))
+    p["out_proj"] = {"wo": keep(prefix + "out_proj/wo", w(di, d))}
     return p
 
 
@@ -80,11 +95,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y + b[None, None, :].to(x.dtype)
 
 
+def _split(tp) -> bool:
+    return tp is not None and tp.mamba_split
+
+
 def _gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                    eps: float) -> torch.Tensor:
+                    eps: float, tp=None) -> torch.Tensor:
     dt = y.dtype
     g = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    var = torch.mean(g * g, dim=-1, keepdim=True)
+    if _split(tp):      # the mean over every rank's channels
+        var = tp.all_reduce(torch.sum(g * g, dim=-1, keepdim=True)) / (
+            g.shape[-1] * tp.size)
+    else:
+        var = torch.mean(g * g, dim=-1, keepdim=True)
     g = g * torch.rsqrt(var + eps)
     return (g * (1.0 + scale.to(torch.float32))).to(dt)
 
@@ -105,29 +128,53 @@ def _project(p, u: torch.Tensor, cfg: ModelConfig):
     return z, xin, Bc, Cc, dt
 
 
-def _heads(cfg: ModelConfig, xin, Bc, Cc):
+def _heads(cfg: ModelConfig, xin, Bc, Cc, tp=None):
     b, s = xin.shape[:2]
     G, N, H, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     rep = H // G
-    xh = xin.reshape(b, s, H, P)
-    Bh = Bc.reshape(b, s, G, N).repeat_interleave(rep, dim=2)
-    Ch = Cc.reshape(b, s, G, N).repeat_interleave(rep, dim=2)
-    return xh, Bh, Ch
+    xh = xin.reshape(b, s, -1, P)
+    Bg, Cg = Bc.reshape(b, s, G, N), Cc.reshape(b, s, G, N)
+    if _split(tp):      # the group of each of the rank's heads
+        hl = xh.shape[2]
+        grp = (tp.rank * hl + torch.arange(hl, device=xin.device)) // rep
+        return xh, Bg.index_select(2, grp), Cg.index_select(2, grp)
+    return (xh, Bg.repeat_interleave(rep, dim=2),
+            Cg.repeat_interleave(rep, dim=2))
 
 
 def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
-    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    gn = cfg.ssm_groups * cfg.ssm_state
+    di = xbc.shape[-1] - 2 * gn
     return xbc[..., :di], xbc[..., di:di + gn], xbc[..., di + gn:]
 
 
-def mamba_block(p, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _conv_params(p, cfg: ModelConfig, tp):
+    """The conv's weights and bias over the rank's channels: its window of
+    x, then all of B and C (depthwise: channels are independent)."""
+    if not _split(tp):
+        return p["conv_w"], p["conv_b"]
+    dl = cfg.d_inner // tp.size
+    dev = p["conv_w"].device
+    idx = torch.cat([tp.rank * dl + torch.arange(dl, device=dev),
+                     torch.arange(cfg.d_inner, _conv_dim(cfg), device=dev)])
+    return p["conv_w"].index_select(-1, idx), p["conv_b"].index_select(-1, idx)
+
+
+def _out_proj(p, y: torch.Tensor, tp) -> torch.Tensor:
+    out = y @ p["out_proj"]["wo"]
+    return tp.all_reduce(out) if _split(tp) else out
+
+
+def mamba_block(p, u: torch.Tensor, cfg: ModelConfig,
+                tp=None) -> torch.Tensor:
     """Prefill / training path. u: (B, S, d), already normed -> (B, S, d).
-    The scan is one ``ops.ssd`` call over the whole batch."""
+    The scan is one ``ops.ssd`` call over the whole batch (the rank's
+    heads under ``tp``)."""
     b, s, _ = u.shape
     z, xin, Bc, Cc, dt = _project(p, u, cfg)
     xbc = torch.cat([xin, Bc, Cc], dim=-1)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    xh, Bh, Ch = _heads(cfg, *_split_xbc(cfg, xbc))
+    xbc = F.silu(_causal_conv(xbc, *_conv_params(p, cfg, tp)))
+    xh, Bh, Ch = _heads(cfg, *_split_xbc(cfg, xbc), tp)
 
     loga = (-torch.exp(p["A_log"].to(torch.float32)))[None, None, :] * dt
     xs = xh.to(torch.float32) * dt[..., None]
@@ -135,9 +182,9 @@ def mamba_block(p, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                 chunk=cfg.ssd_chunk, use_pallas=cfg.use_pallas)
     y = y + p["D"].to(torch.float32)[None, None, :, None] * \
         xh.to(torch.float32)
-    y = y.reshape(b, s, cfg.d_inner).to(u.dtype)
-    y = _gated_rms_norm(y, z, p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"]["wo"]
+    y = y.reshape(b, s, -1).to(u.dtype)
+    y = _gated_rms_norm(y, z, p["gate_norm"], cfg.norm_eps, tp)
+    return _out_proj(p, y, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -145,11 +192,15 @@ def mamba_block(p, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_mamba_state(cfg: ModelConfig, batch: int, lead=(),
-                     device="cuda") -> Dict[str, torch.Tensor]:
+                     device="cuda", tp=None) -> Dict[str, torch.Tensor]:
+    """The rank's heads and conv channels under a split ``tp``."""
     H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
+    C = _conv_dim(cfg)
+    if _split(tp):
+        H, C = H // tp.size, C - cfg.d_inner + cfg.d_inner // tp.size
     lead = tuple(lead)
     return {
-        "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, _conv_dim(cfg)),
+        "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, C),
                             dtype=cfg.act_dtype, device=device),
         "ssm": torch.zeros(lead + (batch, H, N, P), dtype=torch.float32,
                            device=device),
@@ -157,7 +208,7 @@ def init_mamba_state(cfg: ModelConfig, batch: int, lead=(),
 
 
 def mamba_decode_step(p, u: torch.Tensor, state: Dict[str, torch.Tensor],
-                      cfg: ModelConfig
+                      cfg: ModelConfig, tp=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """u: (B, 1, d) -> (y (B, 1, d), new state {"conv", "ssm"})."""
     b = u.shape[0]
@@ -165,11 +216,11 @@ def mamba_decode_step(p, u: torch.Tensor, state: Dict[str, torch.Tensor],
     z, xin, Bc, Cc, dt = _project(p, u, cfg)
     xbc = torch.cat([xin, Bc, Cc], dim=-1)                      # (B, 1, C)
     hist = torch.cat([state["conv"], xbc], dim=1)              # (B, W, C)
-    conv_out = (torch.einsum("bwc,wc->bc", hist.to(f32),
-                             p["conv_w"].to(f32))
-                + p["conv_b"].to(f32))
+    conv_w, conv_b = _conv_params(p, cfg, tp)
+    conv_out = (torch.einsum("bwc,wc->bc", hist.to(f32), conv_w.to(f32))
+                + conv_b.to(f32))
     xbc_t = F.silu(conv_out)[:, None, :].to(u.dtype)
-    xh, Bh, Ch = _heads(cfg, *_split_xbc(cfg, xbc_t))          # (B, 1, H, .)
+    xh, Bh, Ch = _heads(cfg, *_split_xbc(cfg, xbc_t), tp)      # (B, 1, H, .)
 
     la = (-torch.exp(p["A_log"].to(f32)))[None, :] * dt[:, 0]   # (B, H)
     xt = xh[:, 0].to(f32) * dt[:, 0][..., None]                 # (B, H, P)
@@ -177,6 +228,6 @@ def mamba_decode_step(p, u: torch.Tensor, state: Dict[str, torch.Tensor],
          + Bh[:, 0].to(f32)[..., None] * xt[:, :, None, :])
     yt = torch.einsum("bhn,bhnp->bhp", Ch[:, 0].to(f32), S)
     yt = yt + p["D"].to(f32)[None, :, None] * xh[:, 0].to(f32)
-    y = yt.reshape(b, 1, cfg.d_inner).to(u.dtype)
-    y = _gated_rms_norm(y, z, p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"]["wo"], {"conv": hist[:, 1:, :], "ssm": S}
+    y = yt.reshape(b, 1, -1).to(u.dtype)
+    y = _gated_rms_norm(y, z, p["gate_norm"], cfg.norm_eps, tp)
+    return _out_proj(p, y, tp), {"conv": hist[:, 1:, :], "ssm": S}

@@ -22,6 +22,15 @@ the paged state {"pages": {"k", "v": (L, P, page, K, D)}, "table": (B,
 max_pages + 1) int32}; both are updated in place. ``cfg.remat`` applies to ``forward`` under autograd: "full"
 recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint`` per scanned layer), "none" keeps every activation.
+
+Tensor-parallel serving (``tp``, a ``distrib.tp.TPShard``, decoder only):
+each rank holds its shards of the params and runs the serving functions
+at local shapes. The embedding is vocab-parallel (ids outside the rank's
+rows are masked, then all-reduced), attention and MLP split per
+``models.attention`` / ``layers.apply_mlp``, and the LM head (or tied
+table) is column-parallel and all-gathers its logits, so every rank picks
+the same greedy token. ``init_lm(keep=)`` hands each weight to the caller
+as it is drawn, so a rank keeps its slice and never holds the whole tree.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from .attention import (attention_block, init_attention, init_cache,
                         init_paged_kv, paged_attention_block,
                         paged_prefill_chunk_block)
 from .layers import (apply_mlp, cross_entropy, embed_init, init_mlp,
-                     init_stacked_mlp, qlinear, rms_norm, softcap,
+                     init_stacked_mlp, keep_all, qlinear, rms_norm, softcap,
                      stacked_dense_init, unbind_layers)
 from .ssm import init_mamba, init_mamba_state, mamba_block, mamba_decode_step
 
@@ -57,9 +66,12 @@ def _no_bank(cfg: ModelConfig, ctx: Optional[AdapterContext]) -> None:
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
-            device: DeviceLike = "cuda") -> Dict[str, Any]:
+            device: DeviceLike = "cuda", keep=keep_all) -> Dict[str, Any]:
     """Random weights drawn on ``device`` from a seeded torch.Generator
-    (same tree, shapes and scales as the JAX ``init_lm``)."""
+    (same tree, shapes and scales as the JAX ``init_lm``). ``keep(path,
+    leaf)`` takes each decoder weight as it is drawn and returns what the
+    tree holds (a split model's slice); the draws are the same either
+    way."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -67,25 +79,30 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     vp = cfg.padded_vocab()
     L = cfg.num_layers
     params: Dict[str, Any] = {
-        "embed": {"table": embed_init(gen, vp, cfg.d_model, wd, dev)},
+        "embed": {"table": keep("embed/table",
+                                embed_init(gen, vp, cfg.d_model, wd, dev))},
         "final_norm": torch.zeros((cfg.d_model,), dtype=wd, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": stacked_dense_init(
-            gen, 1, cfg.d_model, vp, wd, dev)[0]}
+        params["lm_head"] = {"w": keep("lm_head/w", stacked_dense_init(
+            gen, 1, cfg.d_model, vp, wd, dev)[0])}
     zeros = lambda *shape: torch.zeros(shape, dtype=wd, device=dev)
     mixer = _traits(cfg).mixer
     if mixer == "attention":
         params["layers"] = {
             "attn_norm": zeros(L, cfg.d_model),
-            "attn": init_attention(gen, cfg, L, dev),
+            "attn": init_attention(gen, cfg, L, dev, keep=keep,
+                                   prefix="layers/attn/"),
             "mlp_norm": zeros(L, cfg.d_model),
             "mlp": init_stacked_mlp(gen, L, cfg.d_model, cfg.d_ff,
-                                    cfg.mlp_type, wd, dev),
+                                    cfg.mlp_type, wd, dev, keep=keep,
+                                    prefix="layers/mlp/"),
         }
     elif mixer == "ssm":
         params["layers"] = {"norm": zeros(L, cfg.d_model),
-                            "mamba": init_mamba(gen, cfg, (L,), wd, dev)}
+                            "mamba": init_mamba(gen, cfg, (L,), wd, dev,
+                                                keep=keep,
+                                                prefix="layers/mamba/")}
     else:
         per = cfg.attn_every
         if L % per:
@@ -93,13 +110,15 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
         nsuper = L // per
         params["blocks"] = {
             "norm": zeros(nsuper, per, cfg.d_model),
-            "mamba": init_mamba(gen, cfg, (nsuper, per), wd, dev)}
+            "mamba": init_mamba(gen, cfg, (nsuper, per), wd, dev, keep=keep,
+                                prefix="blocks/mamba/")}
         params["shared_attn"] = {
             "norm": zeros(cfg.d_model),
-            "attn": init_attention(gen, cfg, 0, dev),
+            "attn": init_attention(gen, cfg, 0, dev, keep=keep,
+                                   prefix="shared_attn/attn/"),
             "mlp_norm": zeros(cfg.d_model),
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, wd,
-                            dev)}
+                            dev, keep=keep, prefix="shared_attn/mlp/")}
     return params
 
 
@@ -123,45 +142,64 @@ def _unbind(tree: Any, n: int) -> list:
 
 
 def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, cache=None,
-                   cache_pos=None, rot_attn=None, rot_mlp=None):
+                   cache_pos=None, rot_attn=None, rot_mlp=None, tp=None):
     a, cache = attention_block(
         lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
-        cache=cache, cache_pos=cache_pos, causal=True, rot=rot_attn)
+        cache=cache, cache_pos=cache_pos, causal=True, rot=rot_attn, tp=tp)
     h = h + a
     m = apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
-                  cfg.mlp_type, rot=rot_mlp)
+                  cfg.mlp_type, rot=rot_mlp, tp=tp)
     return h + m
 
 
 def _shared_attn_layer(cfg: ModelConfig, sp, h: torch.Tensor, cache=None,
-                       cache_pos=None) -> torch.Tensor:
+                       cache_pos=None, tp=None) -> torch.Tensor:
     """The hybrid's shared attention + MLP block (its KV cache, when given,
     is written in place)."""
     a, _ = attention_block(sp["attn"], rms_norm(h, sp["norm"], cfg.norm_eps),
-                           cfg, cache=cache, cache_pos=cache_pos, causal=True)
+                           cfg, cache=cache, cache_pos=cache_pos, causal=True,
+                           tp=tp)
     h = h + a
     return h + apply_mlp(sp["mlp"], rms_norm(h, sp["mlp_norm"], cfg.norm_eps),
-                         cfg.mlp_type)
+                         cfg.mlp_type, tp=tp)
 
 
-def _mamba_layer(cfg: ModelConfig, lp, h: torch.Tensor) -> torch.Tensor:
+def _mamba_layer(cfg: ModelConfig, lp, h: torch.Tensor,
+                 tp=None) -> torch.Tensor:
     return h + mamba_block(lp["mamba"], rms_norm(h, lp["norm"], cfg.norm_eps),
-                           cfg)
+                           cfg, tp)
 
 
-def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    h = params["embed"]["table"][tokens].to(cfg.act_dtype)
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    table = params["embed"]["table"]
+    if tp is not None and tp.vocab_split:
+        # vocab-parallel: this rank's rows answer the ids they hold, the
+        # others give zeros, and the sum is the whole lookup (exact)
+        n = table.shape[0]
+        local = tokens - tp.rank * n
+        mine = (local >= 0) & (local < n)
+        h = table[local.clamp(0, n - 1)]
+        h = tp.all_reduce(torch.where(mine[..., None], h,
+                                      torch.zeros((), dtype=h.dtype,
+                                                  device=h.device)))
+    else:
+        h = table[tokens]
+    h = h.to(cfg.act_dtype)
     if cfg.embed_scale:
         h = h * math.sqrt(cfg.d_model)
     return h
 
 
-def _unembed(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+def _unembed(cfg: ModelConfig, params, h: torch.Tensor,
+             tp=None) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = h @ params["embed"]["table"].T.to(h.dtype)
     else:
         logits = qlinear(h, params["lm_head"]["w"], cast=True)
+    if tp is not None and tp.vocab_split:
+        logits = tp.all_gather(logits, -1)      # every rank: every column
     return softcap(logits, cfg.logit_softcap)
 
 
@@ -180,31 +218,31 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def _run_layers(cfg: ModelConfig, params, h: torch.Tensor, kv=None,
-                cache_pos=None, ctx: Optional[AdapterContext] = None):
-    bl_tree = ctx.group("layers") if ctx is not None else None
+                cache_pos=None, ctx: Optional[AdapterContext] = None,
+                tp=None):
     for i in range(cfg.num_layers):
         lp = _slice(params["layers"], i)
         cache = _slice(kv, i) if kv is not None else None
-        rot_attn = rot_mlp = None
-        if bl_tree is not None:
-            bl = _slice(bl_tree, i)
-            rot_attn = ctx.rotator(bl.get("attn"))
-            rot_mlp = ctx.rotator(bl.get("mlp"))
-        h = _decoder_layer(cfg, lp, h, cache, cache_pos, rot_attn, rot_mlp)
+        rot_attn, rot_mlp = _layer_rotators(ctx, i, tp)
+        h = _decoder_layer(cfg, lp, h, cache, cache_pos, rot_attn, rot_mlp,
+                           tp)
     return h
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, Vp), moe_aux = 0). batch["tokens"]: (B, S)."""
-    h = _embed(cfg, params, batch["tokens"])
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, Vp), moe_aux = 0). batch["tokens"]: (B, S).
+    ``tp``: a split model's serving forward (the ``ssm`` / ``hybrid``
+    prefill)."""
+    h = _embed(cfg, params, batch["tokens"], tp)
     mixer = _traits(cfg).mixer
     if mixer == "attention":
-        layer = _remat(cfg, lambda lp, hc: _decoder_layer(cfg, lp, hc))
+        layer = _remat(cfg, lambda lp, hc: _decoder_layer(cfg, lp, hc,
+                                                          tp=tp))
         for lp in _unbind(params["layers"], cfg.num_layers):
             h = layer(lp, h)
     elif mixer == "ssm":
-        layer = _remat(cfg, lambda lp, hc: _mamba_layer(cfg, lp, hc))
+        layer = _remat(cfg, lambda lp, hc: _mamba_layer(cfg, lp, hc, tp))
         for lp in _unbind(params["layers"], cfg.num_layers):
             h = layer(lp, h)
     else:
@@ -213,13 +251,13 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
 
         def super_block(bp, hc):
             for mp in _unbind(bp, per):
-                hc = _mamba_layer(cfg, mp, hc)
-            return _shared_attn_layer(cfg, sp, hc)
+                hc = _mamba_layer(cfg, mp, hc, tp)
+            return _shared_attn_layer(cfg, sp, hc, tp=tp)
 
         block = _remat(cfg, super_block)
         for bp in _unbind(params["blocks"], cfg.num_layers // per):
             h = block(bp, h)
-    return _unembed(cfg, params, h), torch.zeros((), device=h.device)
+    return _unembed(cfg, params, h, tp), torch.zeros((), device=h.device)
 
 
 MOE_AUX_COEF = 0.01
@@ -237,62 +275,68 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device: DeviceLike = "cuda"):
-    """Decoder {"kv"}: (L, B, S, K, D); ssm {"mamba"}: conv (L, B, W-1, C),
-    ssm (L, B, H, N, P) fp32; hybrid both, stacked (nsuper, per, B, ...)
-    and (nsuper, B, S, K, D)."""
+                      device: DeviceLike = "cuda", tp=None):
+    """Decoder {"kv"}: (L, B, S, K, D) (K the rank's local kv heads under
+    ``tp``); ssm {"mamba"}: conv (L, B, W-1, C), ssm (L, B, H, N, P) fp32;
+    hybrid both, stacked (nsuper, per, B, ...) and (nsuper, B, S, K, D)."""
     dev = resolve_device(device)
     mixer = _traits(cfg).mixer
     if mixer == "ssm":
-        return {"mamba": init_mamba_state(cfg, batch, (cfg.num_layers,), dev)}
+        return {"mamba": init_mamba_state(cfg, batch, (cfg.num_layers,), dev,
+                                          tp)}
     n = cfg.num_layers
     state = {}
     if mixer == "hybrid":
         n = cfg.num_layers // cfg.attn_every
         state["mamba"] = init_mamba_state(cfg, batch, (n, cfg.attn_every),
-                                          dev)
-    c = init_cache(cfg, batch, max_len, dev)
+                                          dev, tp)
+    c = init_cache(cfg, batch, max_len, dev,
+                   kv_heads=tp.kv_heads if tp is not None else None)
     state["kv"] = {k: v[None].repeat((n,) + (1,) * v.dim())
                    for k, v in c.items()}
     return state
 
 
-def _mamba_decode_layer(cfg: ModelConfig, lp, h: torch.Tensor, st):
+def _mamba_decode_layer(cfg: ModelConfig, lp, h: torch.Tensor, st, tp=None):
     """One Mamba layer's decode step; its state slices ``st`` are
     overwritten with the new state."""
     y, new = mamba_decode_step(lp["mamba"], rms_norm(h, lp["norm"],
-                                                     cfg.norm_eps), st, cfg)
+                                                     cfg.norm_eps), st, cfg,
+                               tp)
     st["conv"].copy_(new["conv"])
     st["ssm"].copy_(new["ssm"])
     return h + y
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state, pos,
-                ctx: Optional[AdapterContext] = None):
+                ctx: Optional[AdapterContext] = None, tp=None):
     """One token for the whole batch. tokens: (B, 1); pos: scalar or (B,)
     per-slot write positions. ``ctx`` rotates row i with adapter
     ``ctx.slots[i]`` before every adapted projection (decoder only: the
     other families raise ValueError). The state is updated in place.
     Returns (logits (B, 1, Vp), state)."""
-    h = _embed(cfg, params, tokens)
     mixer = _traits(cfg).mixer
     if mixer == "attention":
-        h = _run_layers(cfg, params, h, state["kv"], cache_pos=pos, ctx=ctx)
-        return _unembed(cfg, params, h), state
+        h = _embed(cfg, params, tokens, tp)
+        h = _run_layers(cfg, params, h, state["kv"], cache_pos=pos, ctx=ctx,
+                        tp=tp)
+        return _unembed(cfg, params, h, tp), state
     _no_bank(cfg, ctx)
+    h = _embed(cfg, params, tokens, tp)
     if mixer == "ssm":
         for i in range(cfg.num_layers):
             h = _mamba_decode_layer(cfg, _slice(params["layers"], i), h,
-                                    _slice(state["mamba"], i))
+                                    _slice(state["mamba"], i), tp)
     else:
         sp = params["shared_attn"]
         for s in range(cfg.num_layers // cfg.attn_every):
             bp, mst = _slice(params["blocks"], s), _slice(state["mamba"], s)
             for j in range(cfg.attn_every):
-                h = _mamba_decode_layer(cfg, _slice(bp, j), h, _slice(mst, j))
+                h = _mamba_decode_layer(cfg, _slice(bp, j), h, _slice(mst, j),
+                                        tp)
             h = _shared_attn_layer(cfg, sp, h, cache=_slice(state["kv"], s),
-                                   cache_pos=pos)
-    return _unembed(cfg, params, h), state
+                                   cache_pos=pos, tp=tp)
+    return _unembed(cfg, params, h, tp), state
 
 
 def _gather_last(h: torch.Tensor, last_idx) -> torch.Tensor:
@@ -305,7 +349,7 @@ def _gather_last(h: torch.Tensor, last_idx) -> torch.Tensor:
     return h[torch.arange(h.shape[0], device=h.device), idx][:, None]
 
 
-def prefill(cfg: ModelConfig, params, req: PrefillRequest, state):
+def prefill(cfg: ModelConfig, params, req: PrefillRequest, state, tp=None):
     """Full-prompt forward that fills the KV cache; returns (last_logits,
     state) with logits gathered at ``req.last_idx``.
 
@@ -315,11 +359,11 @@ def prefill(cfg: ModelConfig, params, req: PrefillRequest, state):
     from them as they were)."""
     if _traits(cfg).mixer != "attention":
         _no_bank(cfg, req.ctx)
-        logits, _ = forward(cfg, params, req.batch)
+        logits, _ = forward(cfg, params, req.batch, tp)
         return _gather_last(logits, req.last_idx), state
-    h = _embed(cfg, params, req.batch["tokens"])
-    h = _run_layers(cfg, params, h, state["kv"], ctx=req.ctx)
-    return _unembed(cfg, params, _gather_last(h, req.last_idx)), state
+    h = _embed(cfg, params, req.batch["tokens"], tp)
+    h = _run_layers(cfg, params, h, state["kv"], ctx=req.ctx, tp=tp)
+    return _unembed(cfg, params, _gather_last(h, req.last_idx), tp), state
 
 
 # ---------------------------------------------------------------------------
@@ -327,61 +371,63 @@ def prefill(cfg: ModelConfig, params, req: PrefillRequest, state):
 # ---------------------------------------------------------------------------
 
 def _paged_decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, pages, table,
-                         pos, rot_attn=None, rot_mlp=None) -> torch.Tensor:
+                         pos, rot_attn=None, rot_mlp=None,
+                         tp=None) -> torch.Tensor:
     """Decoder layer body with the KV write / read routed through a page
     table (decode step: full batch, one token per row)."""
     a, _ = paged_attention_block(
         lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
-        pages=pages, table=table, pos=pos, rot=rot_attn)
+        pages=pages, table=table, pos=pos, rot=rot_attn, tp=tp)
     h = h + a
     m = apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
-                  cfg.mlp_type, rot=rot_mlp)
+                  cfg.mlp_type, rot=rot_mlp, tp=tp)
     return h + m
 
 
 def init_paged_state(cfg: ModelConfig, batch: int, num_pages: int,
                      page_size: int, max_pages: int,
-                     device: DeviceLike = "cuda"):
+                     device: DeviceLike = "cuda", tp=None):
     """Paged decode state: per-layer page pools plus one int32 page table
     per slot. The table has ``max_pages + 1`` columns — the extra SENTINEL
     column always holds the garbage page 0, so a parked row
     (pos == max_pages * page_size) writes into garbage."""
     dev = resolve_device(device)
-    pools = init_paged_kv(cfg, num_pages, page_size, dev)
+    pools = init_paged_kv(cfg, num_pages, page_size, dev,
+                          kv_heads=tp.kv_heads if tp is not None else None)
     pages = {k: v[None].repeat((cfg.num_layers,) + (1,) * v.dim())
              for k, v in pools.items()}
     table = torch.zeros((batch, max_pages + 1), dtype=torch.int32, device=dev)
     return {"pages": pages, "table": table}
 
 
-def _layer_rotators(ctx: Optional[AdapterContext], i: int):
+def _layer_rotators(ctx: Optional[AdapterContext], i: int, tp=None):
     bl_tree = ctx.group("layers") if ctx is not None else None
     if bl_tree is None:
         return None, None
     bl = _slice(bl_tree, i)
-    return ctx.rotator(bl.get("attn")), ctx.rotator(bl.get("mlp"))
+    return ctx.rotator(bl.get("attn"), tp), ctx.rotator(bl.get("mlp"), tp)
 
 
 def paged_decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,
-                      pos, ctx: Optional[AdapterContext] = None):
+                      pos, ctx: Optional[AdapterContext] = None, tp=None):
     """One token for the whole batch through per-slot page tables.
 
     tokens: (B, 1); pos: (B,) per-slot write positions (parked rows carry
     max_pages * page_size); state: {"pages", "table"} from
     ``init_paged_state``, whose pages are written in place (host code owns
     table edits at admission / finish). Returns (logits, state)."""
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, tp)
     table = state["table"]
     for i in range(cfg.num_layers):
-        rot_attn, rot_mlp = _layer_rotators(ctx, i)
+        rot_attn, rot_mlp = _layer_rotators(ctx, i, tp)
         h = _paged_decoder_layer(cfg, _slice(params["layers"], i), h,
                                  _slice(state["pages"], i), table, pos,
-                                 rot_attn, rot_mlp)
-    return _unembed(cfg, params, h), state
+                                 rot_attn, rot_mlp, tp)
+    return _unembed(cfg, params, h, tp), state
 
 
 def paged_chunk_prefill(cfg: ModelConfig, params, req: PrefillRequest, state,
-                        slot: int, start: int):
+                        slot: int, start: int, tp=None):
     """One prompt CHUNK for one slot through the paged cache.
 
     req.batch["tokens"]: (1, C) with C the fixed chunk width; req.last_idx:
@@ -389,19 +435,19 @@ def paged_chunk_prefill(cfg: ModelConfig, params, req: PrefillRequest, state,
     final chunk, whose logits seed the first generated token). Earlier
     chunks and shared-prefix pages already occupy positions [0, start).
     Returns (logits, state)."""
-    h = _embed(cfg, params, req.batch["tokens"])
+    h = _embed(cfg, params, req.batch["tokens"], tp)
     table_row = state["table"][int(slot)]
     for i in range(cfg.num_layers):
-        rot_attn, rot_mlp = _layer_rotators(req.ctx, i)
+        rot_attn, rot_mlp = _layer_rotators(req.ctx, i, tp)
         lp = _slice(params["layers"], i)
         a, _ = paged_prefill_chunk_block(
             lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
             pages=_slice(state["pages"], i), table_row=table_row,
-            start=start, rot=rot_attn)
+            start=start, rot=rot_attn, tp=tp)
         h = h + a
         h = h + apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
-                          cfg.mlp_type, rot=rot_mlp)
-    return _unembed(cfg, params, _gather_last(h, req.last_idx)), state
+                          cfg.mlp_type, rot=rot_mlp, tp=tp)
+    return _unembed(cfg, params, _gather_last(h, req.last_idx), tp), state
 
 
 registry.register(registry.FamilyOps(

@@ -40,7 +40,7 @@ def _absmax(x32: torch.Tensor, dims=None) -> torch.Tensor:
 
 
 def _absmax_scale(x32: torch.Tensor, axis: Optional[int], qmax: float,
-                  batch_dims: int = 0) -> torch.Tensor:
+                  batch_dims: int = 0, amax_reduce=None) -> torch.Tensor:
     if axis is None and batch_dims == 0:
         amax = _absmax(x32)                          # per-tensor scalar
     else:
@@ -50,21 +50,27 @@ def _absmax_scale(x32: torch.Tensor, axis: Optional[int], qmax: float,
         # no axis left to reduce: JAX's ``axis=() or None`` reduces them all
         amax = (_absmax(x32, reduce_axes) if reduce_axes
                 else _absmax(x32).reshape((1,) * x32.dim()))
+    if amax_reduce is not None:     # a slice of a split weight: the whole's
+        amax = amax_reduce(amax)
     return torch.clamp(amax, min=1e-12) / qmax
 
 
 def quantize_int8(x: torch.Tensor, axis: Optional[int] = None,
-                  batch_dims: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                  batch_dims: int = 0,
+                  amax_reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization -> (q int8, scale fp32).
 
     The fp32 work runs in place on one fp32 copy of x (a full-width weight
     is GBs), and with ``batch_dims`` the leading slices are quantized one at
-    a time (each is an independent tensor, so the result is the same)."""
+    a time (each is an independent tensor, so the result is the same).
+    ``amax_reduce`` maps a slice's max |x| onto the whole tensor's (a
+    weight split over ranks along a reduced dim)."""
     if batch_dims > 0 and x.shape[0] > 1:
         q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
         scales = []
         for i in range(x.shape[0]):
-            qi, si = quantize_int8(x[i:i + 1], axis, batch_dims)
+            qi, si = quantize_int8(x[i:i + 1], axis, batch_dims,
+                                   amax_reduce)
             q[i:i + 1] = qi
             scales.append(si)
         return q, torch.cat(scales)
@@ -72,7 +78,7 @@ def quantize_int8(x: torch.Tensor, axis: Optional[int] = None,
     # whatever the layout of x (a merged weight comes as a transposed view)
     x32 = x.to(torch.float32, memory_format=torch.contiguous_format,
                copy=True)
-    scale = _absmax_scale(x32, axis, INT8_MAX, batch_dims)
+    scale = _absmax_scale(x32, axis, INT8_MAX, batch_dims, amax_reduce)
     x32.div_(scale).round_().clamp_(-INT8_MAX, INT8_MAX)
     return x32.to(torch.int8), scale
 
@@ -151,13 +157,15 @@ def is_quant_tensor(x: Any) -> bool:
 
 def quantize_tensor(w: torch.Tensor, mode: str = "int8",
                     axis: Optional[int] = -1,
-                    use_pallas: bool = False) -> QuantTensor:
+                    use_pallas: bool = False,
+                    amax_reduce=None) -> QuantTensor:
     """One weight -> QuantTensor (per-channel along ``axis`` by default).
     Leading dims beyond the trailing (d_in, d_out) matrix are stacked
     layers, each with its own scales."""
     batch_dims = max(w.dim() - 2, 0)
     if mode == "int8":
-        q, scale = quantize_int8(w, axis=axis, batch_dims=batch_dims)
+        q, scale = quantize_int8(w, axis=axis, batch_dims=batch_dims,
+                                 amax_reduce=amax_reduce)
     elif mode == "fp8":
         raise NotImplementedError(_FP8_MSG)
     else:

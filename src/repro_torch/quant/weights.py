@@ -52,12 +52,15 @@ def _matches(cfg: QuantConfig, path: str) -> bool:
 
 
 def quantize_params(params: Tree, cfg: QuantConfig, *,
-                    release_source: bool = False) -> Tree:
+                    release_source: bool = False, amax_reduce=None) -> Tree:
     """Replace every targeted >= 2-D float weight with a QuantTensor (a new
     tree; untouched leaves are shared). ``release_source=True`` deletes each
     quantized leaf from ``params`` as soon as its codes exist, which frees
     its memory unless something else holds it: ``params`` is left without
-    those leaves and must not be served afterwards."""
+    those leaves and must not be served afterwards. ``amax_reduce(path)``
+    (a split model's hook) returns, per weight, a function that combines
+    the per-channel max |w| of the rank's slice into the whole weight's,
+    or None when the slice's own is already whole."""
     if not cfg.enabled:
         return params
     if cfg.mode == "fp8":
@@ -79,8 +82,11 @@ def quantize_params(params: Tree, cfg: QuantConfig, *,
                                  "quantize_params expects a float weight tree")
             if (leaf.dim() >= 2 and leaf.is_floating_point()
                     and _matches(cfg, path)):
-                out[k] = quantize_tensor(leaf, mode=cfg.mode, axis=cfg.axis,
-                                         use_pallas=cfg.use_pallas)
+                out[k] = quantize_tensor(
+                    leaf, mode=cfg.mode, axis=cfg.axis,
+                    use_pallas=cfg.use_pallas,
+                    amax_reduce=(amax_reduce(path) if amax_reduce
+                                 else None))
                 if release_source:
                     del node[k]
             else:

@@ -610,7 +610,8 @@ class PagedServeEngine(ServeEngine):
         if num_pages is None:
             if hbm_kv_budget is not None:
                 num_pages = pages_for_budget(runtime.cfg, page_size,
-                                             hbm_kv_budget)
+                                             hbm_kv_budget,
+                                             runtime.kv_heads)
             else:                       # stall-free default: worst case + 1
                 num_pages = max_batch * self.max_pages + 1
         self.num_pages = num_pages

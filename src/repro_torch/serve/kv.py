@@ -44,16 +44,20 @@ _COUNTERS = ("alloc", "freed", "prefix_queries", "prefix_hits",
              "cache_evictions", "kv_stalls")
 
 
-def kv_page_bytes(cfg: ModelConfig, page_size: int) -> int:
-    """Device bytes one page costs across ALL layers (k + v)."""
+def kv_page_bytes(cfg: ModelConfig, page_size: int,
+                  kv_heads: Optional[int] = None) -> int:
+    """Device bytes one page costs across ALL layers (k + v), at
+    ``kv_heads`` heads (a split model's local count; default all)."""
     itemsize = torch.empty((), dtype=cfg.act_dtype).element_size()
-    return (2 * cfg.num_layers * page_size * cfg.num_kv_heads * cfg.d_head
-            * itemsize)
+    return (2 * cfg.num_layers * page_size * (kv_heads or cfg.num_kv_heads)
+            * cfg.d_head * itemsize)
 
 
-def pages_for_budget(cfg: ModelConfig, page_size: int, budget: int) -> int:
-    """Static pool size from a device byte budget (>= garbage + 1 real)."""
-    return max(2, budget // kv_page_bytes(cfg, page_size))
+def pages_for_budget(cfg: ModelConfig, page_size: int, budget: int,
+                     kv_heads: Optional[int] = None) -> int:
+    """Static pool size from a device byte budget (>= garbage + 1 real);
+    on a split model the budget is per card (its local kv heads)."""
+    return max(2, budget // kv_page_bytes(cfg, page_size, kv_heads))
 
 
 @dataclasses.dataclass

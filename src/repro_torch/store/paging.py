@@ -29,6 +29,9 @@ resident bytes scale with N_adapters x N_methods. This bank fixes both:
 
 Stack shapes are fixed when the bank is built and page-in rewrites their
 contents in place, so every context built afterwards reads the new tenant;
+on a mesh (``mesh=``, the runtime's) the stacks hold this rank's part per
+``ShardingRules.bank_spec_tree`` and a page-in writes that part of the
+page;
 ``version`` is bumped on every page-in and eviction, and the engines key
 their cached context on it. The per-method capacities are static: a hot
 method cannot borrow a cold one's slots.
@@ -88,7 +91,7 @@ class PagedAdapterBank:
     """
 
     def __init__(self, store: AdapterStore, params: Tree, *,
-                 hbm_budget: Optional[int] = None):
+                 hbm_budget: Optional[int] = None, mesh=None, cfg=None):
         self.store = store
         counts = store.method_counts()
         if hbm_budget is None:
@@ -119,6 +122,18 @@ class PagedAdapterBank:
                                 self.device).items()}      # all-identity
             self._stacks[path] = entry
             peft_lib._nest_insert(self.tree, path, entry)
+        # per-leaf specs of this rank's part (None: every rank holds all)
+        self._mesh = mesh
+        self._spec: Optional[Dict[str, Dict[str, Dict[str, tuple]]]] = None
+        if mesh is not None:
+            from repro_torch.sharding import specs as shard_specs
+            spec_tree = shard_specs.ShardingRules(
+                cfg, mesh).bank_spec_tree(self._stacks)
+            self._stacks = shard_specs.place(mesh, self._stacks, spec_tree)
+            self._spec = spec_tree
+            self.tree = {}
+            for path, entry in self._stacks.items():
+                peft_lib._nest_insert(self.tree, path, entry)
 
         # host indirection: universal slot -> compact slot, per method
         self._lut: Dict[str, np.ndarray] = {
@@ -164,6 +179,11 @@ class PagedAdapterBank:
     @property
     def resident(self) -> Tuple[str, ...]:
         return tuple(self._resident)
+
+    def is_resident(self, name: str) -> bool:
+        """Is this adapter's factor set paged into device memory now? The
+        cluster router's affinity probe."""
+        return name in self._resident
 
     def cfg_for(self, name: str) -> peft_lib.PEFTConfig:
         return self.store.cfg_for(name)
@@ -310,9 +330,16 @@ class PagedAdapterBank:
         pages = self._pages_for(name, method)
         for path, page in pages.items():
             entry = self._stacks[path][method]
+            ax = self._axis[path]
             for k, dst in entry.items():
-                dst.select(self._axis[path], cslot).copy_(page[k],
-                                                          non_blocking=True)
+                src = page[k]
+                if self._spec is not None:      # this rank's part only
+                    from repro_torch.sharding.specs import local_slice
+                    spec = self._spec[path][method][k]
+                    if spec:
+                        src = local_slice(self._mesh, src,
+                                          spec[:ax] + spec[ax + 1:])
+                dst.select(ax, cslot).copy_(src, non_blocking=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -45,7 +45,8 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
     serving the trained weights."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh-sharded training is not ported yet (scale-out slice)")
+            "mesh-sharded training is not ported yet (the mesh-training "
+            "slice)")
     dev = resolve_device(device)
     params = ModelRuntime(cfg, seed=dcfg.seed, device=dev).params
     adapters = peft_lib.init_peft(tcfg.peft, params, device=dev,

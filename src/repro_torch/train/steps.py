@@ -123,29 +123,38 @@ def build_eval_step(cfg: ModelConfig, tcfg: TrainStepConfig):
     return eval_step
 
 
-def build_decode_step(cfg: ModelConfig):
+def _tp_kw(tp) -> dict:
+    """The family functions' ``tp=`` argument, passed only for a split
+    model (the stateless families' functions take none)."""
+    return {} if tp is None else {"tp": tp}
+
+
+def build_decode_step(cfg: ModelConfig, tp=None):
     """step(params, ctx, tokens (B, 1), state, pos) -> (next_tok (B, 1),
     logits, state). ``pos`` is a scalar or (B,) per-slot positions; ``ctx``
-    an optional AdapterContext (None serves the bare/merged model)."""
+    an optional AdapterContext (None serves the bare/merged model); ``tp``
+    the rank's ``distrib.tp.TPShard`` of a split model."""
     fam = api.family_ops(cfg)
+    kw = _tp_kw(tp)
 
     @torch.inference_mode()
     def serve_step(params, ctx, tokens, state, pos):
         logits, state = fam.decode_step(cfg, params, tokens, state, pos,
-                                        ctx=ctx)
+                                        ctx=ctx, **kw)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         return next_tok[:, None], logits, state
 
     return serve_step
 
 
-def build_prefill_step(cfg: ModelConfig):
+def build_prefill_step(cfg: ModelConfig, tp=None):
     """step(params, req: PrefillRequest, state) -> (logits, state)."""
     fam = api.family_ops(cfg)
+    kw = _tp_kw(tp)
 
     @torch.inference_mode()
     def prefill_step(params, req: peft_lib.PrefillRequest, state):
-        return fam.prefill(cfg, params, req, state)
+        return fam.prefill(cfg, params, req, state, **kw)
 
     return prefill_step
 
@@ -169,7 +178,7 @@ def _decode_state_batch_axes(cfg: ModelConfig, max_len: int) -> Tree:
 
 
 def build_slot_prefill_step(cfg: ModelConfig, *, max_len: int,
-                            device: DeviceLike = "cuda"):
+                            device: DeviceLike = "cuda", tp=None):
     """Continuous-batching admission: prefill ONE request (batch 1) into a
     fresh state and copy every leaf of it into row ``slot`` of the engine's
     slot-array state, along that leaf's own batch axis (found as the JAX
@@ -178,14 +187,15 @@ def build_slot_prefill_step(cfg: ModelConfig, *, max_len: int,
     fam = api.family_ops(cfg)
     dev = resolve_device(device)
     axes = _decode_state_batch_axes(cfg, max_len)
+    kw = _tp_kw(tp)
 
     def scatter(dst, src, ax, slot):
         dst.select(ax, slot).copy_(src.select(ax, 0))
 
     @torch.inference_mode()
     def slot_prefill(params, req: peft_lib.PrefillRequest, state, slot: int):
-        sub = fam.init_decode_state(cfg, 1, max_len, dev)
-        logits, sub = fam.prefill(cfg, params, req, sub)
+        sub = fam.init_decode_state(cfg, 1, max_len, dev, **kw)
+        logits, sub = fam.prefill(cfg, params, req, sub, **kw)
         first = int(torch.argmax(logits[0, -1]))
         tree_map(lambda d, s_, a: scatter(d, s_, a, slot), state, sub, axes)
         return first, state
@@ -193,7 +203,7 @@ def build_slot_prefill_step(cfg: ModelConfig, *, max_len: int,
     return slot_prefill
 
 
-def build_paged_decode_step(cfg: ModelConfig):
+def build_paged_decode_step(cfg: ModelConfig, tp=None):
     """One decode token for the whole batch through per-slot PAGE TABLES.
     Same call shape as ``build_decode_step`` — params, ctx, tokens (B, 1),
     state {"pages", "table"}, pos (B,) — so the paged engine drops in next
@@ -202,18 +212,19 @@ def build_paged_decode_step(cfg: ModelConfig):
     fam = api.family_ops(cfg)
     if fam.paged_decode_step is None:
         raise ValueError(f"family {cfg.family!r} has no paged decode path")
+    kw = _tp_kw(tp)
 
     @torch.inference_mode()
     def serve_step(params, ctx, tokens, state, pos):
         logits, state = fam.paged_decode_step(cfg, params, tokens, state, pos,
-                                              ctx=ctx)
+                                              ctx=ctx, **kw)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         return next_tok[:, None], logits, state
 
     return serve_step
 
 
-def build_chunk_prefill_step(cfg: ModelConfig):
+def build_chunk_prefill_step(cfg: ModelConfig, tp=None):
     """Chunked-prefill admission unit: ONE fixed-width prompt chunk for ONE
     slot, written through that slot's page table.
     step(params, req, state, slot, start) -> (first_token, state), the
@@ -223,12 +234,13 @@ def build_chunk_prefill_step(cfg: ModelConfig):
     fam = api.family_ops(cfg)
     if fam.paged_chunk_prefill is None:
         raise ValueError(f"family {cfg.family!r} has no chunked-prefill path")
+    kw = _tp_kw(tp)
 
     @torch.inference_mode()
     def chunk_step(params, req: peft_lib.PrefillRequest, state, slot: int,
                    start: int):
         logits, state = fam.paged_chunk_prefill(cfg, params, req, state,
-                                                slot, start)
+                                                slot, start, **kw)
         return torch.argmax(logits[0, -1]), state
 
     return chunk_step

@@ -125,3 +125,37 @@ def test_image_and_static_entry_points_raise_without_a_card(monkeypatch):
                                             "--peft-demo"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_scale_out_modules_load_no_jax():
+    """The cluster, the serve mesh, the partition rules and the mesh
+    factories import neither JAX nor the JAX package."""
+    code = ("import sys, repro_torch.distrib, repro_torch.distrib.cluster, "
+            "repro_torch.distrib.tp, repro_torch.sharding, "
+            "repro_torch.sharding.specs, repro_torch.launch.mesh; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
+def test_serve_mesh_and_meshed_runtime_raise_without_a_card(monkeypatch):
+    """``serve_mesh`` and ``ModelRuntime(mesh=)`` default to the card: they
+    raise without one before any process group starts, unless the CPU is
+    asked for."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import get_smoke_config
+    from repro_torch.core.runtime import ModelRuntime
+    from repro_torch.distrib.tp import serve_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_mesh(1)
+    mesh = serve_mesh(1, device="cpu")
+    assert dist.get_backend() == "gloo"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRuntime(get_smoke_config("qwen2-72b"), mesh=mesh)
+    rt = ModelRuntime(get_smoke_config("qwen2-72b"), mesh=mesh, device="cpu")
+    assert rt.shard is None and rt.mesh is mesh

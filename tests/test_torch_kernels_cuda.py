@@ -1750,3 +1750,150 @@ def test_merged_then_quantized_weight_runs_q_matmul(cuda):
     want = qmk.q_matmul_plain(x, qt.q, qt.scale)
     err = (y.float() - want.float()).abs().max().item()
     assert err <= QMM_BF16_REL * want.float().abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving's local shapes (qwen2-72b at tp = 2: 64 / 8 heads
+# become 32 / 4 a rank, d_ff 29568 becomes 14784; phase 16 of chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+# (M, K, N): column-parallel at the local N (wq 4096, wk / wv 512, wi / wg
+# 14784, the LM head's 76032 vocab columns), row-parallel at the local K
+# (attention wo 4096, MLP wo 14784); decode rows and a prefill chunk
+TP_QMM_CASES = [(1, 8192, 4096), (4, 8192, 512), (4, 8192, 14784),
+                (1, 8192, 76032), (4, 4096, 8192), (4, 14784, 8192),
+                (16, 14784, 8192)]
+
+
+def _device_codes(k, n, device, seed):
+    """Random int8 codes and per-column scales made on the card (a 76032-
+    column head is 600 MB of codes: too slow to draw on the host)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q = torch.randint(-127, 128, (k, n), generator=gen, device=device,
+                      dtype=torch.int8)
+    s = torch.rand((1, n), generator=gen, device=device) * 0.02 + 1e-3
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TP_QMM_CASES, ids=lambda c: "M%d-K%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tp_q_matmul_at_local_n_and_k(cuda, case, dtype):
+    m, k, n = case
+    q, s = _device_codes(k, n, cuda, m + k + n)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    x = (torch.randn((m, k), generator=gen, device=cuda) / k ** 0.5).to(dtype)
+    before = qmk.q_matmul.launches
+    y = qmk.q_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert qmk.q_matmul.launches == before + 1
+    want = qmk.q_matmul_plain(x, q, s)
+    assert y.shape == (m, n) and torch.isfinite(y.float()).all()
+    err = (y.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= QMM_F32_TOL * max(1.0, want.abs().max().item())
+    else:
+        assert err <= QMM_BF16_REL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,rank,tp", [(8192, 0, 2), (8192, 1, 2),
+                                       (29568, 1, 2), (8192, 3, 4)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("t", [1, 16], ids=["decode", "prefill"])
+def test_tp_row_parallel_rotation_path(cuda, d, rank, tp, t):
+    """A row-parallel int8 ``wo`` under a GSOFT bank: the whole gathered
+    row rotated by slot id (``gs_fused_T_bank``, one launch), the rank's K
+    window cut out, then ``q_matmul`` at the local K (one launch) — held
+    against the plain versions of the same three steps (``ops.q_matmul``
+    takes the window's strided rows, as the model's ``row_linear`` does)."""
+    rng = np.random.default_rng(d + rank + t)
+    bsz, w = 4, d // tp
+    Lb, Rb = (a.to(cuda) for a in _bank(rng, 5, d // 8, 8))
+    x = torch.from_numpy(rng.normal(size=(bsz, t, d)).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    ids = torch.tensor([1, 0, 4, 1], dtype=torch.int64, device=cuda)
+    q, s = _device_codes(w, 8192, cuda, d + rank)
+    slot0, mm0 = gk.gs_fused_T.slot_launches, qmk.q_matmul.launches
+    rot = gk.gs_fused_T_bank(x, Lb, Rb, ids)
+    y = ops.q_matmul(rot.narrow(-1, rank * w, w), q, s)
+    torch.cuda.synchronize()
+    assert gk.gs_fused_T.slot_launches == slot0 + 1
+    assert qmk.q_matmul.launches == mm0 + 1
+    want_rot = gk.gs_fused_T_bank_plain(x, Lb, Rb, ids)
+    assert (rot.float() - want_rot.float()).abs().max().item() <= BF16_TOL
+    want = qmk.q_matmul_plain(
+        want_rot.narrow(-1, rank * w, w).reshape(-1, w), q, s).reshape(y.shape)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= GSQ_BF16_REL * max(1.0, want.float().abs().max().item())
+
+
+# the cluster lane's GSOFT / BOFT tenants: b = 8 on qwen2-72b's whole rows
+# (d_model 8192, r = 1024; d_ff 29568, r = 3696); (d, B, T) for the decode
+# rows and the prefill buckets of prompts of 4-12 tokens
+CLUSTER_B8_CASES = [(8192, 4, 1), (8192, 1, 8), (8192, 1, 16),
+                    (29568, 4, 1), (29568, 1, 8), (29568, 1, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bsz,t", CLUSTER_B8_CASES,
+                         ids=lambda v: str(v))
+def test_cluster_lane_transpose_bank_at_b8(cuda, d, bsz, t):
+    rng = np.random.default_rng(d + bsz + t)
+    Lb, Rb = (a.to(cuda) for a in _bank(rng, 5, d // 8, 8))
+    x = torch.from_numpy(rng.normal(size=(bsz, t, d)).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    ids = torch.tensor([1, 0, 4, 2][:bsz], dtype=torch.int64, device=cuda)
+    before = gk.gs_fused_T.slot_launches
+    y = gk.gs_fused_T_bank(x, Lb, Rb, ids)
+    torch.cuda.synchronize()
+    assert gk.gs_fused_T.slot_launches == before + 1
+    want = gk.gs_fused_T_bank_plain(x, Lb, Rb, ids)
+    assert (y.float() - want.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bsz,t", CLUSTER_B8_CASES,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("trans", [False, True], ids=["stored", "transposed"])
+def test_cluster_lane_bdmm_at_b8(cuda, d, bsz, t, trans):
+    rng = np.random.default_rng(2 * d + bsz + t)
+    blocks = _factors(rng, bsz, d // 8, 8).to(cuda, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(bsz, t, d)).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    before = bk.bdmm.launches
+    y = bk.bdmm(x, blocks, transpose_blocks=trans)
+    torch.cuda.synchronize()
+    assert bk.bdmm.launches == before + 1
+    want = bk.bdmm_plain(x, blocks, transpose_blocks=trans)
+    assert (y.float() - want.float()).abs().max().item() <= BF16_TOL
+
+
+# (B, H, K, D, page, P, W): tp = 2's 32 / 4 heads; the kv heads a rank
+# keeps when they replicate under a q-head split (16 q heads reading their
+# one kv head; a non-uniform grouping keeps one kv copy per q head)
+TP_PAGED_CASES = [(4, 32, 4, 128, 16, 64, 24), (8, 32, 4, 128, 16, 300, 256),
+                  (4, 16, 1, 128, 16, 64, 24), (4, 3, 3, 128, 8, 40, 18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TP_PAGED_CASES,
+                         ids=lambda c: "B%d-H%d-K%d-D%d-page%d-P%d-W%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tp_paged_decode_at_local_heads(cuda, case, dtype):
+    rng = np.random.default_rng(sum(case) + 7)
+    args = _paged_inputs(rng, case, cuda, dtype)
+    before = pak.paged_decode.launches
+    out = pak.paged_decode(*args)
+    torch.cuda.synchronize()
+    assert pak.paged_decode.launches == before + 1
+    want = pak.paged_decode_plain(*args)
+    err = (out.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= PAGED_F32_TOL * max(1.0, want.abs().max().item())
+    else:
+        assert err <= PAGED_BF16_REL * want.float().abs().max().item()

@@ -316,13 +316,14 @@ def test_launcher_serves_paged_int8_bank_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "quantized base weights (int8)" in out
     assert "[paged] served 8 requests" in out and "tok/s" in out
-    assert "kv pages:" in out
+    assert "kv: pool=" in out and "cluster: 1 replica(s)" in out
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "1,1"],
+@pytest.mark.parametrize("flags", [["--mesh", "2,1"],
                                    ["--quantize", "fp8"],
                                    ["--family", "vlm"],
-                                   ["--replicas", "2"], ["--tp", "2"],
+                                   ["--arch", "lipconvnet-15", "--tp", "2"],
+                                   ["--mesh", "2,2"],
                                    ["--family", "encdec"]])
 def test_launcher_refuses_unported_lanes(flags):
     with pytest.raises(NotImplementedError):

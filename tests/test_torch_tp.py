@@ -1,0 +1,166 @@
+"""Tensor-parallel serving of the port (``distrib/tp.py``, ``sharding/
+specs.py``, ``ModelRuntime(mesh=)``, the split model code) on the CPU at
+tp = 2: gloo ranks in their own processes (``tests/torch_tp_runner.py``),
+each holding its shards, against JAX's SINGLE-DEVICE engines on the same
+params, codes and adapters — as tests/serve_distributed_runner.py holds
+JAX's own TP. tests/test_torch_tp4.py runs tp = 4.
+
+One spawn of two ranks serves a mixed-method eager bank, the same tenants
+store-paged, int8 banked with JAX's codes (contiguous and paged), int8
+quantized on the mesh, int8 restored from checkpoints leaf by leaf, an
+offline merge placed weight by weight, and streaming arrivals. Greedy tokens are compared
+exactly (f32 on both sides). Each rank's params, bank stacks and KV are
+checked to be its local slice, so a silently replicated weight fails. The
+launcher's refusals run in this process.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import serve as tlaunch  # noqa: E402
+
+import torch_tp_refs as R  # noqa: E402
+import torch_tp_runner as runner  # noqa: E402
+
+CFG = R.CFG
+
+
+@pytest.fixture(scope="module")
+def refs():
+    """JAX's single-device tokens and the payloads for the ranks. The
+    store-paged bank serves the eager bank's tenants and first requests,
+    and the paged engine the contiguous int8 one's: paging moves where
+    factors and KV live, not what is computed, so each is held to the
+    same JAX run."""
+    jrt = R.jax_runtime()
+    params = R.np_tree(jrt.params)
+    mixed, gb = R.adapters(params, R.MIXED), R.adapters(params, R.GB)
+    jqrt = jrt.quantized("int8")
+    bank = R.jax_tokens(jrt.attach(mixed, R.jcfgs(R.MIXED)), R.MIXED, 8, 1)
+    int8 = R.jax_tokens(jqrt.attach(gb, R.jcfgs(R.GB)), R.GB, 6, 3)
+    want = {"bank": bank, "store": bank[:6], "int8": int8, "paged": int8,
+            "ckpt": int8}
+    qparams = R.jq_numpy(jqrt.params)
+    payload = {
+        "bank": dict(params=params, methods=R.MIXED, adapters=mixed, n=8,
+                     seed=1, stream=True),
+        "store": dict(params=params, methods=R.MIXED, adapters=mixed, n=6,
+                      seed=1, budget=5),
+        "int8": dict(qparams=qparams, methods=R.GB, adapters=gb, n=6,
+                     seed=3),
+        "paged": dict(qparams=qparams, methods=R.GB, adapters=gb, n=6,
+                      seed=3, paged=True),
+        "quantize": dict(params=params, methods={}, n=0, seed=5,
+                         quantize=True),
+        "ckpt": dict(qparams=qparams, params=params, methods=R.GB,
+                     adapters=gb, n=6, seed=3, ckpt=True),
+        "merge": dict(params=params, n=4, seed=2, merge=True),
+    }
+    return want, payload
+
+
+@pytest.fixture(scope="module")
+def tp2(refs):
+    return runner.spawn(2, refs[1])
+
+
+@pytest.mark.parametrize("case", ["bank", "store", "int8", "paged", "ckpt"])
+def test_tp2_tokens_equal_jax_single_device(refs, tp2, case):
+    """Both ranks serve the same greedy tokens as JAX's one-device engine:
+    mixed-method eager bank (gsoft / boft / oft / householder / givens),
+    the same tenants store-paged under a 5-slot budget, int8 banked on
+    JAX's codes, contiguous and paged, and those codes restored from a
+    checkpoint by ``load_quantized(mesh=)``."""
+    want = refs[0][case]
+    assert [r[case]["tokens"] for r in tp2] == [want, want]
+
+
+def test_params_bank_and_kv_are_local(tp2):
+    """Every split weight, the GSOFT bank's block axis and the KV heads hold
+    the rank's share: wq / wk / MLP wi columns, attention / MLP wo rows,
+    embedding rows and LM-head columns over 2; the caches and page pools
+    K / 2 heads; the GSOFT stacks r / 2 blocks (eager and store-paged)."""
+    H, K, hd = CFG.num_heads, CFG.num_kv_heads, CFG.d_head
+    d, f, vp = CFG.d_model, CFG.d_ff, CFG.padded_vocab()
+    for case in ("bank", "int8", "paged"):
+        loc = tp2[1][case]["local"]
+        assert loc["wq"][-2:] == (d, H * hd // 2)
+        assert loc["wk"][-2:] == (d, K * hd // 2)
+        assert loc["wo"][-2:] == (H * hd // 2, d)
+        assert loc["mlp_wi"][-2:] == (d, f // 2)
+        assert loc["mlp_wo"][-2:] == (f // 2, d)
+        assert loc["embed"] == (vp // 2, d)
+        assert loc["lm_head"] == (d, vp // 2)
+        assert loc["kv"][-2] == K // 2
+    for case in ("bank", "store"):
+        bank = tp2[0][case]["bank"]
+        assert bank["attn_wq"][-3] * 8 * 2 == d
+        assert bank["mlp_wo"][-3] * 8 * 2 == f
+
+
+def test_streaming_arrivals_give_equal_tokens_on_both_ranks(tp2):
+    """Each rank's arrival clock runs at its own rate; rank 0 decides each
+    tick's admissions and broadcasts them, so both ranks admit the same
+    requests and stream the same tokens, every request served."""
+    a, b = tp2[0]["bank"]["stream"], tp2[1]["bank"]["stream"]
+    assert a == b and len(a) == 8 and all(len(t) == 6 for t in a)
+
+
+def test_int8_quantized_on_the_mesh_equals_the_whole(tp2):
+    """``quantized()`` on placed f32 shards: the row-split weights' scales
+    take the max |w| over both ranks, so each rank's codes and scales are
+    exactly its slice of the whole tree's."""
+    assert all(r["quantize"]["codes_equal"] for r in tp2)
+
+
+@pytest.mark.parametrize("flags, exc, match", [
+    (["--tp", "2", "--mesh", "1,2"], SystemExit, "one or the other"),
+    (["--mesh", "2,1"], NotImplementedError, "mesh-training slice"),
+    (["--tp", "2"], ValueError, "needs 2 ranks"),
+])
+def test_launcher_refuses_bad_meshes(flags, exc, match):
+    """``--tp`` with ``--mesh`` is refused, a 'data' axis above 1 waits for
+    the next slice, and a mesh larger than the world names both sizes."""
+    with pytest.raises(exc, match=match):
+        tlaunch.main(["--arch", "qwen2-72b", "--smoke", "--device", "cpu"]
+                     + flags)
+
+
+def test_launcher_serves_tp1_as_the_degenerate_mesh(capsys):
+    """``--tp 1`` in one process: a world of one, the same report."""
+    assert tlaunch.main(["--arch", "qwen2-72b", "--smoke", "--tp", "1",
+                         "--engine", "paged", "--quantize", "int8",
+                         "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "cluster: 1 replica(s), 8 requests" in out and "kv: pool=" in out
+
+
+def test_load_quantized_on_the_mesh_keeps_each_leafs_slice(tp2):
+    """``load_quantized(mesh=)`` reads each leaf and keeps its slice: from
+    a quantized checkpoint the codes and scales are exactly the rank's
+    slice of the whole tree's, and from a float checkpoint, quantized on
+    the mesh, exactly the slice of the whole's quantization."""
+    H, hd = CFG.num_heads, CFG.d_head
+    for r in tp2:
+        assert r["ckpt"]["codes_equal"] and r["ckpt"]["float_codes_equal"]
+        assert r["ckpt"]["wq"][-1] == H * hd // 2
+
+
+def test_offline_merge_on_the_mesh_equals_the_whole_merge(tp2):
+    """A GSOFT adapter merged under the mesh, each weight merged and cut
+    before the next (drawn from the seed, and from a passed tree), serves
+    the unsplit merge's greedy tokens exactly, on split weights."""
+    for r in tp2:
+        for how in ("seed", "tree"):
+            whole, split = r["merge"][how]
+            assert split == whole and len(whole) == 4
+        assert r["merge"]["wq"][-1] == CFG.num_heads * CFG.d_head // 2
+
+
+def test_split_gsoft_bank_counts_the_gathered_blocks(tp2):
+    """A GSOFT bank split over its blocks gathers the batch's slots at each
+    rotation, and each rank counts the bytes it received: some in every
+    banked case with GSOFT tenants."""
+    for r in tp2:
+        for case in ("bank", "store", "int8", "paged"):
+            assert r[case]["bank_gather_bytes"] > 0, case

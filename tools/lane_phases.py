@@ -1,9 +1,11 @@
-"""Run phases 3h, 14 and 15 of ``chip_smoke.py`` alone on one GPU, from
-this tree: the image lane's kernel shapes, static / streaming / traced
-serving of qwen2-72b (8 layers, bf16, and the f32 check at 2 layers) and
-lipconvnet-15 image serving per tenant (bf16, int8, the f32 checks).
+"""Run phases 3h, 14, 15 and 16 of ``chip_smoke.py`` alone on one GPU,
+from this tree: the image lane's kernel shapes, static / streaming /
+traced serving of qwen2-72b (8 layers, bf16, and the f32 check at 2
+layers), lipconvnet-15 image serving per tenant (bf16, int8, the f32
+checks), and scale-out (the cluster, the launcher's ``--replicas`` /
+``--tp 1`` lanes, tp = 1 and tp = 2 serving, the TP kernel shapes).
 
-    python3 tools/lane_phases.py [--only 3h,14,15] [--seed N] [--out FILE]
+    python3 tools/lane_phases.py [--only 3h,14,15,16] [--seed N] [--out FILE]
 
 Each phase runs through the function ``chip_smoke.main()`` calls for it,
 gates, launcher runs and log included (a miss raises), after the kernels
@@ -34,6 +36,8 @@ PHASES = {
                                              seed, dev),
     "15": lambda gen, seed, dev: cs.phase_15(cs.get_config("lipconvnet-15"),
                                              seed, dev),
+    "16": lambda gen, seed, dev: {"scale_out": cs.phase_16(
+        cs.get_config("qwen2-72b"), seed, dev, gen)},
 }
 
 
