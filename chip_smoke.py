@@ -213,10 +213,33 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    the differing tokens are counted; then ``q_matmul`` (local N and K),
    ``gs_q_matmul`` (local N), ``paged_decode`` (32 / 4 heads) and ``ssd``
    (40 heads) against their plain versions, timed
-17. report — where the time went (build, set-up, timed runs, profiled
-   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15 and 16 whole), the card's
-   name and power limit, one JSON line of kernels, then the ``{"ok":
-   true, ...}`` line
+17. training — (a) ``ssd_bwd`` (the scan's backward, the port's own
+   kernel) against autograd through the plain scan at zamba2's training
+   shape (2 x 256, 80 heads, P = N = 64; f32 and bf16), mamba2-130m's (24
+   heads, N = 128), a ragged T = 1000 and N = 256, each of dx / dloga /
+   dB / dC within its tolerance, timed, with bounds; (b) mamba2-130m and
+   zamba2-2.7b trained at full width and depth (bf16, GSOFT b = 32, 3
+   steps on one batch: the loss must fall, each step launching ``ssd``
+   twice and ``ssd_bwd`` once a Mamba layer), tok/s and peak memory, and
+   their f32 gradients at 2 layers against central differences along
+   three random directions each; (c) qwen2-72b at full width (1 layer,
+   f32, remat "none", GSOFT b = 32, batch 8 x 64, 2 microbatches, 3
+   steps) trained on (data, model) = (2, 1), (1, 2) with and without
+   ``seq_parallel``, and (2, 2), as gloo processes sharing the card, each
+   mesh's losses within rtol = atol = 2e-3 of one process, every rank's
+   AdamW first moments leaf by leaf within 2e-3 of the leaf's max, and
+   the adapters moved; BOFT one step at (1, 2); zamba2 (2 layers and the
+   shared block, f32, remat "full": each row-split weight slice gathered
+   again in the backward) at (1, 2), ``ssd`` / ``ssd_bwd`` on 40 heads a
+   rank; (d) a checkpoint saved on (1, 2) restored onto (2, 1) bit for
+   bit, ``compressed_psum_mean`` over data = 2 within 1e-2, GPipe over 2
+   stages (one full-width bf16 decoder layer each, 4 microbatches)
+   against the stages in sequence, decode of 8 rows at (2, 1) against
+   one call
+18. report — where the time went (build, set-up, timed runs, profiled
+   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15, 16 and 17 whole), the
+   card's name and power limit, one JSON line of kernels, then the
+   ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
 """
@@ -228,6 +251,7 @@ import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -390,6 +414,13 @@ KERNELS = {
     "ssd": dict(fn=ssdk.ssd, plain=ssdk.ssd_plain,
                 replaces="src/repro/kernels/ssd.py:67",
                 source="src/repro_torch/kernels/csrc/ssd.cu"),
+    "ssd_bwd": dict(fn=ssdk.ssd_bwd, plain=ssdk.ssd_bwd_plain,
+                    replaces="src/repro/kernels/ssd.py:67",
+                    replaces_note="none: the gradient of ssd_pallas, which "
+                                  "has no backward kernel (the JAX package "
+                                  "differentiates src/repro/kernels/ref.py:"
+                                  "216 ssd_chunked_ref)",
+                    source="src/repro_torch/kernels/csrc/ssd_bwd.cu"),
     "flash_attention": dict(fn=fak.flash_attention,
                             plain=fak.flash_attention_plain,
                             replaces="src/repro/kernels/flash_attention.py:77",
@@ -1413,16 +1444,25 @@ def quick_step_phase(cfg, seed: int, device, method: str) -> dict:
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def grad_phase(cfg, seed: int, device, method: str) -> dict:
+def grad_phase(cfg, seed: int, device, method: str,
+               seq: int = GRAD_SEQ, directions: int = 1,
+               per_norm: bool = False) -> dict:
     """One train step's adapter gradients (autograd through the port's kernels)
-    against a central difference of the loss along a seeded random
-    direction, in f32 at a perturbed (non-identity) adapter point."""
+    against central differences of the loss along ``directions`` seeded
+    random directions, each checked, in f32 at a perturbed (non-identity)
+    adapter point; the batch is GRAD_BATCH rows of ``seq`` tokens. The
+    tolerance is FD_REL of |directional derivative|, or with ``per_norm``
+    of the larger of that and |g|_2, the RMS of the directional derivative
+    over random directions (entries of unit variance): a draw nearly
+    orthogonal to g has a derivative below the differences' rounding,
+    while an error e in g still shows as e . u, of RMS |e|_2. The
+    top-level numbers are the worst direction's."""
     pcfg = peft_lib.PEFTConfig(method=method, block_size=32)
     tcfg = steps.TrainStepConfig(peft=pcfg)
     params = ModelRuntime(cfg, seed=seed, device=device).params
     adapters = perturbed_adapters(pcfg, params, seed + 11, 0.02, device)
     batch = {k: torch.as_tensor(v, device=device) for k, v in LMDataSource(
-        DataConfig(seq_len=GRAD_SEQ, global_batch=GRAD_BATCH, seed=seed,
+        DataConfig(seq_len=seq, global_batch=GRAD_BATCH, seed=seed,
                    vocab_size=min(cfg.vocab_size, 256))).batch_at(0).items()}
     n_slices = _slices(pcfg, params)
     _reset_launches()
@@ -1431,17 +1471,9 @@ def grad_phase(cfg, seed: int, device, method: str) -> dict:
     launches = _launches()
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 23)
-    direction = {p: {k: torch.randn(v.shape, generator=gen, device=device)
-                     for k, v in e.items()} for p, e in adapters.items()}
-    deriv = sum(float((grads[p][k].double() * direction[p][k].double()).sum())
-                for p in adapters for k in adapters[p])
-    umax = max(float(u.abs().max()) for e in direction.values()
-               for u in e.values())
-    h = min(FD_TARGET / max(abs(deriv), 1e-30), FD_MAX_STEP / umax)
-    del grads
     evaluate = steps.build_eval_step(cfg, tcfg)
 
-    def central(step: float) -> tuple:
+    def central(direction, step: float) -> tuple:
         lp, lm = (float(evaluate(params, {p: {k: v + sgn * step * direction[p][k]
                                               for k, v in e.items()}
                                           for p, e in adapters.items()},
@@ -1449,27 +1481,54 @@ def grad_phase(cfg, seed: int, device, method: str) -> dict:
                   for sgn in (1.0, -1.0))
         return (lp - lm) / (2 * step), lp, lm
 
-    # Richardson: (4 D(h/2) - D(h)) / 3 cancels the h^2 term of the central
-    # difference, leaving O(h^4) and the rounding of the four losses
-    fd_h, lp, lm = central(h)
-    fd_h2, _, _ = central(h / 2)
-    fd = (4 * fd_h2 - fd_h) / 3
-    err = abs(fd - deriv)
-    del params, adapters, direction
+    gnorm = math.sqrt(sum(float(g.double().pow(2).sum())
+                          for e in grads.values() for g in e.values()))
+    checks = []
+    for _ in range(directions):
+        direction = {p: {k: torch.randn(v.shape, generator=gen,
+                                        device=device)
+                         for k, v in e.items()} for p, e in adapters.items()}
+        deriv = sum(float((grads[p][k].double() * direction[p][k].double())
+                          .sum()) for p in adapters for k in adapters[p])
+        umax = max(float(u.abs().max()) for e in direction.values()
+                   for u in e.values())
+        h = min(FD_TARGET / max(abs(deriv), 1e-30), FD_MAX_STEP / umax)
+        # Richardson: (4 D(h/2) - D(h)) / 3 cancels the h^2 term of the
+        # central difference, leaving O(h^4) and the rounding of the four
+        # losses
+        fd_h, lp, lm = central(direction, h)
+        fd_h2, _, _ = central(direction, h / 2)
+        fd = (4 * fd_h2 - fd_h) / 3
+        scale = max(abs(deriv), gnorm) if per_norm else abs(deriv)
+        checks.append(dict(directional_derivative=deriv,
+                           central_difference=fd, central_h=fd_h,
+                           central_h2=fd_h2, h=h, loss_plus=lp,
+                           loss_minus=lm, tol_scale=scale,
+                           rel_err=abs(fd - deriv) / max(scale, 1e-300),
+                           rel_to_derivative=abs(fd - deriv)
+                           / max(abs(deriv), 1e-300)))
+        del direction
+    del grads, params, adapters
     torch.cuda.empty_cache()
     for name in GRAD_KERNELS[method]:
         if launches[name] == 0:
             raise AssertionError(f"{method}: {name} never launched in the "
                                  f"gradient step ({launches})")
-    if not (math.isfinite(fd) and err <= FD_REL * abs(deriv)):
-        raise AssertionError(f"{method}: directional derivative {deriv} vs "
-                             f"central difference {fd} (h {h}): |diff| {err} "
-                             f"> {FD_REL} * |deriv|")
+    for c in checks:
+        if not (math.isfinite(c["central_difference"])
+                and c["rel_err"] <= FD_REL):
+            raise AssertionError(
+                f"{method} ({cfg.name}, |g| {gnorm:.4e}): "
+                f"directional derivative vs central difference (h, rel) off "
+                f"by more than {FD_REL}: " + "; ".join(
+                    f"{d['directional_derivative']:.6e} vs "
+                    f"{d['central_difference']:.6e} ({d['h']:.2e}, "
+                    f"{d['rel_err']:.1e})" for d in checks))
+    worst = max(checks, key=lambda c: c["rel_err"])
     return dict(method=method, layers=cfg.num_layers, loss=float(loss),
-                adapted_slices=n_slices, directional_derivative=deriv,
-                central_difference=fd, central_h=fd_h, central_h2=fd_h2,
-                h=h, loss_plus=lp, loss_minus=lm,
-                rel_err=err / abs(deriv), tol=FD_REL, launches=launches,
+                adapted_slices=n_slices, directions=checks,
+                grad_norm=gnorm, per_norm=per_norm,
+                **worst, tol=FD_REL, launches=launches,
                 allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
 
@@ -4171,6 +4230,592 @@ def phase_16(full, seed: int, device, gen) -> dict:
                 tp1=tp1, tp2=tp2, tp_kernel_cases=kcases)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the Mamba2 families trained on the card (the ssd_bwd kernel),
+# and training on a (data x model) mesh: gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+SSD_BWD_F32_REL = 1e-4              # each gradient, of its own max |ref|
+SSD_BWD_BF16_REL = 2e-2             # bf16 outputs: one rounding, 2^-8
+SSD_BWD_PASSES = 2                  # the backward's operations in forward counts
+SSM_TRAIN_STEPS = 3
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 2, 256
+SSM_TRAIN_LR = 1e-2                 # one fixed batch: the loss must fall
+SSM_GRAD_SEQ = 200                  # the FD check's T: four kernel chunks, ragged
+SSM_FD_DIRECTIONS = 3               # random directions a family, each checked
+# qwen2-72b at full width, depth cut to 1 layer: the mesh runs are two and
+# four processes sharing the card's 80 GB, and 2 f32 layers (16.5 GB whole,
+# with the rotated copies, their gradients and the GS workspace about 33 GB
+# a rank at (2, 1), 21 GB at (2, 2)) do not fit twice or four times
+MESH_LAYERS = 1
+MESH_BATCH, MESH_SEQ = 8, 64
+MESH_STEPS = 3
+MESH_MICRO = 2
+MESH_REL = 2e-3                     # tests/distributed_runner.py train_cell
+MESH_MU_REL = 2e-3                  # AdamW's first moments, of a leaf's max |ref|
+MESH_BLOCK = 32
+MESH_ZAMBA_LAYERS = 2               # one super-block: 2 Mamba layers + shared
+PSUM_REL = 1e-2                     # tests/distributed_runner.py
+GPIPE_MICRO, GPIPE_ROWS = 4, 2
+GPIPE_REL = 2.0 ** -6               # bf16: of max |ref| (sums in other orders)
+DECODE_DP_REL = 1e-4                # f32, of max |logit|
+# the two-rank meshes of 17c / 17d, (data, model) and the pipeline axis
+MESHES_2 = {"2x1": (2, 1), "1x2": (1, 2)}
+
+
+def ssd_bwd_cases():
+    """(Nb, T, H, P, N, dtype): zamba2's training shape (2 x 256, 80 heads,
+    P = N = 64) in f32 and bf16, mamba2-130m's (24 heads, N = 128), a
+    ragged T = 1000, and N at the kernels' MAX_N."""
+    z, m = (80, 64, 64), (24, 64, 128)
+    return [(2, 256) + z + (torch.float32,), (2, 256) + z + (torch.bfloat16,),
+            (2, 256) + m + (torch.float32,), (1, 1000) + z + (torch.float32,),
+            (1, 256, 8, 64, ssdk.MAX_N, torch.float32)]
+
+
+def ssd_bwd_bound(nb, t, h, p, n, dtype) -> tuple:
+    """Bytes (x, loga, B, C, dy read once; dx, dloga, dB, dC written once)
+    over the memory rate, or SSD_BWD_PASSES times the forward's operations
+    2 Nb T H (N + P + 2 N P) over the fp32 rate."""
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * (2 * nb * t * h * p + nb * t * h + 2 * nb * t * h * n) * es
+    flops = SSD_BWD_PASSES * 2 * nb * t * h * (n + p + 2 * n * p)
+    return _bytes_bound(nbytes, flops, torch.float32)
+
+
+def check_ssd_bwd_case(nb, t, h, p, n, dtype, gen, device) -> dict:
+    """``ssd_bwd`` against autograd through the plain scan (fp32 inputs
+    taken from the same values): each of dx, dloga, dB, dC within its
+    tolerance of its own max |ref|; timed from the forward's states."""
+    def mk(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    x = mk(nb, t, h, p)
+    loga = (-(torch.randn((nb, t, h), generator=gen, device=device).abs())
+            * 0.3).to(dtype)
+    B, C = mk(nb, t, h, n, scale=0.5), mk(nb, t, h, n, scale=0.5)
+    dy = mk(nb, t, h, p)
+    args = (x, loga, B, C, dy)
+    saved = ssdk.ssd_fwd(x, loga, B, C, states=True)[1]
+    got = ssdk.ssd_bwd(*args, saved=saved)
+    torch.cuda.synchronize()
+    want = ssdk.ssd_bwd_plain(*(a.float() for a in args))
+    rel_tol = SSD_BWD_F32_REL if dtype == torch.float32 else SSD_BWD_BF16_REL
+    errs, rels = {}, {}
+    for name, g, w in zip(("dx", "dloga", "dB", "dC"), got, want):
+        if g.dtype != dtype:
+            raise AssertionError(f"ssd_bwd {name} came back {g.dtype}")
+        errs[name] = (g.float() - w).abs().max().item()
+        rels[name] = errs[name] / max(w.abs().max().item(), 1e-30)
+        if not (math.isfinite(rels[name]) and rels[name] <= rel_tol):
+            raise AssertionError(f"ssd_bwd Nb={nb} T={t} H={h} P={p} N={n} "
+                                 f"{dtype}: {name} rel err {rels[name]} > "
+                                 f"{rel_tol}")
+    ms = time_ms(lambda *a: ssdk.ssd_bwd(*a, saved=saved), [args])
+    plain_ms = time_ms(ssdk.ssd_bwd_plain, [args])
+    bound_ms, bound_by = ssd_bwd_bound(nb, t, h, p, n, dtype)
+    return dict(kernel="ssd_bwd", Nb=nb, T=t, H=h, P=p, N=n,
+                dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=max(errs.values()), abs_errs=errs, rel_errs=rels,
+                tol_rel=rel_tol, ms=ms, plain_ms=plain_ms, library_ms=None,
+                library_what="none: no single PyTorch call computes the "
+                             "scan's gradient",
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ops_passes=SSD_BWD_PASSES)
+
+
+def _fixed_batch(cfg, seq: int, batch: int, seed: int, device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in LMDataSource(
+        DataConfig(seq_len=seq, global_batch=batch, seed=seed,
+                   vocab_size=min(cfg.vocab_size, 256))).batch_at(0).items()}
+
+
+def ssm_train_phase(cfg, seed: int, device) -> dict:
+    """GSOFT (b = 32) training steps of an ``ssm`` / ``hybrid`` model on
+    one fixed batch: the loss must fall, and every step must launch
+    ``ssd`` twice a Mamba layer (forward, and again under remat) and
+    ``ssd_bwd`` once, besides the GS kernels."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    tcfg = steps.TrainStepConfig(
+        peft=pcfg, opt=optim.OptimizerConfig(learning_rate=SSM_TRAIN_LR))
+    torch.cuda.reset_peak_memory_stats()
+    params = ModelRuntime(cfg, seed=seed, device=device).params
+    adapters = peft_lib.init_peft(pcfg, params, device=device, seed=seed)
+    trainable, frozen = peft_lib.trainable_and_frozen(pcfg, params, adapters)
+    opt_state = optim.init(tcfg.opt, trainable)
+    batch = _fixed_batch(cfg, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, seed, device)
+    step = steps.build_train_step(cfg, tcfg)
+    losses, times, launches = [], [], []
+    for _ in range(SSM_TRAIN_STEPS):
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainable, opt_state, m = step(frozen, trainable, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(_launches())
+    _SPENT["timed"] += sum(times)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, adapters, trainable, frozen, opt_state
+    torch.cuda.empty_cache()
+    per_step = {"ssd": 2 * cfg.num_layers if cfg.remat == "full"
+                else cfg.num_layers, "ssd_bwd": cfg.num_layers}
+    for i, got in enumerate(launches):
+        for name, n in per_step.items():
+            if got[name] != n:
+                raise AssertionError(f"{cfg.name} step {i}: {name} launched "
+                                     f"{got[name]} times, the design says {n}")
+        for name in ("gs_fused", "gs_fused_grads"):
+            if got[name] == 0:
+                raise AssertionError(f"{cfg.name} step {i}: no {name} launch")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name}: losses {losses} do not fall")
+    tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    return dict(arch=cfg.name, layers=cfg.num_layers, remat=cfg.remat,
+                batch=SSM_TRAIN_BATCH, seq=SSM_TRAIN_SEQ, losses=losses,
+                step_s=times, tok_s=tokens * (len(times) - 1) / sum(times[1:]),
+                peak_mem_gb=peak, launches_per_step=launches[-1],
+                design_per_step=per_step)
+
+
+def _mesh_train(cfg, seed: int, device, mesh=None, method: str = "gsoft",
+                n_steps: int = MESH_STEPS, ref_mu=None) -> dict:
+    """``n_steps`` train steps (MESH_MICRO microbatches of the fixed global
+    batch) of ``method`` (b = MESH_BLOCK), on ``mesh`` or in one process:
+    losses, how far the adapters moved, launches, the rank's local widths,
+    and AdamW's first moments: held leaf by leaf against ``ref_mu`` (a
+    path: the one-process run's, saved) where given, returned (on the host)
+    by the one-process run."""
+    pcfg = peft_lib.PEFTConfig(method=method, block_size=MESH_BLOCK)
+    ocfg = optim.OptimizerConfig(learning_rate=1e-3)
+    rt = ModelRuntime(cfg, seed=seed, device=device, mesh=mesh)
+    adapters = peft_lib.init_peft(pcfg, rt.param_shapes, device=device,
+                                  seed=seed)
+    start = {k: v.clone() for k, v in peft_lib.flatten_paths(adapters).items()}
+    opt_state = optim.init(ocfg, adapters)
+    step = steps.build_train_step(cfg, steps.TrainStepConfig(
+        peft=pcfg, opt=ocfg, num_microbatches=MESH_MICRO), mesh)
+    batch = _fixed_batch(cfg, MESH_SEQ, MESH_BATCH, seed, device)
+    losses = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        adapters, opt_state, m = step(rt.params, adapters, opt_state, batch)
+        losses.append(float(m["loss"]))
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    moved = sum(float((v - start[k]).abs().sum())
+                for k, v in peft_lib.flatten_paths(adapters).items())
+    p = rt.params
+    local = ({"wq": tuple(p["layers"]["attn"]["wq"].shape),
+              "mlp_wo": tuple(p["layers"]["mlp"]["wo"].shape)}
+             if "attn" in p.get("layers", {}) else
+             {"wz": tuple(p["blocks"]["mamba"]["wz"].shape)})
+    mu = peft_lib.flatten_paths(opt_state["mu"])
+    out = dict(losses=losses, moved=moved, launches=launches, wall_s=wall,
+               local=local, method=method)
+    if ref_mu is not None:
+        out["mu_rel"] = _mu_gap(mu, torch.load(ref_mu, map_location=device))
+    elif mesh is None:
+        out["mu"] = {k: v.cpu() for k, v in mu.items()}
+    del rt, adapters, opt_state, step, mu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mu_gap(mu: dict, ref: dict) -> dict:
+    """Each leaf's max |mu - ref| over its max |ref| (AdamW's first
+    moments: the gradients' running sums, so a leaf's gradient scale shows
+    where the losses, under Adam's per-element normalisation, cannot)."""
+    if mu.keys() != ref.keys():
+        raise AssertionError(f"first moments: leaves {sorted(mu)} vs "
+                             f"{sorted(ref)}")
+    return {k: float((mu[k].float() - ref[k].float()).abs().max())
+            / max(float(ref[k].abs().max()), 1e-30) for k in ref}
+
+
+def _p17_ckpt(cfg, seed: int, device, meshes, d: str) -> dict:
+    """17d: the params placed on (1, 2) saved (gathered whole, rank 0
+    writes), restored onto (2, 1): bit for bit the whole tree."""
+    from repro_torch.sharding import specs as shard_specs
+    src = meshes["1x2"]
+    rt = ModelRuntime(cfg, seed=seed, device=device, mesh=src)
+    spec = shard_specs.ShardingRules(cfg, src).serve_params_tree(
+        rt.param_shapes)
+    t0 = time.perf_counter()
+    CheckpointManager(d).save(1, rt.params, mesh=src, spec_tree=spec)
+    save_s = time.perf_counter() - t0
+    del rt
+    torch.cuda.empty_cache()
+    dst = meshes["2x1"]
+    whole = ModelRuntime(cfg, seed=seed, device=device).params
+    dspec = shard_specs.ShardingRules(cfg, dst).serve_params_tree(whole)
+    t0 = time.perf_counter()
+    got = CheckpointManager(d).restore(whole, device=device, mesh=dst,
+                                       spec_tree=dspec)
+    restore_s = time.perf_counter() - t0
+    a, b = peft_lib.flatten_paths(got), peft_lib.flatten_paths(whole)
+    equal = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    nbytes = sum(v.numel() * v.element_size() for v in b.values())
+    del got, whole, a, b
+    torch.cuda.empty_cache()
+    return dict(bit_equal=equal, bytes=nbytes, save_s=save_s,
+                restore_s=restore_s)
+
+
+def _p17_psum(seed: int, device, mesh) -> dict:
+    """17d: ``compressed_psum_mean`` over 'data' = 2 of rank-dependent
+    GSOFT-sized gradients against their exact mean."""
+    import torch.distributed as dist
+    from repro_torch.optim import compressed_psum_mean, init_error_buffer
+    g = {}
+    for r in range(2):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 100 + r)
+        g[r] = {"L": torch.randn((2, 256, 32, 32), generator=gen,
+                                 device=device),
+                "R": torch.randn((2, 924, 32, 32), generator=gen,
+                                 device=device) * 1e-3}
+    mine = g[dist.get_rank()]
+    red, err = compressed_psum_mean(mine, init_error_buffer(mine), mesh,
+                                    ("data",))
+    rel = max(float((red[k] - (g[0][k] + g[1][k]) / 2).abs().max())
+              / float(torch.maximum(g[0][k].abs().max(), g[1][k].abs().max()))
+              for k in red)
+    return dict(rel_err=rel, tol=PSUM_REL,
+                err_finite=all(bool(torch.isfinite(e).all())
+                               for e in err.values()))
+
+
+def _gpipe_layers(cfg, seed: int, device) -> dict:
+    """Two full-width decoder layers (stacked), drawn from ``seed``."""
+    from repro_torch.models.attention import init_attention
+    from repro_torch.models.layers import init_stacked_mlp
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {"attn_norm": torch.zeros((2, cfg.d_model), dtype=cfg.weight_dtype,
+                                     device=device),
+            "attn": init_attention(gen, cfg, 2, device),
+            "mlp_norm": torch.zeros((2, cfg.d_model), dtype=cfg.weight_dtype,
+                                    device=device),
+            "mlp": init_stacked_mlp(gen, 2, cfg.d_model, cfg.d_ff,
+                                    cfg.mlp_type, cfg.weight_dtype, device)}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p17_gpipe(cfg, seed: int, device, mesh) -> dict:
+    """17d: GPipe over 2 stages, one full-width decoder layer a stage, bf16,
+    GPIPE_MICRO microbatches: outputs and the stage's weight gradients of
+    mean(out^2) against the two layers run in sequence, microbatch by
+    microbatch, in this process."""
+    from repro_torch.models.transformer import _decoder_layer, _slice
+    from repro_torch.sharding.pipeline import (gpipe_forward,
+                                               pipeline_bubble_fraction)
+    stage = mesh.get_local_rank("pipe")
+    stacked = _gpipe_layers(cfg, seed, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 7)
+    x = torch.randn((GPIPE_MICRO, GPIPE_ROWS, MESH_SEQ, cfg.d_model),
+                    generator=gen, device=device).to(cfg.act_dtype)
+
+    def leaf_copy(i):
+        return peft_lib._map_paths(_slice(stacked, i), lambda _p, v:
+                                   v.detach().clone().requires_grad_(True))
+
+    def fn(p, h):
+        return _decoder_layer(cfg, p, h)
+
+    mine = leaf_copy(stage)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = gpipe_forward(fn, mine, x, mesh, axis="pipe")
+    out.float().pow(2).mean().backward()
+    _sync(device)
+    pipe_s = time.perf_counter() - t0
+    both = [leaf_copy(0), leaf_copy(1)]
+    outs = []
+    for m in range(GPIPE_MICRO):
+        outs.append(fn(both[1], fn(both[0], x[m])))
+    ref = torch.stack(outs)
+    ref.float().pow(2).mean().backward()
+    out_rel = float((out.float() - ref.float()).abs().max()
+                    / ref.float().abs().max())
+    g_mine = peft_lib.flatten_paths(mine)
+    g_ref = peft_lib.flatten_paths(both[stage])
+    grad_rel = max(float((g_mine[k].grad.float() - g_ref[k].grad.float())
+                         .abs().max() / g_ref[k].grad.float().abs().max()
+                         .clamp(min=1e-30))
+                   for k in g_ref if g_ref[k].grad is not None
+                   and g_ref[k].grad.abs().max() > 0)
+    del stacked, mine, both, out, ref, outs
+    torch.cuda.empty_cache()
+    return dict(stage=stage, out_rel=out_rel, grad_rel=grad_rel,
+                tol=GPIPE_REL, pipe_s=pipe_s,
+                bubble=pipeline_bubble_fraction(2, GPIPE_MICRO))
+
+
+def _p17_decode(cfg, seed: int, device, mesh) -> dict:
+    """17d: one decode step of 8 rows split over 'data' = 2 (four a rank),
+    gathered, against the same runtime's decode of all 8 in one call."""
+    rt = ModelRuntime(cfg, seed=seed, device=device, mesh=mesh)
+    fam = api.family_ops(cfg)
+    tokens = torch.arange(1, 9, device=device)[:, None]
+    pos = torch.tensor(0, device=device)
+    whole_state = fam.init_decode_state(cfg, 8, 32, device)
+    _, want, _ = steps.build_decode_step(cfg)(rt.params, None, tokens,
+                                              whole_state, pos)
+    mine = steps.local_rows(mesh, tokens)
+    state = fam.init_decode_state(cfg, mine.shape[0], 32, device)
+    _, got, _ = steps.build_decode_step(cfg, tp=rt.shard)(rt.params, None,
+                                                          mine, state, pos)
+    got = steps.gather_rows(mesh, got.float())
+    rel = float((got - want.float()).abs().max() / want.float().abs().max())
+    del rt, whole_state, state
+    torch.cuda.empty_cache()
+    return dict(rows=int(mine.shape[0]), rel=rel, tol=DECODE_DP_REL)
+
+
+def _p17_rank(rank: int, world: int, port: int, seed: int, cfgs, device,
+              work: str, queue) -> None:
+    """One rank of 17c / 17d: ``world`` processes on the one card over
+    gloo (CUDA tensors staged through the host: a check of the split
+    training path, never a speed). ``work``: a directory holding the
+    one-process runs' first moments (``mu_qwen2.pt``, ``mu_zamba2.pt``) and
+    room for 17d's checkpoint."""
+    import traceback
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_axes_mesh, make_mesh
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port),
+                      PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    try:
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group("gloo")
+        qcfg, qsp, zcfg, bcfg = cfgs
+        kind = device.type
+        res = {}
+        mu_q = os.path.join(work, "mu_qwen2.pt")
+        if world == 4:
+            res["2x2"] = _mesh_train(qcfg, seed, device,
+                                     make_mesh(2, 2, device_type=kind),
+                                     ref_mu=mu_q)
+        else:
+            meshes = {k: make_mesh(*v, device_type=kind)
+                      for k, v in MESHES_2.items()}
+            pipe = make_axes_mesh((2,), ("pipe",), device_type=kind)
+            res["2x1"] = _mesh_train(qcfg, seed, device, meshes["2x1"],
+                                     ref_mu=mu_q)
+            res["1x2"] = _mesh_train(qcfg, seed, device, meshes["1x2"],
+                                     ref_mu=mu_q)
+            res["1x2_sp"] = _mesh_train(qsp, seed, device, meshes["1x2"],
+                                        ref_mu=mu_q)
+            res["1x2_boft"] = _mesh_train(qcfg, seed, device, meshes["1x2"],
+                                          method="boft", n_steps=1)
+            res["zamba_1x2"] = _mesh_train(
+                zcfg, seed, device, meshes["1x2"],
+                ref_mu=os.path.join(work, "mu_zamba2.pt"))
+            res["ckpt"] = _p17_ckpt(bcfg.with_overrides(num_layers=1), seed,
+                                    device, meshes,
+                                    os.path.join(work, "ckpt"))
+            res["psum"] = _p17_psum(seed, device, meshes["2x1"])
+            res["gpipe"] = _p17_gpipe(bcfg, seed, device, pipe)
+            res["decode"] = _p17_decode(qcfg, seed, device, meshes["2x1"])
+        queue.put((rank, res))
+    except Exception:                                # noqa: BLE001
+        queue.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_p17(world: int, seed: int, cfgs, device, work: str,
+               timeout: float = 600) -> list:
+    import socket
+    import torch.multiprocessing as mp
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_p17_rank, args=(r, world, port, seed, cfgs,
+                                                 device, work, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=timeout) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    errors = [v["error"] for v in got.values() if "error" in v]
+    if errors:
+        raise AssertionError(f"phase 17 rank failed:\n{errors[0]}")
+    return [got[r] for r in range(world)]
+
+
+def _agree(name: str, got: list, want: list) -> float:
+    gap = max(abs(a - b) - MESH_REL * abs(b) for a, b in zip(got, want))
+    if not (all(map(math.isfinite, got)) and gap <= MESH_REL):
+        raise AssertionError(f"{name}: losses {got} vs single-process {want} "
+                             f"(rtol = atol = {MESH_REL})")
+    return max(abs(a - b) for a, b in zip(got, want))
+
+
+def phase_17(full, mamba, zamba, seed: int, device, gen) -> dict:
+    """17a ssd_bwd; 17b the Mamba2 families trained on the card; 17c
+    training on (2, 1), (1, 2) with and without seq_parallel, and (2, 2);
+    17d elastic restore, the compressed mean, GPipe, decode at data = 2."""
+    out = {}
+    t_phase = time.perf_counter()
+    out["ssd_bwd_cases"] = [check_ssd_bwd_case(*c, gen, device)
+                            for c in ssd_bwd_cases()]
+    for c in out["ssd_bwd_cases"]:
+        log(f"ssd_bwd Nb={c['Nb']} T={c['T']} H={c['H']} P={c['P']} "
+            f"N={c['N']} {c['dtype']}: rel errs "
+            f"{ {k: '%.1e' % v for k, v in c['rel_errs'].items()} } (tol "
+            f"{c['tol_rel']:.0e}); {c['ms']:.4f} ms vs plain "
+            f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']})")
+    _PHASE_S["17a ssd_bwd"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    out["train"] = {}
+    for cfg in (mamba, zamba):
+        r = ssm_train_phase(cfg, seed, device)
+        out["train"][cfg.name] = r
+        log(f"ssm train {cfg.name}: {r['layers']} layers (full width and "
+            f"depth), bf16, GSOFT b=32, {r['batch']}x{r['seq']} tokens, "
+            f"losses {['%.4f' % v for v in r['losses']]}; "
+            f"{r['tok_s']:.0f} tok/s, step {['%.2f' % s for s in r['step_s']]}"
+            f" s; peak {r['peak_mem_gb']:.1f} GB; launches a step "
+            f"{ {k: v for k, v in r['launches_per_step'].items() if v} }")
+    out["grad"] = {}
+    for name, cfg in (("mamba2-130m", mamba.with_overrides(
+            num_layers=GRAD_LAYERS, dtype="f32", param_dtype="f32")),
+                      ("zamba2-2.7b", zamba.with_overrides(
+            num_layers=GRAD_LAYERS, attn_every=GRAD_LAYERS, dtype="f32",
+            param_dtype="f32"))):
+        k = SSM_FD_DIRECTIONS
+        r = grad_phase(cfg, seed, device, "gsoft", seq=SSM_GRAD_SEQ,
+                       directions=k, per_norm=True)
+        for kn in ("ssd", "ssd_bwd"):
+            if r["launches"][kn] == 0:
+                raise AssertionError(f"{name} gradient: no {kn} launch")
+        out["grad"][name] = r
+        log(f"ssm grad {name} ({GRAD_LAYERS} layers f32, T={SSM_GRAD_SEQ}, "
+            f"{k} random directions, |g| {r['grad_norm']:.4e}): directional "
+            f"derivative vs central difference " + ", ".join(
+                f"{d['directional_derivative']:.6e} vs "
+                f"{d['central_difference']:.6e} (rel {d['rel_err']:.1e})"
+                for d in r["directions"]) +
+            f" (tol {FD_REL:.0e} of max(|derivative|, |g|)); launches "
+            f"{ {kn: v for kn, v in r['launches'].items() if v} }")
+    _PHASE_S["17b ssm training"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    # qwen2 (remat "none") gathers its row-split slices once a step and
+    # keeps them for the backward; zamba2 (remat "full") gathers them for
+    # each microbatch and again in the backward
+    qcfg = full.with_overrides(num_layers=MESH_LAYERS, dtype="f32",
+                               param_dtype="f32", remat="none")
+    qsp = qcfg.with_overrides(seq_parallel=True)
+    zcfg = zamba.with_overrides(num_layers=MESH_ZAMBA_LAYERS,
+                                attn_every=MESH_ZAMBA_LAYERS, dtype="f32",
+                                param_dtype="f32")
+    bcfg = full.with_overrides(num_layers=MESH_LAYERS)
+    ref_q = _mesh_train(qcfg, seed, device)
+    ref_z = _mesh_train(zcfg, seed, device)
+    gc.collect()
+    torch.cuda.empty_cache()            # the ranks share the card
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(ref_q.pop("mu"), os.path.join(d, "mu_qwen2.pt"))
+        torch.save(ref_z.pop("mu"), os.path.join(d, "mu_zamba2.pt"))
+        ranks2 = _spawn_p17(2, seed, (qcfg, qsp, zcfg, bcfg), device, d)
+        ranks4 = _spawn_p17(4, seed, (qcfg, qsp, zcfg, bcfg), device, d)
+    mesh_runs = {}
+    for name, ranks, want in (("2x1", ranks2, ref_q), ("1x2", ranks2, ref_q),
+                              ("1x2_sp", ranks2, ref_q),
+                              ("2x2", ranks4, ref_q),
+                              ("zamba_1x2", ranks2, ref_z)):
+        gaps = [_agree(f"mesh {name} rank {i}", r[name]["losses"],
+                       want["losses"]) for i, r in enumerate(ranks)]
+        if not all(r[name]["moved"] > 0 for r in ranks):
+            raise AssertionError(f"mesh {name}: the adapters did not move")
+        mu_rel = max(max(r[name]["mu_rel"].values()) for r in ranks)
+        if not mu_rel <= MESH_MU_REL:
+            bad = {k: v for r in ranks for k, v in r[name]["mu_rel"].items()
+                   if not v <= MESH_MU_REL}
+            raise AssertionError(f"mesh {name}: AdamW first moments off the "
+                                 f"single-process run's by more than "
+                                 f"{MESH_MU_REL} of a leaf's max: {bad}")
+        mesh_runs[name] = dict(
+            losses=[r[name]["losses"] for r in ranks], max_gap=max(gaps),
+            mu_rel=mu_rel, mu_leaves=len(ranks[0][name]["mu_rel"]),
+            wall_s=[r[name]["wall_s"] for r in ranks],
+            local=ranks[0][name]["local"],
+            launches=[{k: v for k, v in r[name]["launches"].items() if v}
+                      for r in ranks])
+        log(f"mesh {name}: losses {['%.5f' % v for v in ranks[0][name]['losses']]}"
+            f" vs single {['%.5f' % v for v in want['losses']]} (max gap "
+            f"{max(gaps):.1e}); first moments within {mu_rel:.1e} of each "
+            f"leaf's max (tol {MESH_MU_REL:.0e}, "
+            f"{mesh_runs[name]['mu_leaves']} leaves, every rank); local "
+            f"{ranks[0][name]['local']}; launches "
+            f"rank 0 {mesh_runs[name]['launches'][0]}")
+    if any(r["zamba_1x2"]["launches"]["ssd_bwd"] == 0 for r in ranks2):
+        raise AssertionError("zamba2 at (1, 2): no ssd_bwd launch")
+    boft = [{k: v for k, v in r["1x2_boft"]["launches"].items() if v}
+            for r in ranks2]
+    for name in ("bdmm", "bdmm_dblocks"):
+        if any(b.get(name, 0) == 0 for b in boft):
+            raise AssertionError(f"BOFT at (1, 2): no {name} launch ({boft})")
+    mesh_runs["1x2_boft"] = dict(launches=boft,
+                                 losses=[r["1x2_boft"]["losses"]
+                                         for r in ranks2])
+    out["mesh"] = dict(single=dict(qwen2=ref_q, zamba2=ref_z),
+                       runs=mesh_runs)
+    _PHASE_S["17c mesh training"] = time.perf_counter() - t_phase
+
+    ck = [r["ckpt"] for r in ranks2]
+    if not all(c["bit_equal"] for c in ck):
+        raise AssertionError(f"elastic restore (1, 2) -> (2, 1): {ck}")
+    ps = [r["psum"] for r in ranks2]
+    if not all(p["rel_err"] <= PSUM_REL and p["err_finite"] for p in ps):
+        raise AssertionError(f"compressed_psum_mean: {ps}")
+    gp = [r["gpipe"] for r in ranks2]
+    if not all(g["out_rel"] <= GPIPE_REL and g["grad_rel"] <= GPIPE_REL
+               for g in gp):
+        raise AssertionError(f"gpipe vs sequential: {gp}")
+    dec = [r["decode"] for r in ranks2]
+    if not all(x["rel"] <= DECODE_DP_REL and x["rows"] == 4 for x in dec):
+        raise AssertionError(f"decode at (2, 1): {dec}")
+    out.update(elastic=ck, psum=ps, gpipe=gp, decode_dp=dec)
+    log(f"elastic restore (1, 2) -> (2, 1): bit-equal, "
+        f"{ck[0]['bytes'] / 1e9:.2f} GB (save {ck[0]['save_s']:.1f} s, "
+        f"restore {ck[0]['restore_s']:.1f} s); compressed mean over data=2 "
+        f"rel err {max(p['rel_err'] for p in ps):.1e} (tol {PSUM_REL:.0e}); "
+        f"gpipe 2 stages x {GPIPE_MICRO} microbatches out rel "
+        f"{max(g['out_rel'] for g in gp):.1e}, grads rel "
+        f"{max(g['grad_rel'] for g in gp):.1e} (tol {GPIPE_REL:.1e}, bubble "
+        f"{gp[0]['bubble']:.2f}); decode at (2, 1) rel "
+        f"{max(x['rel'] for x in dec):.1e} (tol {DECODE_DP_REL:.0e})")
+    return out
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -4675,7 +5320,11 @@ def main() -> int:
     # 16. scale-out: the cluster, the launcher's lanes, tp = 1 and tp = 2
     p16 = phase_16(full, args.seed, device, gen)
 
-    # 17. report
+    # 17. training: the Mamba2 families on the card (ssd_bwd), and on a
+    # (data x model) mesh as gloo ranks sharing the card
+    p17 = phase_17(full, mamba, zamba, args.seed, device, gen)
+
+    # 18. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
@@ -4812,6 +5461,39 @@ def main() -> int:
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             library_what=c["library_what"], shape=key))
+    # the SSD backward: launches from the training runs of 17b (every step
+    # checked against the design), the case zamba2's training gives it
+    bwd_main = dict(Nb=SSM_TRAIN_BATCH, T=SSM_TRAIN_SEQ, H=zamba.ssm_heads,
+                    dtype="float32")
+    runs17 = p17["ssd_bwd_cases"]
+    c = next(x for x in runs17 if all(x[k] == v for k, v in bwd_main.items()))
+    by_train = {f"train_{a}": r["launches_per_step"]["ssd_bwd"]
+                * len(r["losses"]) for a, r in p17["train"].items()}
+    kernels.append(dict(
+        name="ssd_bwd", route="cuda", source=KERNELS["ssd_bwd"]["source"],
+        replaces=KERNELS["ssd_bwd"]["replaces"],
+        replaces_note=KERNELS["ssd_bwd"]["replaces_note"],
+        launches=sum(by_train.values()), launches_by_path=by_train,
+        max_abs_err=c["max_abs_err"],
+        **{f"max_rel_err_{dt}": max(max(x["rel_errs"].values())
+                                    for x in runs17 if x["dtype"] == dt)
+           for dt in ("bfloat16", "float32")},
+        ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+        bound_by=c["bound_by"], bound_ops_passes=SSD_BWD_PASSES,
+        library_ms=None, library_what=c["library_what"], shape=bwd_main))
+    for k in kernels:
+        if k["name"] == "ssd":
+            k["launches_by_path"].update(
+                {f"train_{a}": r["launches_per_step"]["ssd"] * len(r["losses"])
+                 for a, r in p17["train"].items()})
+        # training on the mesh (17c): each rank's launches at tp = 2's local
+        # shapes (GSOFT: (1, 2); bdmm: one BOFT step at (1, 2))
+        lanes = {n: r["launches"] for n, r in p17["mesh"]["runs"].items()}
+        mt = {lane: [r.get(k["name"], 0) for r in ranks]
+              for lane, ranks in lanes.items()
+              if any(r.get(k["name"], 0) for r in ranks)}
+        if mt:
+            k["mesh_train_launches"] = mt
     # tensor-parallel serving (16d): launches on each rank of tp = 2 and
     # the kernels at their local shapes
     case_fields = ("M", "K", "N", "B", "T", "d", "b", "trans", "H", "KH",
@@ -4862,6 +5544,7 @@ def main() -> int:
                                    store_check=scheck_store,
                                    image_cases=image_run,
                                    **p14, **p15, scale_out=p16,
+                                   training=p17,
                                    kernels=kernels), indent=1,
                               default=str))
     log(f"details: {out}")

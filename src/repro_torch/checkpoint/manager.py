@@ -28,6 +28,13 @@ index; ``adapter_index`` / ``load_adapter`` read the index without the
 leaves, or one adapter's leaves, for the disk-backed ``AdapterStore``.
 
 Restores put every leaf on an explicit device, the card by default.
+
+On a mesh (one process per rank): ``save(..., mesh=, spec_tree=)`` gathers
+every split leaf whole over its axes (``sharding.specs.gather_leaf``; all
+ranks take part) and global rank 0 alone writes, in the same layout, so
+JAX's ``CheckpointManager.restore`` reads it; ``restore(..., mesh=,
+spec_tree=)`` cuts each leaf to the rank's block under ``spec_tree`` as it
+is read: an elastic restore onto any mesh, whatever mesh saved it.
 """
 from __future__ import annotations
 
@@ -183,15 +190,27 @@ class CheckpointManager:
         self.dir = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._split_pending = False      # a mesh save not yet waited for
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Tree, blocking: bool = True,
-             extra: Optional[Dict] = None) -> None:
+             extra: Optional[Dict] = None, *, mesh=None,
+             spec_tree: Optional[Tree] = None) -> None:
         """Write ``tree`` as step ``step``. The leaves are copied to host
         memory before this returns, also when ``blocking=False`` (then a
-        daemon thread writes them; ``wait()`` joins it)."""
+        daemon thread writes them; ``wait()`` joins it). With ``mesh``:
+        ``tree`` holds the rank's blocks under ``spec_tree`` (None: all
+        whole); every rank calls this, the split leaves are gathered whole
+        and global rank 0 writes them; the ranks return once it is written
+        (``blocking``) or meet again in ``wait()``."""
+        if mesh is not None:
+            self._save_split(step, tree, blocking, extra, mesh, spec_tree)
+            return
         host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        self._start(step, host, blocking, extra)
+
+    def _start(self, step, host, blocking, extra) -> None:
         if blocking:
             self._write(step, host, extra)
         else:
@@ -200,10 +219,39 @@ class CheckpointManager:
                 target=self._write, args=(step, host, extra), daemon=True)
             self._thread.start()
 
+    def _save_split(self, step, tree, blocking, extra, mesh,
+                    spec_tree) -> None:
+        """Every rank gathers each leaf whole (a collective), one leaf at a
+        time; global rank 0 alone keeps the host copies and writes them.
+        The ranks leave together once the write is done (blocking) or, when
+        not, at the next ``wait()`` (which every rank calls)."""
+        import torch.distributed as dist
+
+        from repro_torch.sharding.specs import gather_leaf
+        specs = _flatten(spec_tree) if spec_tree is not None else {}
+        writer = dist.get_rank() == 0
+        self.wait()
+        host = {}
+        for k, v in _flatten(tree).items():
+            leaf = gather_leaf(mesh, v, specs.get(k, ()))
+            if writer:
+                host[k] = _to_host(leaf)
+            del leaf
+        if writer:
+            self._start(step, host, blocking, extra)
+        if blocking:
+            dist.barrier()
+        else:
+            self._split_pending = True
+
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._split_pending:
+            import torch.distributed as dist
+            self._split_pending = False
+            dist.barrier()
 
     def _write(self, step: int, host: Dict[str, Tuple[np.ndarray, str]],
                extra: Optional[Dict]) -> None:
@@ -262,12 +310,26 @@ class CheckpointManager:
 
     def restore(self, tree_like: Optional[Tree] = None,
                 step: Optional[int] = None, *,
-                device: DeviceLike = "cuda", keep=_keep_all) -> Tree:
+                device: DeviceLike = "cuda", keep=_keep_all, mesh=None,
+                spec_tree: Optional[Tree] = None) -> Tree:
         """Load step ``step`` (default the latest) onto ``device``, in the
         structure of ``tree_like`` when given (its leaves are not read), else
         as the nested dicts the index's keys spell. ``keep(path, leaf)``
         takes each leaf as it is read and returns what the tree holds (a
-        split model keeps its slice, so no whole tree is ever held)."""
+        split model keeps its slice, so no whole tree is ever held). With
+        ``mesh`` (and ``keep`` left alone) each leaf is cut to this rank's
+        block under ``spec_tree`` (None: all whole), whatever mesh saved
+        it."""
+        if mesh is not None:
+            if keep is not _keep_all:
+                raise ValueError("pass keep= or mesh=, not both")
+            from repro_torch.sharding.specs import place_leaf
+            specs = _flatten(spec_tree) if spec_tree is not None else {}
+            dev = resolve_device(device)
+
+            def keep(path, leaf):
+                spec = specs.get(path.replace("/", _SEP), ())
+                return place_leaf(mesh, leaf, spec, dev)
         d, index = self._step_dir(step)
         flat = self._load(d, index, resolve_device(device), keep=keep)
         if tree_like is None:

@@ -63,6 +63,7 @@ class ModelConfig:
     remat: str = "full"              # full | dots | none (training forward)
     attn_chunk: int = 1024
     ssd_chunk: int = 256
+    seq_parallel: bool = False       # Megatron-SP: residual split on seq
 
     source: str = ""
 

@@ -8,6 +8,8 @@ both packages compute the same thing. bf16 leaves arrive as numpy's
 float32 exactly. ``to_numpy`` carries a port tree back as numpy arrays, so
 tests compare the two packages' trees leaf by leaf. ``quant_params_from_numpy``
 carries a quantized JAX tree across with identical int8 codes and scales.
+``config_from_jax`` carries a JAX ``ModelConfig`` over field for field
+(``seq_parallel`` and ``remat`` included; the JAX-only fields drop).
 """
 from __future__ import annotations
 
@@ -95,3 +97,15 @@ def to_numpy(tree: Any) -> Any:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def config_from_jax(jcfg: Any):
+    """The port's ``ModelConfig`` with every field a JAX ``ModelConfig``
+    shares with it carried one for one (tuples stay tuples)."""
+    import dataclasses
+
+    from repro_torch.config import ModelConfig
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    return ModelConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(jcfg)
+                          if f.name in names})

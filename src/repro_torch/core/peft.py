@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import re
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -143,6 +145,71 @@ def materialize_tree(cfg: PEFTConfig, params: Tree,
         return leaf
 
     return _map_paths(params, visit)
+
+
+# methods whose weight-side form is Q @ W with Q on the input rows only: a
+# rank holding a block of W's columns rotates it alone
+INPUT_SIDE_METHODS = ("gsoft", "oft", "boft", "householder", "givens")
+
+
+def materialize_split(cfg: PEFTConfig, params: Tree,
+                      adapters: Dict[str, Dict[str, torch.Tensor]],
+                      specs: Mapping[str, Tuple], whole, local,
+                      regather: bool = True) -> Tree:
+    """``materialize_tree`` for a rank holding its shards of ``params`` and
+    the whole (replicated) adapters, differentiable w.r.t. the adapters.
+    ``specs[path]`` is a weight's spec (entries: an axis or None; its
+    leading layer dims are never split). An unsplit weight, or one split on
+    its output columns alone under an input-side method, is rotated where
+    it is. Any other split weight is rotated one layer slice at a time:
+    ``whole((path, i), w, spec)`` gathers slice i's frozen weight, it is
+    rotated and ``local(w, spec)`` cuts it back to the rank's block. With
+    ``regather`` each slice is checkpointed under autograd, so only one
+    slice's whole weight lives at a time and the backward gathers it again;
+    without, autograd keeps the gathered slices until the backward. The
+    adapter spec is the whole weight's, as the adapters were drawn."""
+    if not adapters:
+        return params
+
+    def visit(path, leaf):
+        if path not in adapters:
+            return leaf
+        spec = tuple(specs.get(path, ()))
+        split = [i for i, ax in enumerate(spec) if ax is not None]
+        if not split or (split == [leaf.dim() - 1]
+                         and cfg.method in INPUT_SIDE_METHODS):
+            # an input-side method reads only d_in (whole here) of its spec
+            return materialize(spec_for(cfg, tuple(leaf.shape)),
+                               adapters[path], leaf)
+        return _rotate_slices(cfg, path, adapters[path], leaf, spec, whole,
+                              local, regather)
+
+    return _map_paths(params, visit)
+
+
+def _rotate_slices(cfg: PEFTConfig, path: str,
+                   factors: Dict[str, torch.Tensor], leaf: torch.Tensor,
+                   spec: Tuple, whole, local, regather: bool):
+    """A split weight's rotation, slice by slice over its layer dims."""
+    lead = tuple(leaf.shape[:-2])
+    inner = tuple(spec[len(lead):])
+    names = sorted(factors)
+
+    def one(i, w, *fs):
+        w = whole((path, i), w, inner)
+        return local(materialize(spec_for(cfg, tuple(w.shape)),
+                                 dict(zip(names, fs)), w), inner)
+
+    grad = regather and torch.is_grad_enabled() and any(
+        f.requires_grad for f in factors.values())
+    n = math.prod(lead)
+    ws = leaf.reshape((n,) + tuple(leaf.shape[-2:]))
+    fs = [factors[k].reshape((n,) + tuple(factors[k].shape[len(lead):]))
+          for k in names]
+    out = [checkpoint(one, i, ws[i], *(f[i] for f in fs),
+                      use_reentrant=False)
+           if grad else one(i, ws[i], *(f[i] for f in fs)) for i in range(n)]
+    return torch.stack(out).reshape(lead + tuple(out[0].shape))
 
 
 def count_params(tree: Tree) -> int:

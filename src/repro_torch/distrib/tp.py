@@ -15,7 +15,29 @@ tensors at LOCAL shapes, so it is Megatron-style and multi-controller:
   (or the tied table) is column-parallel and all-gathers its logits, so
   every rank picks the same greedy token.
 
-``serve_mesh(tp)`` builds the 1 x tp ("data", "model") mesh; the backend
+Training (``train.steps.build_train_step(cfg, tcfg, mesh)``) runs the
+same split code under autograd, so every collective is a
+``torch.autograd.Function`` over ``torch.distributed`` (gloo or NCCL),
+the Megatron pairs:
+
+* ``enter``: identity forward, all-reduce backward, where a replicated
+  activation enters a column-parallel block (each rank's gradient is only
+  its columns' share); with ``seq_parallel`` an all-gather of the
+  sequence forward and a reduce-scatter backward;
+* ``leave`` after a row-parallel output: all-reduce forward, identity
+  backward; with ``seq_parallel`` a reduce-scatter of the sequence
+  forward, an all-gather backward;
+* ``all_gather``: forward all-gather, backward the rank's slice (the
+  logits, whose loss every rank computes whole);
+* ``all_reduce_split``: all-reduce both ways (a sum whose result feeds the
+  split computation again: the gated norm's variance);
+* ``dp_sum``: the sum of gradients over the data axes (no autograd): the
+  data-parallel mean when each rank's term already carries its weight.
+
+Every rank computes the same loss, so a replicated tensor holds the whole
+gradient on every rank and a split one its own part.
+
+``serve_mesh(tp, dp)`` builds the dp x tp ("data", "model") mesh; the backend
 follows the device (NCCL for ``cuda``, gloo for ``cpu``) unless the caller
 names one. Gloo stages CUDA tensors through the host (``TPShard`` does it
 explicitly), so two ranks may share one card for a check of the split
@@ -23,6 +45,7 @@ kernels, never for a speed.
 """
 from __future__ import annotations
 
+import copy
 import os
 from typing import Callable, List, Optional, Sequence
 
@@ -33,9 +56,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.sharding.specs import ShardingRules, mesh_shape, tp_size
+from repro_torch.sharding.specs import (ShardingRules, dp_axes, dp_size,
+                                       mesh_shape, tp_size)
 
-NEXT_SLICE = "the mesh-training slice"
 SPLIT_FAMILIES = ("decoder", "ssm", "hybrid")   # the image family serves whole
 
 
@@ -71,10 +94,6 @@ def serve_mesh(tp: int, dp: int = 1, *, device: DeviceLike = "cuda",
     same whether or not the model is split."""
     if tp < 1 or dp < 1:
         raise ValueError(f"tp={tp} and dp={dp} must be >= 1")
-    if dp > 1:
-        raise NotImplementedError(
-            "a 'data' mesh axis above 1 in serving is not ported yet "
-            f"({NEXT_SLICE}); serve replicas with --replicas instead")
     dev = resolve_device(device)
     init_world(backend or default_backend(dev), dev)
     n = tp * dp
@@ -122,6 +141,165 @@ def head_shard_map(fn: Callable, mesh, head_axes: Sequence[Optional[int]],
 
     return wrapped
 
+# ---------------------------------------------------------------------------
+# raw collectives over one group (gloo stages CUDA tensors through the host)
+# ---------------------------------------------------------------------------
+
+class Comm:
+    """A process group, its size, this rank's index in it and its backend:
+    the raw collectives every split path shares (training's autograd
+    functions, whole checkpoint leaves, the compressed gradient mean)."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+        self.backend = dist.get_backend(group)
+
+    def host(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu() if self.backend == "gloo" and t.is_cuda else t
+
+    def all_reduce(self, y: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Sum over the group; half-precision partials add in fp32 and
+        round once."""
+        if self.size == 1:
+            return y
+        t = self.host(y.to(torch.float32) if y.dtype in
+                      (torch.bfloat16, torch.float16) else y.contiguous())
+        if t is y:
+            t = t.clone()
+        dist.all_reduce(t, op=op, group=self.group)
+        return t.to(device=y.device, dtype=y.dtype)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` joined along ``dim`` in rank order, bits as they
+        are (half precision and int8 travel as bytes)."""
+        if self.size == 1:
+            return x
+        raw = x.contiguous()
+        if raw.dtype in (torch.bfloat16, torch.float16, torch.int8):
+            raw = raw.view(torch.uint8)
+        raw = self.host(raw)
+        parts = [torch.empty_like(raw) for _ in range(self.size)]
+        dist.all_gather(parts, raw, group=self.group)
+        out = torch.cat(parts, dim).to(x.device)
+        return out.view(x.dtype) if out.dtype != x.dtype else out
+
+    def local(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's window of ``dim`` (a contiguous copy)."""
+        w = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * w, w).contiguous()
+
+    def reduce_scatter(self, y: torch.Tensor, dim: int) -> torch.Tensor:
+        """Sum over the group, this rank keeping its window of ``dim``:
+        NCCL's reduce-scatter; gloo has none, so an all-reduce and the
+        window there."""
+        if self.size == 1:
+            return y
+        if self.backend != "nccl":
+            return self.local(self.all_reduce(y), dim)
+        src = y.movedim(dim, 0)
+        src = (src.to(torch.float32) if y.dtype in
+               (torch.bfloat16, torch.float16) else src).contiguous()
+        out = torch.empty((src.shape[0] // self.size,) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=self.group)
+        return out.movedim(0, dim).to(y.dtype).contiguous()
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g), None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward; backward identity, or all-reduce (``both``)."""
+
+    @staticmethod
+    def forward(ctx, y, comm, both):
+        ctx.comm, ctx.both = comm, both
+        return comm.all_reduce(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm.all_reduce(g) if ctx.both else g), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward the rank's slice of the
+    gradient (``scatter`` False: it is whole on every rank) or its
+    reduce-scatter (the gathered tensor fed a split computation)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim, scatter):
+        ctx.comm, ctx.dim, ctx.scatter = comm, dim, scatter
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = ctx.comm
+        g = c.reduce_scatter(g, ctx.dim) if ctx.scatter else c.local(g, ctx.dim)
+        return g, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward (``reduce``), or the rank's
+    slice of a replicated tensor; backward the all-gather."""
+
+    @staticmethod
+    def forward(ctx, y, comm, dim, reduce):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.reduce_scatter(y, dim) if reduce else comm.local(y, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim), None, None, None
+
+
+_DP_GROUPS = {}
+
+
+def dp_comm(mesh) -> Optional[Comm]:
+    """The group of the data axes (pod x data) holding this rank's model
+    coordinate, or None when they have one rank. A (data, model) mesh uses
+    its 'data' group; a (pod, data, model) mesh builds one group per model
+    coordinate (every rank takes part in every ``new_group``, once per
+    mesh)."""
+    shape = mesh_shape(mesh)
+    n = dp_size(mesh)
+    if n == 1:
+        return None
+    names = tuple(mesh.mesh_dim_names)
+    if len(dp_axes(mesh)) == 1:
+        ax = dp_axes(mesh)[0]
+        return Comm(mesh.get_group(ax), n, mesh.get_local_rank(ax))
+    key = id(mesh)
+    if key not in _DP_GROUPS:
+        ranks = mesh.mesh.reshape(-1, shape.get("model", 1))   # (dp, model)
+        groups = [dist.new_group([int(r) for r in ranks[:, m]])
+                  for m in range(ranks.shape[1])]
+        _DP_GROUPS[key] = groups
+    coords = {a: mesh.get_local_rank(a) for a in names}
+    idx = 0
+    for a in dp_axes(mesh):
+        idx = idx * shape[a] + coords[a]
+    return Comm(_DP_GROUPS[key][coords.get("model", 0)], n, idx)
+
+
+def dp_sum(mesh, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor's sum over the data axes (pod x data) of ``mesh``, in
+    fp32: the data-parallel gradient mean of terms each rank has weighted
+    by its share of the batch (identity when the data axes hold one
+    rank)."""
+    comm = dp_comm(mesh) if mesh is not None else None
+    if comm is None:
+        return list(tensors)
+    return [comm.all_reduce(t) for t in tensors]
+
 
 class TPShard:
     """One rank's share of a model split over the mesh's 'model' axis: the
@@ -151,6 +329,9 @@ class TPShard:
         self.rank = mesh.get_local_rank("model")
         self.group = mesh.get_group("model")
         self.backend = dist.get_backend(self.group)
+        self.comm = Comm(self.group, self.size, self.rank)
+        self.seq_parallel = bool(cfg.seq_parallel)
+        self.sp = False                 # set on the copy ``with_seq`` makes
         self.src = dist.get_global_rank(self.group, 0)
         self.heads_split = rules.attn_heads_shardable
         self.kv_split = rules.kv_heads_shardable
@@ -170,45 +351,61 @@ class TPShard:
             (1 if self.heads_split else None, kv, kv), heads=(H, K, K))
 
     # -- collectives ----------------------------------------------------------
-    def _host(self, t: torch.Tensor) -> torch.Tensor:
-        """gloo moves CUDA tensors through the host: do it here, once."""
-        return t.cpu() if self.backend == "gloo" and t.is_cuda else t
+    def with_seq(self, seq_len: int) -> "TPShard":
+        """This shard for one training forward over ``seq_len`` tokens: a
+        copy whose ``sp`` is set when ``cfg.seq_parallel`` holds and the
+        sequence divides over the ranks (the residual stream then splits
+        on it between blocks), else this shard itself."""
+        if not self.seq_parallel or self.size == 1 or seq_len % self.size:
+            return self
+        out = copy.copy(self)
+        out.sp = True
+        return out
+
+    def enter(self, x: torch.Tensor, split: bool = True) -> torch.Tensor:
+        """The input of a block: ``split`` (column-parallel weights) takes
+        the identity forward and sums the ranks' gradients; under ``sp``
+        the sequence is all-gathered (its gradient reduce-scattered). An
+        unsplit block under ``sp`` gathers the sequence and takes its own
+        slice of the gradient."""
+        if self.sp:
+            return _Gather.apply(x, self.comm, 1, split)
+        return _Enter.apply(x, self.comm) if split else x
+
+    def leave(self, y: torch.Tensor, split: bool = True) -> torch.Tensor:
+        """The output of a block: ``split`` (a row-parallel partial sum)
+        all-reduces, or under ``sp`` reduce-scatters the sequence; an
+        unsplit block's whole output under ``sp`` keeps the rank's slice
+        of the sequence."""
+        if self.sp:
+            return _Scatter.apply(y, self.comm, 1, split)
+        return _Reduce.apply(y, self.comm, False) if split else y
 
     def all_reduce(self, y: torch.Tensor) -> torch.Tensor:
         """Sum over the 'model' group (half-precision partials add in fp32
-        and round once)."""
+        and round once); backward the identity."""
         if self.size == 1:
             return y
-        t = self._host(y.to(torch.float32) if y.dtype in
-                       (torch.bfloat16, torch.float16) else y.contiguous())
-        if t is y:
-            t = t.clone()
-        dist.all_reduce(t, group=self.group)
-        return t.to(device=y.device, dtype=y.dtype)
+        return _Reduce.apply(y, self.comm, False)
+
+    def all_reduce_split(self, y: torch.Tensor) -> torch.Tensor:
+        """Sum over the 'model' group whose result feeds the split
+        computation: the backward sums the ranks' gradients too."""
+        if self.size == 1:
+            return y
+        return _Reduce.apply(y, self.comm, True)
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' ``x`` joined along ``dim`` in rank order (bits moved
-        as they are: half precision travels as bytes, which every backend
-        takes)."""
+        as they are); backward the rank's slice of the gradient."""
         if self.size == 1:
             return x
-        raw = x.contiguous()
-        if raw.dtype in (torch.bfloat16, torch.float16):
-            raw = raw.view(torch.uint8)
-        raw = self._host(raw)
-        parts = [torch.empty_like(raw) for _ in range(self.size)]
-        dist.all_gather(parts, raw, group=self.group)
-        out = torch.cat(parts, dim).to(x.device)
-        return out.view(x.dtype) if out.dtype != x.dtype else out
+        return _Gather.apply(x, self.comm, dim % x.dim(), False)
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise max over the 'model' group (a split weight's
         per-channel max |w|, for int8 scales equal to the whole's)."""
-        if self.size == 1:
-            return t
-        h = self._host(t.contiguous()).clone()
-        dist.all_reduce(h, op=dist.ReduceOp.MAX, group=self.group)
-        return h.to(t.device)
+        return self.comm.all_reduce(t, op=dist.ReduceOp.MAX)
 
     def broadcast_ints(self, values: List[int]) -> List[int]:
         """Rank 0's integers on every rank (host decisions that must agree:

@@ -15,6 +15,10 @@
 // keeps (a zamba2 prefill moves a few MB against about 0.3 GFLOP), and the
 // chain of chunk states: chunk c needs the state left by chunk c - 1.
 //
+// For training, a launch may also write every chunk's start state S_in
+// (`states`, fp32, one slot a chunk) from the hand-off it already reads: the
+// backward kernel (csrc/ssd_bwd.cu) starts from them.
+//
 // Design. The TPU grid (heads, chunks) ran the chunks of a head in order on
 // one core with the state in VMEM scratch. Here every (row, head, P tile,
 // chunk) is one CTA (a "unit"; a chain is the chunks of one (row, head, P
@@ -185,6 +189,7 @@ __global__ void __launch_bounds__(32 * NW, MTW == 1 ? (NW == 16 ? 2 : 3) : 1)
 ssd_kernel(const T* __restrict__ x, const T* __restrict__ la,
            const T* __restrict__ Bm, const T* __restrict__ Cm,
            T* __restrict__ y, float* __restrict__ hand,
+           float* __restrict__ states,
            unsigned long long* __restrict__ sync, unsigned long long base,
            unsigned int epoch, int Tn, int H, int P, int N, int pt,
            int ptiles, int chains, int nchunks, int vec) {
@@ -421,6 +426,9 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ la,
           s_in = __ldcg(reinterpret_cast<const float2*>(s_prev + (size_t)n * ptp + p));
           *reinterpret_cast<float2*>(S + n * xp + p) = s_in;
         }
+        if (states != nullptr)           // the chunk-start state, for the backward
+          *reinterpret_cast<float2*>(states + ((size_t)chain * nchunks + chunk) * slot_elems +
+                                     (size_t)n * ptp + p) = s_in;
         if (!last) {
           const float2 o = make_float2(fmaf(decay, s_in.x, sacc[i][jj][2 * hh]),
                                        fmaf(decay, s_in.y, sacc[i][jj][2 * hh + 1]));
@@ -473,7 +481,7 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ la,
 
 template <typename T, int MTW, int NW>
 int launch(const void* x, const void* la, const void* Bm, const void* Cm,
-           void* y, void* hand, void* sync, unsigned long long base,
+           void* y, void* hand, void* states, void* sync, unsigned long long base,
            unsigned int epoch, int Tn, int H, int P, int N, int pt, int ptiles,
            int chains, int nchunks, int vec, size_t smem, cudaStream_t stream) {
   auto kernel = ssd_kernel<T, MTW, NW>;
@@ -482,18 +490,20 @@ int launch(const void* x, const void* la, const void* Bm, const void* Cm,
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)((long long)chains * nchunks), 32 * NW, smem, stream>>>(
       (const T*)x, (const T*)la, (const T*)Bm, (const T*)Cm, (T*)y,
-      (float*)hand, (unsigned long long*)sync, base, epoch, Tn, H, P, N, pt,
+      (float*)hand, (float*)states, (unsigned long long*)sync, base, epoch, Tn, H, P, N, pt,
       ptiles, chains, nchunks, vec);
   return (int)cudaGetLastError();
 }
 
 // hand: chains * 2 * np * ptp floats; sync: 1 + chains uint64, the counter
 // at `base` and no flag at or past (epoch << 32) when the launch starts.
+// states: null, or chains * nchunks * np * ptp floats that take every
+// chunk's start state S_in (zero for chunk 0), the backward's input.
 // warps: 16 a unit (few units: each runs its phases on more warps) or 8
 // (many: more units resident an SM, less repeated fragment work)
 template <typename T>
 int ssd(const void* x, const void* la, const void* Bm, const void* Cm, void* y,
-        void* hand, void* sync, unsigned long long base, unsigned int epoch,
+        void* hand, void* states, void* sync, unsigned long long base, unsigned int epoch,
         int Nb, int Tn, int H, int P, int N, int pt, int warps, void* stream) {
   if (Nb <= 0 || Tn <= 0 || H <= 0 || P <= 0 || N <= 0 || N > kMaxN ||
       pt <= 0 || pt > kMaxPT || pt > P || epoch == 0 ||
@@ -513,7 +523,8 @@ int ssd(const void* x, const void* la, const void* Bm, const void* Cm, void* y,
                   (uintptr_t)Cm % align == 0;
 #define SSD_CASE(MTW_, NW_)                                                    \
   if (lay.np <= 64 * MTW_ && warps == NW_)                                     \
-    return launch<T, MTW_, NW_>(x, la, Bm, Cm, y, hand, sync, base, epoch, Tn,  \
+    return launch<T, MTW_, NW_>(x, la, Bm, Cm, y, hand, states, sync, base,     \
+                                epoch, Tn,                                      \
                                 H, P, N, pt, ptiles, (int)chains, (int)nchunks, \
                                 vec, smem, s);
   SSD_CASE(1, 16) SSD_CASE(2, 16) SSD_CASE(4, 16)
@@ -543,21 +554,21 @@ int ssd_smem(int N, int pt) {
 }
 
 int ssd_chunked_scan_f32(const void* x, const void* la, const void* Bm,
-                         const void* Cm, void* y, void* hand, void* sync,
-                         unsigned long long base, unsigned int epoch, int Nb,
-                         int Tn, int H, int P, int N, int pt, int warps,
-                         void* stream) {
-  return ssd::ssd<float>(x, la, Bm, Cm, y, hand, sync, base, epoch, Nb, Tn, H,
-                         P, N, pt, warps, stream);
+                         const void* Cm, void* y, void* hand, void* states,
+                         void* sync, unsigned long long base,
+                         unsigned int epoch, int Nb, int Tn, int H, int P,
+                         int N, int pt, int warps, void* stream) {
+  return ssd::ssd<float>(x, la, Bm, Cm, y, hand, states, sync, base, epoch, Nb,
+                         Tn, H, P, N, pt, warps, stream);
 }
 
 int ssd_chunked_scan_bf16(const void* x, const void* la, const void* Bm,
-                          const void* Cm, void* y, void* hand, void* sync,
-                          unsigned long long base, unsigned int epoch, int Nb,
-                          int Tn, int H, int P, int N, int pt, int warps,
-                          void* stream) {
-  return ssd::ssd<__nv_bfloat16>(x, la, Bm, Cm, y, hand, sync, base, epoch, Nb,
-                                 Tn, H, P, N, pt, warps, stream);
+                          const void* Cm, void* y, void* hand, void* states,
+                          void* sync, unsigned long long base,
+                          unsigned int epoch, int Nb, int Tn, int H, int P,
+                          int N, int pt, int warps, void* stream) {
+  return ssd::ssd<__nv_bfloat16>(x, la, Bm, Cm, y, hand, states, sync, base,
+                                 epoch, Nb, Tn, H, P, N, pt, warps, stream);
 }
 
 }  // extern "C"

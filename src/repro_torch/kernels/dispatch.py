@@ -18,6 +18,12 @@ port's kernels, as in the JAX rules:
   Since <dy, Q^T x> = <x, Q dy>, (dL, dR) come from ``gs_fused_grads`` with
   input and cotangent swapped, and dx, only when x needs it, is the
   forward rotation ``gs_fused`` of dy.
+* ``ssd_diff(x, loga, B, C)``: the SSD scan (``ssd``'s forward kernel,
+  which then also writes every chunk's start state); the backward is the
+  port's own kernel ``ssd_bwd`` -> (dx, dloga, dB, dC), reading those
+  states (the JAX package differentiates its plain scan instead: it has
+  no backward kernel). CUDA tensors only: on the CPU ``ssd`` runs its
+  plain version under torch autograd.
 
 L, R: (r, b, b); x: (T, d). dL and dR are cast to L's dtype. The GS rules,
 like bdmm's, skip the dx slab for a frozen x (the weight a GSOFT adapter
@@ -98,6 +104,34 @@ class _BdmmDiff(torch.autograd.Function):
             dx = bdmm(dy, blocks.to(x.dtype).contiguous(),
                       transpose_blocks=not trans)
         return dblocks, dx, None
+
+
+class _SSDDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, loga, B, C):
+        from .ssd import ssd_fwd         # ssd.py imports this module
+        y, saved = ssd_fwd(x, loga, B, C, states=True)
+        ctx.save_for_backward(x, loga, B, C, saved[0])
+        ctx.tile = saved[1]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from .ssd import ssd_bwd
+        x, loga, B, C, states = ctx.saved_tensors
+        return ssd_bwd(x, loga, B, C, dy, saved=(states, ctx.tile))
+
+
+def ssd_diff(x: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor) -> torch.Tensor:
+    """Differentiable SSD scan on CUDA tensors: x (Nb, T, H, P), loga (Nb,
+    T, H), B, C (Nb, T, H, N) -> y; the gradients of all four come from
+    one ``ssd_bwd`` launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_diff runs the kernels: a CUDA tensor, not "
+                         f"{x.device} (ssd's plain version is "
+                         f"differentiable as it is)")
+    return _SSDDiff.apply(x, loga, B, C)
 
 
 def bdmm_diff(blocks: torch.Tensor, x: torch.Tensor,

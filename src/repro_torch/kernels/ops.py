@@ -12,9 +12,13 @@ card). ``gs_bank_transform_T`` and ``gs_q_matmul_bank`` are the port's own
 serving entries: they take a bank and slot ids where JAX gathers first.
 ``householder_banked`` and ``givens_banked`` have no kernel, as in
 the JAX package (``banked_kernel=""``): their plain versions run on every
-device. ``q_matmul``, ``gs_q_matmul``, ``gs_q_matmul_banked``,
-``paged_attention``, ``ssd`` and ``flash_mha`` serve inference only on the
-card (no autograd rule; a tensor that needs a gradient raises). The
+device. ``ssd`` is differentiable too: on the card through
+``dispatch.ssd_diff`` (the scan kernel forward, the port's ``ssd_bwd``
+kernel backward), on the CPU by torch autograd of the plain scan, as the
+JAX package differentiates its own. ``q_matmul``, ``gs_q_matmul``,
+``gs_q_matmul_banked``, ``paged_attention`` and ``flash_mha`` serve
+inference only on the card (no autograd rule; a tensor that needs a
+gradient raises). The
 kernels pick their own launch geometry; the tuning registry of
 ``repro.kernels.dispatch`` is not ported yet.
 """

@@ -59,9 +59,12 @@ unless the bank is store-paged, which gets a fresh ``attach`` per replica;
 runtime, draws the same seeded requests, and rank 0 decides each
 streaming tick's admissions and broadcasts them; rank 0 alone prints.
 ``--tp 1`` runs the degenerate mesh in one process. The decoder, ``ssm``
-and ``hybrid`` families split. ``--tp`` with ``--mesh`` is refused; a
-'data' axis above 1 (the mesh-training slice) and ``--tp`` over the
-``image`` family raise NotImplementedError, as do ``--quantize fp8`` and
+and ``hybrid`` families split. ``--mesh D,N`` with D > 1 adds a 'data' axis:
+each group of N ranks serves every request (a replica of the split
+model; the decode step's own batch split over 'data' is
+``train.steps.local_rows`` / ``gather_rows`` around ``build_decode_step``). ``--tp`` with ``--mesh``
+is refused; ``--tp`` over the ``image`` family raises
+NotImplementedError, as do ``--quantize fp8`` and
 a ``--family`` the port does not register. ``--family`` is checked against the arch's family;
 ``ssm`` / ``hybrid`` archs fail as in the JAX launcher on ``--engine
 paged`` (no paged KV surface) and ``--demo-adapters`` (no bank serving:

@@ -8,7 +8,16 @@ a card it raises unless ``--device cpu`` is given). ``--ckpt-dir`` saves the
 adapters and the optimizer state every ``--ckpt-every`` steps and at the
 end, in the JAX package's checkpoint layout, and a later run with the same
 directory resumes from the latest one (``--no-resume`` starts over).
-``--mesh`` raises NotImplementedError until the mesh-training slice.
+
+``--mesh D,M`` (or ``P,D,M``: pods x data x model) trains on a mesh, one
+process per rank started by ``torchrun``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2-72b --smoke --mesh 2,2 --microbatches 2 --device cpu
+
+(gloo on the CPU, NCCL on cards; ``--set seq_parallel=true`` splits the
+residual stream on the sequence). A world whose size is not the mesh's
+raises ValueError naming both; ``--mesh 1,1`` runs in one process.
 """
 from __future__ import annotations
 
@@ -39,7 +48,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--warmup", type=int, default=10)
-    ap.add_argument("--mesh", default=None, help="e.g. 4,2 for (data, model)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. 4,2 for (data, model), or 2,2,2 for (pod, "
+                         "data, model); one process per rank (torchrun)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--corpus", default=None)
@@ -50,11 +61,9 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet (the mesh-training slice)")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.with_overrides(**parse_overrides(args.set))
+    mesh = _mesh(args.mesh, args.device) if args.mesh else None
 
     tcfg = TrainStepConfig(
         peft=peft_lib.PEFTConfig(method=args.peft, block_size=args.block_size,
@@ -70,13 +79,34 @@ def main(argv=None):
                       ckpt_dir=args.ckpt_dir,
                       heartbeat_path=(os.path.join(args.ckpt_dir, "heartbeat")
                                       if args.ckpt_dir else None))
-    out = train(cfg, tcfg, dcfg, loop, resume=not args.no_resume,
+    out = train(cfg, tcfg, dcfg, loop, mesh=mesh, resume=not args.no_resume,
                 device=args.device)
     hist = out["history"]
-    if hist:
+    if hist and (mesh is None or _rank0()):
         print(f"final loss {hist[-1]['loss']:.4f} "
               f"(from {hist[0]['loss']:.4f} @ step {hist[0]['step']})")
     return 0
+
+
+def _rank0() -> bool:
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+def _mesh(spec: str, device: str):
+    """The mesh of ``--mesh D,M`` or ``P,D,M`` over this process group
+    (``torchrun``'s, or a world of one)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.distrib.tp import default_backend, init_world
+    from repro_torch.launch.mesh import make_mesh
+    dims = tuple(int(x) for x in spec.split(","))
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh takes D,M or P,D,M (sizes >= 1), not "
+                         f"{spec!r}")
+    dev = resolve_device(device)
+    init_world(default_backend(dev), dev)
+    pods, (data, model) = (dims[0], dims[1:]) if len(dims) == 3 else (1, dims)
+    return make_mesh(data, model, pods=pods, device_type=dev.type)
 
 
 if __name__ == "__main__":

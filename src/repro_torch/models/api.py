@@ -21,6 +21,9 @@ def forward(cfg: ModelConfig, params, batch):
     return family_ops(cfg).forward(cfg, params, batch)
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
-    """(loss, metrics) of the family's training objective."""
-    return family_ops(cfg).loss(cfg, params, batch)
+def loss_fn(cfg: ModelConfig, params, batch, tp=None):
+    """(loss, metrics) of the family's training objective; ``tp`` the
+    rank's ``distrib.tp.TPShard`` of a split model (the families that
+    split take it)."""
+    kw = {} if tp is None else {"tp": tp}
+    return family_ops(cfg).loss(cfg, params, batch, **kw)

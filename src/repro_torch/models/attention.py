@@ -17,7 +17,11 @@ has the rank's local head count: wq / wk / wv are column-parallel, ``wo``
 row-parallel (its partial outputs all-reduce), and where the kv heads do
 not split the rank computes all K and keeps the ones its q heads read
 (``TPShard.select_kv``), so caches and pools hold local kv heads and every
-kernel sees a uniform local grouping. With ``tp`` None nothing changes.
+kernel sees a uniform local grouping. The contiguous block is also the
+training path: its input passes ``tp.enter`` and its output ``tp.leave``
+(the autograd-aware collectives; under sequence parallelism the sequence
+is gathered at the input and reduce-scattered at the output). With ``tp``
+None nothing changes.
 """
 from __future__ import annotations
 
@@ -132,7 +136,8 @@ def _out(p, out: torch.Tensor, rot: Rot, tp) -> torch.Tensor:
     out = out.reshape(out.shape[0], out.shape[1], -1)
     if tp is not None and tp.heads_split:
         return row_linear(out, p["wo"], rot, "wo", tp)
-    return qlinear(out, p["wo"], rot, "wo")
+    y = qlinear(out, p["wo"], rot, "wo")
+    return y if tp is None else tp.leave(y, False)
 
 
 def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -150,6 +155,8 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
       and the step attends over [0, cache_pos].
     Returns (output, cache).
     """
+    if tp is not None:
+        x = tp.enter(x, tp.heads_split)
     b, sq, _ = x.shape
     hd = cfg.d_head
     q, k, v = _qkv(p, x, hd, rot, tp)
@@ -222,6 +229,8 @@ def paged_attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     always the garbage page, so a parked row (pos == max_pages * page) routes
     its write there; pos: (B,) write positions. The pages are written in
     place. Returns (out, pages)."""
+    if tp is not None:
+        x = tp.enter(x, tp.heads_split)
     b, sq, _ = x.shape
     hd = cfg.d_head
     q, k, v = _qkv(p, x, hd, rot, tp)

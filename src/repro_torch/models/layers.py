@@ -51,7 +51,9 @@ def qlinear(x: torch.Tensor, w, rot: Rot = None, name: str = "",
 def row_linear(x: torch.Tensor, w, rot: Rot, name: str, tp) -> torch.Tensor:
     """Row-parallel projection under tensor parallelism (``tp`` a
     ``distrib.tp.TPShard``): x holds this rank's slice of the input
-    features, w the matching rows, and the partial products all-reduce.
+    features, w the matching rows, and the partial products all-reduce
+    (``tp.leave``: reduce-scattered over the sequence under sequence
+    parallelism).
     A rotation mixes every feature of its input, so a rotated input is
     all-gathered, rotated whole (the banked kernels at the full width) and
     cut back to the rank's window before the local matmul (for int8:
@@ -59,7 +61,7 @@ def row_linear(x: torch.Tensor, w, rot: Rot, name: str, tp) -> torch.Tensor:
     whole row)."""
     if rot is not None and getattr(rot, "adapts", lambda _n: True)(name):
         x = tp.local_cols(rot(name, tp.all_gather(x, -1)))
-    return tp.all_reduce(qlinear(x, w))
+    return tp.leave(qlinear(x, w))
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +205,18 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, mlp_type: str,
               rot: Rot = None, tp=None) -> torch.Tensor:
     """SwiGLU MLP; ``rot(name, x)`` optionally rotates the inputs of
     wi / wg / wo. Under tensor parallelism with d_ff split, wi / wg are
-    column-parallel (local d_ff) and wo row-parallel."""
+    column-parallel (local d_ff; ``tp.enter`` at the input) and wo
+    row-parallel."""
     if mlp_type != "swiglu":
         raise ValueError(f"mlp_type {mlp_type!r} is not ported yet (swiglu)")
+    split = tp is not None and tp.ff_split
+    if tp is not None:
+        x = tp.enter(x, split)
     h = F.silu(qlinear(x, p["wg"], rot, "wg")) * qlinear(x, p["wi"], rot, "wi")
-    if tp is not None and tp.ff_split:
+    if split:
         return row_linear(h, p["wo"], rot, "wo", tp)
-    return qlinear(h, p["wo"], rot, "wo")
+    y = qlinear(h, p["wo"], rot, "wo")
+    return y if tp is None else tp.leave(y, False)
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

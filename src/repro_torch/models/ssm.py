@@ -18,7 +18,11 @@ Under tensor parallelism (``tp``, a ``distrib.tp.TPShard`` whose
 wdt columns, A_log / D / dt_bias / gate_norm entries and out_proj rows
 (row-parallel: its partial output all-reduces); wb / wc and the conv stay
 whole, and the rank convolves only its own x channels with B and C. The
-gated RMSNorm's mean over d_inner sums the ranks' squares (all-reduce).
+gated RMSNorm's mean over d_inner sums the ranks' squares (all-reduce,
+both ways under autograd). ``mamba_block`` is the training path too: its
+input passes ``tp.enter`` and its output ``tp.leave`` (under sequence
+parallelism the sequence is gathered for the scan and reduce-scattered
+after ``out_proj``), and the scan runs ``ops.ssd``'s autograd rule.
 The decode state holds the rank's heads and conv channels.
 """
 from __future__ import annotations
@@ -104,7 +108,7 @@ def _gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     dt = y.dtype
     g = y.to(torch.float32) * F.silu(z.to(torch.float32))
     if _split(tp):      # the mean over every rank's channels
-        var = tp.all_reduce(torch.sum(g * g, dim=-1, keepdim=True)) / (
+        var = tp.all_reduce_split(torch.sum(g * g, dim=-1, keepdim=True)) / (
             g.shape[-1] * tp.size)
     else:
         var = torch.mean(g * g, dim=-1, keepdim=True)
@@ -162,7 +166,7 @@ def _conv_params(p, cfg: ModelConfig, tp):
 
 def _out_proj(p, y: torch.Tensor, tp) -> torch.Tensor:
     out = y @ p["out_proj"]["wo"]
-    return tp.all_reduce(out) if _split(tp) else out
+    return out if tp is None else tp.leave(out, _split(tp))
 
 
 def mamba_block(p, u: torch.Tensor, cfg: ModelConfig,
@@ -170,6 +174,8 @@ def mamba_block(p, u: torch.Tensor, cfg: ModelConfig,
     """Prefill / training path. u: (B, S, d), already normed -> (B, S, d).
     The scan is one ``ops.ssd`` call over the whole batch (the rank's
     heads under ``tp``)."""
+    if tp is not None:
+        u = tp.enter(u, _split(tp))
     b, s, _ = u.shape
     z, xin, Bc, Cc, dt = _project(p, u, cfg)
     xbc = torch.cat([xin, Bc, Cc], dim=-1)

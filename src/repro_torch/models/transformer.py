@@ -23,9 +23,11 @@ max_pages + 1) int32}; both are updated in place. ``cfg.remat`` applies to ``for
 recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint`` per scanned layer), "none" keeps every activation.
 
-Tensor-parallel serving (``tp``, a ``distrib.tp.TPShard``, decoder only):
-each rank holds its shards of the params and runs the serving functions
-at local shapes. The embedding is vocab-parallel (ids outside the rank's
+Tensor parallelism (``tp``, a ``distrib.tp.TPShard``): each rank holds its
+shards of the params and runs the serving functions, and ``forward`` /
+``lm_loss`` for training, at local shapes (the collectives are
+autograd-aware; ``cfg.seq_parallel`` splits the residual stream on the
+sequence between blocks). The embedding is vocab-parallel (ids outside the rank's
 rows are masked, then all-reduced), attention and MLP split per
 ``models.attention`` / ``layers.apply_mlp``, and the LM head (or tied
 table) is column-parallel and all-gathers its logits, so every rank picks
@@ -180,11 +182,13 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
         local = tokens - tp.rank * n
         mine = (local >= 0) & (local < n)
         h = table[local.clamp(0, n - 1)]
-        h = tp.all_reduce(torch.where(mine[..., None], h,
-                                      torch.zeros((), dtype=h.dtype,
-                                                  device=h.device)))
+        h = tp.leave(torch.where(mine[..., None], h,
+                                 torch.zeros((), dtype=h.dtype,
+                                             device=h.device)))
     else:
         h = table[tokens]
+        if tp is not None:
+            h = tp.leave(h, False)      # under sequence parallelism: a slice
     h = h.to(cfg.act_dtype)
     if cfg.embed_scale:
         h = h * math.sqrt(cfg.d_model)
@@ -194,6 +198,8 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
 def _unembed(cfg: ModelConfig, params, h: torch.Tensor,
              tp=None) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if tp is not None:
+        h = tp.enter(h, tp.vocab_split)
     if cfg.tie_embeddings:
         logits = h @ params["embed"]["table"].T.to(h.dtype)
     else:
@@ -232,8 +238,11 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor, kv=None,
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, Vp), moe_aux = 0). batch["tokens"]: (B, S).
-    ``tp``: a split model's serving forward (the ``ssm`` / ``hybrid``
-    prefill)."""
+    ``tp``: a split model's forward (the ``ssm`` / ``hybrid`` prefill, and
+    training on a mesh: under ``cfg.seq_parallel`` the residual stream
+    holds the rank's share of the sequence between blocks)."""
+    if tp is not None:
+        tp = tp.with_seq(batch["tokens"].shape[1])
     h = _embed(cfg, params, batch["tokens"], tp)
     mixer = _traits(cfg).mixer
     if mixer == "attention":
@@ -263,11 +272,14 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 MOE_AUX_COEF = 0.01
 
 
-def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            tp=None):
     """Contract: batch["labels"][:, t] is the target for logits position t
     (the next token), with batch["mask"] zeroing padded/final slots.
-    Returns (loss, {"loss", "accuracy", "moe_aux"})."""
-    logits, aux = forward(cfg, params, batch)
+    ``tp``: the rank's shard of a split model (every rank computes the same
+    loss from the gathered logits). Returns (loss, {"loss", "accuracy",
+    "moe_aux"})."""
+    logits, aux = forward(cfg, params, batch, tp)
     loss, acc = cross_entropy(logits, batch["labels"], batch.get("mask"),
                               cfg.vocab_size)
     loss = loss + MOE_AUX_COEF * aux

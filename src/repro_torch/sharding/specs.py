@@ -15,11 +15,20 @@ does not divide its mesh axis falls back to replication.
 ``torch.distributed`` ``DeviceMesh`` with named dims) or a plain
 ``{axis: size}`` mapping (no process group needed: what the rules read is
 the axis sizes). ``place`` / ``place_leaf`` keep each rank's contiguous
-local slice of a leaf, copied to the rank's device. ``kv_heads_kept`` is
-the one place that says which kv heads a rank's KV caches hold.
+local slice of a leaf, copied to the rank's device; ``gather_leaf`` is
+the inverse (the whole leaf from every rank's slice, for a checkpoint).
+``kv_heads_kept`` is the one place that says which kv heads a rank's KV
+caches hold.
 
-Not here (the mesh-training slice): ``act_spec`` / ``make_sharder``
-(activation constraints for training and ``seq_parallel``).
+Training: ``act_spec`` names the activations' specs as JAX's table does
+(``seq_parallel`` splits the residual stream's sequence over 'model');
+the port splits them by hand in the model code, so ``make_sharder``'s
+callback cuts a WHOLE activation to the rank's block (the multi-
+controller form of a sharding constraint, for checks), ``opt_state_tree``
+places the optimizer state as JAX's ``train`` does (``mu`` / ``nu`` as the
+adapters, ``step`` replicated), and ``block_split`` says which adapted
+weights sit in a split block (their adapters' gradients are partial sums
+over 'model').
 """
 from __future__ import annotations
 
@@ -206,6 +215,82 @@ class ShardingRules:
                     tree)
                 for wpath, tree in adapters.items()}
 
+
+    # -- training: optimizer state, activations ------------------------------
+    def opt_state_tree(self, opt_state: Tree, adapters_spec: Tree) -> Tree:
+        """AdamW's state follows the adapters (``mu``, ``nu`` as
+        ``adapters_spec``, ``step`` replicated); any other optimizer's
+        state replicates, as JAX's ``train`` places it."""
+        if set(opt_state) == {"mu", "nu", "step"}:
+            return {"mu": adapters_spec, "nu": adapters_spec, "step": ()}
+        return _map_paths(lambda _p, _l: (), opt_state)
+
+    def block_split(self, path: str) -> bool:
+        """Does the weight at ``path`` sit in a block whose computation
+        splits over 'model' (the MLP by d_ff, Mamba by heads, attention by
+        q heads)? Its adapter's gradient on a rank is then that rank's
+        share, summed over 'model' (also for a weight the block keeps
+        whole, such as Mamba's wb / wc or unsplit kv heads: each rank uses
+        only its part of its output)."""
+        if self.tp == 1:
+            return False
+        if "/mlp/" in path:
+            return self.ff_shardable
+        if "/mamba/" in path:
+            return self.mamba_shardable
+        if "/attn/" in path:
+            return self.attn_heads_shardable
+        return False
+
+    def act_spec(self, name: str) -> Optional[Spec]:
+        """JAX's activation table: the spec of activation ``name``, None for
+        a name it does not know."""
+        dp, tp = _ax(self.dp), "model"
+        sp = "model" if getattr(self.cfg, "seq_parallel", False) else None
+        table = {
+            "act_btd": (dp, sp, None),
+            "act_d": (dp, sp, None),
+            "act_ff": (dp, None, tp) if self.ff_shardable else (dp, None, None),
+            "act_heads": ((dp, None, tp, None) if self.attn_heads_shardable
+                          else (dp, None, None, None)),
+            "act_kv_heads": ((dp, None, tp, None) if self.kv_heads_shardable
+                             else (dp, None, None, None)),
+            "act_inner": ((dp, None, tp) if self.mamba_shardable
+                          else (dp, None, None)),
+            "logits": ((dp, None, tp) if self.vocab_shardable
+                       else (dp, None, None)),
+            "moe_expert_in": ((tp, dp, None, None) if self.experts_shardable
+                              else (None, dp, None, None)),
+            "moe_expert_out": ((tp, dp, None, None) if self.experts_shardable
+                               else (None, dp, None, None)),
+        }
+        return table.get(name)
+
+    def make_sharder(self, batch_divisible: bool = True):
+        """``shard(x, name)``: the rank's block of the WHOLE activation
+        ``x`` under ``act_spec(name)``, with JAX's guards (an unknown name,
+        or any split dim that does not divide its axes, leaves ``x`` whole;
+        without ``batch_divisible`` the batch dim stays whole)."""
+        mesh = self.mesh
+
+        def shard(x, name):
+            spec = self.act_spec(name)
+            if spec is None:
+                return x
+            if not batch_divisible and spec and spec[0] == _ax(self.dp):
+                spec = (None,) + tuple(spec[1:])
+            for dim, ax in zip(x.shape, tuple(spec) + (None,) * x.dim()):
+                if ax is None:
+                    continue
+                n = 1
+                for a in ((ax,) if isinstance(ax, str) else ax):
+                    n *= self.sizes[a]
+                if dim % n:
+                    return x
+            return local_slice(mesh, x, spec)
+
+        return shard
+
     # -- serve-time placement -------------------------------------------------
     def _fit(self, spec: Spec, shape: Tuple[int, ...]) -> Spec:
         """Divisibility guard at leaf granularity: any spec axis whose dim
@@ -377,3 +462,35 @@ def place(mesh, tree: Tree, spec_tree: Tree, device=None) -> Tree:
         return {k: place(mesh, v, spec_tree[k], device)
                 for k, v in tree.items()}
     return place_leaf(mesh, tree, spec_tree, device)
+
+
+def whole_shape(mesh, shape: Tuple[int, ...], spec: Spec) -> Tuple[int, ...]:
+    """The whole leaf's shape of a local block of ``shape`` under
+    ``spec``."""
+    sizes = mesh_shape(mesh)
+    out = list(shape)
+    for dim, ax in enumerate(tuple(spec)[:len(shape)]):
+        if ax is None:
+            continue
+        for a in ((ax,) if isinstance(ax, str) else ax):
+            out[dim] *= sizes[a]
+    return tuple(out)
+
+
+def gather_leaf(mesh, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """The whole leaf from every rank's block ``t`` under ``spec`` (the
+    inverse of ``local_slice``): an all-gather over each split axis, the
+    inner axis of a dim first, bits moved as they are. Every rank of the
+    mesh must call it (collective over the axes' groups); no autograd."""
+    from repro_torch.distrib.tp import Comm
+
+    sizes = mesh_shape(mesh)
+    for dim, ax in enumerate(tuple(spec)[:t.dim()]):
+        if ax is None:
+            continue
+        for a in reversed((ax,) if isinstance(ax, str) else tuple(ax)):
+            if sizes[a] > 1:
+                comm = Comm(mesh.get_group(a), sizes[a],
+                            mesh.get_local_rank(a))
+                t = comm.all_gather(t, dim)
+    return t

@@ -4,6 +4,16 @@ tree and the optimizer state (``{"trainable", "opt"}`` with the data cursor
 as ``extra={"data_step": ...}``, JAX's layout) every ``ckpt_every`` steps
 and at the end; heartbeat and step-time straggler detection; and a serving
 runtime over the merged trained weights at the end.
+
+On a mesh (``train(mesh=)``, one process per rank): the frozen params are
+the rank's shards (``ModelRuntime(..., mesh=)`` draws each weight whole
+from the seed and keeps its slice), the adapters and the optimizer state
+whole on every rank (``adapters_tree`` / ``opt_state_tree``: replicated),
+each step takes the global batch and keeps the rank's rows
+(``build_train_step(cfg, tcfg, mesh)``). A checkpoint gathers every leaf
+whole and global rank 0 writes it in JAX's layout; a resume restores it
+onto this mesh, whichever mesh saved it. Global rank 0 logs. The returned
+runtime serves the merged, trained weights split over the same mesh.
 """
 from __future__ import annotations
 
@@ -43,33 +53,42 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
     state and the data replays from its ``data_step``. Returns
     {"trainable", "opt_state", "frozen", "history", "runtime"}, the runtime
     serving the trained weights."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded training is not ported yet (the mesh-training "
-            "slice)")
     dev = resolve_device(device)
-    params = ModelRuntime(cfg, seed=dcfg.seed, device=dev).params
-    adapters = peft_lib.init_peft(tcfg.peft, params, device=dev,
+    rt0 = ModelRuntime(cfg, seed=dcfg.seed, device=dev, mesh=mesh)
+    params = rt0.params
+    # adapters are drawn for the WHOLE weights (a split rank holds shards)
+    adapters = peft_lib.init_peft(tcfg.peft, rt0.param_shapes, device=dev,
                                   seed=dcfg.seed)
     trainable, frozen = peft_lib.trainable_and_frozen(tcfg.peft, params,
                                                       adapters)
     if not tcfg.peft.is_peft:
         trainable, frozen = params, {}
     opt_state = optim.init(tcfg.opt, trainable)
-    step_fn = build_train_step(cfg, tcfg)
+    step_fn = build_train_step(cfg, tcfg, mesh)
     data = LMDataSource(dcfg)
+    ckpt_kw = {}
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.sharding.specs import ShardingRules
+        rules = ShardingRules(cfg, mesh)
+        t_sh = rules.adapters_tree(trainable)
+        ckpt_kw = dict(mesh=mesh, spec_tree={
+            "trainable": t_sh, "opt": rules.opt_state_tree(opt_state, t_sh)})
+        if dist.get_rank() != 0:
+            log_fn = _quiet
     start_step = 0
     mgr = None
     if loop.ckpt_dir:
         mgr = CheckpointManager(loop.ckpt_dir)
         if resume and mgr.latest_step() is not None:
             state = mgr.restore({"trainable": trainable, "opt": opt_state},
-                                device=dev)
+                                device=dev, **ckpt_kw)
             trainable, opt_state = state["trainable"], state["opt"]
             start_step = mgr.extra().get("data_step", mgr.latest_step())
             log_fn(f"resumed from step {start_step}")
 
-    hb = Heartbeat(loop.heartbeat_path) if loop.heartbeat_path else None
+    hb = (Heartbeat(loop.heartbeat_path)
+          if loop.heartbeat_path and log_fn is not _quiet else None)
     timer = StepTimer()
     history = []
     for step in range(start_step, loop.steps):
@@ -95,15 +114,27 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
             # the write itself runs on the async thread
             mgr.save(step + 1, {"trainable": trainable, "opt": opt_state},
                      blocking=not loop.async_ckpt,
-                     extra={"data_step": step + 1})
+                     extra={"data_step": step + 1}, **ckpt_kw)
     if mgr:
         mgr.wait()
     # serving runtime over the TRAINED weights: adapters merged into the
     # frozen base (PEFT) or the trained tree itself (full FT)
     with torch.no_grad():
-        final_params = (peft_lib.materialize_tree(tcfg.peft, frozen, trainable,
-                                                  merged=True)
-                        if tcfg.peft.is_peft else trainable)
+        if not tcfg.peft.is_peft:
+            final_params = trainable
+        elif mesh is not None:
+            final_params = step_fn.split.materialize(tcfg.peft, frozen,
+                                                     trainable)
+        else:
+            final_params = peft_lib.materialize_tree(tcfg.peft, frozen,
+                                                     trainable, merged=True)
+    rt_kw = ({} if mesh is None or rt0.shard is None else
+             {"_shapes": rt0.param_shapes})
     return {"trainable": trainable, "opt_state": opt_state, "frozen": frozen,
             "history": history,
-            "runtime": ModelRuntime(cfg, final_params, device=dev)}
+            "runtime": ModelRuntime(cfg, final_params, device=dev, mesh=mesh,
+                                    **rt_kw)}
+
+
+def _quiet(_msg: str) -> None:
+    """The log of every rank but global rank 0."""

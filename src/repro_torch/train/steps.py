@@ -8,11 +8,35 @@ microbatches -> mean adapter grads in fp32 -> AdamW update. The adapters are
 materialized weight-side inside the step (``core.peft.materialize_tree``),
 so on the card the GS kernels run forward and backward in every step.
 
+On a mesh (``build_train_step(cfg, tcfg, mesh)``; one process per rank, as
+``torchrun`` starts them) the step takes the GLOBAL batch, cuts it into
+microbatches as JAX's scan does, and keeps the rank's rows of each
+(``ShardingRules.batch_spec``: split over the data axes where they
+divide); ``frozen`` holds the rank's shards of the params and the adapters
+are whole on every rank (``adapter_spec``: replicated). The forward runs
+the split model (``distrib.tp.TPShard``, its collectives autograd-aware;
+``cfg.seq_parallel`` splits the residual stream on the sequence); a
+weight split over 'model' on its input rows is gathered one layer slice at
+a time, rotated and cut back (``core.peft.materialize_split``; under
+``cfg.remat == "full"`` the backward gathers each slice again rather than
+keeping it, under "none" a slice is gathered once a step). An adapter in
+a split block gets its rank's share of the gradient, so those gradients
+are summed over 'model'. A microbatch's loss is its masked mean over the
+GLOBAL microbatch's valid tokens, as GSPMD partitions JAX's step: each
+rank weights its rows' loss, metrics and gradients by its share of those
+tokens, and the sums over the data axes (pod x data) are the whole
+microbatch's, in fp32. The update then runs the same on every rank. Full
+fine-tuning on a mesh is not ported (NotImplementedError).
+
 The serving builders run under ``torch.inference_mode``. Greedy sampling is
-``argmax`` (first index on ties, as ``jnp.argmax``).
+``argmax`` (first index on ties, as ``jnp.argmax``). On a mesh with a data
+axis the decode step serves the rank's rows of the batch (``local_rows``;
+the decode state's batch rows split over the data axes) and
+``gather_rows`` joins a per-row result back.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
@@ -24,6 +48,7 @@ from repro_torch.core import peft as peft_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.sharding import specs as shard_specs
 
 Tree = Any
 
@@ -42,22 +67,142 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
              for k, v in batch.items()} for i in range(n)]
 
 
-def _params_of(peft_cfg: peft_lib.PEFTConfig, trainable, frozen):
+def _params_of(peft_cfg: peft_lib.PEFTConfig, trainable, frozen, split=None):
     if peft_cfg.is_peft:
+        if split is not None:
+            return split.materialize(peft_cfg, frozen, trainable)
         return peft_lib.materialize_tree(peft_cfg, frozen, trainable)
     return trainable
 
 
-def build_grad_fn(cfg: ModelConfig, peft_cfg: peft_lib.PEFTConfig):
+class _MeshStep:
+    """What a rank's train / eval step needs of its mesh: its model shard,
+    the weights' specs, the rotation of its split weights, its rows of a
+    batch's microbatches, and the gradient reductions."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        from repro_torch.distrib import tp as tp_lib
+        self.tp_lib = tp_lib
+        self.cfg = cfg
+        self.mesh = mesh
+        self.rules = shard_specs.ShardingRules(cfg, mesh)
+        self.shard = tp_lib.model_shard(cfg, mesh)
+        self._specs: Dict[str, tuple] = {}
+        self._kept: Optional[Dict[tuple, torch.Tensor]] = None
+
+    @contextlib.contextmanager
+    def one_step(self):
+        """One train step. Under remat "none" autograd holds each gathered
+        row-split slice until its microbatch's backward, so keeping it for
+        the next microbatch of the step adds nothing to the peak and saves
+        a gather; it is dropped with the step."""
+        self._kept = {} if self.cfg.remat != "full" else None
+        try:
+            yield
+        finally:
+            self._kept = None
+
+    def spec(self, path: str, leaf) -> tuple:
+        if path not in self._specs:
+            self._specs[path] = self.rules.param_spec(path, tuple(leaf.shape))
+        return self._specs[path]
+
+    def materialize(self, peft_cfg, frozen, trainable):
+        flat = peft_lib.flatten_paths(frozen)
+        specs = {p: self.spec(p, flat[p]) for p in trainable if p in flat}
+
+        def whole(key, w, spec):
+            if self._kept is not None and key in self._kept:
+                return self._kept[key]
+            out = shard_specs.gather_leaf(self.mesh, w.detach(), spec)
+            if self._kept is not None:
+                self._kept[key] = out
+            return out
+
+        def local(w, spec):
+            # a copy of the rank's block: the whole rotated slice is freed
+            return shard_specs.local_slice(self.mesh, w, spec).contiguous()
+
+        # remat "full" trades a second gather for the memory of the whole
+        # slices, as it trades recomputation for the layers' activations
+        return peft_lib.materialize_split(peft_cfg, frozen, trainable, specs,
+                                          whole, local,
+                                          regather=self.cfg.remat == "full")
+
+    def microbatches(self, batch: Dict[str, torch.Tensor], n: int):
+        """[(the rank's rows of microbatch i, its weight)]: the global
+        batch cut into ``n`` microbatches first, then each split over the
+        data axes (whole on every rank where it does not divide). The
+        weight is the rank's share of the microbatch's valid tokens (a
+        masked mean's denominator), so the weighted sums over the data
+        axes are the global microbatch's mean."""
+        mbs = _split_microbatches(batch, n)
+        size = next(iter(batch.values())).shape[0] // n
+        spec = self.rules.batch_spec(mbs[0], size)
+        rows = [{k: shard_specs.local_slice(self.mesh, v, spec[k])
+                 for k, v in mb.items()} for mb in mbs]
+        n_dp = shard_specs.dp_size(self.mesh)
+        if n_dp == 1 or size % n_dp:
+            return [(r, 1.0 / n_dp) for r in rows]
+        counts = torch.stack([_valid_tokens(r) for r in rows])
+        (total,) = self.tp_lib.dp_sum(self.mesh, [counts])
+        weights = counts.clamp(min=1.0) / total.clamp(min=1.0)
+        return list(zip(rows, weights))
+
+    def reduce(self, grads, metrics):
+        """Sum the split blocks' adapter gradients over 'model', then every
+        (weighted) gradient and metric over the data axes."""
+        paths = peft_lib.flatten_paths(grads)
+        if self.shard is not None:
+            part = [k for k in paths if self.rules.block_split(k)]
+            if part:
+                summed = _flat_reduce(self.shard.comm.all_reduce,
+                                      [paths[k] for k in part])
+                paths.update(zip(part, summed))
+        keys = sorted(paths)
+        names = sorted(metrics)
+        both = self.tp_lib.dp_sum(
+            self.mesh, [paths[k] for k in keys] +
+            [metrics[k].to(torch.float32).reshape(1) for k in names])
+        out = dict(zip(keys, both[:len(keys)]))
+        mets = {k: v.reshape(()) for k, v in zip(names, both[len(keys):])}
+        return _rebuild(grads, iter(out[k] for k in
+                                    peft_lib.flatten_paths(grads))), mets
+
+
+def _valid_tokens(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The tokens a masked-mean loss counts in ``batch`` (fp32)."""
+    if "mask" in batch:
+        return batch["mask"].to(torch.float32).sum()
+    return torch.tensor(float(batch["labels"].numel()),
+                        device=batch["labels"].device)
+
+
+def _flat_reduce(fn, tensors):
+    """``fn`` over all of ``tensors`` at once: one fp32 buffer, cut back to
+    each tensor's shape and dtype."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    flat = fn(flat)
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].reshape(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
+def build_grad_fn(cfg: ModelConfig, peft_cfg: peft_lib.PEFTConfig,
+                  split: Optional[_MeshStep] = None):
     """grad_fn(trainable, frozen, batch) -> (loss, metrics, grads): the
     loss and the gradients w.r.t. the trainable tree (same nesting), as one
-    train step takes them."""
+    train step takes them. ``split``: a rank's mesh context (its share of
+    the gradients, before the step's reductions)."""
+    tp = split.shard if split is not None else None
 
     def grad_fn(trainable, frozen, mb):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
         with torch.enable_grad():
             loss, metrics = api.loss_fn(
-                cfg, _params_of(peft_cfg, leaves, frozen), mb)
+                cfg, _params_of(peft_cfg, leaves, frozen, split), mb, tp)
             flat = tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat) if flat else []
         gtree = _rebuild(leaves, iter(grads))
@@ -66,18 +211,41 @@ def build_grad_fn(cfg: ModelConfig, peft_cfg: peft_lib.PEFTConfig):
     return grad_fn
 
 
-def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig):
+def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, mesh=None):
     """Returns train_step(frozen, trainable, opt_state, batch) ->
     (trainable, opt_state, metrics). PEFT: trainable = adapters; full FT:
     trainable = params and frozen is an empty dict. ``use_pallas`` plays no
-    part: the kernels follow the device of the tensors."""
+    part: the kernels follow the device of the tensors. ``mesh``: a rank's
+    step on a ``launch.mesh`` mesh (see the module docstring)."""
     n_micro = tcfg.num_microbatches
     schedule = tcfg.schedule or optim.constant()
-    grad_fn = build_grad_fn(cfg, tcfg.peft)
+    split = None
+    if mesh is not None:
+        if not tcfg.peft.is_peft:
+            raise NotImplementedError(
+                "full fine-tuning on a mesh is not ported (PEFT methods "
+                "train on a mesh)")
+        split = _MeshStep(cfg, mesh)
+    grad_fn = build_grad_fn(cfg, tcfg.peft, split)
 
     def train_step(frozen: Tree, trainable: Tree, opt_state: Tree,
                    batch: Dict[str, torch.Tensor]):
-        if n_micro > 1:
+        if split is not None:
+            gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), trainable)
+            lacc = None
+            with split.one_step():
+                for mb, w in split.microbatches(batch, n_micro):
+                    loss, metrics, g = grad_fn(trainable, frozen, mb)
+                    s = w / n_micro
+                    gacc = tree_map(lambda a, b: a + b.to(torch.float32) * s,
+                                    gacc, g)
+                    lacc = loss * s if lacc is None else lacc + loss * s
+            # JAX keeps the last microbatch's metrics and the mean loss
+            metrics = {k: v * w for k, v in metrics.items()}
+            metrics["loss"] = lacc
+            grads, metrics = split.reduce(gacc, metrics)
+        elif n_micro > 1:
             gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                   device=p.device), trainable)
             lacc = None
@@ -99,6 +267,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig):
         metrics.update(om)
         return new_trainable, new_opt, metrics
 
+    train_step.split = split
     return train_step
 
 
@@ -110,15 +279,22 @@ def _rebuild(tree: Tree, it) -> Tree:
     return next(it)
 
 
-def build_eval_step(cfg: ModelConfig, tcfg: TrainStepConfig):
-    """eval_step(frozen, trainable, batch) -> metrics (no gradients)."""
+def build_eval_step(cfg: ModelConfig, tcfg: TrainStepConfig, mesh=None):
+    """eval_step(frozen, trainable, batch) -> metrics (no gradients); on a
+    mesh the rank's rows and shards, the metrics averaged over the data
+    axes."""
     peft_cfg = tcfg.peft
+    split = _MeshStep(cfg, mesh) if mesh is not None else None
+    tp = split.shard if split is not None else None
 
     @torch.no_grad()
     def eval_step(frozen, trainable, batch):
-        _, metrics = api.loss_fn(
-            cfg, _params_of(peft_cfg, trainable, frozen), batch)
-        return metrics
+        params = _params_of(peft_cfg, trainable, frozen, split)
+        if split is None:
+            return api.loss_fn(cfg, params, batch, tp)[1]
+        ((mb, w),) = split.microbatches(batch, 1)
+        _, metrics = api.loss_fn(cfg, params, mb, tp)
+        return split.reduce({}, {k: v * w for k, v in metrics.items()})[1]
 
     return eval_step
 
@@ -133,7 +309,10 @@ def build_decode_step(cfg: ModelConfig, tp=None):
     """step(params, ctx, tokens (B, 1), state, pos) -> (next_tok (B, 1),
     logits, state). ``pos`` is a scalar or (B,) per-slot positions; ``ctx``
     an optional AdapterContext (None serves the bare/merged model); ``tp``
-    the rank's ``distrib.tp.TPShard`` of a split model."""
+    the rank's ``distrib.tp.TPShard`` of a split model. With a data axis
+    the caller hands the rank's rows (``local_rows``) and a decode state
+    built for them, as JAX's ``decode_state_spec`` splits the batch over
+    the data axes, and ``gather_rows`` joins a per-row result back."""
     fam = api.family_ops(cfg)
     kw = _tp_kw(tp)
 
@@ -244,3 +423,22 @@ def build_chunk_prefill_step(cfg: ModelConfig, tp=None):
         return torch.argmax(logits[0, -1]), state
 
     return chunk_step
+
+
+def gather_rows(mesh, t: torch.Tensor) -> torch.Tensor:
+    """A per-row result of the rank's rows (dim 0) joined over the data
+    axes in rank order: the whole batch's, on every rank (no autograd)."""
+    from repro_torch.distrib import tp as tp_lib
+    comm = tp_lib.dp_comm(mesh)
+    return t if comm is None else comm.all_gather(t, 0)
+
+
+def local_rows(mesh, t: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of a whole batch under the data axes (dim 0), as
+    ``ShardingRules.batch_spec`` splits a batch (whole where it does not
+    divide)."""
+    n = shard_specs.dp_size(mesh)
+    if n == 1 or t.shape[0] % n:
+        return t
+    spec = (shard_specs._ax(shard_specs.dp_axes(mesh)),)
+    return shard_specs.local_slice(mesh, t, spec)

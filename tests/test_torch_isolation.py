@@ -35,7 +35,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.obs.trace, repro_torch.obs.slo, "
             "repro_torch.core.conv, repro_torch.models.lipconvnet, "
             "repro_torch.models.image, repro_torch.serve.image, "
-            "repro_torch.data.synthetic, repro_torch.configs.lipconvnet_15; "
+            "repro_torch.data.synthetic, repro_torch.configs.lipconvnet_15, "
+            "repro_torch.sharding.pipeline, repro_torch.optim.compression, "
+            "repro_torch.distrib.tp, repro_torch.sharding.specs; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')"
             " or m == 'repro' or m.startswith('repro.')]; "

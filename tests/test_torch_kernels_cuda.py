@@ -1281,14 +1281,93 @@ def test_ssd_kernel_carries_the_state_exactly(cuda):
 
 @pytest.mark.cuda
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    """Mixed dtypes and a missing batch dim are refused; so is a backward
+    past the backward kernel's widest head (P > 64), which raises rather
+    than fall back to autograd of the plain scan."""
     x, la, B, C = _ssd_inputs(np.random.default_rng(1), (1, 8, 2, 4, 4),
                               cuda, torch.float32)
-    with pytest.raises(NotImplementedError, match="autograd"):
-        ssdk.ssd(x.requires_grad_(), la, B, C)
+    wide = _ssd_inputs(np.random.default_rng(1), (1, 8, 2, 65, 4), cuda,
+                       torch.float32)
+    with pytest.raises(ValueError, match="head width"):
+        ssdk.ssd_bwd(*wide, torch.ones_like(wide[0]))
     with pytest.raises(TypeError, match="one dtype"):
         ssdk.ssd(x.detach(), la.double(), B, C)
     with pytest.raises(ValueError, match="expected x"):
         ssdk.ssd(x.detach()[0], la, B, C)
+
+
+# ssd_bwd, each gradient relative to its own max|ref| (autograd through the
+# plain scan in fp32 on the same values): f32 sums in other orders; bf16
+# gradients rounded once to bf16 (2^-8)
+SSD_BWD_F32_REL = 1e-4
+SSD_BWD_BF16_REL = 2e-2
+# (Nb, T, H, P, N): zamba2's training shape, mamba2-130m's heads, a ragged
+# T = 1000, N = MAX_N, one chunk, T shorter than a chunk with odd widths
+SSD_BWD_CASES = [(2, 256, 80, 64, 64), (1, 512, 24, 64, 128),
+                 (1, 1000, 4, 64, 64), (1, 256, 4, 64, 256),
+                 (1, 64, 1, 8, 16), (2, 5, 3, 20, 12), (3, 200, 2, 12, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_CASES,
+                         ids=lambda c: "Nb%d-T%d-H%d-P%d-N%d" % c)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_bwd_kernel_matches_plain_autograd(cuda, case, dtype):
+    rng = np.random.default_rng(sum(case) + 7)
+    args = _ssd_inputs(rng, case, cuda, dtype)
+    dy = torch.from_numpy(rng.normal(size=case[:4]).astype(np.float32)).to(
+        cuda, dtype)
+    before = ssdk.ssd_bwd.launches
+    got = ssdk.ssd_bwd(*args, dy)
+    torch.cuda.synchronize()
+    assert ssdk.ssd_bwd.launches == before + 1
+    want = ssdk.ssd_bwd_plain(*(a.float() for a in args), dy.float())
+    rel = SSD_BWD_F32_REL if dtype == torch.float32 else SSD_BWD_BF16_REL
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        assert (g.float() - w).abs().max().item() <= \
+            rel * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ssd_needing_a_gradient_runs_the_backward_kernel(cuda):
+    """A CUDA input that needs a gradient goes through the autograd rule:
+    one forward launch (which keeps the chunk states) and one ``ssd_bwd``
+    launch, whose gradients are the wrapper's own, bit for bit."""
+    args = _ssd_inputs(np.random.default_rng(3), (2, 300, 4, 64, 64), cuda,
+                       torch.float32)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    f0, b0 = ssdk.ssd.launches, ssdk.ssd_bwd.launches
+    y = ops.ssd(*leaves)
+    assert ssdk.ssd.launches == f0 + 1 and y.requires_grad
+    assert torch.equal(y.detach(), ssdk.ssd(*args))
+    dy = torch.randn_like(y)
+    y.backward(dy)
+    assert ssdk.ssd_bwd.launches == b0 + 1
+    want = ssdk.ssd_bwd(*args, dy)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_launch_and_build_failures_raise(cuda, monkeypatch, tmp_path):
+    """A launch the kernel refuses (a P tile of 0 for the forward's states)
+    raises with the CUDA error; a source nvcc cannot build raises too."""
+    args = _ssd_inputs(np.random.default_rng(4), (1, 64, 2, 8, 8), cuda,
+                       torch.float32)
+    states, _ = ssdk.ssd_fwd(*args, states=True)[1]
+    with pytest.raises(RuntimeError, match="ssd_bwd launch failed"):
+        ssdk.ssd_bwd(*args, torch.ones_like(args[0]), saved=(states, 0))
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "NVCC_FLAGS",
+                        build.NVCC_FLAGS + ("--no-such-flag",))
+    monkeypatch.setattr(ssdk, "_BWD_LIB", [])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ssdk.ssd_bwd(*args, torch.ones_like(args[0]))
 
 
 def test_ssd_geometry_splits_p_only_while_sms_idle():

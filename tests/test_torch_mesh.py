@@ -1,0 +1,325 @@
+"""Training on a (data x model) mesh on the CPU: four gloo ranks spawned
+once (``tests/torch_mesh_runner.py``, JAX-free) against JAX's
+single-device references computed here.
+
+* ``train_cell`` as ``tests/distributed_runner.py`` runs it: qwen2-72b,
+  zamba2-2.7b and mamba2-130m at their smoke configs, GSOFT b = 8, AdamW
+  lr 1e-3, batch 8 x 16 in 2 microbatches, 3 steps, on the (2, 2) mesh
+  with ``seq_parallel`` off and on: every rank's losses within rtol = atol
+  = 2e-3 of JAX's single-device step (JAX's own tolerance), AdamW's first
+  moments (the gradients' running sums) leaf for leaf within 2e-3 of
+  their largest, and the adapters moved; the same with a ragged mask
+  (qwen2-72b with ``seq_parallel`` under remat "full", mamba2-130m
+  without), where the masked mean is the global microbatch's;
+* a checkpoint of the placed params saved on (2, 2) (gathered whole, one
+  writer) is read by JAX's ``CheckpointManager.restore`` equal to the
+  params, and restored by the port onto (4, 1) and (1, 4) bit for bit the
+  rank's slice; a save that does not block is read back after ``wait()``;
+* ``compressed_psum_mean`` over 'data' within JAX's 1e-2 of the exact
+  mean, and ``ef_compress`` equal to JAX's bit for bit on the int8 codes;
+* ``gpipe_forward`` over 4 stages against the stages run in sequence,
+  outputs and every stage's gradients (as ``tests/pipeline_runner.py``);
+* one decode step with the batch rows split over 'data' (2, 2): the
+  gathered logits against JAX's single-device decode (``decode_cell``'s
+  tolerance, 5e-2);
+* the launcher's ``--mesh`` refusals in process.
+"""
+import dataclasses
+import tempfile
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import optim as joptim  # noqa: E402
+from repro.checkpoint import CheckpointManager as JaxCheckpoints  # noqa: E402
+from repro.config import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro.core import peft as jpeft  # noqa: E402
+from repro.data.synthetic import lm_batch  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro.optim import compression as jcomp  # noqa: E402
+from repro.sharding.specs import ShardingRules as JaxRules  # noqa: E402
+from repro.train.steps import TrainStepConfig as JaxTSC  # noqa: E402
+from repro.train.steps import build_decode_step as jax_decode_step  # noqa: E402
+from repro.train.steps import build_train_step as jax_train_step  # noqa: E402
+from repro_torch.config import get_smoke_config  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.optim import compression as tcomp  # noqa: E402
+from repro_torch.sharding.specs import ShardingRules  # noqa: E402
+
+import torch_mesh_runner as runner  # noqa: E402
+
+ARCHS = ("qwen2-72b", "zamba2-2.7b", "mamba2-130m")
+# valid tokens of each of the 8 rows: microbatch 0 (rows 0-3) leaves data
+# rank 1 (rows 2-3) none, and each rank's share differs in both microbatches
+RAGGED = (16, 3, 0, 0, 12, 7, 5, 16)
+# (arch, seq_parallel, remat): remat "full" also gathers each row-split
+# weight slice again in the backward
+RAGGED_CELLS = (("qwen2-72b", True, "full"), ("mamba2-130m", False, "none"))
+NSTAGE, NMB, MB, D = 4, 6, 2, 16
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _jax_train(arch, params, batch):
+    """JAX's single-device ``train_cell`` reference losses."""
+    cfg = jax_smoke_config(arch)
+    pcfg = jpeft.PEFTConfig(method="gsoft", block_size=runner.BLOCK)
+    ocfg = joptim.OptimizerConfig(learning_rate=1e-3)
+    adapters = jpeft.init_peft(pcfg, params, jax.random.PRNGKey(0))
+    opt = joptim.init(ocfg, adapters)
+    step = jax.jit(jax_train_step(cfg, JaxTSC(peft=pcfg, opt=ocfg,
+                                              num_microbatches=2)))
+    losses = []
+    for _ in range(3):
+        adapters, opt, m = step(params, adapters, opt, batch)
+        losses.append(float(m["loss"]))
+    mu = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+          for path, v in jax.tree_util.tree_flatten_with_path(opt["mu"])[0]}
+    return losses, mu
+
+
+def _jax_decode(arch, params):
+    cfg = jax_smoke_config(arch)
+    state = japi.init_decode_state(cfg, 8, 32, enc_len=8)
+    _, logits, _ = jax_decode_step(cfg, mesh=None)(
+        params, None, jnp.ones((8, 1), jnp.int32), state,
+        jnp.asarray(0, jnp.int32))
+    return np.asarray(logits, np.float32)
+
+
+def _ragged(batch):
+    """``batch`` with its mask padded row by row to RAGGED's lengths."""
+    seq = batch["mask"].shape[1]
+    mask = (np.arange(seq)[None, :] < np.asarray(RAGGED)[:, None])
+    return dict(batch, mask=jnp.asarray(mask, batch["mask"].dtype))
+
+
+def _gpipe_params():
+    rng = np.random.default_rng(0)
+    return ({"w": (rng.standard_normal((NSTAGE, D, D)) / np.sqrt(D))
+             .astype(np.float32),
+             "b": (rng.standard_normal((NSTAGE, D)) * 0.1).astype(np.float32)},
+            rng.standard_normal((NMB, MB, D)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def mesh4():
+    """(JAX references, the four ranks' results, the checkpoint dir)."""
+    ref, payload = {"train": {}, "decode": {}}, {}
+    params = {}
+    for arch in ARCHS:
+        cfg = jax_smoke_config(arch)
+        params[arch] = japi.init_params(cfg, jax.random.PRNGKey(0))
+        batch = lm_batch(cfg, batch=8, seq=16)
+        ref["train"][arch] = _jax_train(arch, params[arch], batch)
+        ref["decode"][arch] = _jax_decode(arch, params[arch])
+        p_np, b_np = _np(params[arch]), runner.np_batch(batch)
+        for sp in (False, True):
+            payload[f"train/{arch}/{sp}"] = dict(
+                case="train", arch=arch, seq_parallel=sp, mesh="2x2",
+                params=p_np, batch=b_np)
+        payload[f"decode/{arch}"] = dict(case="decode", arch=arch,
+                                         mesh="2x2", params=p_np, batch=8,
+                                         max_len=32)
+    for arch, sp, remat in RAGGED_CELLS:
+        cfg = jax_smoke_config(arch)
+        batch = _ragged(lm_batch(cfg, batch=8, seq=16))
+        ref["train"][f"ragged/{arch}"] = _jax_train(arch, params[arch], batch)
+        payload[f"train/ragged/{arch}"] = dict(
+            case="train", arch=arch, seq_parallel=sp, remat=remat,
+            mesh="2x2", params=_np(params[arch]),
+            batch=runner.np_batch(batch))
+    tmp = tempfile.TemporaryDirectory()
+    payload["ckpt"] = dict(case="ckpt", arch="qwen2-72b", save_on="2x2",
+                           restore_on=["4x1", "1x4"], dir=tmp.name,
+                           params=_np(params["qwen2-72b"]))
+    rng = np.random.default_rng(1)
+    payload["psum"] = dict(case="psum", mesh="2x2", leaves={
+        "w": rng.standard_normal((4, 16, 16)).astype(np.float32),
+        "b": rng.standard_normal((4, 7)).astype(np.float32)})
+    gp, x = _gpipe_params()
+    payload["gpipe"] = dict(case="gpipe", params=gp, x=x)
+    ranks = runner.spawn(4, payload)
+    yield ref, ranks, tmp.name, params, payload
+    tmp.cleanup()
+
+
+@pytest.mark.parametrize("sp", (False, True), ids=("dp_tp", "seq_parallel"))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_training_matches_jax_single_device(mesh4, arch, sp):
+    """(2, 2): every rank's losses within JAX's rtol = atol = 2e-3 of the
+    single-device run; the adapters moved."""
+    ref, ranks = mesh4[0], mesh4[1]
+    want, mu = ref["train"][arch]
+    for r in ranks:
+        got = r[f"train/{arch}/{sp}"]
+        assert np.isfinite(got["losses"]).all()
+        np.testing.assert_allclose(got["losses"], want, rtol=2e-3, atol=2e-3)
+        assert got["moved"] > 0
+        # AdamW's first moments: the gradient sums of the 3 steps, leaf
+        # for leaf, within 2e-3 of the largest
+        assert got["mu"].keys() == mu.keys()
+        for k, v in mu.items():
+            np.testing.assert_allclose(got["mu"][k], v,
+                                       atol=2e-3 * np.abs(v).max() + 1e-12)
+    if arch == "qwen2-72b":       # each rank holds half the q heads' columns
+        cfg = get_smoke_config(arch)
+        assert ranks[0][f"train/{arch}/{sp}"]["wq"][-1] == \
+            cfg.num_heads * cfg.d_head // 2
+
+
+@pytest.mark.parametrize("arch, sp, remat", RAGGED_CELLS)
+def test_mesh_training_with_padding_matches_jax_single_device(mesh4, arch,
+                                                               sp, remat):
+    """A ragged mask (a data rank with no valid token in one microbatch):
+    JAX's loss is the masked mean over each GLOBAL microbatch, so every
+    rank's losses and AdamW first moments on (2, 2) match JAX's
+    single-device step as in the unpadded cells (qwen2 under remat "full",
+    its row-split slices gathered again in the backward)."""
+    ref, ranks = mesh4[0], mesh4[1]
+    want, mu = ref["train"][f"ragged/{arch}"]
+    for r in ranks:
+        got = r[f"train/ragged/{arch}"]
+        np.testing.assert_allclose(got["losses"], want, rtol=2e-3, atol=2e-3)
+        assert got["moved"] > 0
+        assert got["mu"].keys() == mu.keys()
+        for k, v in mu.items():
+            np.testing.assert_allclose(got["mu"][k], v,
+                                       atol=2e-3 * np.abs(v).max() + 1e-12)
+
+
+def test_checkpoint_saved_on_a_mesh_is_read_by_jax(mesh4):
+    """The (2, 2) save gathers every leaf whole: JAX's restore returns the
+    params exactly."""
+    _, _, d, params, _ = mesh4
+    got = JaxCheckpoints(d).restore(params["qwen2-72b"])
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(params["qwen2-72b"])):
+        assert np.array_equal(np.asarray(a, np.float32),
+                              np.asarray(b, np.float32))
+
+
+def test_save_on_a_mesh_without_blocking(mesh4):
+    """``save(blocking=False)`` on (2, 2): after ``wait()`` every rank
+    reads the new step back, its own slice bit for bit."""
+    assert all(r["ckpt"]["async"] is True for r in mesh4[1])
+
+
+@pytest.mark.parametrize("mesh", ("4x1", "1x4"))
+def test_elastic_restore_onto_another_mesh(mesh4, mesh):
+    """Saved on (2, 2), restored onto (4, 1) (whole) and (1, 4) (a quarter
+    of wq's columns a rank): bit for bit each rank's slice."""
+    ranks = mesh4[1]
+    cfg = get_smoke_config("qwen2-72b")
+    for r in ranks:
+        assert r["ckpt"][mesh] is True
+        (shape,) = r["ckpt"][mesh + "_shapes"].values()
+        assert shape[-1] == cfg.num_heads * cfg.d_head // (
+            4 if mesh == "1x4" else 1)
+
+
+def test_compressed_psum_mean_over_data(mesh4):
+    """Each rank's mean over its 'data' pair is the pair's exact mean
+    within JAX's 1e-2 (int8 codes, one scale a leaf)."""
+    ranks, payload = mesh4[1], mesh4[4]
+    leaves = payload["psum"]["leaves"]
+    for rank, r in enumerate(ranks):
+        m = rank % 2                   # (data, model) = divmod(rank, 2)
+        for k, v in leaves.items():
+            exact = (v[m] + v[2 + m]) / 2
+            np.testing.assert_allclose(r["psum"]["mean"][k], exact,
+                                       atol=1e-2 * np.abs(v).max())
+            assert np.isfinite(r["psum"]["err"][k]).all()
+
+
+def test_ef_compress_equals_jax_bit_for_bit():
+    """Codes and scales equal JAX's exactly, error buffers to fp32
+    rounding, two rounds (the second adds the first's error)."""
+    rng = np.random.default_rng(2)
+    g = {"a": rng.standard_normal((33, 17)).astype(np.float32),
+         "b": {"c": (rng.standard_normal(64) * 1e-3).astype(np.float32)}}
+    jerr = jcomp.init_error_buffer(jax.tree.map(jnp.asarray, g))
+    terr = tcomp.init_error_buffer(jax.tree.map(torch.as_tensor, g))
+    for _ in range(2):
+        jq, js, jerr = jcomp.ef_compress(jax.tree.map(jnp.asarray, g), jerr)
+        tq, ts, terr = tcomp.ef_compress(jax.tree.map(torch.as_tensor, g),
+                                         terr)
+        for a, b in zip(jax.tree.leaves(jq), jax.tree.leaves(tq)):
+            assert np.array_equal(np.asarray(a), b.numpy())
+        for a, b in zip(jax.tree.leaves(js), jax.tree.leaves(ts)):
+            assert np.array_equal(np.asarray(a, np.float32),
+                                  np.asarray(b.numpy(), np.float32))
+        for a, b in zip(jax.tree.leaves(jerr), jax.tree.leaves(terr)):
+            np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=1e-6)
+
+
+def test_gpipe_matches_the_stages_in_sequence(mesh4):
+    """Outputs on every rank and each rank's stage gradients of sum(out^2)
+    equal the sequential stages' (autograd, f32)."""
+    ranks = mesh4[1]
+    gp, x = _gpipe_params()
+    w = torch.tensor(gp["w"], requires_grad=True)
+    b = torch.tensor(gp["b"], requires_grad=True)
+    h = torch.tensor(x)
+    for s in range(NSTAGE):
+        h = torch.tanh(h @ w[s] + b[s])
+    (h ** 2).sum().backward()
+    for r in ranks:
+        got = r["gpipe"]
+        s = got["stage"]
+        np.testing.assert_allclose(got["out"], h.detach().numpy(), atol=1e-5)
+        np.testing.assert_allclose(got["grads"]["w"], w.grad[s].numpy(),
+                                   atol=1e-4)
+        np.testing.assert_allclose(got["grads"]["b"], b.grad[s].numpy(),
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_with_a_data_axis_matches_jax(mesh4, arch):
+    """(2, 2): four rows a rank, their logits gathered over 'data' equal
+    JAX's single-device decode within 5e-2."""
+    ref, ranks = mesh4[0], mesh4[1]
+    for r in ranks:
+        got = r[f"decode/{arch}"]
+        assert got["rows"] == 4
+        assert np.isfinite(got["logits"]).all()
+        np.testing.assert_allclose(got["logits"], ref["decode"][arch],
+                                   rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("name", ("act_btd", "act_ff", "act_heads",
+                                  "act_inner", "logits", "nope"))
+@pytest.mark.parametrize("sp", (False, True))
+def test_act_spec_equals_jax(name, sp):
+    """``act_spec`` is JAX's table entry for entry, seq_parallel on and
+    off, on (2, 2) and (2, 2, 2) meshes."""
+    from jax.sharding import AbstractMesh
+    for shape, axes in (((2, 2), ("data", "model")),
+                        ((2, 2, 2), ("pod", "data", "model"))):
+        for arch in ARCHS:
+            jcfg = dataclasses.replace(jax_smoke_config(arch),
+                                       seq_parallel=sp)
+            tcfg = dataclasses.replace(get_smoke_config(arch),
+                                       seq_parallel=sp)
+            want = JaxRules(jcfg, AbstractMesh(shape, axes)).act_spec(name)
+            got = ShardingRules(tcfg, dict(zip(axes, shape))).act_spec(name)
+            assert (None if want is None else tuple(want)) == got
+
+
+@pytest.mark.parametrize("flags, match", [
+    (["--mesh", "2,1"], "needs 2 ranks"),
+    (["--mesh", "1,1,4"], "needs 4 ranks"),
+    (["--mesh", "2"], "D,M or P,D,M"),
+])
+def test_launcher_refuses_a_mesh_the_world_does_not_fit(flags, match):
+    """In one process (a world of one) a mesh of more ranks is refused,
+    naming both sizes; a malformed shape is refused."""
+    with pytest.raises(ValueError, match=match):
+        tlaunch.main(["--arch", "qwen2-72b", "--smoke", "--steps", "1",
+                      "--device", "cpu"] + flags)

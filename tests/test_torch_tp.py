@@ -115,12 +115,12 @@ def test_int8_quantized_on_the_mesh_equals_the_whole(tp2):
 
 @pytest.mark.parametrize("flags, exc, match", [
     (["--tp", "2", "--mesh", "1,2"], SystemExit, "one or the other"),
-    (["--mesh", "2,1"], NotImplementedError, "mesh-training slice"),
+    (["--mesh", "2,1"], ValueError, "needs 2 ranks"),
     (["--tp", "2"], ValueError, "needs 2 ranks"),
 ])
 def test_launcher_refuses_bad_meshes(flags, exc, match):
-    """``--tp`` with ``--mesh`` is refused, a 'data' axis above 1 waits for
-    the next slice, and a mesh larger than the world names both sizes."""
+    """``--tp`` with ``--mesh`` is refused, and a mesh larger than the
+    world (a 'data' axis included) names both sizes."""
     with pytest.raises(exc, match=match):
         tlaunch.main(["--arch", "qwen2-72b", "--smoke", "--device", "cpu"]
                      + flags)

@@ -1,11 +1,14 @@
-"""Run phases 3h, 14, 15 and 16 of ``chip_smoke.py`` alone on one GPU,
+"""Run phases 3h, 14, 15, 16 and 17 of ``chip_smoke.py`` alone on one GPU,
 from this tree: the image lane's kernel shapes, static / streaming /
 traced serving of qwen2-72b (8 layers, bf16, and the f32 check at 2
 layers), lipconvnet-15 image serving per tenant (bf16, int8, the f32
-checks), and scale-out (the cluster, the launcher's ``--replicas`` /
-``--tp 1`` lanes, tp = 1 and tp = 2 serving, the TP kernel shapes).
+checks), scale-out (the cluster, the launcher's ``--replicas`` /
+``--tp 1`` lanes, tp = 1 and tp = 2 serving, the TP kernel shapes), and
+training (``ssd_bwd``, the Mamba2 families trained on the card, training
+on a (data x model) mesh of gloo ranks sharing the card, elastic restore,
+the compressed mean, GPipe, decode at data = 2).
 
-    python3 tools/lane_phases.py [--only 3h,14,15,16] [--seed N] [--out FILE]
+    python3 tools/lane_phases.py [--only 3h,14,15,16,17] [--seed N] [--out FILE]
 
 Each phase runs through the function ``chip_smoke.main()`` calls for it,
 gates, launcher runs and log included (a miss raises), after the kernels
@@ -38,6 +41,9 @@ PHASES = {
                                              seed, dev),
     "16": lambda gen, seed, dev: {"scale_out": cs.phase_16(
         cs.get_config("qwen2-72b"), seed, dev, gen)},
+    "17": lambda gen, seed, dev: {"training": cs.phase_17(
+        cs.get_config("qwen2-72b"), cs.get_config("mamba2-130m"),
+        cs.get_config("zamba2-2.7b"), seed, dev, gen)},
 }
 
 
