@@ -114,7 +114,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    launcher (``launch/train.py --peft``); one step each of householder,
    givens and lora at 2 layers (finite loss, no GS or bdmm launch)
 10. OFT / BOFT gradients — as phase 8, f32 at 2 layers
-11. mixed serve — full width, 8 layers, bf16: one bank holding gsoft, oft,
+11. mixed serve — full width, 2 layers (cut from 8 for phase 18's
+   time), bf16: one bank holding gsoft, oft,
    boft, householder and givens tenants (``attach`` with a
    ``{name: PEFTConfig}`` mapping), 12 requests on 4 slots (the GSOFT
    rotations through the bank read by slot id), median rate of 3 runs and a
@@ -133,7 +134,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    ``ModelRuntime.load_quantized`` give bit-equal codes and scales and the
    paged int8 engine serves the saved runtime's tokens (``q_matmul``,
    ``gs_q_matmul``)
-12c. store-paged serve — full width, 8 layers, bf16: 24 tenants (gsoft,
+12c. store-paged serve — full width, 2 layers (cut from 8 for phase
+   18's time), bf16: 24 tenants (gsoft,
    boft, householder round-robin, b = 32; about 160 MB of fp32 factors per
    GSOFT or BOFT tenant) saved with ``save_adapters`` and opened lazily by
    ``attach(<dir>, hbm_budget=6)``: a cold sweep of one request per tenant
@@ -192,7 +194,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    tenant's exact model and within 10 % of "merge, then quantize" (GSOFT
    and BOFT tenants; a Householder tenant's dense merged Q is recorded)
 16. scale-out — qwen2-72b full width: (a) the ``EngineCluster`` at 1 and 2
-   replicas sharing the card (8 layers bf16, 8 tenants GSOFT / BOFT at
+   replicas sharing the card (4 layers bf16, cut from 8; 8 tenants GSOFT / BOFT at
    b = 8 in a store, 4 device slots a replica, 32 mixed-length requests
    up front, a warm-up run, median tok/s of 3, page-ins, affinity hit
    rate): tokens equal, each replica reads its GSOFT bank by slot id in
@@ -209,7 +211,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    ``gs_fused_T``, ``bdmm``, ``q_matmul``, ``gs_q_matmul`` and
    ``paged_decode`` launches on the split path; zamba2-2.7b full in f32
    (40 of 80 SSD heads a rank, ``ssd`` on them) gives tp = 1's tokens; at
-   8 layers bf16 the logits lie within 2^-4 of max|logit| of tp = 1's and
+   4 layers bf16 the logits lie within 2^-4 of max|logit| of tp = 1's and
    the differing tokens are counted; then ``q_matmul`` (local N and K),
    ``gs_q_matmul`` (local N), ``paged_decode`` (32 / 4 heads) and ``ssd``
    (40 heads) against their plain versions, timed
@@ -236,9 +238,36 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    stages (one full-width bf16 decoder layer each, 4 microbatches)
    against the stages in sequence, decode of 8 rows at (2, 1) against
    one call
-18. report — where the time went (build, set-up, timed runs, profiled
-   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15, 16 and 17 whole), the
-   card's name and power limit, one JSON line of kernels, then the
+18. the MoE family and the other dense decoders — (a) ``moe_layer`` at
+   qwen3-moe-30b-a3b's full width (d 2048, 128 experts, top 8, f_e 768),
+   one layer, 2 x 256 tokens: the card against the CPU in f32 (1e-4 of
+   max |y|, identical kept / dropped choices, experts and slots), its bf16
+   time and dropped share; (b) ``gs_fused`` and ``gs_fused_grads`` over a
+   whole expert stack in ONE launch (bf16, b = 32): qwen3's wi (d 2048, T
+   768, 128 experts) and wo (d 768: r = 24 < b, route 2), phi-3.5-MoE's wi
+   (d 4096, T 6400, 16 experts) and wo (d 6400, r = 200), against the
+   plain version on sampled experts and the per-expert loop, both timed,
+   with bounds and the library yardsticks; (c) qwen3-moe full width, 4
+   layers (GSOFT on every expert of 48 layers, about 1.9 G adapter
+   parameters with AdamW, does not fit beside 61 GB of weights), bf16,
+   GSOFT b = 32, 2 x 256, 3 steps on one batch: the loss falls, each step
+   launches one rotation an adapted stack (one step again with the old
+   per-slice loop, its launches and time), tok/s, peak, idle share; the
+   launcher (``launch/train.py``, 3 steps, its log with ``moe_aux``); f32
+   gradients at 2 layers along three random directions; (d) qwen3-moe
+   full width, 12 layers, bf16: a paged engine over a GSOFT bank of the
+   attention projections (3 tenants + base, 8 requests on 4 slots), a
+   static engine on (c)'s adapter merged (the expert stacks through
+   ``gs_fused``, one launch a stack chunk), tok/s and idle share; f32 at 2
+   layers: the attention bank's tokens equal the merged model's; (e)
+   gemma-7b at full width and depth (28 layers): a paged GSOFT bank (D =
+   256 through ``paged_decode``), 3 GSOFT training steps, and
+   ``attn_impl="prefix_loop"`` against the dense schedule at 2 layers f32;
+   granite-34b (GELU MLP, one kv head) and mistral-large-123b (d 12288) at
+   full width, 2 layers: f32 bank == merged tokens, one bf16 GSOFT step
+19. report — where the time went (build, set-up, timed runs, profiled
+   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15, 16, 17 and 18 whole),
+   the card's name and power limit, one JSON line of kernels, then the
    ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
@@ -247,6 +276,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -272,6 +302,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core import adapters as ad_lib  # noqa: E402
 from repro_torch.core import conv as conv_lib  # noqa: E402
+from repro_torch.core import methods as methods_lib  # noqa: E402
 from repro_torch.core import gs as gs_lib  # noqa: E402
 from repro_torch.core import projection as gs_proj  # noqa: E402
 from repro_torch.core import peft as peft_lib  # noqa: E402
@@ -293,6 +324,7 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import image as image_model  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.obs import REGISTRY, SLOMonitor, TraceRecorder  # noqa: E402
 from repro_torch.quant import is_quant_tensor, quantize_int8, tree_bytes  # noqa: E402
 from repro_torch.serve.engine import (PagedServeEngine, ServeEngine,  # noqa: E402
@@ -306,7 +338,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense bf16 tensor-core rate
               torch.float32: 67e12}     # fp32 outside the tensor cores
 SERVE_LAYERS = 8
-MIXED_SERVE_LAYERS = 8              # the mixed-method serve's depth, as phase 4's
+MIXED_SERVE_LAYERS = 2              # the mixed-method serve's depth (was 8)
 SERVE_MAX_LEN = 256
 PROMPT_LENS = (16, 128)             # serve phase: prompt lengths drawn in this range
 CHECK_LAYERS = 2
@@ -426,8 +458,9 @@ KERNELS = {
                             replaces="src/repro/kernels/flash_attention.py:77",
                             source="src/repro_torch/kernels/csrc/flash_attn.cu"),
 }
-# kernel launches per adapted weight slice and train step, by method, as the
-# design predicts (m: BOFT's butterfly levels): materialization runs outside
+# kernel launches per rotation launch of an adapted weight stack (one a
+# chunk of whole layers for the methods whose kernels take rows, one a
+# slice for the others) and train step, by method, as the design predicts (m: BOFT's butterfly levels): materialization runs outside
 # remat, so once forward; the weight slab is frozen, so no dx launch for the
 # first level's input (GSOFT: the grads-only backward, no gs_fused_bwd)
 DESIGN_LAUNCHES = {
@@ -1002,7 +1035,8 @@ def _profile(run, copy_shapes=None, ranges=()) -> dict:
     """Run ``run()`` under torch.profiler; device time by kernel name, and
     the share of the wall time with a kernel running on the card. With
     ``copy_shapes`` (a set of (T, d)), also the device time of the copies
-    (``aten::clone``) of tensors of those shapes, (T, d) or (1, T, d); with
+    (``aten::clone``) of tensors of those shapes, (T, d) or (n, T, d) (a
+    stack of n rows); with
     ``ranges`` (names of ``record_function`` ranges, as a tracer with
     ``profiler_annotations`` opens them around the engines' dispatches),
     the count, the host ms, the device ms (the kernels' own time, summed
@@ -1073,7 +1107,7 @@ def _profile(run, copy_shapes=None, ranges=()) -> dict:
         for e in prof.key_averages(group_by_input_shape=True):
             shape = tuple(e.input_shapes[0]) if e.input_shapes else ()
             if e.key == "aten::clone" and (shape in copy_shapes or (
-                    len(shape) == 3 and shape[0] == 1 and shape[1:] in copy_shapes)):
+                    len(shape) == 3 and shape[1:] in copy_shapes)):
                 us = getattr(e, "device_time_total", None)
                 ms += (us if us is not None else e.cuda_time_total) / 1e3
                 n += e.count
@@ -1211,8 +1245,11 @@ def _logits_gap(cfg, banked, slot: int, merged, prompt, first: int,
     return err, tol, logits[0][0]
 
 
-def merged_phase(cfg, seed: int, device) -> dict:
-    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+def merged_phase(cfg, seed: int, device, pcfg=None) -> dict:
+    """f32: a one-adapter GSOFT bank (``pcfg``, default targets unless
+    given) against the model with that adapter merged: equal greedy
+    tokens, decode logits within LOGIT_TOL."""
+    pcfg = pcfg or peft_lib.PEFTConfig(method="gsoft", block_size=32)
     base = ModelRuntime(cfg, seed=seed, device=device)
     adapter = perturbed_adapters(pcfg, base.params, seed + 7, 0.05, device)
     banked = base.attach({"a": adapter}, pcfg)
@@ -1275,20 +1312,31 @@ def check_slot_path(phase: str, launches: dict, slot: dict,
 
 
 def _slices(pcfg, params) -> int:
-    """Adapted weight slices: one rotation (one kernel launch) each."""
+    """Adapted weight slices (each its own adapter)."""
     return sum(math.prod(spec.batch)
                for spec in peft_lib.adapted_paths(pcfg, params).values())
 
 
+def _rotations(pcfg, params) -> dict:
+    """{path: kernel launches of one rotation pass}: one a stack (a chunk of
+    whole layers, ``adapters.STACK_CHUNK_BYTES``) for the methods whose
+    kernels take rows, one a slice for the others."""
+    flat = peft_lib.flatten_paths(params)
+    return {path: ad_lib.rotation_launches(spec, flat[path])
+            for path, spec in peft_lib.adapted_paths(pcfg, params).items()}
+
+
 def design_launches(pcfg, params) -> dict:
     """Kernel launches per train step the design predicts for ``pcfg`` on
-    ``params``: DESIGN_LAUNCHES per adapted weight slice."""
+    ``params``: DESIGN_LAUNCHES per rotation launch of each adapted
+    weight stack (``_rotations``)."""
     want = {name: 0 for name in KERNELS}
-    for spec in peft_lib.adapted_paths(pcfg, params).values():
+    rot = _rotations(pcfg, params)
+    for path, spec in peft_lib.adapted_paths(pcfg, params).items():
         b = spec.resolved_block(spec.d_in, spec.block_size)
         m = min(spec.boft_factors, ad_lib.max_butterfly_levels(spec.d_in, b))
         for name, per in DESIGN_LAUNCHES[pcfg.method](m).items():
-            want[name] += per * math.prod(spec.batch)
+            want[name] += per * rot[path]
     return want
 
 
@@ -1444,6 +1492,34 @@ def quick_step_phase(cfg, seed: int, device, method: str) -> dict:
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+@contextlib.contextmanager
+def routing_piece(record: list):
+    """``models.moe.route`` held to one routing piece: an empty ``record``
+    fills with each call's routing, in call order; a filled one replays
+    its experts, slots and kept set (the gates are recomputed from the
+    router's probabilities). Top-k and capacity are piecewise constant, so
+    the loss jumps where a choice flips; autograd differentiates the piece
+    the point lies on, which this holds the central differences to."""
+    orig = moe_lib.route
+    replay = iter(list(record)) if record else None
+
+    def route(router, xseg, cfg, cap):
+        r = orig(router, xseg, cfg, cap)
+        if replay is None:
+            record.append(r)
+            return r
+        base = next(replay)
+        gate = torch.gather(r.probs, -1, base.idx)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return moe_lib.Routing(base.idx, gate, base.slot, base.keep, r.probs)
+
+    moe_lib.route = route
+    try:
+        yield
+    finally:
+        moe_lib.route = orig
+
+
 def grad_phase(cfg, seed: int, device, method: str,
                seq: int = GRAD_SEQ, directions: int = 1,
                per_norm: bool = False) -> dict:
@@ -1456,7 +1532,9 @@ def grad_phase(cfg, seed: int, device, method: str,
     over random directions (entries of unit variance): a draw nearly
     orthogonal to g has a derivative below the differences' rounding,
     while an error e in g still shows as e . u, of RMS |e|_2. The
-    top-level numbers are the worst direction's."""
+    top-level numbers are the worst direction's. An MoE config's
+    differences are taken on the routing piece of the unperturbed point
+    (``routing_piece``)."""
     pcfg = peft_lib.PEFTConfig(method=method, block_size=32)
     tcfg = steps.TrainStepConfig(peft=pcfg)
     params = ModelRuntime(cfg, seed=seed, device=device).params
@@ -1472,13 +1550,21 @@ def grad_phase(cfg, seed: int, device, method: str,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 23)
     evaluate = steps.build_eval_step(cfg, tcfg)
+    piece = []
+    if cfg.is_moe:
+        with routing_piece(piece):
+            evaluate(params, adapters, batch)
+
+    def loss_at(direction, step: float) -> float:
+        with (routing_piece(piece) if cfg.is_moe
+              else contextlib.nullcontext()):
+            return float(evaluate(
+                params, {p: {k: v + step * direction[p][k]
+                             for k, v in e.items()}
+                         for p, e in adapters.items()}, batch)["loss"])
 
     def central(direction, step: float) -> tuple:
-        lp, lm = (float(evaluate(params, {p: {k: v + sgn * step * direction[p][k]
-                                              for k, v in e.items()}
-                                          for p, e in adapters.items()},
-                                 batch)["loss"])
-                  for sgn in (1.0, -1.0))
+        lp, lm = loss_at(direction, step), loss_at(direction, -step)
         return (lp - lm) / (2 * step), lp, lm
 
     gnorm = math.sqrt(sum(float(g.double().pow(2).sum())
@@ -2794,7 +2880,7 @@ def adapters_quant_ckpt_phase(cfg, seed: int, device) -> dict:
 # phase 12c: the store-paged serve lane
 # ---------------------------------------------------------------------------
 
-STORE_LAYERS = 8
+STORE_LAYERS = 2                    # the store lane's depth (was 8)
 STORE_TENANTS = 24
 STORE_BUDGET = 6                    # adapters resident on the card at once
 STORE_HOT = 4                       # tenants revisited after the cold sweep
@@ -3765,6 +3851,8 @@ CLUSTER_BATCH = 4
 CLUSTER_MAX_LEN = 40
 CLUSTER_BLOCK = 8
 CLUSTER_PROMPTS = (4, 12)           # prompt lengths, U[4, 12]
+# phase 16's depth: cut from SERVE_LAYERS (8) for phase 18's time
+SCALE_OUT_LAYERS = 4
 TP_BLOCK = 32                       # the TP lanes' GSOFT / BOFT block size
 TP_REQUESTS = 8
 TP_NEW = 8
@@ -3942,7 +4030,7 @@ def tp_lanes(cfg2, cfg8, cfgz, seed: int, device, mesh=None,
     """The TP lanes, split or whole: at ``CHECK_LAYERS`` f32 (TF32 off) the
     contiguous bank lane (3 GSOFT tenants + BOFT, b = 32), int8 banked and
     paged int8; zamba2-2.7b full in f32 (``cfgz``: the Mamba2 super-blocks
-    and the shared attention block); at ``SERVE_LAYERS`` bf16 the bank
+    and the shared attention block); at ``cfg8``'s depth in bf16 the bank
     lane's tokens and one prefill's logits. Each lane's launches are
     counted from zero."""
     out = {}
@@ -4079,11 +4167,11 @@ def phase_16(full, seed: int, device, gen) -> dict:
     (d) tp = 2 as two gloo ranks on the card against tp = 1, and the TP
     kernel shapes against their plain versions."""
     t_phase = time.perf_counter()
-    cfg8 = full.with_overrides(num_layers=SERVE_LAYERS)
+    cfg8 = full.with_overrides(num_layers=SCALE_OUT_LAYERS)
     cfg2 = full.with_overrides(num_layers=CHECK_LAYERS, dtype="f32",
                                param_dtype="f32")
     base = ModelRuntime(cfg8, seed=seed, device=device)
-    log(f"cluster: qwen2-72b full width, {SERVE_LAYERS} layers, bf16; "
+    log(f"cluster: qwen2-72b full width, {SCALE_OUT_LAYERS} layers, bf16; "
         f"{CLUSTER_TENANTS} tenants (GSOFT / BOFT, b = {CLUSTER_BLOCK}), "
         f"{CLUSTER_BUDGET} slots a replica, {CLUSTER_REQUESTS} requests")
     cl = cluster_phase(base, seed, device)
@@ -4106,14 +4194,14 @@ def phase_16(full, seed: int, device, gen) -> dict:
     with tempfile.TemporaryDirectory() as d:
         cl.pop("store").save(d)
         launch_replicas = launcher_lane_run(
-            ["--arch", "qwen2-72b", "--set", f"num_layers={SERVE_LAYERS}",
+            ["--arch", "qwen2-72b", "--set", f"num_layers={SCALE_OUT_LAYERS}",
              "--replicas", "2", "--store-dir", d, "--hbm-adapter-budget",
              str(CLUSTER_BUDGET), "--requests", "16", "--prompt-len", "12",
              "--max-new", "8", "--mixed-lengths"],
             ["cluster: 2 replica(s), 16 requests", "replica[0]",
              "replica[1]", "bank: hit_rate=", "routing: 16 routed"])
     launch_tp1 = launcher_lane_run(
-        ["--arch", "qwen2-72b", "--set", f"num_layers={SERVE_LAYERS}",
+        ["--arch", "qwen2-72b", "--set", f"num_layers={SCALE_OUT_LAYERS}",
          "--tp", "1", "--engine", "paged", "--quantize", "int8",
          "--requests", "8", "--prompt-len", "64", "--max-new", "8"],
         ["cluster: 1 replica(s), 8 requests", "kv: pool=",
@@ -4210,7 +4298,7 @@ def phase_16(full, seed: int, device, gen) -> dict:
         f"over r): one decode step of 4 rows received "
         f"{[g['bytes_per_layer'] for g in tp2['bank_gather']]} bytes a "
         f"layer on ranks 0, 1")
-    log(f"tp = 2 bf16 ({SERVE_LAYERS} layers): logits max|gap| {gaps} of "
+    log(f"tp = 2 bf16 ({SCALE_OUT_LAYERS} layers): logits max|gap| {gaps} of "
         f"max|logit| {scale:.3f} (tol {TP_LOGIT_REL}); tokens differing "
         f"{diff} of {ntok}")
     kcases = tp_kernel_phase(full, gen, device)
@@ -4528,7 +4616,7 @@ def _p17_gpipe(cfg, seed: int, device, mesh) -> dict:
                                    v.detach().clone().requires_grad_(True))
 
     def fn(p, h):
-        return _decoder_layer(cfg, p, h)
+        return _decoder_layer(cfg, p, h)[0]      # (h, moe aux or None)
 
     mine = leaf_copy(stage)
     _sync(device)
@@ -4813,6 +4901,599 @@ def phase_17(full, mamba, zamba, seed: int, device, gen) -> dict:
         f"{max(g['grad_rel'] for g in gp):.1e} (tol {GPIPE_REL:.1e}, bubble "
         f"{gp[0]['bubble']:.2f}); decode at (2, 1) rel "
         f"{max(x['rel'] for x in dec):.1e} (tol {DECODE_DP_REL:.0e})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 18. the MoE family and the other dense decoders
+# ---------------------------------------------------------------------------
+
+MOE_BATCH, MOE_SEQ = 2, 256         # 18a's input, 18c's batch
+MOE_REL = 1e-4                      # 18a: card vs CPU, f32, of max |y|
+MOE_AUX_ABS = 1e-5                  # 18a: the load-balance loss, card vs CPU
+# 18c's depth: GSOFT on the experts of all 48 layers is about 1.9 G adapter
+# parameters, which with AdamW's two moments do not fit beside 61 GB of
+# bf16 weights
+MOE_TRAIN_LAYERS = 4
+MOE_SERVE_LAYERS = 12               # 18d: about 16 GB of bf16 weights, twice
+MOE_STEPS = 3
+MOE_LR = 1e-2                       # one fixed batch, 3 steps: the loss falls
+STACK_SAMPLES = 3                   # 18b: slices held against the plain one
+DENSE_CHECK_LAYERS = 2              # 18e: granite / mistral, full width
+PREFIX_CHUNK, PREFIX_SEQ = 128, 512  # 18e: prefix_loop's 4 query chunks
+PREFIX_REL = 1e-4                   # f32 prefix_loop vs dense, of max |logit|
+# a GSOFT bank an MoE config serves: the attention projections (the expert
+# stacks have two batch dims, which a bank refuses, as in JAX)
+ATTN_TARGETS = (r".*/attn/(wq|wk|wv|wo)$",)
+
+
+def moe_layer_phase(cfg, seed: int, device) -> dict:
+    """18a: one full-width MoE layer (``models/moe.py``, plain torch) on the
+    card against the same code on the CPU in f32: y within MOE_REL of max
+    |y|, the load-balance loss within MOE_AUX_ABS, and the same kept /
+    dropped choices, experts and slots; then its time in bf16 and the
+    dropped share of the choices."""
+    c32 = cfg.with_overrides(num_layers=1, dtype="f32", param_dtype="f32")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 31)
+    p = {k: v[0] for k, v in moe_lib.init_moe(gen, c32, 1, torch.float32,
+                                              device).items()}
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=gen,
+                    device=device)
+    seg = cfg.moe_segment
+    y, aux = moe_lib.moe_layer(p, x, c32, seg)
+    r = moe_lib.routing(p, x, c32, seg)
+    pc = {k: v.cpu() for k, v in p.items()}
+    yc, auxc = moe_lib.moe_layer(pc, x.cpu(), c32, seg)
+    rc = moe_lib.routing(pc, x.cpu(), c32, seg)
+    scale = max(1e-30, yc.abs().max().item())
+    err = (y.cpu() - yc).abs().max().item()
+    aux_err = abs(float(aux) - float(auxc))
+    masks = {n: int((getattr(r, n).cpu() != getattr(rc, n)).sum())
+             for n in ("idx", "slot", "keep")}
+    if not (math.isfinite(err) and err <= MOE_REL * scale
+            and aux_err <= MOE_AUX_ABS and not any(masks.values())):
+        raise AssertionError(f"moe_layer card vs CPU: max|diff| {err} of "
+                             f"max|y| {scale}, aux {aux_err}, differing "
+                             f"routing entries {masks}")
+    c16 = cfg.with_overrides(num_layers=1)
+    pb = {k: v if k == "router" else v.to(torch.bfloat16)
+          for k, v in p.items()}
+    xb = x.to(torch.bfloat16)
+    ms = time_ms(lambda a, b: moe_lib.moe_layer(a, b, c16, seg), [(pb, xb)])
+    rb = moe_lib.routing(pb, xb, c16, seg)
+    return dict(E=cfg.moe_experts, k=cfg.moe_top_k, d=cfg.d_model,
+                f_e=cfg.expert_d_ff, batch=MOE_BATCH, seq=MOE_SEQ,
+                capacity=moe_lib._capacity(cfg, moe_lib.segment_len(
+                    MOE_SEQ, seg)),
+                rel_err=err / scale, aux=float(aux), aux_err=aux_err,
+                masks_equal=True, choices=int(r.keep.numel()),
+                dropped_share_f32=float((~r.keep).float().mean()),
+                bf16_ms=ms, dropped_share_bf16=float(
+                    (~rb.keep).float().mean()))
+
+
+def moe_stack_cases(qwen3, phi) -> list:
+    """(arch, projection, E, T, d) of one layer's expert stack: the GS
+    rotation's tokens are the columns of W (T = d_out, d = d_in)."""
+    out = []
+    for cfg in (qwen3, phi):
+        E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
+        out += [(cfg.name, "wi", E, f, d), (cfg.name, "wo", E, d, f)]
+    return out
+
+
+def stack_bound(kernel: str, E: int, T: int, d: int, b: int, dtype) -> tuple:
+    """The least time of one launch over E rows: ``bound`` for the
+    rotation; for the grads x and dy read, L and R read, dL and dR (fp32)
+    written once, 8 E T d b operations."""
+    if kernel == "gs_fused":
+        return bound(E, T, d, b, dtype)
+    es = torch.finfo(dtype).bits // 8
+    return _bytes_bound(2 * E * T * d * es + 2 * E * d * b * (es + 4),
+                        8 * E * T * d * b, dtype)
+
+
+def check_stack_case(arch, proj, kernel, E, T, d, b, dtype, gen,
+                     device) -> dict:
+    """18b: ``kernel`` (``gs_fused`` or ``gs_fused_grads``) over a whole
+    expert stack in ONE launch (the E slices are its rows), against its
+    plain version on STACK_SAMPLES sampled slices and against the per-slice
+    loop (E one-row launches), each timed; the
+    library yardstick is the dense per-slice Q through ``bmm`` (the
+    rotation) or the b x b sums as batched GEMMs (the grads)."""
+    r = d // b
+    fn, plain = KERNELS[kernel]["fn"], KERNELS[kernel]["plain"]
+    grads = kernel == "gs_fused_grads"
+    L, R = _orth_factors(gen, E, r, b, dtype, device)
+    x = torch.randn((E, T, d), generator=gen, device=device).to(dtype)
+    args = ((x, torch.randn((E, T, d), generator=gen, device=device)
+             .to(dtype), L, R) if grads else (x, L, R))
+
+    def loop(*a):
+        outs = [fn(*(t[i:i + 1] for t in a)) for i in range(E)]
+        return (tuple(torch.cat(o) for o in zip(*outs)) if grads
+                else torch.cat(outs))
+
+    before = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if fn.launches != before + 1:
+        raise AssertionError(f"{kernel} over {E} rows launched "
+                             f"{fn.launches - before} times")
+    looped = loop(*args)
+    idx = torch.tensor(sorted({0, E // 2, E - 1})[:STACK_SAMPLES],
+                       device=device)
+    want = plain(*(t.index_select(0, idx) for t in args))
+
+    def rel(a, w):
+        return (a.float() - w.float()).abs().max().item() / max(
+            1.0, w.float().abs().max().item())
+
+    if grads:
+        plain_err = max(rel(g.index_select(0, idx), w)
+                        for g, w in zip(out, want))
+        loop_err = max(rel(g, w) for g, w in zip(out, looped))
+        tol = GRAD_REL
+    else:
+        plain_err = (out.index_select(0, idx).float()
+                     - want.float()).abs().max().item()
+        loop_err = (out.float() - looped.float()).abs().max().item()
+        tol = BF16_TOL
+    if not (math.isfinite(plain_err) and plain_err <= tol
+            and math.isfinite(loop_err) and loop_err <= tol):
+        raise AssertionError(f"{kernel} {arch} {proj} E={E} T={T} d={d}: "
+                             f"vs plain {plain_err}, vs the loop {loop_err} "
+                             f"(tol {tol})")
+    del out, looped, want
+    ms = time_ms(fn, [args])
+    loop_ms = time_ms(loop, [args])
+    plain_ms = time_ms(plain, [args])
+    if grads:
+        a = torch.randn((E * r, b, T), generator=gen, device=device)
+        c = torch.randn((E * r, T, b), generator=gen, device=device)
+        lib_ms = time_ms(lambda p, q: (torch.bmm(p, q), torch.bmm(p, q)),
+                         [(a, c)])
+        lib_what = ("2 x bmm over E r blocks (b, T) @ (T, b), fp32: the "
+                    "sums only")
+        del a, c
+        plan = gk.bwd_plan(E, T, r, b, gk._DTYPES[dtype], gk._num_sms(device))
+    else:
+        M = _dense(kernel, L, R, device)
+        lib_ms = time_ms(torch.bmm, [(x, M)])
+        lib_what = "bmm(x, dense Q per slice)"
+        del M
+        plan = gk.fwd_plan(E, T, r, b, gk._DTYPES[dtype], gk._num_sms(device))
+    bound_ms, bound_by = stack_bound(kernel, E, T, d, b, dtype)
+    del args, x, L, R
+    torch.cuda.empty_cache()
+    return dict(kernel=kernel, arch=arch, proj=proj, B=E, T=T, d=d, b=b,
+                r=r, route=plan.route, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=plain_err, loop_err=loop_err, tol=tol, ms=ms,
+                loop_ms=loop_ms, loop_launches=E, plain_ms=plain_ms,
+                library_ms=lib_ms, library_what=lib_what,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+@contextlib.contextmanager
+def per_slice_rotations(method: str = "gsoft"):
+    """``adapters.materialize`` as the per-slice loop runs it: one
+    rotation launch per weight slice (the method's ``stacked`` off)."""
+    old = methods_lib.get(method)
+    methods_lib.register(dataclasses.replace(old, stacked=False))
+    try:
+        yield
+    finally:
+        methods_lib.register(old)
+
+
+def _train_argv(arch: str, cfg, steps_n: int, lr: float, seed: int) -> list:
+    return ["--arch", arch, "--peft", "gsoft", "--block-size", "32",
+            "--steps", str(steps_n), "--batch", str(MOE_BATCH), "--seq",
+            str(MOE_SEQ), "--lr", str(lr), "--warmup", "1", "--seed",
+            str(seed), "--no-resume", "--set", f"num_layers={cfg.num_layers}"]
+
+
+def _launch_train(argv) -> dict:
+    """``launch/train.py`` in this process; its output echoed to the log,
+    its step lines parsed (loss, and moe_aux where it prints one)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_train.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  launcher: {line}")
+    steps_ = [line.split() for line in out.splitlines()
+              if line.startswith("step ")]
+    losses = [float(s[s.index("loss") + 1]) for s in steps_]
+    auxs = [float(s[s.index("moe_aux") + 1]) for s in steps_
+            if "moe_aux" in s]
+    if rc != 0 or not losses or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"launch/train.py {argv} returned {rc}: {out}")
+    return dict(argv=argv, losses=losses, moe_aux=auxs)
+
+
+def fixed_batch_train(cfg, seed: int, device, steps_n: int, lr: float,
+                      profile: bool = False, before_after: bool = False
+                      ) -> dict:
+    """GSOFT (b = 32) on one fixed batch of MOE_BATCH x MOE_SEQ tokens:
+    ``steps_n`` steps of ``build_train_step``, each one's launches equal to
+    the design's (one rotation launch an adapted stack chunk); the losses
+    must be finite and, over several steps, fall. ``profile``: one more step under the profiler (idle share);
+    ``before_after``: one more with the per-slice loop, its launches and
+    time. Returns the trained adapters too."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    tcfg = steps.TrainStepConfig(
+        peft=pcfg, opt=optim.OptimizerConfig(learning_rate=lr))
+    torch.cuda.reset_peak_memory_stats()
+    params = ModelRuntime(cfg, seed=seed, device=device).params
+    adapters = peft_lib.init_peft(pcfg, params, device=device, seed=seed)
+    trainable, frozen = peft_lib.trainable_and_frozen(pcfg, params, adapters)
+    opt_state = optim.init(tcfg.opt, trainable)
+    step = steps.build_train_step(cfg, tcfg)
+    batch = _fixed_batch(cfg, MOE_SEQ, MOE_BATCH, seed, device)
+    per_step = {k: v for k, v in design_launches(pcfg, frozen).items() if v}
+    losses, auxs, times = [], [], []
+    for _ in range(steps_n):
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainable, opt_state, m = step(frozen, trainable, opt_state, batch)
+        losses.append(float(m["loss"]))
+        auxs.append(float(m["moe_aux"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = {k: v for k, v in _launches().items() if v}
+        if got != per_step:
+            raise AssertionError(f"{cfg.name}: a step launched {got}, the "
+                                 f"design says {per_step}")
+    _SPENT["timed"] += sum(times)
+    if not (all(map(math.isfinite, losses))
+            and (steps_n == 1 or losses[-1] < losses[0])):
+        raise AssertionError(f"{cfg.name}: losses {losses} do not fall")
+    warm = times[1:] or times                 # the first step warms up
+    out = dict(arch=cfg.name, layers=cfg.num_layers, batch=MOE_BATCH,
+               seq=MOE_SEQ, lr=lr, losses=losses, moe_aux=auxs, step_s=times,
+               tok_s=MOE_BATCH * MOE_SEQ * len(warm) / sum(warm),
+               launches_per_step=per_step,
+               adapted_slices=_slices(pcfg, frozen))
+    if before_after:
+        with per_slice_rotations():
+            _reset_launches()
+            t0 = time.perf_counter()
+            step(frozen, trainable, opt_state, batch)
+            torch.cuda.synchronize()
+            out["per_slice_step_s"] = time.perf_counter() - t0
+            out["per_slice_launches"] = {k: v for k, v in _launches().items()
+                                         if v}
+    if profile:
+        out["profile"] = _profile(lambda: step(frozen, trainable, opt_state,
+                                               batch))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["trained"] = trainable
+    del params, adapters, frozen, opt_state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _work(cfg, seed: int, names, n: int = 8, new: int = 16) -> list:
+    """``n`` requests (prompts of PROMPT_LENS tokens, ``new`` new tokens),
+    round-robin over ``names``."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=n)
+    return [(rng.integers(1, cfg.vocab_size, size=int(k)).tolist(),
+             names[i % len(names)], new) for i, k in enumerate(lens)]
+
+
+PROFILED_REQUESTS = 2                # 18d's profiled runs: the first two
+
+
+def serve_lane(rt, work, make, static: bool = False,
+               profile: bool = True) -> dict:
+    """One warm-up run, one counted run of ``work`` through the engine
+    ``make(rt)`` (every request must finish with its tokens in the
+    vocabulary), then, with ``profile``, the first PROFILED_REQUESTS
+    requests under the profiler (the trace of the whole run takes a
+    minute to process). ``static``: the requests name no adapter."""
+
+    def drive(part=work):
+        eng = make(rt)
+        rids = [eng.add_request(p, max_new_tokens=n,
+                                **({} if static else {"adapter": a}))
+                for p, a, n in part]
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return eng, [res[r] for r in rids], time.perf_counter() - t0
+
+    drive()                                     # warm: the first prefills
+    _reset_launches()
+    eng, tokens, wall = drive()
+    launches = {k: v for k, v in _launches().items() if v}
+    slot = _slot_launches()
+    _SPENT["timed"] += wall
+    vp = rt.cfg.padded_vocab()
+    if [len(t) for t in tokens] != [n for _, _, n in work] or not all(
+            0 <= t < vp for seq in tokens for t in seq):
+        raise AssertionError(f"served {[len(t) for t in tokens]} tokens")
+    n_tok = sum(len(t) for t in tokens)
+    return dict(requests=len(work), tokens=n_tok, wall_s=wall,
+                tok_s=n_tok / wall, launches=launches, slot_launches=slot,
+                decode_steps=eng.stats["decode_steps"],
+                prefills=eng.stats["prefills"],
+                profile=_profile(lambda: drive(work[:PROFILED_REQUESTS]))
+                if profile else None)
+
+
+def _paged(rt):
+    return PagedServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN,
+                            eos_id=-1, page_size=PAGE_SIZE,
+                            prefill_chunk=PREFILL_CHUNK)
+
+
+def _static(rt):
+    return StaticServeEngine(rt, max_batch=4, max_len=SERVE_MAX_LEN,
+                             eos_id=-1)
+
+
+def _grow_adapters(pcfg, params, trained, device) -> dict:
+    """An adapter tree for ``params`` whose leading layers are ``trained``
+    (a shallower model's adapters, e.g. 18c's) and whose other layers keep
+    the identity."""
+    ad = peft_lib.init_peft(pcfg, params, device=device)
+    for path, entry in trained.items():
+        for k, v in entry.items():
+            ad[path][k][:v.shape[0]] = v.to(ad[path][k].dtype)
+    return ad
+
+
+def moe_serve_phase(cfg, seed: int, device, trained) -> dict:
+    """18d: qwen3-moe full width, MOE_SERVE_LAYERS layers, bf16: a paged
+    engine over a GSOFT bank of the attention projections (3 tenants + the
+    base, 8 requests on 4 slots), then a static engine on 18c's adapter
+    merged (the expert stacks through ``gs_fused``, one launch a stack
+    chunk)."""
+    attn = peft_lib.PEFTConfig(method="gsoft", block_size=32,
+                               target_patterns=ATTN_TARGETS)
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    t0 = time.perf_counter()
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    names = ["tenant_a", "tenant_b", "tenant_c"]
+    rt = base.attach({n: perturbed_adapters(attn, base.params, seed + 1 + i,
+                                            0.05, device)
+                      for i, n in enumerate(names)}, attn)
+    work = _work(cfg, seed, names + [None])
+    setup_s = time.perf_counter() - t0
+    paged = serve_lane(rt, work, _paged)
+    check_slot_path("18d paged", paged["launches"], paged["slot_launches"],
+                    ("gs_fused_T",))
+    if not paged["launches"].get("paged_decode"):
+        raise AssertionError(f"18d paged: launches {paged['launches']}")
+    del rt
+    ad = _grow_adapters(pcfg, base.params, trained, device)
+    want = sum(ad_lib.rotation_launches(s, peft_lib.flatten_paths(
+        base.params)[p]) for p, s in peft_lib.adapted_paths(
+            pcfg, base.params).items())
+    _reset_launches()
+    t0 = time.perf_counter()
+    merged = ModelRuntime(cfg, base.params, device=device, adapters=ad,
+                          peft_cfg=pcfg)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merge_launches = gk.gs_fused.launches
+    if merge_launches != want:
+        raise AssertionError(f"18d merge: {merge_launches} gs_fused launches,"
+                             f" the design says {want}")
+    del base, ad
+    gc.collect()
+    torch.cuda.empty_cache()
+    static = serve_lane(merged, [(p, None, n) for p, _, n in work], _static,
+                        static=True)
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, setup_s=setup_s, paged=paged,
+                merge_s=merge_s, merge_launches=merge_launches,
+                static=static)
+
+
+def prefix_loop_phase(cfg, seed: int, device) -> dict:
+    """18e: ``attn_impl="prefix_loop"`` (PREFIX_CHUNK-token query chunks)
+    against the dense schedule, the forward logits of PREFIX_SEQ tokens in
+    f32 (TF32 off), within PREFIX_REL of max |logit|."""
+    c32 = cfg.with_overrides(num_layers=DENSE_CHECK_LAYERS, dtype="f32",
+                             param_dtype="f32", attn_chunk=PREFIX_CHUNK)
+    params = ModelRuntime(c32, seed=seed, device=device).params
+    batch = _fixed_batch(c32, PREFIX_SEQ, 1, seed, device)
+    with torch.no_grad():
+        dense, _ = api.forward(c32, params, batch)
+        loop, _ = api.forward(c32.with_overrides(attn_impl="prefix_loop"),
+                              params, batch)
+    scale = max(1.0, dense.abs().max().item())
+    err = (loop - dense).abs().max().item()
+    del params, dense, loop
+    torch.cuda.empty_cache()
+    if not (math.isfinite(err) and err <= PREFIX_REL * scale):
+        raise AssertionError(f"{cfg.name} prefix_loop vs dense: {err} of "
+                             f"max|logit| {scale}")
+    return dict(arch=cfg.name, layers=DENSE_CHECK_LAYERS, seq=PREFIX_SEQ,
+                chunk=PREFIX_CHUNK, rel_err=err / scale, tol=PREFIX_REL)
+
+
+def dense_serve_phase(cfg, seed: int, device) -> dict:
+    """18e: a paged engine over a GSOFT bank (default targets, b = 32; 3
+    tenants + the base, 8 requests on 4 slots), bf16."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    t0 = time.perf_counter()
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    names = ["tenant_a", "tenant_b", "tenant_c"]
+    rt = base.attach({n: perturbed_adapters(pcfg, base.params, seed + 1 + i,
+                                            0.05, device)
+                      for i, n in enumerate(names)}, pcfg)
+    setup_s = time.perf_counter() - t0
+    out = serve_lane(rt, _work(cfg, seed, names + [None]), _paged,
+                     profile=False)
+    check_slot_path(f"18e {cfg.name}", out["launches"],
+                    out["slot_launches"], ("gs_fused_T",))
+    if not out["launches"].get("paged_decode"):
+        raise AssertionError(f"18e {cfg.name}: launches {out['launches']}")
+    del rt, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, layers=cfg.num_layers, setup_s=setup_s)
+
+
+def phase_18(seed: int, device, gen) -> dict:
+    """18a moe_layer card vs CPU; 18b the expert-stacked rotations; 18c
+    qwen3-moe GSOFT training (fixed batch, the per-slice loop, the
+    launcher) and its f32 gradients; 18d qwen3-moe serving (a paged
+    attention bank, the static engine on the merged experts) and its f32
+    bank-vs-merged gate; 18e gemma-7b (full, paged bank, training,
+    prefix_loop), granite-34b and mistral-large-123b (2 layers: f32 gate,
+    one bf16 step)."""
+    qwen3, phi = get_config("qwen3-moe-30b-a3b"), get_config(
+        "phi3.5-moe-42b-a6.6b")
+    out = {}
+    t_phase = time.perf_counter()
+    a = out["moe_layer"] = moe_layer_phase(qwen3, seed, device)
+    log(f"18a moe_layer qwen3-moe full width (d {a['d']}, E {a['E']}, top "
+        f"{a['k']}, f_e {a['f_e']}), {a['batch']}x{a['seq']}, capacity "
+        f"{a['capacity']}: card vs CPU f32 {a['rel_err']:.2e} of max|y| (tol "
+        f"{MOE_REL:.0e}), aux {a['aux']:.5f} (gap {a['aux_err']:.1e}), kept /"
+        f" dropped masks, experts and slots identical ({a['choices']} "
+        f"choices, {a['dropped_share_f32']:.4f} dropped); bf16 "
+        f"{a['bf16_ms']:.3f} ms, {a['dropped_share_bf16']:.4f} dropped")
+    _PHASE_S["18a moe layer"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    out["stack_cases"] = []
+    for arch, proj, E, T, d in moe_stack_cases(qwen3, phi):
+        for kernel in ("gs_fused", "gs_fused_grads"):
+            c = check_stack_case(arch, proj, kernel, E, T, d, 32,
+                                 torch.bfloat16, gen, device)
+            out["stack_cases"].append(c)
+            log(f"18b {kernel:14s} {arch} {proj} E={E} T={T} d={d} r={c['r']}"
+                f" {c['route']}: one launch {c['ms']:.4f} ms vs {E} "
+                f"one-row launches {c['loop_ms']:.4f} ms; err vs plain "
+                f"{c['max_abs_err']:.2e} vs loop {c['loop_err']:.2e} (tol "
+                f"{c['tol']:.0e}); plain {c['plain_ms']:.3f} lib "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+                f"({c['bound_by']})")
+    _PHASE_S["18b expert stacks"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    q4 = qwen3.with_overrides(num_layers=MOE_TRAIN_LAYERS)
+    tr = fixed_batch_train(q4, seed, device, MOE_STEPS, MOE_LR, profile=True,
+                           before_after=True)
+    trained = tr.pop("trained")
+    prof = tr["profile"]
+    log(f"18c train qwen3-moe full width, {q4.num_layers} layers, bf16, "
+        f"GSOFT b=32 ({tr['adapted_slices']} adapted slices), "
+        f"{MOE_BATCH}x{MOE_SEQ}: losses "
+        f"{['%.4f' % v for v in tr['losses']]}, moe_aux "
+        f"{['%.4f' % v for v in tr['moe_aux']]}; {tr['tok_s']:.0f} tok/s; "
+        f"peak {tr['peak_mem_gb']:.1f} GB; idle share {prof['idle_share']}; "
+        f"launches a step {tr['launches_per_step']} (per-slice loop: "
+        f"{tr['per_slice_launches']}, {tr['per_slice_step_s']:.2f} s a step "
+        f"vs {min(tr['step_s']):.2f} s)")
+    out["moe_train"] = tr
+    out["moe_launcher"] = _launch_train(_train_argv(
+        "qwen3-moe-30b-a3b", q4, MOE_STEPS, MOE_LR, seed))
+    if len(out["moe_launcher"]["moe_aux"]) != len(
+            out["moe_launcher"]["losses"]):
+        raise AssertionError("the launcher's log lacks moe_aux")
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = out["moe_grad"] = grad_phase(qwen3.with_overrides(
+        num_layers=GRAD_LAYERS, dtype="f32", param_dtype="f32"), seed,
+        device, "gsoft", directions=SSM_FD_DIRECTIONS, per_norm=True)
+    log(f"18c grad qwen3-moe ({GRAD_LAYERS} layers f32, |g| "
+        f"{g['grad_norm']:.4e}): directional derivative vs central "
+        f"difference " + ", ".join(
+            f"{d['directional_derivative']:.6e} vs "
+            f"{d['central_difference']:.6e} (rel {d['rel_err']:.1e})"
+            for d in g["directions"]) + f" (tol {FD_REL:.0e})")
+    _PHASE_S["18c moe training"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    q12 = qwen3.with_overrides(num_layers=MOE_SERVE_LAYERS)
+    sv = out["moe_serve"] = moe_serve_phase(q12, seed, device, trained)
+    del trained
+    log(f"18d serve qwen3-moe full width, {q12.num_layers} layers, bf16: "
+        f"paged, attention bank (3 tenants + base), {sv['paged']['requests']}"
+        f" requests on 4 slots: {sv['paged']['tok_s']:.1f} tok/s, idle "
+        f"{sv['paged']['profile']['idle_share']} (first "
+        f"{PROFILED_REQUESTS} requests), launches "
+        f"{sv['paged']['launches']}; static on 18c's adapter merged "
+        f"({sv['merge_launches']} gs_fused launches, {sv['merge_s']:.1f} s):"
+        f" {sv['static']['tok_s']:.1f} tok/s, idle "
+        f"{sv['static']['profile']['idle_share']}")
+    attn = peft_lib.PEFTConfig(method="gsoft", block_size=32,
+                               target_patterns=ATTN_TARGETS)
+    mc = out["moe_check"] = merged_phase(qwen3.with_overrides(
+        num_layers=CHECK_LAYERS, dtype="f32", param_dtype="f32"), seed,
+        device, attn)
+    log(f"18d check qwen3-moe {CHECK_LAYERS} layers f32: attention bank == "
+        f"merged tokens {mc['tokens']}; decode logits max|diff| "
+        f"{mc['logit_max_abs_err']:.2e} (tol {mc['logit_tol']:.1e})")
+    _PHASE_S["18d moe serving"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    gemma = get_config("gemma-7b")
+    ds = out["gemma_serve"] = dense_serve_phase(gemma, seed, device)
+    log(f"18e serve gemma-7b full ({gemma.num_layers} layers, D "
+        f"{gemma.d_head}), bf16, paged GSOFT bank: {ds['tok_s']:.1f} tok/s, "
+        f"launches {ds['launches']}")
+    gt = fixed_batch_train(gemma, seed, device, MOE_STEPS, MOE_LR)
+    gt.pop("trained")
+    out["gemma_train"] = gt
+    log(f"18e train gemma-7b full, bf16, GSOFT b=32: losses "
+        f"{['%.4f' % v for v in gt['losses']]}; {gt['tok_s']:.0f} tok/s; "
+        f"peak {gt['peak_mem_gb']:.1f} GB; launches a step "
+        f"{gt['launches_per_step']}")
+    out["prefix_loop"] = prefix_loop_phase(gemma, seed, device)
+    log(f"18e prefix_loop gemma-7b {DENSE_CHECK_LAYERS} layers f32, S="
+        f"{PREFIX_SEQ}, chunk {PREFIX_CHUNK}: vs dense "
+        f"{out['prefix_loop']['rel_err']:.2e} of max|logit| (tol "
+        f"{PREFIX_REL:.0e})")
+    for arch in ("granite-34b", "mistral-large-123b"):
+        cfg = get_config(arch)
+        c2 = cfg.with_overrides(num_layers=DENSE_CHECK_LAYERS)
+        mc = merged_phase(c2.with_overrides(dtype="f32", param_dtype="f32"),
+                          seed, device)
+        st = fixed_batch_train(c2, seed, device, 1, MOE_LR)
+        st.pop("trained")
+        out[arch] = dict(check=mc, step=st)
+        log(f"18e {arch} full width, {DENSE_CHECK_LAYERS} layers: f32 bank =="
+            f" merged tokens {mc['tokens']} (logits {mc['logit_max_abs_err']:.2e}"
+            f", tol {mc['logit_tol']:.1e}); bf16 GSOFT step loss "
+            f"{st['losses'][0]:.4f}, launches {st['launches_per_step']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the serving kernels at the new configs' shapes: the banked rotation
+    # at a decode step (B = 4) of every rotated width, paged decode at
+    # each config's heads (gemma's D = 256, granite's one kv head)
+    out["kernel_cases"] = []
+    for cfg in (qwen3, gemma, get_config("granite-34b"),
+                get_config("mistral-large-123b")):
+        widths = sorted({cfg.d_model, cfg.num_heads * cfg.d_head}
+                        | ({cfg.d_ff} if not cfg.is_moe else set()))
+        for d in widths:
+            c = dict(check_case("gs_fused_T", 4, 1, d, 32, torch.bfloat16,
+                                gen, device), arch=cfg.name)
+            out["kernel_cases"].append(c)
+            log(f"18e gs_fused_T {cfg.name} decode B=4 d={d} {c['route']}: "
+                f"err {c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
+                f"{c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+                f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f}")
+        c = dict(check_paged_case(cfg, PAGE_SIZE, "ctx144", torch.bfloat16,
+                                  gen, device), arch=cfg.name)
+        out["kernel_cases"].append(c)
+        log(f"18e paged_decode {cfg.name} heads {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} D={cfg.d_head}: err {c['max_abs_err']:.2e} "
+            f"(tol {c['tol']:.1e}) ms {c['ms']:.4f} plain {c['plain_ms']:.4f}"
+            f" lib {c['library_ms']:.4f} bound {c['bound_ms']:.5f}")
+        torch.cuda.empty_cache()
+    _PHASE_S["18e dense decoders"] = time.perf_counter() - t_phase
     return out
 
 
@@ -5324,7 +6005,11 @@ def main() -> int:
     # (data x model) mesh as gloo ranks sharing the card
     p17 = phase_17(full, mamba, zamba, args.seed, device, gen)
 
-    # 18. report
+    # 18. the MoE family (qwen3-moe, phi-3.5-MoE's expert stacks) and the
+    # other dense decoders (gemma-7b, granite-34b, mistral-large-123b)
+    p18 = phase_18(args.seed, device, gen)
+
+    # 19. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
@@ -5345,7 +6030,16 @@ def main() -> int:
                "serve_image": image["bf16"]["launches"],
                "serve_image_int8": image["int8"]["launches"],
                "serve_image_int8_bankless":
-                   image["int8_bankless"]["launches"]}
+                   image["int8_bankless"]["launches"],
+               "train_moe": {k: v * MOE_STEPS for k, v in
+                             p18["moe_train"]["launches_per_step"].items()},
+               "serve_moe_paged": p18["moe_serve"]["paged"]["launches"],
+               "serve_moe_static_merge":
+                   {"gs_fused": p18["moe_serve"]["merge_launches"]},
+               "serve_moe_static": p18["moe_serve"]["static"]["launches"],
+               "serve_gemma_paged": p18["gemma_serve"]["launches"],
+               "train_gemma": {k: v * MOE_STEPS for k, v in
+                               p18["gemma_train"]["launches_per_step"].items()}}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
@@ -5514,6 +6208,20 @@ def main() -> int:
             local_cases=[{f: c.get(f) for f in case_fields}
                          for c in p16["tp_kernel_cases"]
                          if c["kernel"] == k["name"]])
+    # the expert stacks (18b): one launch over every expert of a layer
+    stack_fields = ("arch", "proj", "B", "T", "d", "b", "r", "route",
+                    "dtype", "max_abs_err", "loop_err", "ms", "loop_ms",
+                    "loop_launches", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_what")
+    for k in kernels:
+        sc = [{f: c.get(f) for f in stack_fields}
+              for c in p18["stack_cases"] if c["kernel"] == k["name"]]
+        if sc:
+            k["moe_stack_cases"] = sc
+        dc = [dict({f: c.get(f) for f in case_fields}, arch=c["arch"])
+              for c in p18["kernel_cases"] if c["kernel"] == k["name"]]
+        if dc:
+            k["decoder_cases"] = dc
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     spent = dict(_SPENT, build=build_s, phases=dict(_PHASE_S),
@@ -5544,7 +6252,7 @@ def main() -> int:
                                    store_check=scheck_store,
                                    image_cases=image_run,
                                    **p14, **p15, scale_out=p16,
-                                   training=p17,
+                                   training=p17, moe_and_decoders=p18,
                                    kernels=kernels), indent=1,
                               default=str))
     log(f"details: {out}")

@@ -1,9 +1,10 @@
 """Model configuration + the arch registry (port of ``repro/config.py``).
 
-Only the fields the ported families read (the decoder, the ``ssm`` /
-``hybrid`` Mamba2 families and the ``image`` family) are kept; their names
-and defaults equal ``repro.config.ModelConfig`` so configs convert one for
-one.
+Only the fields the ported families read are kept: the decoder (dense,
+with the swiglu / geglu / gelu MLPs and ``attn_impl``, and MoE with the
+``moe_*`` fields), the ``ssm`` / ``hybrid`` Mamba2 families and the
+``image`` family. Their names and defaults equal
+``repro.config.ModelConfig``, so configs convert one for one.
 ``use_pallas`` stays a field for that reason alone: kernel choice in the
 port follows the tensors' device, not this flag (``kernels/ops.py``).
 """
@@ -20,7 +21,7 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str              # decoder | ssm | hybrid | image
+    family: str              # decoder (dense or MoE) | ssm | hybrid | image
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -36,6 +37,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False
     logit_softcap: float = 0.0
+
+    # MoE (models/moe.py)
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_segment: int = 2048          # token segment for dispatch transients
 
     # SSM (mamba2 / zamba2)
     ssm_state: int = 0
@@ -63,6 +71,7 @@ class ModelConfig:
     remat: str = "full"              # full | dots | none (training forward)
     attn_chunk: int = 1024
     ssd_chunk: int = 256
+    attn_impl: str = "dense"         # dense | prefix_loop (causal prefill)
     seq_parallel: bool = False       # Megatron-SP: residual split on seq
 
     source: str = ""
@@ -78,6 +87,14 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe_experts > 0
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     @property
     def act_dtype(self) -> torch.dtype:

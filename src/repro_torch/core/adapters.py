@@ -24,7 +24,8 @@ points dispatch through the ``core.methods`` registry; an unknown method
 raises KeyError.
 
 Weight convention: W has shape (d_in, d_out); leading batch dims (stacked
-layers) get independent adapters per slice.
+layers, layers x experts) get independent adapters per slice, rotated as
+one stack (``materialize``).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import givens_rotate
-from repro_torch.models.layers import stack_layers
+from repro_torch.models.layers import cat_layers, stack_layers
 
 from .gs import block_diag_matmul, gsoft_layout, pick_block_size
 from .orthogonal import cayley, skew
@@ -371,9 +372,10 @@ def boft_materialize(spec: AdapterSpec, params: Params,
     b = spec.resolved_block(spec.d_in, spec.block_size)
     Q = cayley(skew(params["K"]), neumann_order=spec.neumann_order)
     y = W.transpose(-1, -2)                  # the columns of W as vectors
-    for lvl in range(Q.shape[0]):
+    for lvl in range(Q.shape[-4]):
         perm, inv = _butterfly_perm(spec.d_in, b, lvl + 1)
-        y = apply_perm(block_diag_matmul(Q[lvl], apply_perm(y, perm)), inv)
+        y = apply_perm(block_diag_matmul(Q.select(-4, lvl),
+                                         apply_perm(y, perm)), inv)
     return y.transpose(-1, -2)
 
 
@@ -643,23 +645,60 @@ def init_adapter(spec: AdapterSpec, generator: Optional[torch.Generator] = None,
     return p
 
 
+STACK_CHUNK_BYTES = 2 << 30
+
+
+def _stack_step(W: torch.Tensor) -> int:
+    """Leading slices of a stack W that one chunk of ``materialize`` takes:
+    as many as fit ``STACK_CHUNK_BYTES``, at least one."""
+    return max(1, STACK_CHUNK_BYTES // (W[0].numel() * W.element_size()))
+
+
+def rotation_launches(spec: AdapterSpec, W: torch.Tensor) -> int:
+    """Kernel launches one rotation pass (one GS or ``bdmm`` call of the
+    method's materialize) takes for W: one a chunk of a ``stacked``
+    method's stack, one a slice for the others, one for a single weight."""
+    from . import methods
+    if not spec.batch:
+        return 1
+    if not methods.get(spec.method).stacked:
+        return math.prod(spec.batch)
+    return -(-W.shape[0] // _stack_step(W))
+
+
 def materialize(spec: AdapterSpec, params: Params,
                 W: torch.Tensor) -> torch.Tensor:
     """W_eff from frozen W + adapter params, differentiable w.r.t. the
-    params. Batch dims are a loop over the leading dim (the JAX package
-    vmaps); each slice is one kernel launch per rotation."""
+    params. A stack W (batch..., d_in, d_out) (layers, or layers x
+    experts) gets an adapter per slice, as JAX's ``vmap``: a ``stacked``
+    method rotates the whole stack with one launch per rotation (the
+    slices are the kernels' rows), in chunks of whole leading slices of at
+    most ``STACK_CHUNK_BYTES`` of W (never less than one slice); the
+    others (Householder, Givens: plain torch, no kernel) loop over the
+    slices."""
     from . import methods
-    if spec.batch:
+    ops = methods.get(spec.method)
+    if spec.batch and not ops.stacked:
         inner = dataclasses.replace(spec, batch=tuple(spec.batch[1:]))
         # the weight-side rotation returns each slice as the transpose of
         # its contiguous token rows; stack_layers keeps that layout
         return stack_layers([
             materialize(inner, {k: v[i] for k, v in params.items()}, W[i])
             for i in range(W.shape[0])])
+    if spec.batch:
+        step = _stack_step(W)
+        if W.shape[0] > step:
+            return cat_layers([
+                materialize(dataclasses.replace(
+                    spec, batch=(min(step, W.shape[0] - i),)
+                    + tuple(spec.batch[1:])),
+                    {k: v[i:i + step] for k, v in params.items()},
+                    W[i:i + step])
+                for i in range(0, W.shape[0], step)])
     dtype = W.dtype
-    Wf = methods.get(spec.method).materialize(spec, params, W)
+    Wf = ops.materialize(spec, params, W)
     if spec.use_scale:
-        Wf = Wf * params["scale"][None, :].to(dtype)
+        Wf = Wf * params["scale"].unsqueeze(-2).to(dtype)
     return Wf.to(dtype)
 
 

@@ -23,7 +23,12 @@ class MethodOps:
 
     * ``structure`` — one-liner for docs; ``orthogonal`` — capability flag
     * ``init_params(spec, generator, dtype, device)`` — identity-init params
-    * ``materialize(spec, params, W)`` — W_eff (weight-side, unbatched)
+    * ``materialize(spec, params, W)`` — W_eff (weight-side; unbatched
+      unless ``stacked``)
+    * ``stacked`` — ``materialize`` also takes a stack: W (lead..., d_in,
+      d_out) with params (lead..., ...), one kernel launch per rotation for
+      the whole stack (its slices the kernels' rows); otherwise
+      ``adapters.materialize`` loops over the slices
     * ``apply_activation_side(spec, params, x)`` — x -> x Q, or None
     * ``param_count(spec)`` — analytic count
     * ``bank_build(spec, params_by_slot, device)`` — per-slot serving stacks,
@@ -60,6 +65,7 @@ class MethodOps:
     banked_kernel: str = ""
     bank_shard_axes: Optional[Callable] = None
     bank_gather: Optional[Callable] = None
+    stacked: bool = False
 
 
 _METHODS: Dict[str, MethodOps] = {}
@@ -98,6 +104,7 @@ def trainable_split(method: str, params, adapters):
 
 register(MethodOps(
     method="gsoft",
+    stacked=True,
     structure="Q = P^T L P R (two-factor GS, paper eq. 1)",
     orthogonal=True,
     init_params=_ad.gsoft_init,
@@ -115,6 +122,7 @@ register(MethodOps(
 
 register(MethodOps(
     method="double_gsoft",
+    stacked=True,
     structure="W_eff = Q_U W Q_V (two-sided GS, paper §4)",
     orthogonal=True,
     init_params=_ad.double_gsoft_init,
@@ -127,6 +135,7 @@ register(MethodOps(
 
 register(MethodOps(
     method="oft",
+    stacked=True,
     structure="Q = diag(Q_1..Q_r) (block-diagonal, OFT)",
     orthogonal=True,
     init_params=_ad.oft_init,
@@ -141,6 +150,7 @@ register(MethodOps(
 
 register(MethodOps(
     method="boft",
+    stacked=True,
     structure="Q = B_m..B_1 (block butterfly, BOFT)",
     orthogonal=True,
     init_params=_ad.boft_init,
@@ -181,6 +191,7 @@ register(MethodOps(
 
 register(MethodOps(
     method="lora",
+    stacked=True,
     structure="W + (alpha/r) A B (low-rank residual)",
     orthogonal=False,
     init_params=_ad.lora_init,

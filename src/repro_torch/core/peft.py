@@ -356,12 +356,17 @@ def check_bank_member(name: str, cfg: PEFTConfig, primary: PEFTConfig,
 
 
 def bank_specs(cfg: PEFTConfig, params: Tree) -> Dict[str, AdapterSpec]:
+    """Adapted-path specs a serving bank can hold: a weight with more than
+    one batch dim (MoE experts (L, E, d_in, d_out), hybrid blocks) raises
+    ValueError, as in JAX; a bank whose ``target_patterns`` leave those
+    weights out (e.g. the attention projections only) serves."""
     specs = adapted_paths(cfg, params)
     for path, spec in specs.items():
         if len(spec.batch) > 1:
             raise ValueError(
                 f"adapter bank cannot serve {path}: weights with batch dims "
-                f"{spec.batch} need routing-aware rotation")
+                f"{spec.batch} (MoE experts / hybrid blocks) need "
+                "routing-aware rotation")
     return specs
 
 

@@ -439,9 +439,24 @@ class TPShard:
         return k.index_select(k.dim() - 2, idx)
 
 
+def refuse_experts(cfg: ModelConfig, tp: int, dp: int = 1) -> None:
+    """An MoE config on a mesh that splits anything raises: serving or
+    training it over ranks needs expert parallelism (experts split over
+    'model', tokens routed between ranks), which is not ported; the dense
+    split rules would reach only the attention."""
+    if cfg.is_moe and max(tp, dp) > 1:
+        raise NotImplementedError(
+            f"{cfg.name} is an MoE config: running it on a mesh (tp={tp}, "
+            f"dp={dp}) needs expert parallelism, which is not ported yet")
+
+
 def model_shard(cfg: ModelConfig, mesh) -> Optional[TPShard]:
     """The runtime's ``TPShard``, or None when the mesh splits nothing
-    (tp = 1: the model runs exactly as it does without a mesh)."""
+    (tp = 1: the model runs exactly as it does without a mesh). An MoE
+    config on a mesh of more than one rank raises NotImplementedError
+    (``refuse_experts``)."""
+    if mesh is not None:
+        refuse_experts(cfg, tp_size(mesh), dp_size(mesh))
     if mesh is None or tp_size(mesh) == 1:
         return None
     if cfg.family not in SPLIT_FAMILIES:

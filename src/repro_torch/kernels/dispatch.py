@@ -25,7 +25,8 @@ port's kernels, as in the JAX rules:
   no backward kernel). CUDA tensors only: on the CPU ``ssd`` runs its
   plain version under torch autograd.
 
-L, R: (r, b, b); x: (T, d). dL and dR are cast to L's dtype. The GS rules,
+L, R: (r, b, b); x: (T, d); the ``*_rows`` forms take per-row factors L,
+R (B, r, b, b) with x (B, T, d). dL and dR are cast to L's dtype. The GS rules,
 like bdmm's, skip the dx slab for a frozen x (the weight a GSOFT adapter
 rotates); the JAX rules always compute it. A CUDA tensor runs the kernels,
 a CPU tensor their plain versions, both ways. The tuning
@@ -40,45 +41,42 @@ from .bdmm import bdmm, bdmm_dblocks
 from .gs_fused import gs_fused, gs_fused_bwd, gs_fused_grads, gs_fused_T
 
 
-def _row(a: torch.Tensor) -> torch.Tensor:
-    """The kernels' one-row batch: (...) -> (1, ...), contiguous."""
-    return a.unsqueeze(0).contiguous()
-
-
 class _GSDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, R, x):
+        L, R, x = L.contiguous(), R.contiguous(), x.contiguous()
         ctx.save_for_backward(L, R, x)
-        return gs_fused(_row(x), _row(L), _row(R))[0]
+        return gs_fused(x, L, R)
 
     @staticmethod
     def backward(ctx, dy):
         L, R, x = ctx.saved_tensors
-        args = (_row(x), _row(dy), _row(L), _row(R))
+        args = (x, dy.contiguous(), L, R)
         dx = None
         if ctx.needs_input_grad[2]:
             dx, dL, dR = gs_fused_bwd(*args)
-            dx = dx[0].to(x.dtype)
+            dx = dx.to(x.dtype)
         else:
             dL, dR = gs_fused_grads(*args)
-        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx
+        return dL.to(L.dtype), dR.to(R.dtype), dx
 
 
 class _GSTDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, R, x):
+        L, R, x = L.contiguous(), R.contiguous(), x.contiguous()
         ctx.save_for_backward(L, R, x)
-        return gs_fused_T(_row(x), _row(L), _row(R))[0]
+        return gs_fused_T(x, L, R)
 
     @staticmethod
     def backward(ctx, dy):
         L, R, x = ctx.saved_tensors
-        dy1 = _row(dy)
-        dL, dR = gs_fused_grads(dy1, _row(x), _row(L), _row(R))
+        dy = dy.contiguous()
+        dL, dR = gs_fused_grads(dy, x, L, R)
         dx = None
         if ctx.needs_input_grad[2]:
-            dx = gs_fused(dy1, _row(L), _row(R))[0].to(x.dtype)
-        return dL[0].to(L.dtype), dR[0].to(R.dtype), dx
+            dx = gs_fused(dy, L, R).to(x.dtype)
+        return dL.to(L.dtype), dR.to(R.dtype), dx
 
 
 class _BdmmDiff(torch.autograd.Function):
@@ -144,14 +142,32 @@ def bdmm_diff(blocks: torch.Tensor, x: torch.Tensor,
     return _BdmmDiff.apply(blocks, x, transpose_blocks)
 
 
-def gs_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Differentiable fused GSOFT rotation y = P^T L P R x."""
+def gs_diff_rows(L: torch.Tensor, R: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused GSOFT rotation per row, y[i] = P^T L_i P R_i
+    x[i]: L, R (B, r, b, b), x (B, T, d). One ``gs_fused`` launch for all
+    rows forward, one ``gs_fused_grads`` (or ``gs_fused_bwd``) backward: a
+    stack of weights (layers x experts) rotates in one launch, as JAX's
+    vmapped ``pallas_call``."""
     return _GSDiff.apply(L, R, x)
+
+
+def gs_T_diff_rows(L: torch.Tensor, R: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Differentiable transpose rotation per row, y[i] = Q_i^T x[i] (one
+    ``gs_fused_T`` launch forward, one ``gs_fused_grads`` backward)."""
+    return _GSTDiff.apply(L, R, x)
+
+
+def gs_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused GSOFT rotation y = P^T L P R x: L, R (r, b, b),
+    x (T, d), as the kernels' one-row batch."""
+    return gs_diff_rows(L[None], R[None], x[None])[0]
 
 
 def gs_T_diff(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Differentiable transpose rotation y = Q^T x = R^T P^T L^T P x."""
-    return _GSTDiff.apply(L, R, x)
+    return gs_T_diff_rows(L[None], R[None], x[None])[0]
 
 
 def pick_chunk(t: int, chunk: int) -> int:

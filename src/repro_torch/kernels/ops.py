@@ -24,10 +24,13 @@ kernels pick their own launch geometry; the tuning registry of
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import ref
-from .dispatch import bdmm_diff, gs_diff, gs_T_diff
+from .dispatch import (bdmm_diff, gs_diff, gs_diff_rows, gs_T_diff,
+                       gs_T_diff_rows)
 from .flash_attention import flash_attention
 from .gs_fused import gs_fused_T, gs_fused_T_bank
 from .paged_attention import paged_decode
@@ -42,13 +45,28 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).contiguous()
 
 
+def _stack_rows(x: torch.Tensor, lead: torch.Size, *factors: torch.Tensor):
+    """A stack's factors (lead..., f...) and x (lead..., T, d) as the
+    kernels' rows: (n, f...) and (n, T, d) contiguous, n = prod(lead) (one
+    copy of x at most)."""
+    n = math.prod(lead)
+    return ([f.reshape((n,) + f.shape[len(lead):]) for f in factors]
+            + [x.reshape((n, -1, x.shape[-1])).contiguous()])
+
+
 def bdmm(blocks: torch.Tensor, x: torch.Tensor,
          use_pallas: bool = False) -> torch.Tensor:
     """Block-diagonal matmul y = diag(blocks) x over the last dim of x.
 
-    blocks: (r, bo, bi); x: (..., r * bi) -> (..., r * bo). The kernel runs
-    in x's dtype. ``use_pallas`` is ignored."""
+    blocks: (r, bo, bi); x: (..., r * bi) -> (..., r * bo). A stack of
+    blocks (lead..., r, bo, bi) takes x (lead..., T, r * bi): one launch,
+    the stack's slices the kernel's rows. The kernel runs in x's dtype.
+    ``use_pallas`` is ignored."""
     del use_pallas
+    lead = blocks.shape[:-3]
+    if lead:
+        blocks, xr = _stack_rows(x, lead, blocks)
+        return bdmm_diff(blocks, xr).reshape(x.shape[:-1] + (-1,))
     y = bdmm_diff(blocks.unsqueeze(0), _tokens(x).unsqueeze(0))[0]
     return y.reshape(x.shape[:-1] + (y.shape[-1],))
 
@@ -70,16 +88,27 @@ def bdmm_banked(blocks: torch.Tensor, x: torch.Tensor,
 def gs_transform(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
                  use_pallas: bool = False) -> torch.Tensor:
     """y = P^T L P R x (GSOFT rotation) over the last dim of x.
+
+    L, R: (r, b, b), x (..., d); or a stack L, R (lead..., r, b, b) with x
+    (lead..., T, d): one launch forward and one backward for the whole
+    stack, its slices the kernels' rows (JAX vmaps the ``pallas_call``).
     ``use_pallas`` is ignored (see module docstring)."""
     del use_pallas
+    lead = L.shape[:-3]
+    if lead:
+        return gs_diff_rows(*_stack_rows(x, lead, L, R)).reshape(x.shape)
     return gs_diff(L, R, _tokens(x)).reshape(x.shape)
 
 
 def gs_transform_T(L: torch.Tensor, R: torch.Tensor, x: torch.Tensor,
                    use_pallas: bool = False) -> torch.Tensor:
     """y = R^T P^T L^T P x (transpose rotation Q^T x, i.e. x Q for row
-    vectors) over the last dim of x. ``use_pallas`` is ignored."""
+    vectors) over the last dim of x; a stack as ``gs_transform``.
+    ``use_pallas`` is ignored."""
     del use_pallas
+    lead = L.shape[:-3]
+    if lead:
+        return gs_T_diff_rows(*_stack_rows(x, lead, L, R)).reshape(x.shape)
     return gs_T_diff(L, R, _tokens(x)).reshape(x.shape)
 
 

@@ -85,7 +85,7 @@ from repro_torch.config import get_config, get_smoke_config, parse_overrides
 from repro_torch.core import peft as peft_lib
 from repro_torch.core.runtime import ModelRuntime
 from repro_torch.distrib.cluster import EngineCluster, format_cluster_report
-from repro_torch.distrib.tp import SPLIT_FAMILIES, serve_mesh
+from repro_torch.distrib.tp import SPLIT_FAMILIES, refuse_experts, serve_mesh
 from repro_torch.models import registry
 from repro_torch.obs import SLOMonitor, TraceRecorder
 from repro_torch.quant import tree_bytes
@@ -376,6 +376,7 @@ def _mesh(args, cfg):
         dp, tp = 1, args.tp
     else:
         dp, tp = (int(x) for x in args.mesh.split(","))
+    refuse_experts(cfg, tp, dp)
     if tp > 1 and cfg.family not in SPLIT_FAMILIES:
         raise NotImplementedError(
             f"tensor-parallel serving of the {cfg.family!r} family is not "

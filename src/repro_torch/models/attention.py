@@ -1,6 +1,7 @@
 """Attention with GQA, RoPE, a contiguous KV cache and a paged one (port of
 ``repro/models/attention.py``: ``init_attention``, ``online_attention``,
-``init_cache``, ``attention_block``, ``init_paged_kv``,
+``prefix_loop_attention`` (``cfg.attn_impl == "prefix_loop"``: causal
+prefill and training), ``init_cache``, ``attention_block``, ``init_paged_kv``,
 ``paged_attention_block``, ``paged_prefill_chunk_block``). The contiguous
 path and chunked prefill are plain torch; paged decode runs
 ``ops.paged_attention`` (the paged decode kernel on the card), as the JAX
@@ -109,6 +110,26 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
+def prefix_loop_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, chunk: int, scale: float) -> torch.Tensor:
+    """Exact-triangular causal attention: query chunk i attends only to
+    keys [0, (i + 1) chunk), one ``online_attention`` a chunk. Falls back to
+    ``online_attention`` over the whole sequence when chunk does not divide
+    S, as JAX's does."""
+    b, s = q.shape[:2]
+    if s % chunk:
+        return online_attention(q, k, v, _positions(b, s, q.device), s,
+                                causal=True, chunk=chunk, scale=scale)
+    outs = []
+    for i in range(s // chunk):
+        hi = (i + 1) * chunk
+        pos = _positions(b, chunk, q.device) + i * chunk
+        outs.append(online_attention(q[:, i * chunk:hi], k[:, :hi],
+                                     v[:, :hi], pos, hi, causal=True,
+                                     chunk=chunk, scale=scale))
+    return torch.cat(outs, dim=1)
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int64, device=device)[None, :].expand(b, s)
 
@@ -183,8 +204,12 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
         if cache is not None:
             cache["k"][:, :sq] = k.to(cache["k"].dtype)
             cache["v"][:, :sq] = v.to(cache["v"].dtype)
-        out = online_attention(q, k, v, positions, sq, causal=causal,
-                               chunk=cfg.attn_chunk, scale=scale)
+        if causal and cfg.attn_impl == "prefix_loop":
+            out = prefix_loop_attention(q, k, v, chunk=cfg.attn_chunk,
+                                        scale=scale)
+        else:
+            out = online_attention(q, k, v, positions, sq, causal=causal,
+                                   chunk=cfg.attn_chunk, scale=scale)
     return _out(p, out, rot, tp), cache
 
 

@@ -79,6 +79,16 @@ def stack_layers(slices) -> torch.Tensor:
     return torch.stack(slices)
 
 
+def cat_layers(chunks) -> torch.Tensor:
+    """torch.cat of layer stacks along dim 0, keeping their layout as
+    ``stack_layers`` does (chunks that are transposes of contiguous stacks
+    join as one such stack)."""
+    if all(c.dim() >= 2 and c.transpose(-1, -2).is_contiguous()
+           for c in chunks):
+        return torch.cat([c.transpose(-1, -2) for c in chunks]).transpose(-1, -2)
+    return torch.cat(chunks)
+
+
 class _UnbindLayers(torch.autograd.Function):
     """torch.unbind over the layer dim whose backward stacks the layer
     gradients with ``stack_layers`` (autograd's own stacks them contiguous,
@@ -192,27 +202,47 @@ def init_mlp(gen: torch.Generator, d: int, f: int, mlp_type: str, dtype,
 def init_stacked_mlp(gen: torch.Generator, n: int, d: int, f: int,
                      mlp_type: str, dtype, device, keep=keep_all,
                      prefix: str = "") -> Dict[str, torch.Tensor]:
-    """``keep(path, leaf)`` takes each weight as it is drawn (a split
-    model keeps its rank's slice and drops the rest before the next)."""
-    if mlp_type != "swiglu":
-        raise ValueError(f"mlp_type {mlp_type!r} is not ported yet (swiglu)")
+    """{"wi", "wo"} plus "wg" for the gated MLPs (swiglu, geglu); ``gelu``
+    has no gate. ``keep(path, leaf)`` takes each weight as it is drawn (a
+    split model keeps its rank's slice and drops the rest before the
+    next)."""
+    shapes = [("wi", d, f), ("wo", f, d)]
+    if _gated(mlp_type):
+        shapes.append(("wg", d, f))
     return {k: keep(f"{prefix}{k}", stacked_dense_init(gen, n, di, do, dtype,
                                                       device))
-            for k, di, do in (("wi", d, f), ("wo", f, d), ("wg", d, f))}
+            for k, di, do in shapes}
+
+
+def _gated(mlp_type: str) -> bool:
+    if mlp_type not in ("swiglu", "geglu", "gelu"):
+        raise ValueError(f"unknown mlp_type {mlp_type!r}")
+    return mlp_type != "gelu"
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation (JAX's ``gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, mlp_type: str,
               rot: Rot = None, tp=None) -> torch.Tensor:
-    """SwiGLU MLP; ``rot(name, x)`` optionally rotates the inputs of
-    wi / wg / wo. Under tensor parallelism with d_ff split, wi / wg are
-    column-parallel (local d_ff; ``tp.enter`` at the input) and wo
+    """The MLP: swiglu ``silu(x wg) * (x wi)``, geglu ``gelu(x wg) * (x
+    wi)``, gelu ``gelu(x wi)``, then ``wo`` (GELU with the tanh
+    approximation, as in JAX). ``rot(name, x)`` optionally rotates the
+    inputs of wi / wg / wo. Under tensor parallelism with d_ff split, wi /
+    wg are column-parallel (local d_ff; ``tp.enter`` at the input) and wo
     row-parallel."""
-    if mlp_type != "swiglu":
-        raise ValueError(f"mlp_type {mlp_type!r} is not ported yet (swiglu)")
+    gated = _gated(mlp_type)
     split = tp is not None and tp.ff_split
     if tp is not None:
         x = tp.enter(x, split)
-    h = F.silu(qlinear(x, p["wg"], rot, "wg")) * qlinear(x, p["wi"], rot, "wi")
+    h = qlinear(x, p["wi"], rot, "wi")
+    if gated:
+        act = F.silu if mlp_type == "swiglu" else gelu_tanh
+        h = act(qlinear(x, p["wg"], rot, "wg")) * h
+    else:
+        h = gelu_tanh(h)
     if split:
         return row_linear(h, p["wo"], rot, "wo", tp)
     y = qlinear(h, p["wo"], rot, "wo")

@@ -1,5 +1,5 @@
-"""Language models (port of the decoder, ``ssm`` and ``hybrid`` families of
-``repro/models/transformer.py``): ``init_lm``, ``forward``, ``lm_loss``,
+"""Language models (port of the decoder (dense and MoE), ``ssm`` and
+``hybrid`` families of ``repro/models/transformer.py``): ``init_lm``, ``forward``, ``lm_loss``,
 ``init_decode_state``, ``decode_step``, ``prefill``, and the decoder's
 paged serve path ``init_paged_state``, ``paged_decode_step``,
 ``paged_chunk_prefill``. Structural branches read the registry record's
@@ -13,6 +13,13 @@ KV cache per application). Their decode state is {"mamba": {"conv", "ssm"}}
 JAX package, their ``prefill`` runs ``forward`` for the logits and returns
 the decode state unchanged (``repro/models/transformer.py`` prefill), and
 they serve no adapter bank (a ``ctx`` raises ValueError).
+
+An MoE decoder holds {"moe": router (L, d, E), wi / wg (L, E, d, f_e), wo
+(L, E, f_e, d)} where a dense one holds {"mlp"}; its layers run
+``models.moe.moe_layer`` (plain torch, as in JAX) and ``forward`` returns
+the mean over layers of its load-balance loss as ``moe_aux``. Experts are
+never rotated per request (a bank's ``rot_mlp`` does not reach them), and
+an MoE model does not split over ranks (expert parallelism is not ported).
 
 Layer weights stay stacked (L, d_in, d_out) as in the JAX tree; the JAX
 ``lax.scan`` over layers is a Python loop over slices of the stacked
@@ -52,6 +59,7 @@ from .attention import (attention_block, init_attention, init_cache,
 from .layers import (apply_mlp, cross_entropy, embed_init, init_mlp,
                      init_stacked_mlp, keep_all, qlinear, rms_norm, softcap,
                      stacked_dense_init, unbind_layers)
+from .moe import init_moe, moe_layer
 from .ssm import init_mamba, init_mamba_state, mamba_block, mamba_decode_step
 
 
@@ -96,10 +104,15 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
             "attn": init_attention(gen, cfg, L, dev, keep=keep,
                                    prefix="layers/attn/"),
             "mlp_norm": zeros(L, cfg.d_model),
-            "mlp": init_stacked_mlp(gen, L, cfg.d_model, cfg.d_ff,
-                                    cfg.mlp_type, wd, dev, keep=keep,
-                                    prefix="layers/mlp/"),
         }
+        if cfg.is_moe:
+            params["layers"]["moe"] = init_moe(gen, cfg, L, wd, dev,
+                                               keep=keep,
+                                               prefix="layers/moe/")
+        else:
+            params["layers"]["mlp"] = init_stacked_mlp(
+                gen, L, cfg.d_model, cfg.d_ff, cfg.mlp_type, wd, dev,
+                keep=keep, prefix="layers/mlp/")
     elif mixer == "ssm":
         params["layers"] = {"norm": zeros(L, cfg.d_model),
                             "mamba": init_mamba(gen, cfg, (L,), wd, dev,
@@ -143,15 +156,24 @@ def _unbind(tree: Any, n: int) -> list:
     return list(unbind_layers(tree))
 
 
+def _ffn(cfg: ModelConfig, lp, h: torch.Tensor, rot=None, tp=None):
+    """The layer's MLP or MoE on the residual h (its norm first): (output,
+    moe aux loss, or None for a dense MLP)."""
+    hin = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    if "moe" in lp:      # never split: distrib.tp.model_shard refuses MoE
+        return moe_layer(lp["moe"], hin, cfg, segment=cfg.moe_segment)
+    return apply_mlp(lp["mlp"], hin, cfg.mlp_type, rot=rot, tp=tp), None
+
+
 def _decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, cache=None,
                    cache_pos=None, rot_attn=None, rot_mlp=None, tp=None):
+    """-> (h, moe aux loss or None)."""
     a, cache = attention_block(
         lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
         cache=cache, cache_pos=cache_pos, causal=True, rot=rot_attn, tp=tp)
     h = h + a
-    m = apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
-                  cfg.mlp_type, rot=rot_mlp, tp=tp)
-    return h + m
+    m, aux = _ffn(cfg, lp, h, rot_mlp, tp)
+    return h + m, aux
 
 
 def _shared_attn_layer(cfg: ModelConfig, sp, h: torch.Tensor, cache=None,
@@ -230,14 +252,16 @@ def _run_layers(cfg: ModelConfig, params, h: torch.Tensor, kv=None,
         lp = _slice(params["layers"], i)
         cache = _slice(kv, i) if kv is not None else None
         rot_attn, rot_mlp = _layer_rotators(ctx, i, tp)
-        h = _decoder_layer(cfg, lp, h, cache, cache_pos, rot_attn, rot_mlp,
-                           tp)
+        h, _ = _decoder_layer(cfg, lp, h, cache, cache_pos, rot_attn,
+                              rot_mlp, tp)
     return h
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, Vp), moe_aux = 0). batch["tokens"]: (B, S).
+    """-> (logits (B, S, Vp), moe_aux). batch["tokens"]: (B, S). moe_aux is
+    the mean over layers of each MoE layer's Switch load-balance loss (fp32
+    scalar; 0 for a dense model and the Mamba2 families).
     ``tp``: a split model's forward (the ``ssm`` / ``hybrid`` prefill, and
     training on a mesh: under ``cfg.seq_parallel`` the residual stream
     holds the rank's share of the sequence between blocks)."""
@@ -245,11 +269,14 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         tp = tp.with_seq(batch["tokens"].shape[1])
     h = _embed(cfg, params, batch["tokens"], tp)
     mixer = _traits(cfg).mixer
+    auxs = []
     if mixer == "attention":
         layer = _remat(cfg, lambda lp, hc: _decoder_layer(cfg, lp, hc,
                                                           tp=tp))
         for lp in _unbind(params["layers"], cfg.num_layers):
-            h = layer(lp, h)
+            h, aux = layer(lp, h)
+            if aux is not None:
+                auxs.append(aux)
     elif mixer == "ssm":
         layer = _remat(cfg, lambda lp, hc: _mamba_layer(cfg, lp, hc, tp))
         for lp in _unbind(params["layers"], cfg.num_layers):
@@ -266,7 +293,9 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         block = _remat(cfg, super_block)
         for bp in _unbind(params["blocks"], cfg.num_layers // per):
             h = block(bp, h)
-    return _unembed(cfg, params, h, tp), torch.zeros((), device=h.device)
+    aux = (torch.stack(auxs).mean() if auxs
+           else torch.zeros((), device=h.device))
+    return _unembed(cfg, params, h, tp), aux
 
 
 MOE_AUX_COEF = 0.01
@@ -277,7 +306,9 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     """Contract: batch["labels"][:, t] is the target for logits position t
     (the next token), with batch["mask"] zeroing padded/final slots.
     ``tp``: the rank's shard of a split model (every rank computes the same
-    loss from the gathered logits). Returns (loss, {"loss", "accuracy",
+    loss from the gathered logits). The loss is the cross entropy plus
+    ``MOE_AUX_COEF`` times ``forward``'s moe_aux (the MoE load-balance
+    loss; 0 without MoE), as in JAX. Returns (loss, {"loss", "accuracy",
     "moe_aux"})."""
     logits, aux = forward(cfg, params, batch, tp)
     loss, acc = cross_entropy(logits, batch["labels"], batch.get("mask"),
@@ -391,9 +422,7 @@ def _paged_decoder_layer(cfg: ModelConfig, lp, h: torch.Tensor, pages, table,
         lp["attn"], rms_norm(h, lp["attn_norm"], cfg.norm_eps), cfg,
         pages=pages, table=table, pos=pos, rot=rot_attn, tp=tp)
     h = h + a
-    m = apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
-                  cfg.mlp_type, rot=rot_mlp, tp=tp)
-    return h + m
+    return h + _ffn(cfg, lp, h, rot_mlp, tp)[0]
 
 
 def init_paged_state(cfg: ModelConfig, batch: int, num_pages: int,
@@ -457,8 +486,7 @@ def paged_chunk_prefill(cfg: ModelConfig, params, req: PrefillRequest, state,
             pages=_slice(state["pages"], i), table_row=table_row,
             start=start, rot=rot_attn, tp=tp)
         h = h + a
-        h = h + apply_mlp(lp["mlp"], rms_norm(h, lp["mlp_norm"], cfg.norm_eps),
-                          cfg.mlp_type, rot=rot_mlp, tp=tp)
+        h = h + _ffn(cfg, lp, h, rot_mlp, tp)[0]
     return _unembed(cfg, params, _gather_last(h, req.last_idx), tp), state
 
 

@@ -106,8 +106,11 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
             history.append({"step": step, "loss": loss, "accuracy": acc,
                             "step_time_s": t["step_time_s"],
                             "straggler": t["straggler"]})
-            log_fn(f"step {step:5d} loss {loss:.4f} acc {acc:.3f} "
-                   f"({t['step_time_s']:.2f}s)")
+            line = f"step {step:5d} loss {loss:.4f} acc {acc:.3f} "
+            if cfg.is_moe:      # the loss holds MOE_AUX_COEF x this
+                history[-1]["moe_aux"] = float(metrics["moe_aux"])
+                line += f"moe_aux {history[-1]['moe_aux']:.4f} "
+            log_fn(line + f"({t['step_time_s']:.2f}s)")
         if mgr and ((step + 1) % loop.ckpt_every == 0 or
                     step == loop.steps - 1):
             # the leaves reach host memory before save() returns, also when

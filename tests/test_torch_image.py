@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401  (this worker's share of the cores)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -9,6 +9,7 @@ import sys
 import pytest
 
 pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401  (this worker's share of the cores)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -161,3 +162,53 @@ def test_serve_mesh_and_meshed_runtime_raise_without_a_card(monkeypatch):
         ModelRuntime(get_smoke_config("qwen2-72b"), mesh=mesh)
     rt = ModelRuntime(get_smoke_config("qwen2-72b"), mesh=mesh, device="cpu")
     assert rt.shard is None and rt.mesh is mesh
+
+
+SLICE16_ARCHS = ("gemma-7b", "granite-34b", "mistral-large-123b",
+                 "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
+
+
+@pytest.mark.parametrize("arch", SLICE16_ARCHS)
+def test_decoder_and_moe_entry_points_raise_without_a_card(monkeypatch,
+                                                           arch):
+    """The dense decoders and the MoE configs default to the card too: the
+    training and serving launchers and the runtime raise without one."""
+    import torch
+    from repro_torch.config import get_smoke_config
+    from repro_torch.core.runtime import ModelRuntime
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: launch_train.main(["--arch", arch, "--smoke",
+                                            "--steps", "1"]),
+                 lambda: launch_serve.main(["--arch", arch, "--smoke"]),
+                 lambda: ModelRuntime(get_smoke_config(arch))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+@pytest.mark.parametrize("arch", ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"))
+def test_moe_on_a_mesh_raises_not_implemented(arch):
+    """An MoE config under ``--tp 2``, ``--mesh`` or a split mesh needs
+    expert parallelism: NotImplementedError naming it, before any process
+    group starts (the launcher) or any weight is placed."""
+    from repro_torch import optim
+    from repro_torch.config import get_smoke_config
+    from repro_torch.core import peft
+    from repro_torch.distrib import tp as tp_lib
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.train import steps
+    for flags in (["--tp", "2"], ["--mesh", "2,1"], ["--mesh", "1,4"]):
+        with pytest.raises(NotImplementedError, match="expert parallelism"):
+            launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu"]
+                              + flags)
+    cfg = get_smoke_config(arch)
+    tcfg = steps.TrainStepConfig(peft=peft.PEFTConfig(block_size=8),
+                                 opt=optim.OptimizerConfig())
+    for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
+        with pytest.raises(NotImplementedError, match="expert parallelism"):
+            tp_lib.model_shard(cfg, mesh)
+        with pytest.raises(NotImplementedError, match="expert parallelism"):
+            steps.build_train_step(cfg, tcfg, mesh=mesh)
+    assert tp_lib.model_shard(cfg, {"data": 1, "model": 1}) is None
+    tp_lib.refuse_experts(get_smoke_config("gemma-7b"), 2, 2)   # dense: fine

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401  (this worker's share of the cores)
 
 from repro_torch.kernels import bdmm as bk  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
@@ -1976,3 +1977,50 @@ def test_tp_paged_decode_at_local_heads(cuda, case, dtype):
         assert err <= PAGED_F32_TOL * max(1.0, want.abs().max().item())
     else:
         assert err <= PAGED_BF16_REL * want.float().abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# expert stacks: one launch over every expert of a layer (the MoE configs'
+# (E, d_in, d_out) stacks as the kernels' rows)
+# ---------------------------------------------------------------------------
+
+# (E, T, d) = (experts, d_out, d_in), b = 32: qwen3-moe-30b-a3b's wi / wg
+# (route 1) and wo (r = 24 < b: route 2), phi-3.5-MoE's wi and wo (r = 200)
+MOE_STACKS = [(128, 768, 2048), (128, 2048, 768), (16, 6400, 4096),
+              (16, 4096, 6400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_STACKS, ids=lambda c: "E%d-T%d-d%d" % c)
+def test_expert_stack_rotation_and_grads_in_one_launch(cuda, case):
+    """``gs_fused`` and ``gs_fused_grads`` over a whole expert stack in bf16:
+    one launch each, against the plain version on three sampled experts
+    and against the per-expert launches."""
+    E, T, d = case
+    b = 32
+    rng = np.random.default_rng(E + T + d)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(E * T + d)
+    L, R = (_factors(rng, E, d // b, b).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    x, dy = (torch.randn((E, T, d), generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    idx = torch.tensor([0, E // 2, E - 1], device=cuda)
+    before = (gk.gs_fused.launches, gk.gs_fused_grads.launches)
+    y = gk.gs_fused(x, L, R)
+    dL, dR = gk.gs_fused_grads(x, dy, L, R)
+    assert (gk.gs_fused.launches, gk.gs_fused_grads.launches) == (
+        before[0] + 1, before[1] + 1)
+    pick = lambda *ts: [t.index_select(0, idx) for t in ts]  # noqa: E731
+    want = gk.gs_fused_plain(*pick(x, L, R))
+    assert (y.index_select(0, idx).float() - want.float()).abs().max() <= BF16_TOL
+    wL, wR = gk.gs_fused_grads_plain(*pick(x, dy, L, R))
+    for got, w in ((dL.index_select(0, idx), wL), (dR.index_select(0, idx), wR)):
+        assert (got - w).abs().max() <= 1e-4 * max(1.0, w.abs().max().item())
+    for i in (1, E - 2):
+        one = [t[i:i + 1] for t in (x, dy, L, R)]
+        assert (gk.gs_fused(one[0], *one[2:])[0].float()
+                - y[i].float()).abs().max() <= BF16_TOL
+        gL, gR = gk.gs_fused_grads(*one)
+        assert (gL[0] - dL[i]).abs().max() <= 1e-4 * max(1.0, dL[i].abs().max().item())
+        assert (gR[0] - dR[i]).abs().max() <= 1e-4 * max(1.0, dR[i].abs().max().item())

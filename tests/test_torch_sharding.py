@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401  (this worker's share of the cores)
 
 import jax  # noqa: E402
 from jax.sharding import AbstractMesh, PartitionSpec  # noqa: E402
@@ -36,7 +37,9 @@ from repro_torch.models import transformer as ttransformer  # noqa: E402
 from repro_torch.quant.core import QuantTensor  # noqa: E402
 from repro_torch.sharding import specs  # noqa: E402
 
-ARCHS = ("qwen2-72b", "mamba2-130m", "zamba2-2.7b", "lipconvnet-15")
+ARCHS = ("qwen2-72b", "mamba2-130m", "zamba2-2.7b", "lipconvnet-15",
+         "gemma-7b", "granite-34b", "mistral-large-123b",
+         "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
 TPS = (1, 2, 4, 8)
 
 

@@ -16,6 +16,7 @@ launcher's refusals run in this process.
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401  (this worker's share of the cores)
 
 from repro_torch.launch import serve as tlaunch  # noqa: E402
 

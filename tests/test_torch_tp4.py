@@ -11,6 +11,7 @@ JAX's single-device engine's on the same params and adapters, exactly
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_cpu  # noqa: E402,F401  (this worker's share of the cores)
 
 import torch_tp_refs as R  # noqa: E402
 import torch_tp_runner as runner  # noqa: E402

@@ -1,4 +1,4 @@
-"""Run phases 3h, 14, 15, 16 and 17 of ``chip_smoke.py`` alone on one GPU,
+"""Run phases 3h, 14, 15, 16, 17 and 18 of ``chip_smoke.py`` alone on one GPU,
 from this tree: the image lane's kernel shapes, static / streaming /
 traced serving of qwen2-72b (8 layers, bf16, and the f32 check at 2
 layers), lipconvnet-15 image serving per tenant (bf16, int8, the f32
@@ -6,9 +6,12 @@ checks), scale-out (the cluster, the launcher's ``--replicas`` /
 ``--tp 1`` lanes, tp = 1 and tp = 2 serving, the TP kernel shapes), and
 training (``ssd_bwd``, the Mamba2 families trained on the card, training
 on a (data x model) mesh of gloo ranks sharing the card, elastic restore,
-the compressed mean, GPipe, decode at data = 2).
+the compressed mean, GPipe, decode at data = 2), and the MoE family and
+the other dense decoders (``moe_layer`` card vs CPU, the expert-stacked
+rotations, qwen3-moe training and serving, gemma-7b, granite-34b and
+mistral-large-123b).
 
-    python3 tools/lane_phases.py [--only 3h,14,15,16,17] [--seed N] [--out FILE]
+    python3 tools/lane_phases.py [--only 3h,14,15,16,17,18] [--seed N] [--out FILE]
 
 Each phase runs through the function ``chip_smoke.main()`` calls for it,
 gates, launcher runs and log included (a miss raises), after the kernels
@@ -44,6 +47,8 @@ PHASES = {
     "17": lambda gen, seed, dev: {"training": cs.phase_17(
         cs.get_config("qwen2-72b"), cs.get_config("mamba2-130m"),
         cs.get_config("zamba2-2.7b"), seed, dev, gen)},
+    "18": lambda gen, seed, dev: {"moe_and_decoders": cs.phase_18(
+        seed, dev, gen)},
 }
 
 
