@@ -265,8 +265,36 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    ``attn_impl="prefix_loop"`` against the dense schedule at 2 layers f32;
    granite-34b (GELU MLP, one kv head) and mistral-large-123b (d 12288) at
    full width, 2 layers: f32 bank == merged tokens, one bf16 GSOFT step
-19. report — where the time went (build, set-up, timed runs, profiled
-   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15, 16, 17 and 18 whole),
+19. the encoder-decoder, the vlm and the encoder classifier — (a)
+   seamless-m4t-medium full (12 + 12 layers, d 1024, vocab 256206 padded to
+   256208), bf16, GSOFT b = 32 on one batch of 2 x 256 tokens with 64
+   random frames a row, 3 steps: the loss falls, each step launches 16
+   ``gs_fused`` + 16 ``gs_fused_grads`` (one a stack: encoder attention /
+   MLP, decoder attention / cross-attention / MLP), profiled once; the
+   launcher (``launch/train.py --arch seamless-m4t-medium``, 3 steps);
+   the trained adapter merged (16 ``gs_fused``) and served through
+   ``ServeEngine`` and ``StaticServeEngine`` (8 requests on 4 slots, zero
+   frames as JAX's engines feed; no port kernel on the merged path), then
+   ``launch/serve.py --peft-demo``; f32 at 2 + 2 layers: logits, loss and
+   adapter gradients with random frames on the card against the CPU; (b)
+   pixtral-12b at full width (d 5120, 32 / 8 heads, d_ff 14336, vocab
+   131072, 256 patches of 1024): 8 of 40 layers bf16 served from a bank of
+   3 GSOFT tenants + the base (8 requests on 4 slots): every adapted
+   projection of every prefill (patch_proj too) and decode step rotates
+   through ``gs_fused_T`` by slot id, then the same over int8 weights
+   (``gs_q_matmul`` by slot id, ``q_matmul`` at the LM head); 4 layers
+   trained (2 x 512: 256 patches + 256 text, GSOFT b = 32, 3 steps, 8
+   stacks), profiled once; f32 at 2 layers: banked tokens and prefill
+   logits with random patches equal the merged model's, and card vs CPU;
+   (c) the encoder classifier at RoBERTa-base's widths (12 layers, d 768,
+   12 heads, d_ff 3072, vocab 50265; a RoBERTa-shaped proxy), f32, 2
+   classes, 8 x 128: LoRA r 8, OFT b 16, BOFT m 2 b 8 and GSOFT b 8
+   (``benchmarks/table1_glue.py``'s methods), the first step's gradients
+   card vs CPU, 3 steps each (the loss falls, launches as designed); (d)
+   the kernels at the new shapes against their plain versions, timed, with
+   bounds and library yardsticks
+20. report — where the time went (build, set-up, timed runs, profiled
+   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15, 16, 17, 18 and 19 whole),
    the card's name and power limit, one JSON line of kernels, then the
    ``{"ok": true, ...}`` line
 
@@ -323,9 +351,11 @@ from repro_torch.kernels import ssd as ssdk  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import encoder as encoder_model  # noqa: E402
 from repro_torch.models import image as image_model  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.obs import REGISTRY, SLOMonitor, TraceRecorder  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 from repro_torch.quant import is_quant_tensor, quantize_int8, tree_bytes  # noqa: E402
 from repro_torch.serve.engine import (PagedServeEngine, ServeEngine,  # noqa: E402
                                       StaticServeEngine, prompt_bucket)
@@ -4414,9 +4444,13 @@ def check_ssd_bwd_case(nb, t, h, p, n, dtype, gen, device) -> dict:
 
 
 def _fixed_batch(cfg, seq: int, batch: int, seed: int, device) -> dict:
+    """The training loop's first batch: ``seq`` tokens a row, and the vlm's
+    patches or the encoder-decoder's frames (``LMDataSource``'s
+    ``frontend``)."""
     return {k: torch.as_tensor(v, device=device) for k, v in LMDataSource(
         DataConfig(seq_len=seq, global_batch=batch, seed=seed,
-                   vocab_size=min(cfg.vocab_size, 256))).batch_at(0).items()}
+                   vocab_size=min(cfg.vocab_size, 256)),
+        frontend=synthetic.frontend_shape(cfg, seq)).batch_at(0).items()}
 
 
 def ssm_train_phase(cfg, seed: int, device) -> dict:
@@ -4995,13 +5029,14 @@ def stack_bound(kernel: str, E: int, T: int, d: int, b: int, dtype) -> tuple:
 
 
 def check_stack_case(arch, proj, kernel, E, T, d, b, dtype, gen,
-                     device) -> dict:
+                     device, loop_too: bool = True) -> dict:
     """18b: ``kernel`` (``gs_fused`` or ``gs_fused_grads``) over a whole
     expert stack in ONE launch (the E slices are its rows), against its
     plain version on STACK_SAMPLES sampled slices and against the per-slice
     loop (E one-row launches), each timed; the
     library yardstick is the dense per-slice Q through ``bmm`` (the
-    rotation) or the b x b sums as batched GEMMs (the grads)."""
+    rotation) or the b x b sums as batched GEMMs (the grads). 19 takes a
+    layer stack's rows the same way, without the loop (``loop_too``)."""
     r = d // b
     fn, plain = KERNELS[kernel]["fn"], KERNELS[kernel]["plain"]
     grads = kernel == "gs_fused_grads"
@@ -5021,7 +5056,7 @@ def check_stack_case(arch, proj, kernel, E, T, d, b, dtype, gen,
     if fn.launches != before + 1:
         raise AssertionError(f"{kernel} over {E} rows launched "
                              f"{fn.launches - before} times")
-    looped = loop(*args)
+    looped = loop(*args) if loop_too else out
     idx = torch.tensor(sorted({0, E // 2, E - 1})[:STACK_SAMPLES],
                        device=device)
     want = plain(*(t.index_select(0, idx) for t in args))
@@ -5039,7 +5074,7 @@ def check_stack_case(arch, proj, kernel, E, T, d, b, dtype, gen,
         plain_err = (out.index_select(0, idx).float()
                      - want.float()).abs().max().item()
         loop_err = (out.float() - looped.float()).abs().max().item()
-        tol = BF16_TOL
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     if not (math.isfinite(plain_err) and plain_err <= tol
             and math.isfinite(loop_err) and loop_err <= tol):
         raise AssertionError(f"{kernel} {arch} {proj} E={E} T={T} d={d}: "
@@ -5047,7 +5082,7 @@ def check_stack_case(arch, proj, kernel, E, T, d, b, dtype, gen,
                              f"(tol {tol})")
     del out, looped, want
     ms = time_ms(fn, [args])
-    loop_ms = time_ms(loop, [args])
+    loop_ms = time_ms(loop, [args]) if loop_too else None
     plain_ms = time_ms(plain, [args])
     if grads:
         a = torch.randn((E * r, b, T), generator=gen, device=device)
@@ -5069,8 +5104,10 @@ def check_stack_case(arch, proj, kernel, E, T, d, b, dtype, gen,
     torch.cuda.empty_cache()
     return dict(kernel=kernel, arch=arch, proj=proj, B=E, T=T, d=d, b=b,
                 r=r, route=plan.route, dtype=str(dtype).replace("torch.", ""),
-                max_abs_err=plain_err, loop_err=loop_err, tol=tol, ms=ms,
-                loop_ms=loop_ms, loop_launches=E, plain_ms=plain_ms,
+                max_abs_err=plain_err,
+                loop_err=loop_err if loop_too else None, tol=tol, ms=ms,
+                loop_ms=loop_ms, loop_launches=E if loop_too else None,
+                plain_ms=plain_ms,
                 library_ms=lib_ms, library_what=lib_what,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -5113,10 +5150,18 @@ def _launch_train(argv) -> dict:
     return dict(argv=argv, losses=losses, moe_aux=auxs)
 
 
+def _train_batch(cfg, seq: int, batch: int, seed: int, device) -> dict:
+    """One fixed batch of ``seq`` positions a row: ``_fixed_batch`` with
+    the vlm's text after its patches (``synthetic.text_len``)."""
+    return _fixed_batch(cfg, synthetic.text_len(cfg, seq), batch, seed,
+                        device)
+
+
 def fixed_batch_train(cfg, seed: int, device, steps_n: int, lr: float,
-                      profile: bool = False, before_after: bool = False
-                      ) -> dict:
-    """GSOFT (b = 32) on one fixed batch of MOE_BATCH x MOE_SEQ tokens:
+                      profile: bool = False, before_after: bool = False,
+                      seq: int = MOE_SEQ) -> dict:
+    """GSOFT (b = 32) on one fixed batch of MOE_BATCH x ``seq`` positions
+    (a vlm's patches and an encdec's frames included, ``_train_batch``):
     ``steps_n`` steps of ``build_train_step``, each one's launches equal to
     the design's (one rotation launch an adapted stack chunk); the losses
     must be finite and, over several steps, fall. ``profile``: one more step under the profiler (idle share);
@@ -5131,7 +5176,7 @@ def fixed_batch_train(cfg, seed: int, device, steps_n: int, lr: float,
     trainable, frozen = peft_lib.trainable_and_frozen(pcfg, params, adapters)
     opt_state = optim.init(tcfg.opt, trainable)
     step = steps.build_train_step(cfg, tcfg)
-    batch = _fixed_batch(cfg, MOE_SEQ, MOE_BATCH, seed, device)
+    batch = _train_batch(cfg, seq, MOE_BATCH, seed, device)
     per_step = {k: v for k, v in design_launches(pcfg, frozen).items() if v}
     losses, auxs, times = [], [], []
     for _ in range(steps_n):
@@ -5152,8 +5197,8 @@ def fixed_batch_train(cfg, seed: int, device, steps_n: int, lr: float,
         raise AssertionError(f"{cfg.name}: losses {losses} do not fall")
     warm = times[1:] or times                 # the first step warms up
     out = dict(arch=cfg.name, layers=cfg.num_layers, batch=MOE_BATCH,
-               seq=MOE_SEQ, lr=lr, losses=losses, moe_aux=auxs, step_s=times,
-               tok_s=MOE_BATCH * MOE_SEQ * len(warm) / sum(warm),
+               seq=seq, lr=lr, losses=losses, moe_aux=auxs, step_s=times,
+               tok_s=MOE_BATCH * seq * len(warm) / sum(warm),
                launches_per_step=per_step,
                adapted_slices=_slices(pcfg, frozen))
     if before_after:
@@ -5415,10 +5460,10 @@ def phase_18(seed: int, device, gen) -> dict:
     _PHASE_S["18c moe training"] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
-    q12 = qwen3.with_overrides(num_layers=MOE_SERVE_LAYERS)
-    sv = out["moe_serve"] = moe_serve_phase(q12, seed, device, trained)
+    q_serve = qwen3.with_overrides(num_layers=MOE_SERVE_LAYERS)
+    sv = out["moe_serve"] = moe_serve_phase(q_serve, seed, device, trained)
     del trained
-    log(f"18d serve qwen3-moe full width, {q12.num_layers} layers, bf16: "
+    log(f"18d serve qwen3-moe full width, {q_serve.num_layers} layers, bf16: "
         f"paged, attention bank (3 tenants + base), {sv['paged']['requests']}"
         f" requests on 4 slots: {sv['paged']['tok_s']:.1f} tok/s, idle "
         f"{sv['paged']['profile']['idle_share']} (first "
@@ -5494,6 +5539,527 @@ def phase_18(seed: int, device, gen) -> dict:
             f" lib {c['library_ms']:.4f} bound {c['bound_ms']:.5f}")
         torch.cuda.empty_cache()
     _PHASE_S["18e dense decoders"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the encoder-decoder (seamless-m4t-medium), the vlm (pixtral-12b)
+# and the encoder classifier (the paper's GLUE setting)
+# ---------------------------------------------------------------------------
+
+P19_STEPS = 3
+P19_LR = 1e-2                       # one fixed batch, 3 steps: the loss falls
+ENCDEC_SEQ = 256                    # 19a: 2 x 256 tokens, 64 frames a row
+VLM_SEQ = 512                       # 19b: 256 patches + 256 text tokens
+VLM_SERVE_LAYERS = 8                # 19b: 8 of 40 layers, about 7 GB of bf16
+VLM_TRAIN_LAYERS = 4
+# pixtral's slots: 256 patches + a prompt of up to 128 + 16 new tokens
+VLM_MAX_LEN = 512
+P19_CHECK_TOKENS = 16               # the f32 checks' text tokens
+# f32 card vs CPU (TF32 off): the same params and inputs, sums in another
+# order (cuBLAS and the GS kernels against the CPU's BLAS and the plain
+# versions), through 4 (19a) or 2 (19b) layers and a 256208 / 131072-column
+# LM head: logits and loss within 1e-4 of their largest magnitude, adapter
+# gradients within 1e-4 of each leaf's max |g|, as the CPU tests hold the
+# port to JAX
+CARD_CPU_REL = 1e-4
+CARD_CPU_GRAD_REL = 1e-4
+# 19c: RoBERTa-base's published widths (arXiv:1907.11692) through
+# ``encoder_config``'s arguments: a RoBERTa-shaped proxy (RMSNorm, RoPE,
+# GELU), f32
+CLS_ARGS = dict(name="roberta-base-proxy", num_layers=12, d_model=768,
+                num_heads=12, d_ff=3072, vocab_size=50265)
+CLS_CLASSES = 2
+CLS_BATCH, CLS_SEQ = 8, 128
+CLS_CHECK_BATCH, CLS_CHECK_SEQ = 2, 32   # the card vs CPU gradients
+# AdamW's first steps move each trained entry by about the rate: a head
+# logit by about lr x d x |h| (the final norm gives |h| near 1), and every
+# rotation of the 12-layer frozen random backbone at once. table1_glue's
+# 5e-3 (d 64, 2 layers) took LoRA's loss from 0.76 to 9.8 in 3 steps at
+# these widths on the card, 5e-4 OFT's from 0.72 to 2.66; at 2e-4 and 1e-4
+# all four fell, at 1e-4 step by step
+CLS_LR = 1e-4
+CLS_METHODS = {                     # benchmarks/table1_glue.py's METHODS
+    "lora": dict(method="lora", rank=8, alpha=16),
+    "oft": dict(method="oft", block_size=16),
+    "boft": dict(method="boft", block_size=8, boft_factors=2),
+    "gsoft": dict(method="gsoft", block_size=8),
+}
+
+
+def p19_stack_cases(seamless, pixtral, cls_cfg) -> list:
+    """(arch, projection, rows, T, d, b, dtype) of one training step's
+    weight stacks at the new widths (rows: the stack's layers; T = d_out, d
+    = d_in): seamless's attention (d 1024, r = b) and MLP wo (d 4096, r =
+    128); pixtral's wq (d 5120, r = 160), attention wo (d 4096), MLP wo (d
+    14336, r = 448) at the training depth, and patch_proj (d 1024, one
+    row); the classifier's GSOFT b = 8 in f32 (route 2) at d 768 and its MLP
+    wo (d 3072)."""
+    S, P, C = seamless, pixtral, cls_cfg
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        (S.name, "attn wq", S.num_layers, S.d_model, S.d_model, 32, bf),
+        (S.name, "mlp wo", S.num_layers, S.d_model, S.d_ff, 32, bf),
+        (P.name, "attn wq", VLM_TRAIN_LAYERS, P.num_heads * P.d_head,
+         P.d_model, 32, bf),
+        (P.name, "attn wo", VLM_TRAIN_LAYERS, P.d_model,
+         P.num_heads * P.d_head, 32, bf),
+        (P.name, "mlp wo", VLM_TRAIN_LAYERS, P.d_model, P.d_ff, 32, bf),
+        (P.name, "patch_proj wi", 1, P.d_model, P.frontend_dim, 32, bf),
+        (C.name, "attn wq", C.num_layers, C.d_model, C.d_model, 8, f32),
+        (C.name, "mlp wo", C.num_layers, C.d_model, C.d_ff, 8, f32)]
+
+
+def p19_kernel_phase(seamless, pixtral, cls_cfg, gen, device) -> list:
+    """19d: the kernels at the new shapes against their plain versions,
+    timed, with bounds and library yardsticks: ``gs_fused`` and
+    ``gs_fused_grads`` over each training stack (one launch over its
+    rows), pixtral's banked serving rotation (``gs_fused_T`` by slot id:
+    decode rows at d 5120 / 4096 / 14336, one request's 256 patches at d
+    1024) and its int8 products (``gs_q_matmul`` at wq, ``q_matmul`` at the
+    LM head), the classifier's OFT (b 16) and BOFT (b 8) ``bdmm`` and
+    ``bdmm_dblocks`` at d 768, f32."""
+    out = []
+    for arch, proj, B, T, d, b, dtype in p19_stack_cases(seamless, pixtral,
+                                                         cls_cfg):
+        for kernel in ("gs_fused", "gs_fused_grads"):
+            out.append(check_stack_case(arch, proj, kernel, B, T, d, b, dtype,
+                                        gen, device, loop_too=False))
+        torch.cuda.empty_cache()
+    P = pixtral
+    for B, T, d in ((4, 1, P.d_model), (4, 1, P.num_heads * P.d_head),
+                    (4, 1, P.d_ff), (1, P.frontend_tokens, P.frontend_dim)):
+        out.append(dict(check_case("gs_fused_T", B, T, d, 32, torch.bfloat16,
+                                   gen, device), arch=P.name))
+        torch.cuda.empty_cache()
+    out.append(dict(check_gsq_case(4, 1, P.d_model, P.num_heads * P.d_head,
+                                   32, torch.bfloat16, gen, device),
+                    arch=P.name))
+    out.append(dict(check_qmm_case(4, P.d_model, P.padded_vocab(),
+                                   torch.bfloat16, gen, device), arch=P.name))
+    for b in (16, 8):
+        out.append(dict(check_bdmm_case(cls_cfg.num_layers, cls_cfg.d_model,
+                                        cls_cfg.d_model, b, torch.float32,
+                                        gen, device), arch=cls_cfg.name))
+        out.append(dict(check_dblocks_case(cls_cfg.d_model, cls_cfg.d_model,
+                                           b, torch.float32, gen, device),
+                        arch=cls_cfg.name))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_engine(max_len: int):
+    return lambda rt: ServeEngine(rt, max_batch=4, max_len=max_len, eos_id=-1)
+
+
+def _static_engine(max_len: int):
+    return lambda rt: StaticServeEngine(rt, max_batch=4, max_len=max_len,
+                                        eos_id=-1)
+
+
+def _leaf_grads(loss_of, tree) -> tuple:
+    """(loss, metrics, gradients): ``loss_of(leaves)`` differentiated with
+    respect to every tensor of the nested dict ``tree`` (same nesting)."""
+    leaves = tree_map(lambda v: v.detach().clone().requires_grad_(), tree)
+    with torch.enable_grad():
+        value, metrics = loss_of(leaves)
+        grads = torch.autograd.grad(value, tree_leaves(leaves))
+    return value.detach(), metrics, steps._rebuild(leaves, iter(grads))
+
+
+def _grads_gap(got, want) -> float:
+    """The largest |card - CPU| over the gradient leaves, each relative to
+    that leaf's max |CPU gradient|."""
+    return max((g.cpu() - w).abs().max().item()
+               / max(1e-30, w.abs().max().item())
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def card_cpu_phase(cfg, seed: int, device, batch: dict) -> dict:
+    """f32, TF32 off: the forward logits, the loss and its adapter
+    gradients (GSOFT b = 32, perturbed off the identity) on the card
+    against the same params, adapters and batch on the CPU; fails past
+    CARD_CPU_REL / CARD_CPU_GRAD_REL."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    params = ModelRuntime(cfg, seed=seed, device=device).params
+    adapters = perturbed_adapters(pcfg, params, seed + 5, 0.05, device)
+    cpu = torch.device("cpu")
+    params_c, adapters_c, batch_c = (_to(t, cpu) for t in (params, adapters,
+                                                          batch))
+    with torch.no_grad():
+        logits = api.forward(cfg, params, batch)[0].cpu()
+        logits_c = api.forward(cfg, params_c, batch_c)[0]
+    scale = max(1.0, logits_c.abs().max().item())
+    err = (logits - logits_c).abs().max().item()
+    del logits, logits_c
+    grad_fn = steps.build_grad_fn(cfg, pcfg)
+    _reset_launches()
+    loss, _, grads = grad_fn(adapters, params, batch)
+    launches = {k: v for k, v in _launches().items() if v}
+    loss_c, _, grads_c = grad_fn(adapters_c, params_c, batch_c)
+    gerr = _grads_gap(grads, grads_c)
+    lerr = abs(float(loss) - float(loss_c)) / max(1.0, abs(float(loss_c)))
+    del params, adapters, params_c, adapters_c, grads, grads_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (math.isfinite(err) and err <= CARD_CPU_REL * scale
+            and lerr <= CARD_CPU_REL and gerr <= CARD_CPU_GRAD_REL):
+        raise AssertionError(
+            f"{cfg.name} f32 card vs CPU: logits {err} of {scale}, loss "
+            f"{lerr}, adapter gradients {gerr} (tol {CARD_CPU_REL} / "
+            f"{CARD_CPU_GRAD_REL})")
+    if not launches.get("gs_fused") or not launches.get("gs_fused_grads"):
+        raise AssertionError(f"{cfg.name} f32 gradient: launches {launches}")
+    return dict(layers=cfg.num_layers, enc_layers=cfg.enc_layers,
+                logit_rel_err=err / scale, loss_rel_err=lerr,
+                grad_rel_err=gerr, tol=CARD_CPU_REL,
+                grad_tol=CARD_CPU_GRAD_REL, launches=launches)
+
+
+def encdec_phase(cfg, seed: int, device) -> dict:
+    """19a: seamless-m4t-medium full (12 + 12 layers, bf16): GSOFT b = 32
+    on one fixed batch (2 x 256 tokens, 64 frames a row; 16 stacks: one
+    ``gs_fused`` and one ``gs_fused_grads`` each a step), profiled once;
+    ``launch/train.py`` 3 steps; the trained adapter merged (16
+    ``gs_fused`` launches) and served through ``ServeEngine`` and
+    ``StaticServeEngine`` (8 requests on 4 slots: zero frames, no port
+    kernel on the merged path); ``launch/serve.py --peft-demo``; f32 at 2 +
+    2 layers: card vs CPU with random frames."""
+    out = {}
+    tr = fixed_batch_train(cfg, seed, device, P19_STEPS, P19_LR,
+                           profile=True, seq=ENCDEC_SEQ)
+    trained = tr.pop("trained")
+    want = {"gs_fused": 16, "gs_fused_grads": 16}
+    if tr["launches_per_step"] != want:
+        raise AssertionError(f"19a: a step launched "
+                             f"{tr['launches_per_step']}, want {want}")
+    out["train"] = tr
+    argv = ["--arch", cfg.name, "--peft", "gsoft", "--block-size", "32",
+            "--steps", str(P19_STEPS), "--batch", str(MOE_BATCH), "--seq",
+            str(ENCDEC_SEQ), "--lr", str(P19_LR), "--warmup", "1", "--seed",
+            str(seed), "--no-resume"]
+    _reset_launches()
+    out["launcher"] = _launch_train(argv)
+    out["launcher"]["launches"] = {k: v for k, v in _launches().items() if v}
+    if out["launcher"]["launches"].get("gs_fused_grads") != 16 * P19_STEPS:
+        raise AssertionError(f"19a launcher: {out['launcher']['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    merged = ModelRuntime(cfg, base.params, device=device, adapters=trained,
+                          peft_cfg=pcfg)
+    torch.cuda.synchronize()
+    out["merge_s"] = time.perf_counter() - t0
+    out["merge_launches"] = gk.gs_fused.launches
+    if out["merge_launches"] != 16:
+        raise AssertionError(f"19a merge: {out['merge_launches']} launches")
+    del base, trained
+    work = [(p, None, n) for p, _, n in _work(cfg, seed, [None])]
+    out["serve"] = serve_lane(merged, work, _serve_engine(SERVE_MAX_LEN),
+                              static=True)
+    out["static"] = serve_lane(merged, work, _static_engine(SERVE_MAX_LEN),
+                               static=True, profile=False)
+    for lane in ("serve", "static"):
+        if out[lane]["launches"]:
+            raise AssertionError(f"19a {lane}: the merged model launched "
+                                 f"{out[lane]['launches']}")
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve_launcher"] = launcher_lane_run(
+        ["--arch", cfg.name, "--peft-demo", "--requests", "8"],
+        ["[continuous] served 8 requests"])
+    c32 = cfg.with_overrides(num_layers=2, enc_layers=2, dtype="f32",
+                             param_dtype="f32")
+    out["check"] = card_cpu_phase(c32, seed, device, _train_batch(
+        c32, 2 * P19_CHECK_TOKENS, 1, seed, device))
+    return out
+
+
+def _vlm_launches(lane: dict, per_prefill: int, per_step: int,
+                  name: str) -> dict:
+    """The rotation launches a banked pixtral lane must make: every
+    adapted projection of each prefill (patch_proj too) and of each decode
+    step, each by slot id."""
+    want = per_prefill * lane["prefills"] + per_step * lane["decode_steps"]
+    got, slot = lane["launches"].get(name, 0), lane["slot_launches"][name]
+    if got != want or slot != got:
+        raise AssertionError(f"19b {name}: {got} launches ({slot} by slot "
+                             f"id), the design says {want}")
+    return dict(launches=got, design=want)
+
+
+def vlm_bank_check(cfg, seed: int, device) -> dict:
+    """f32: one GSOFT tenant banked (patch_proj rotated per request)
+    against the model with it merged: greedy tokens through ``ServeEngine``
+    equal, and one prefill with random patches gives logits within
+    LOGIT_TOL of max |logit|."""
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    base = ModelRuntime(cfg, seed=seed, device=device)
+    adapter = perturbed_adapters(pcfg, base.params, seed + 7, 0.05, device)
+    banked = base.attach({"a": adapter}, pcfg)
+    merged = ModelRuntime(cfg, base.params, device=device, adapters=adapter,
+                          peft_cfg=pcfg)
+    prompt = np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, P19_CHECK_TOKENS).tolist()
+    tokens = {}
+    for name, rt, who in (("banked", banked, "a"), ("merged", merged, None)):
+        eng = ServeEngine(rt, max_batch=1, max_len=VLM_MAX_LEN, eos_id=-1)
+        rid = eng.add_request(prompt, max_new_tokens=8, adapter=who)
+        tokens[name] = eng.run()[rid]
+    if tokens["banked"] != tokens["merged"]:
+        raise AssertionError(f"19b banked {tokens['banked']} != merged "
+                             f"{tokens['merged']}")
+    batch = _train_batch(cfg, cfg.frontend_tokens + P19_CHECK_TOKENS, 1,
+                         seed, device)
+    feed = {k: batch[k] for k in ("tokens", "patches")}
+    last = torch.as_tensor(cfg.frontend_tokens + P19_CHECK_TOKENS - 1)
+    logits = []
+    _reset_launches()
+    for rt, slot in ((banked, [1]), (merged, [0])):
+        req = peft_lib.PrefillRequest(feed, last, rt.context(slot))
+        logits.append(steps.build_prefill_step(cfg)(
+            rt.params, req, rt.decode_state(1, VLM_MAX_LEN))[0].float())
+    slot_launches = gk.gs_fused_T.slot_launches
+    tol = LOGIT_TOL * max(1.0, logits[1].abs().max().item())
+    err = (logits[0] - logits[1]).abs().max().item()
+    del base, banked, merged, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (math.isfinite(err) and err <= tol):
+        raise AssertionError(f"19b banked vs merged prefill logits: {err} "
+                             f"(tol {tol})")
+    if slot_launches != 7 * cfg.num_layers + 1:
+        raise AssertionError(f"19b: the banked prefill made {slot_launches} "
+                             "slot-id rotations")
+    return dict(layers=cfg.num_layers, tokens=tokens["banked"],
+                logit_max_abs_err=err, logit_tol=tol,
+                prefill_slot_launches=slot_launches)
+
+
+def vlm_phase(cfg, seed: int, device) -> dict:
+    """19b: pixtral-12b at full width (d 5120, 32 / 8 heads, d_ff 14336,
+    256 patches of 1024): served at VLM_SERVE_LAYERS layers (bf16) from a
+    bank of 3 GSOFT tenants and the base (b = 32; the bank rotates
+    patch_proj per request), 8 requests on 4 slots, then over int8 weights;
+    trained at VLM_TRAIN_LAYERS layers (GSOFT b = 32, 2 x 512 positions:
+    256 patches + 256 text; 7 layer stacks and patch_proj a step), profiled once; f32 at 2
+    layers: banked tokens and prefill logits (random patches) equal the
+    merged model's, and card vs CPU."""
+    out = {}
+    pcfg = peft_lib.PEFTConfig(method="gsoft", block_size=32)
+    c8 = cfg.with_overrides(num_layers=VLM_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    base = ModelRuntime(c8, seed=seed, device=device)
+    names = ["tenant_a", "tenant_b", "tenant_c"]
+    rt = base.attach({n: perturbed_adapters(pcfg, base.params, seed + 1 + i,
+                                            0.05, device)
+                      for i, n in enumerate(names)}, pcfg)
+    del base
+    work = _work(c8, seed, names + [None])
+    out["setup_s"] = time.perf_counter() - t0
+    stacks = 7 * c8.num_layers      # wq wk wv wo, wi wg, MLP wo a layer
+    lane = out["serve"] = serve_lane(rt, work, _serve_engine(VLM_MAX_LEN))
+    lane["check"] = _vlm_launches(lane, stacks + 1, stacks, "gs_fused_T")
+    qrt = rt.quantized("int8", release_source=True)
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    lane = out["serve_int8"] = serve_lane(qrt, work,
+                                          _serve_engine(VLM_MAX_LEN),
+                                          profile=False)
+    lane["check"] = _vlm_launches(lane, stacks + 1, stacks, "gs_q_matmul")
+    heads = lane["prefills"] + lane["decode_steps"]
+    if lane["launches"].get("q_matmul") != heads or \
+            lane["launches"].get("gs_fused_T"):
+        raise AssertionError(f"19b int8: launches {lane['launches']}")
+    del qrt
+    gc.collect()
+    torch.cuda.empty_cache()
+    c4 = cfg.with_overrides(num_layers=VLM_TRAIN_LAYERS)
+    tr = fixed_batch_train(c4, seed, device, P19_STEPS, P19_LR,
+                           profile=True, seq=VLM_SEQ)
+    tr.pop("trained")
+    want = {"gs_fused": 8, "gs_fused_grads": 8}   # 7 stacks + patch_proj
+    if tr["launches_per_step"] != want:
+        raise AssertionError(f"19b: a step launched "
+                             f"{tr['launches_per_step']}, want {want}")
+    out["train"] = tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    c2 = cfg.with_overrides(num_layers=2, dtype="f32", param_dtype="f32")
+    out["banked_vs_merged"] = vlm_bank_check(c2, seed, device)
+    out["check"] = card_cpu_phase(c2, seed, device, _train_batch(
+        c2, c2.frontend_tokens + P19_CHECK_TOKENS, 1, seed, device))
+    return out
+
+
+def _cls_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
+    """benchmarks/table1_glue.py's task: random tokens, the label the last
+    token's class."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=device)
+    return {"tokens": toks, "labels": toks[:, -1] % CLS_CLASSES}
+
+
+def _cls_loss(cfg, pcfg, frozen, batch):
+    """The classifier's loss of a trainable tree {"adapters", "head"}, the
+    adapters applied to the frozen backbone (table1_glue's materialize)."""
+    def loss_of(t):
+        eff = peft_lib.materialize_tree(pcfg, frozen, t["adapters"])
+        return encoder_model.classifier_loss(cfg, {**eff, "head": t["head"]},
+                                             batch)
+    return loss_of
+
+
+def cls_steps(cfg, pcfg, params, trainable, batch, lr: float,
+              design=None, name: str = "") -> tuple:
+    """P19_STEPS AdamW steps (rate ``lr``) of the classifier's trainable
+    tree on one batch, on the device its tensors lie on: (losses, seconds
+    a step, the last step's metrics). With ``design`` (the card), each
+    step's kernel launches must equal it."""
+    ocfg = optim.OptimizerConfig(learning_rate=lr)
+    opt = optim.init(ocfg, trainable)
+    loss_of = _cls_loss(cfg, pcfg, params, batch)
+    cuda = batch["tokens"].is_cuda
+    losses, times = [], []
+    for _ in range(P19_STEPS):
+        _reset_launches()
+        t0 = time.perf_counter()
+        value, metrics, grads = _leaf_grads(loss_of, trainable)
+        with torch.no_grad():
+            trainable, opt, _ = optim.update(ocfg, grads, opt, trainable)
+        losses.append(float(value))
+        if cuda:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = {k: v for k, v in _launches().items() if v}
+        if design is not None and got != design:
+            raise AssertionError(f"19c {name}: a step launched {got}, "
+                                 f"the design says {design}")
+    return losses, times, metrics
+
+
+def classifier_phase(seed: int, device) -> dict:
+    """19c: the encoder classifier at RoBERTa-base's widths (CLS_ARGS, f32,
+    TF32 off), 2 classes, table1_glue's four adapter methods (LoRA r 8,
+    OFT b 16, BOFT m 2 b 8, GSOFT b 8; the adapters and the head train, the
+    backbone is frozen): the first step's gradients (on 2 x 32) card vs
+    CPU, then 3 AdamW steps on one batch of 8 x 128 (the loss falls; each
+    step's kernel launches as the design says)."""
+    cfg = encoder_model.encoder_config(**CLS_ARGS)
+    cpu = torch.device("cpu")
+    params = encoder_model.init_encoder_classifier(cfg, CLS_CLASSES, seed,
+                                                   device)
+    params_c = _to(params, cpu)
+    batch = _cls_batch(cfg, CLS_BATCH, CLS_SEQ, seed, device)
+    small = _cls_batch(cfg, CLS_CHECK_BATCH, CLS_CHECK_SEQ, seed + 1, device)
+    out = {"config": dict(CLS_ARGS, classes=CLS_CLASSES, batch=CLS_BATCH,
+                          seq=CLS_SEQ)}
+    for name, kw in CLS_METHODS.items():
+        pcfg = peft_lib.PEFTConfig(**kw)
+        trainable = {"adapters": perturbed_adapters(pcfg, params, seed + 3,
+                                                    0.02, device),
+                     "head": dict(params["head"])}
+        g = _leaf_grads(_cls_loss(cfg, pcfg, params, small), trainable)[2]
+        g_c = _leaf_grads(_cls_loss(cfg, pcfg, params_c, _to(small, cpu)),
+                          _to(trainable, cpu))[2]
+        gerr = _grads_gap(g, g_c)
+        if not gerr <= CARD_CPU_GRAD_REL:
+            raise AssertionError(f"19c {name}: card vs CPU gradients {gerr}")
+        design = {k: v for k, v in design_launches(pcfg, params).items() if v}
+        losses, times, metrics = cls_steps(cfg, pcfg, params, trainable,
+                                           batch, CLS_LR, design, name)
+        _SPENT["timed"] += sum(times)
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"19c {name}: losses {losses} do not fall")
+        out[name] = dict(losses=losses, step_s=times, launches_per_step=design,
+                         grad_rel_err=gerr, grad_tol=CARD_CPU_GRAD_REL,
+                         accuracy=float(metrics["accuracy"]),
+                         adapter_params=peft_lib.count_params(
+                             trainable["adapters"]))
+        del trainable, g, g_c
+        torch.cuda.empty_cache()
+    del params, params_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_19(seed: int, device, gen) -> dict:
+    """19a seamless-m4t-medium (training, merged serving, the launchers,
+    f32 card vs CPU); 19b pixtral-12b (banked and int8 banked serving,
+    training, f32 banked == merged and card vs CPU); 19c the encoder
+    classifier's four methods; 19d the kernels at the new shapes."""
+    seamless = get_config("seamless-m4t-medium")
+    pixtral = get_config("pixtral-12b")
+    out = {}
+    t_start, spent0 = time.perf_counter(), dict(_SPENT)
+    t_phase = time.perf_counter()
+    a = out["encdec"] = encdec_phase(seamless, seed, device)
+    t, sv, st = a["train"], a["serve"], a["static"]
+    log(f"19a seamless-m4t-medium full ({seamless.enc_layers} + "
+        f"{seamless.num_layers} layers, d {seamless.d_model}), bf16, GSOFT "
+        f"b=32, {MOE_BATCH}x{ENCDEC_SEQ} + frames: losses "
+        f"{['%.4f' % v for v in t['losses']]}; {t['tok_s']:.0f} tok/s; peak "
+        f"{t['peak_mem_gb']:.1f} GB; idle {t['profile']['idle_share']}; "
+        f"launches a step {t['launches_per_step']}; launcher "
+        f"{['%.4f' % v for v in a['launcher']['losses']]}; merge "
+        f"{a['merge_launches']} gs_fused; merged ServeEngine "
+        f"{sv['tok_s']:.1f} tok/s (idle {sv['profile']['idle_share']}), "
+        f"static {st['tok_s']:.1f} tok/s; f32 2+2 layers card vs CPU logits "
+        f"{a['check']['logit_rel_err']:.1e}, grads "
+        f"{a['check']['grad_rel_err']:.1e}")
+    _PHASE_S["19a encdec"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    b = out["vlm"] = vlm_phase(pixtral, seed, device)
+    t, sv, q = b["train"], b["serve"], b["serve_int8"]
+    log(f"19b pixtral-12b full width (d {pixtral.d_model}, "
+        f"{pixtral.frontend_tokens} patches): serve {VLM_SERVE_LAYERS} "
+        f"layers bf16, bank 3 + base: {sv['tok_s']:.1f} tok/s (idle "
+        f"{sv['profile']['idle_share']}), gs_fused_T {sv['check']}; int8 "
+        f"{q['tok_s']:.1f} tok/s, gs_q_matmul {q['check']}; train "
+        f"{VLM_TRAIN_LAYERS} layers {MOE_BATCH}x{VLM_SEQ}: losses "
+        f"{['%.4f' % v for v in t['losses']]}, {t['tok_s']:.0f} tok/s, peak "
+        f"{t['peak_mem_gb']:.1f} GB, idle {t['profile']['idle_share']}, "
+        f"launches {t['launches_per_step']}; f32 2 layers banked == merged "
+        f"{b['banked_vs_merged']['tokens']} (prefill logits "
+        f"{b['banked_vs_merged']['logit_max_abs_err']:.1e}), card vs CPU "
+        f"logits {b['check']['logit_rel_err']:.1e}, grads "
+        f"{b['check']['grad_rel_err']:.1e}")
+    _PHASE_S["19b vlm"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    c = out["classifier"] = classifier_phase(seed, device)
+    log("19c classifier (RoBERTa-base widths, f32, 8x128): " + "; ".join(
+        f"{m} losses {['%.4f' % v for v in c[m]['losses']]} "
+        f"{min(c[m]['step_s']):.3f} s a step, launches "
+        f"{c[m]['launches_per_step']}, card vs CPU grads "
+        f"{c[m]['grad_rel_err']:.1e}" for m in CLS_METHODS))
+    _PHASE_S["19c classifier"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    cls_cfg = encoder_model.encoder_config(**CLS_ARGS)
+    out["kernel_cases"] = p19_kernel_phase(seamless, pixtral, cls_cfg, gen,
+                                           device)
+    for k in out["kernel_cases"]:
+        dims = " ".join(f"{f}={k[f]}" for f in ("B", "T", "d", "b", "M", "K",
+                                                "N") if k.get(f) is not None)
+        log(f"19d {k['kernel']} {k.get('arch', '')} {k.get('proj', '')} "
+            f"{dims} {k['dtype']}: err {k['max_abs_err']:.2e} ms "
+            f"{k['ms']:.4f} plain {k['plain_ms']:.4f} lib "
+            f"{k['library_ms']:.4f} bound {k['bound_ms']:.5f} "
+            f"({k['bound_by']})")
+    _PHASE_S["19d kernel shapes"] = time.perf_counter() - t_phase
+    kinds = {k: _SPENT[k] - spent0[k] for k in ("timed", "profiled")}
+    kinds["total"] = time.perf_counter() - t_start
+    kinds["set-up"] = kinds["total"] - kinds["timed"] - kinds["profiled"]
+    out["spent"] = kinds
+    log(f"19 took {kinds['total']:.1f} s: set-up {kinds['set-up']:.1f}, "
+        f"timed {kinds['timed']:.1f}, profiled {kinds['profiled']:.1f}")
     return out
 
 
@@ -6009,7 +6575,11 @@ def main() -> int:
     # other dense decoders (gemma-7b, granite-34b, mistral-large-123b)
     p18 = phase_18(args.seed, device, gen)
 
-    # 19. report
+    # 19. the encoder-decoder (seamless-m4t-medium), the vlm (pixtral-12b)
+    # and the encoder classifier
+    p19 = phase_19(args.seed, device, gen)
+
+    # 20. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
@@ -6039,7 +6609,23 @@ def main() -> int:
                "serve_moe_static": p18["moe_serve"]["static"]["launches"],
                "serve_gemma_paged": p18["gemma_serve"]["launches"],
                "train_gemma": {k: v * MOE_STEPS for k, v in
-                               p18["gemma_train"]["launches_per_step"].items()}}
+                               p18["gemma_train"]["launches_per_step"].items()},
+               "train_seamless": {k: v * P19_STEPS for k, v in
+                                  p19["encdec"]["train"][
+                                      "launches_per_step"].items()},
+               "train_seamless_launcher": p19["encdec"]["launcher"][
+                   "launches"],
+               "merge_seamless": {"gs_fused": p19["encdec"][
+                   "merge_launches"]},
+               "serve_pixtral_bank": p19["vlm"]["serve"]["launches"],
+               "serve_pixtral_int8": p19["vlm"]["serve_int8"]["launches"],
+               "train_pixtral": {k: v * P19_STEPS for k, v in
+                                 p19["vlm"]["train"][
+                                     "launches_per_step"].items()},
+               **{f"train_classifier_{m}": {
+                   k: v * P19_STEPS for k, v in
+                   p19["classifier"][m]["launches_per_step"].items()}
+                  for m in CLS_METHODS}}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
@@ -6222,6 +6808,12 @@ def main() -> int:
               for c in p18["kernel_cases"] if c["kernel"] == k["name"]]
         if dc:
             k["decoder_cases"] = dc
+        # the encoder-decoder, vlm and classifier shapes (19d)
+        ec = [dict({f: c.get(f) for f in case_fields}, arch=c["arch"],
+                   proj=c.get("proj"))
+              for c in p19["kernel_cases"] if c["kernel"] == k["name"]]
+        if ec:
+            k["encdec_vlm_classifier_cases"] = ec
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     spent = dict(_SPENT, build=build_s, phases=dict(_PHASE_S),
@@ -6253,6 +6845,7 @@ def main() -> int:
                                    image_cases=image_run,
                                    **p14, **p15, scale_out=p16,
                                    training=p17, moe_and_decoders=p18,
+                                   encdec_vlm_classifier=p19,
                                    kernels=kernels), indent=1,
                               default=str))
     log(f"details: {out}")

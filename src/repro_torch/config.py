@@ -2,8 +2,10 @@
 
 Only the fields the ported families read are kept: the decoder (dense,
 with the swiglu / geglu / gelu MLPs and ``attn_impl``, and MoE with the
-``moe_*`` fields), the ``ssm`` / ``hybrid`` Mamba2 families and the
-``image`` family. Their names and defaults equal
+``moe_*`` fields), the ``ssm`` / ``hybrid`` Mamba2 families, the
+``encdec`` family (``enc_layers``), the ``vlm`` family (the ``frontend*``
+fields: its patches' width and count) and the ``image`` family. Their
+names and defaults equal
 ``repro.config.ModelConfig``, so configs convert one for one.
 ``use_pallas`` stays a field for that reason alone: kernel choice in the
 port follows the tensors' device, not this flag (``kernels/ops.py``).
@@ -21,7 +23,8 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str              # decoder (dense or MoE) | ssm | hybrid | image
+    family: str              # decoder (dense or MoE) | encdec | ssm | hybrid
+    #                          | vlm | image
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -53,6 +56,9 @@ class ModelConfig:
     ssm_conv: int = 4
     attn_every: int = 0              # hybrid: shared attn block every k layers
 
+    # encoder-decoder
+    enc_layers: int = 0
+
     # image family (1-Lipschitz GS-SOC convnet; models/image.py)
     image_size: int = 0              # input H = W
     in_channels: int = 3
@@ -64,6 +70,11 @@ class ModelConfig:
     conv_terms: int = 6              # conv-exponential Taylor terms
     conv_activation: str = "maxmin"  # maxmin | maxmin_permuted
     paired_shuffle: bool = False
+
+    # modality frontend stub (vlm / encdec: precomputed embeddings)
+    frontend: str = "none"           # none | patch | frames
+    frontend_dim: int = 0
+    frontend_tokens: int = 0         # patches prepended (vlm)
 
     dtype: str = "bf16"
     param_dtype: str = "bf16"

@@ -422,14 +422,16 @@ class ModelRuntime:
         return rt
 
     # -- state + step closures ------------------------------------------------
-    def decode_state(self, batch: int, max_len: int):
-        """Contiguous decode state (one max_len KV region per slot)."""
+    def decode_state(self, batch: int, max_len: int, enc_len: int = 0):
+        """Contiguous decode state (one max_len KV region per slot;
+        ``enc_len`` rows of encoder output a slot for the encoder-decoder)."""
         if self._ops.init_decode_state is None:
             raise ValueError(
                 f"family {self.cfg.family!r} is stateless — it has no "
                 "decode state; serve it through infer_fn / ImageServeEngine")
         return self._ops.init_decode_state(self.cfg, batch, max_len,
-                                           self.device, **self._tp_kw())
+                                           self.device, enc_len=enc_len,
+                                           **self._tp_kw())
 
     def paged_state(self, batch: int, num_pages: int, page_size: int,
                     max_pages: int):
@@ -486,10 +488,12 @@ class ModelRuntime:
     def infer(self, inputs, ctx: Optional[peft_lib.AdapterContext] = None):
         return self.infer_fn()(self.params, ctx, inputs)
 
-    def slot_prefill_fn(self, max_len: int):
+    def slot_prefill_fn(self, max_len: int, enc_len: int = 0):
         """(params, PrefillRequest, state, slot) -> (first, state)."""
-        if max_len not in self._slot_prefill:
+        key = (max_len, enc_len)
+        if key not in self._slot_prefill:
             from repro_torch.train.steps import build_slot_prefill_step
-            self._slot_prefill[max_len] = build_slot_prefill_step(
-                self.cfg, max_len=max_len, device=self.device, tp=self.shard)
-        return self._slot_prefill[max_len]
+            self._slot_prefill[key] = build_slot_prefill_step(
+                self.cfg, max_len=max_len, enc_len=enc_len,
+                device=self.device, tp=self.shard)
+        return self._slot_prefill[key]

@@ -11,6 +11,10 @@ Principles for 1000+ node runs:
   * corpus mode: byte-level tokenization of any file tree, windows sampled
     by a counter-based RNG (no shuffling state to lose)
   * synthetic mode: learnable Zipf+bigram stream
+  * ``frontend``: the vlm's patches or the encoder-decoder's frames (the
+    stubbed frontend's embeddings, ``synthetic.frontend_shape``), standard
+    normal, drawn from each row's own RNG after its tokens, so the tokens
+    stay the JAX package's and a host slice draws the same rows
 """
 from __future__ import annotations
 
@@ -57,12 +61,15 @@ def _counter_rng(seed: int, step: int, row: int) -> np.random.Generator:
 
 
 class LMDataSource:
-    """Stateless batch factory; ``state`` is just the step counter."""
+    """Stateless batch factory; ``state`` is just the step counter.
+    ``frontend`` (key, row shape) adds that float32 input to every row."""
 
-    def __init__(self, cfg: DataConfig, corpus: Optional[ByteCorpus] = None):
+    def __init__(self, cfg: DataConfig, corpus: Optional[ByteCorpus] = None,
+                 frontend: Optional[Tuple[str, Tuple[int, ...]]] = None):
         self.cfg = cfg
         self.corpus = corpus or (ByteCorpus(cfg.corpus_path)
                                  if cfg.corpus_path else None)
+        self.frontend = frontend
 
     def batch_at(self, step: int, lo: int = 0, hi: Optional[int] = None
                  ) -> Dict[str, np.ndarray]:
@@ -71,6 +78,9 @@ class LMDataSource:
         hi = cfg.global_batch if hi is None else hi
         s = cfg.seq_len
         toks = np.empty((hi - lo, s + 1), np.int32)
+        if self.frontend is not None:
+            key, shape = self.frontend
+            front = np.empty((hi - lo,) + tuple(shape), np.float32)
         for i, row in enumerate(range(lo, hi)):
             rng = _counter_rng(cfg.seed, step, row)
             if self.corpus is not None:
@@ -78,9 +88,14 @@ class LMDataSource:
                 toks[i] = self.corpus.window(start, s + 1)
             else:
                 toks[i] = _synthetic_row(rng, s + 1, cfg.vocab_size)
-        return {"tokens": toks[:, :-1],
-                "labels": toks[:, 1:],
-                "mask": np.ones((hi - lo, s), np.float32)}
+            if self.frontend is not None:
+                front[i] = rng.standard_normal(shape, np.float32)
+        out = {"tokens": toks[:, :-1],
+               "labels": toks[:, 1:],
+               "mask": np.ones((hi - lo, s), np.float32)}
+        if self.frontend is not None:
+            out[key] = front
+        return out
 
     def iterate(self, start_step: int = 0) -> Iterator[Tuple[int, Dict]]:
         step = start_step

@@ -1,8 +1,10 @@
 """Deterministic synthetic batches (port of ``repro/data/synthetic.py``):
-shape-correct inputs for the ported families when no corpus is mounted.
+shape-correct inputs for every ported family when no corpus is mounted.
 
 Token streams have a learnable structure (Zipf marginals + a deterministic
-bigram with noise resets), images are class templates plus noise. Every
+bigram with noise resets), images are class templates plus noise; the vlm
+adds standard-normal patch embeddings and the encoder-decoder frame
+embeddings, the stubbed frontends' outputs (``frontend_shape``). Every
 draw comes from an explicit ``torch.Generator`` seeded with ``seed`` on the
 target device, so these streams differ from the JAX package's PRNG by
 design (as LoRA's initial draws do); tests carry JAX's inputs across as
@@ -10,7 +12,7 @@ numpy instead.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,20 +51,48 @@ def _token_stream(gen: torch.Generator, batch: int, seq: int, vocab: int,
     return toks
 
 
+def text_len(cfg: ModelConfig, seq: int) -> int:
+    """Text tokens of a ``seq``-position row: the vlm's patches take
+    ``frontend_tokens`` of them (at least 8 stay text), as in JAX."""
+    if api.family_ops(cfg).has_patches:
+        return max(seq - cfg.frontend_tokens, 8)
+    return seq
+
+
+def frontend_shape(cfg: ModelConfig, seq: int
+                   ) -> Optional[Tuple[str, Tuple[int, int]]]:
+    """The stubbed frontend's input to one row of ``seq`` text tokens, as
+    (key, row shape): the vlm's "patches" (frontend_tokens, frontend_dim),
+    the encoder-decoder's "frames" (max(seq // 4, 8), d_model), as in JAX;
+    None for the other families. ``lm_batch`` and ``LMDataSource`` both
+    read it."""
+    t = api.family_ops(cfg)
+    if t.has_patches:
+        return "patches", (cfg.frontend_tokens, cfg.frontend_dim)
+    if t.has_encoder:
+        return "frames", (max(seq // 4, 8), cfg.d_model)
+    return None
+
+
 def lm_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
              device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """{"tokens", "labels", "mask"} of a token family: labels[:, t] is the
-    next token of tokens[:, t]."""
-    t = api.family_ops(cfg)
-    if t.has_patches or t.has_encoder:
-        raise NotImplementedError(
-            f"family {cfg.family!r} needs patches / frames, which no ported "
-            "family has yet")
+    """{"tokens", "labels", "mask"} of a token family (labels[:, t] is the
+    next token of tokens[:, t]), with the standard-normal "patches" (vlm:
+    ``text_len`` text tokens after them) or "frames" (encdec) of
+    ``frontend_shape``, in the activation dtype."""
     dev = resolve_device(device)
-    toks = _token_stream(_generator(seed, dev), batch, seq + 1,
-                         cfg.vocab_size, dev)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-            "mask": torch.ones((batch, seq), dtype=torch.float32, device=dev)}
+    s = text_len(cfg, seq)
+    gen = _generator(seed, dev)
+    toks = _token_stream(gen, batch, s + 1, cfg.vocab_size, dev)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+           "mask": torch.ones((batch, s), dtype=torch.float32, device=dev)}
+    front = frontend_shape(cfg, s)
+    if front is not None:
+        key, shape = front
+        x = torch.randn((batch,) + shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        out[key] = x.to(cfg.act_dtype)
+    return out
 
 
 def image_batch(cfg: ModelConfig, batch: int, seed: int = 0,

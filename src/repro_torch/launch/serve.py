@@ -31,6 +31,10 @@ arrivals, per-request adapter banks, and the image lane.
         --trace-out /tmp/trace.json --report-interval 1 --log-json
     # the Mamba2 families on the continuous lane
     ... --arch zamba2-2.7b --smoke
+    # the encoder-decoder (merged) and the vlm (a per-request bank that
+    # rotates its patch projection too)
+    ... --arch seamless-m4t-medium --smoke --peft-demo
+    ... --arch pixtral-12b --smoke --demo-adapters 3
     # N engine replicas behind one EngineCluster (adapter-affinity routing;
     # each replica its own KV and its own paged bank, the params shared)
     ... --arch qwen2-72b --smoke --replicas 2 --demo-adapters 8 \
@@ -41,8 +45,8 @@ arrivals, per-request adapter banks, and the image lane.
 
 The JAX launcher's flags for these lanes plus ``--device`` (default
 ``cuda``: without a card it raises unless ``--device cpu`` is given) and
-``--max-len`` (default: prompt + new tokens + 8, as the JAX launcher
-computes it). ``--adapters``, ``--demo-adapters`` and ``--store-dir`` are
+``--max-len`` (default: the vlm's patches + prompt + new tokens + 8, as
+the JAX launcher computes it). ``--adapters``, ``--demo-adapters`` and ``--store-dir`` are
 exclusive, ``--peft-demo`` excludes all three; ``--hbm-adapter-budget``
 pages the first two's bank too. ``--arrival-rate`` streams Poisson arrivals
 (seeded) into the continuous engine (and the image lane); the static engine
@@ -64,11 +68,15 @@ each group of N ranks serves every request (a replica of the split
 model; the decode step's own batch split over 'data' is
 ``train.steps.local_rows`` / ``gather_rows`` around ``build_decode_step``). ``--tp`` with ``--mesh``
 is refused; ``--tp`` over the ``image`` family raises
-NotImplementedError, as do ``--quantize fp8`` and
-a ``--family`` the port does not register. ``--family`` is checked against the arch's family;
+NotImplementedError, as do ``--quantize fp8`` and ``--tp N > 1`` or
+``--mesh`` over the ``encdec`` and ``vlm`` families (their mesh port is a
+later slice). ``--family`` is checked against the arch's family;
 ``ssm`` / ``hybrid`` archs fail as in the JAX launcher on ``--engine
 paged`` (no paged KV surface) and ``--demo-adapters`` (no bank serving:
-the first prefill raises).
+the first prefill raises); so do ``encdec`` archs (``--demo-adapters``:
+no bank, served merged with ``--peft-demo``) and ``vlm`` archs on
+``--engine paged``. The vlm's ``max_len`` default counts its patches, as
+the JAX launcher's does.
 """
 from __future__ import annotations
 
@@ -198,10 +206,8 @@ def _refuse_unported(args) -> None:
                          "(continuous/paged) — the static engine drains "
                          "one batch at a time")
     if args.family is not None and args.family not in registry.families():
-        raise NotImplementedError(
-            f"--family {args.family} is not ported yet (the port serves "
-            f"{registry.families()}; the vlm and encdec families wait for "
-            "the other-families slice)")
+        raise SystemExit(f"--family {args.family} is not a registered "
+                         f"family ({registry.families()})")
 
 
 def _parse(argv):
@@ -377,6 +383,12 @@ def _mesh(args, cfg):
     else:
         dp, tp = (int(x) for x in args.mesh.split(","))
     refuse_experts(cfg, tp, dp)
+    t = registry.get(cfg.family)
+    if (t.has_encoder or t.has_patches) and (tp > 1 or args.mesh):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a mesh (--tp {args.tp}, --mesh "
+            f"{args.mesh}) is not ported: the encdec / vlm mesh item of "
+            "ROADMAP Queue 1 (JAX shards them by GSPMD)")
     if tp > 1 and cfg.family not in SPLIT_FAMILIES:
         raise NotImplementedError(
             f"tensor-parallel serving of the {cfg.family!r} family is not "
@@ -407,7 +419,8 @@ def main(argv=None) -> int:
 
 
 def _serve(args, cfg, stateless: bool, mesh, base_rt) -> int:
-    max_len = args.max_len or args.prompt_len + args.max_new + 8
+    max_len = args.max_len or (cfg.frontend_tokens + args.prompt_len
+                               + args.max_new + 8)
     budget = args.hbm_adapter_budget or None
 
     rt, adapter_names = _bank(args, cfg, base_rt)

@@ -4,7 +4,10 @@
         --arch qwen2-72b --smoke --peft gsoft --steps 3 --device cpu
 
 Same flags as the JAX launcher plus ``--device`` (default ``cuda``: without
-a card it raises unless ``--device cpu`` is given). ``--ckpt-dir`` saves the
+a card it raises unless ``--device cpu`` is given). Every ported token
+family trains: ``--arch seamless-m4t-medium`` (the batches carry random
+frames, max(seq // 4, 8) a row) and ``--arch pixtral-12b`` (random
+patches, which take ``frontend_tokens`` of the ``--seq`` positions). ``--ckpt-dir`` saves the
 adapters and the optimizer state every ``--ckpt-every`` steps and at the
 end, in the JAX package's checkpoint layout, and a later run with the same
 directory resumes from the latest one (``--no-resume`` starts over).
@@ -29,6 +32,7 @@ from repro_torch.config import get_config, get_smoke_config, parse_overrides
 from repro_torch.core import methods as methods_lib
 from repro_torch.core import peft as peft_lib
 from repro_torch.data import DataConfig
+from repro_torch.data.synthetic import text_len
 from repro_torch.optim import schedules
 from repro_torch.train.loop import LoopConfig, train
 from repro_torch.train.steps import TrainStepConfig
@@ -72,7 +76,9 @@ def main(argv=None):
         num_microbatches=args.microbatches,
         schedule=schedules.warmup_cosine(args.warmup, args.steps),
     )
-    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
+    # the vlm's patches take frontend_tokens of --seq's positions
+    dcfg = DataConfig(seq_len=text_len(cfg, args.seq),
+                      global_batch=args.batch,
                       seed=args.seed, corpus_path=args.corpus,
                       vocab_size=min(cfg.vocab_size, 256))
     loop = LoopConfig(steps=args.steps, ckpt_every=args.ckpt_every,

@@ -1,9 +1,11 @@
 """Attention with GQA, RoPE, a contiguous KV cache and a paged one (port of
 ``repro/models/attention.py``: ``init_attention``, ``online_attention``,
 ``prefix_loop_attention`` (``cfg.attn_impl == "prefix_loop"``: causal
-prefill and training), ``init_cache``, ``attention_block``, ``init_paged_kv``,
-``paged_attention_block``, ``paged_prefill_chunk_block``). The contiguous
-path and chunked prefill are plain torch; paged decode runs
+prefill and training), ``init_cache``, ``attention_block`` (self-attention,
+and cross-attention over ``kv_x`` for the encoder-decoder),
+``init_paged_kv``, ``paged_attention_block``,
+``paged_prefill_chunk_block``). The contiguous path, cross-attention and
+chunked prefill are plain torch; paged decode runs
 ``ops.paged_attention`` (the paged decode kernel on the card), as the JAX
 package's ``use_pallas`` branch does.
 
@@ -141,12 +143,17 @@ def _proj(x, w, bias=None, rot: Rot = None, name=""):
     return y
 
 
-def _qkv(p, x, hd: int, rot: Rot, tp):
-    """q, k, v as (B, S, heads, hd) at the rank's local head counts."""
+def _qkv(p, x, hd: int, rot: Rot, tp, kv_x=None):
+    """q, k, v as (B, S, heads, hd) at the rank's local head counts; K and
+    V projected from ``kv_x`` (cross-attention: its own length) when
+    given."""
     b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = _proj(x, p["wq"], p.get("bq"), rot, "wq").reshape(b, s, -1, hd)
-    k = _proj(x, p["wk"], p.get("bk"), rot, "wk").reshape(b, s, -1, hd)
-    v = _proj(x, p["wv"], p.get("bv"), rot, "wv").reshape(b, s, -1, hd)
+    k = _proj(src, p["wk"], p.get("bk"), rot, "wk").reshape(
+        b, src.shape[1], -1, hd)
+    v = _proj(src, p["wv"], p.get("bv"), rot, "wv").reshape(
+        b, src.shape[1], -1, hd)
     if tp is not None:
         k, v = tp.select_kv(k), tp.select_kv(v)
     return q, k, v
@@ -163,32 +170,42 @@ def _out(p, out: torch.Tensor, rot: Rot, tp) -> torch.Tensor:
 
 def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     cfg: ModelConfig, *,
+                    kv_x: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     cache_pos: Optional[torch.Tensor] = None,
                     causal: bool = True, rot: Rot = None, tp=None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention with an optional contiguous KV cache.
+    """Self- or cross-attention with an optional contiguous KV cache.
 
     ``rot(name, x)`` rotates the inputs of wq/wk/wv/wo (per-request GSOFT).
     * prefill: ``cache`` given, ``cache_pos`` None — K/V written at [0, S)
     * decode: x (B, 1, D), ``cache_pos`` a (B,) tensor of per-row write
       positions (or a scalar); this step's K/V are written there in place
       and the step attends over [0, cache_pos].
+    * cross-attention: ``kv_x`` (B, F, D) gives K and V (no cache, no
+      RoPE); with ``causal=False`` every query reads all F of them, as the
+      encoder's self-attention reads its whole input.
     Returns (output, cache).
     """
     if tp is not None:
+        if kv_x is not None:
+            raise NotImplementedError(
+                "cross-attention does not split over ranks (the encdec "
+                "family has no tensor-parallel path)")
         x = tp.enter(x, tp.heads_split)
     b, sq, _ = x.shape
     hd = cfg.d_head
-    q, k, v = _qkv(p, x, hd, rot, tp)
+    q, k, v = _qkv(p, x, hd, rot, tp, kv_x)
 
     positions = _positions(b, sq, x.device)
     if cache_pos is not None:
         cache_pos = torch.as_tensor(cache_pos, dtype=torch.int64,
                                     device=x.device).reshape(-1).expand(b)
         positions = positions + cache_pos[:, None]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_x is None:
+        # self-attention: the new keys share the queries' positions
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     scale = 1.0 / math.sqrt(hd)
     if cache is not None and cache_pos is not None and sq == 1:
@@ -204,12 +221,13 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
         if cache is not None:
             cache["k"][:, :sq] = k.to(cache["k"].dtype)
             cache["v"][:, :sq] = v.to(cache["v"].dtype)
-        if causal and cfg.attn_impl == "prefix_loop":
+        if causal and cfg.attn_impl == "prefix_loop" and kv_x is None:
             out = prefix_loop_attention(q, k, v, chunk=cfg.attn_chunk,
                                         scale=scale)
         else:
-            out = online_attention(q, k, v, positions, sq, causal=causal,
-                                   chunk=cfg.attn_chunk, scale=scale)
+            out = online_attention(q, k, v, positions, k.shape[1],
+                                   causal=causal, chunk=cfg.attn_chunk,
+                                   scale=scale)
     return _out(p, out, rot, tp), cache
 
 

@@ -127,6 +127,15 @@ def unbind_layers(t):
 # init helpers (seeded torch.Generator on the target device)
 # ---------------------------------------------------------------------------
 
+def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
+    """The init functions' generator for draws on ``device``, seeded with
+    ``seed``. The meta device (shapes only: ``models.api.param_count``)
+    draws nothing and takes a CPU generator."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _normal(shape, gen: torch.Generator, device, scale: float,
             dtype: torch.dtype) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=device,

@@ -1,15 +1,19 @@
 """Family registry (port of ``repro/models/registry.py``): each model family
 registers a ``FamilyOps`` record; ``models.api`` and ``ModelRuntime``
 dispatch on ``ModelConfig.family``. ``models/transformer.py`` registers
-``decoder``, ``ssm`` (mamba2) and ``hybrid`` (zamba2); ``models/image.py``
-registers ``image``. This module is the only place family strings are
-compared: call sites branch on the record's traits, as in the JAX package:
+``decoder``, ``ssm`` (mamba2), ``hybrid`` (zamba2) and ``vlm`` (pixtral);
+``models/encdec.py`` registers ``encdec`` (seamless-m4t);
+``models/image.py`` registers ``image``. This module is the only place
+family strings are compared: call sites branch on the record's traits, as
+in the JAX package:
 
 * ``mixer`` — "attention" | "ssm" | "hybrid" | "none": the sequence mixer
   the stack runs (hybrid: Mamba2 layers with a shared attention block
   between super-blocks; none: the stateless image family).
-* ``has_patches`` / ``has_encoder`` — the vlm frontend's patch stream and
-  the encoder-decoder's frames (no ported family has either yet).
+* ``has_patches`` / ``has_encoder`` — the vlm's patch stream (batch
+  "patches" (B, P, frontend_dim), prepended to the text: the engines count
+  P in every position) and the encoder-decoder's frames (batch "frames"
+  (B, F, d_model), encoded once a prefill).
 * ``stateless`` (property) — no token-level decode state: the family
   serves whole inputs through ``infer`` and ``ImageServeEngine``; the
   token engines refuse it.
@@ -22,7 +26,9 @@ Uniform signatures:
 
 Token-decode surface (None -> the family is stateless):
 
-* ``init_decode_state(cfg, batch, max_len, device="cuda") -> state``
+* ``init_decode_state(cfg, batch, max_len, device="cuda", enc_len=0)
+  -> state`` (``enc_len``: the encoder output's length a row; only the
+  encoder-decoder reads it)
 * ``prefill(cfg, params, req: PrefillRequest, state) -> (last_logits, state)``
 * ``decode_step(cfg, params, tokens, state, pos, ctx=None) -> (logits, state)``
 

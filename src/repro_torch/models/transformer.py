@@ -1,9 +1,18 @@
-"""Language models (port of the decoder (dense and MoE), ``ssm`` and
-``hybrid`` families of ``repro/models/transformer.py``): ``init_lm``, ``forward``, ``lm_loss``,
-``init_decode_state``, ``decode_step``, ``prefill``, and the decoder's
-paged serve path ``init_paged_state``, ``paged_decode_step``,
-``paged_chunk_prefill``. Structural branches read the registry record's
-``mixer`` trait, never the family string.
+"""Language models (port of the decoder (dense and MoE), ``ssm``,
+``hybrid`` and ``vlm`` families of ``repro/models/transformer.py``):
+``init_lm``, ``forward``, ``lm_loss``, ``init_decode_state``,
+``decode_step``, ``prefill``, and the decoder's paged serve path
+``init_paged_state``, ``paged_decode_step``, ``paged_chunk_prefill``.
+Structural branches read the registry record's ``mixer`` and
+``has_patches`` traits, never the family string.
+
+``vlm`` (pixtral) is the decoder with a patch frontend stub: the batch
+carries precomputed patch embeddings "patches" (B, P, frontend_dim), which
+``patch_proj/wi`` projects to d_model and prepends to the text stream.
+``forward`` returns the text positions' logits only; ``prefill`` rotates
+the patches per request through the bank's "patch_proj" group, and
+callers count the P patch positions in ``last_idx`` and in the decode
+positions; decode is the decoder's. No paged surface, as in JAX.
 
 ``ssm`` (mamba2) stacks Mamba2 layers {"norm", "mamba"} (L, ...);
 ``hybrid`` (zamba2) stacks them (nsuper, per, ...) with one shared-weight
@@ -57,8 +66,9 @@ from .attention import (attention_block, init_attention, init_cache,
                         init_paged_kv, paged_attention_block,
                         paged_prefill_chunk_block)
 from .layers import (apply_mlp, cross_entropy, embed_init, init_mlp,
-                     init_stacked_mlp, keep_all, qlinear, rms_norm, softcap,
-                     stacked_dense_init, unbind_layers)
+                     init_stacked_mlp, keep_all, qlinear, rms_norm,
+                     seeded_generator, softcap, stacked_dense_init,
+                     unbind_layers)
 from .moe import init_moe, moe_layer
 from .ssm import init_mamba, init_mamba_state, mamba_block, mamba_decode_step
 
@@ -83,8 +93,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     tree holds (a split model's slice); the draws are the same either
     way."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = seeded_generator(seed, dev)
     wd = cfg.weight_dtype
     vp = cfg.padded_vocab()
     L = cfg.num_layers
@@ -113,6 +122,10 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
             params["layers"]["mlp"] = init_stacked_mlp(
                 gen, L, cfg.d_model, cfg.d_ff, cfg.mlp_type, wd, dev,
                 keep=keep, prefix="layers/mlp/")
+        if _traits(cfg).has_patches:
+            params["patch_proj"] = {"wi": keep(
+                "patch_proj/wi", stacked_dense_init(
+                    gen, 1, cfg.frontend_dim, cfg.d_model, wd, dev)[0])}
     elif mixer == "ssm":
         params["layers"] = {"norm": zeros(L, cfg.d_model),
                             "mamba": init_mamba(gen, cfg, (L,), wd, dev,
@@ -268,6 +281,10 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     if tp is not None:
         tp = tp.with_seq(batch["tokens"].shape[1])
     h = _embed(cfg, params, batch["tokens"], tp)
+    n_prefix = 0
+    if _traits(cfg).has_patches and "patches" in batch:
+        h = torch.cat([_patch_embed(cfg, params, batch["patches"]), h], 1)
+        n_prefix = batch["patches"].shape[1]
     mixer = _traits(cfg).mixer
     auxs = []
     if mixer == "attention":
@@ -295,7 +312,17 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             h = block(bp, h)
     aux = (torch.stack(auxs).mean() if auxs
            else torch.zeros((), device=h.device))
-    return _unembed(cfg, params, h, tp), aux
+    # the text positions only, so the logits align with batch["labels"]
+    # (JAX slices the logits; the unembedding is per position)
+    return _unembed(cfg, params, h[:, n_prefix:], tp), aux
+
+
+def _patch_embed(cfg: ModelConfig, params, patches: torch.Tensor,
+                 rot=None) -> torch.Tensor:
+    """The vlm's patch stream (B, P, frontend_dim) projected to d_model by
+    ``patch_proj/wi`` (``rot``: a bank's per-request rotation of it)."""
+    return qlinear(patches.to(cfg.act_dtype), params["patch_proj"]["wi"],
+                   rot, "wi", cast=True)
 
 
 MOE_AUX_COEF = 0.01
@@ -318,10 +345,14 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device: DeviceLike = "cuda", tp=None):
-    """Decoder {"kv"}: (L, B, S, K, D) (K the rank's local kv heads under
-    ``tp``); ssm {"mamba"}: conv (L, B, W-1, C), ssm (L, B, H, N, P) fp32;
-    hybrid both, stacked (nsuper, per, B, ...) and (nsuper, B, S, K, D)."""
+                      device: DeviceLike = "cuda", enc_len: int = 0,
+                      tp=None):
+    """Decoder and vlm {"kv"}: (L, B, S, K, D) (K the rank's local kv heads
+    under ``tp``); ssm {"mamba"}: conv (L, B, W-1, C), ssm (L, B, H, N, P)
+    fp32; hybrid both, stacked (nsuper, per, B, ...) and (nsuper, B, S, K,
+    D). ``enc_len`` is the registry's uniform signature (no encoder
+    stream here)."""
+    del enc_len
     dev = resolve_device(device)
     mixer = _traits(cfg).mixer
     if mixer == "ssm":
@@ -405,6 +436,12 @@ def prefill(cfg: ModelConfig, params, req: PrefillRequest, state, tp=None):
         logits, _ = forward(cfg, params, req.batch, tp)
         return _gather_last(logits, req.last_idx), state
     h = _embed(cfg, params, req.batch["tokens"], tp)
+    if _traits(cfg).has_patches and "patches" in req.batch:
+        # the patches lead the stream; last_idx counts them
+        ctx = req.ctx
+        rot = ctx.rotator(ctx.group("patch_proj")) if ctx is not None else None
+        h = torch.cat([_patch_embed(cfg, params, req.batch["patches"], rot),
+                       h], 1)
     h = _run_layers(cfg, params, h, state["kv"], ctx=req.ctx, tp=tp)
     return _unembed(cfg, params, _gather_last(h, req.last_idx), tp), state
 
@@ -503,9 +540,12 @@ registry.register(registry.FamilyOps(
     paged_chunk_prefill=paged_chunk_prefill,
 ))
 
-# the Mamba2 families: the contiguous serve surface only (no paged KV)
-for _family, _mixer in (("ssm", "ssm"), ("hybrid", "hybrid")):
+# the Mamba2 families and the vlm: the contiguous serve surface only (no
+# paged KV, as in JAX)
+for _family, _traits_kw in (("ssm", dict(mixer="ssm")),
+                            ("hybrid", dict(mixer="hybrid")),
+                            ("vlm", dict(has_patches=True))):
     registry.register(registry.FamilyOps(
         family=_family, init_params=init_lm, forward=forward, loss=lm_loss,
         init_decode_state=init_decode_state, prefill=prefill,
-        decode_step=decode_step, mixer=_mixer))
+        decode_step=decode_step, **_traits_kw))

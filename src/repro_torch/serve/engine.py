@@ -2,8 +2,8 @@
 ``StaticServeEngine`` from ``repro/serve/engine.py``).
 
 ``ServeEngine`` schedules requests over ``max_batch`` persistent decode
-slots of one ``ModelRuntime`` of any ported family (decoder, ``ssm``,
-``hybrid``):
+slots of one ``ModelRuntime`` of any ported token family (decoder,
+``encdec``, ``ssm``, ``hybrid``, ``vlm``):
 
   * requests enter free slots as others finish (EOS or token budget);
   * each slot carries its own position; decode runs one step over the full
@@ -27,7 +27,12 @@ peft_cfg=...)``, the forward GS kernel on the card), zero per-token
 overhead. It refuses a banked runtime.
 
 Every engine samples each row's first token at its own last prompt
-position. An engine's counters live in the process metrics plane
+position. Requests carry tokens only: as in JAX, the engines feed the vlm
+ZERO patches (their P positions lead the stream, so every position and
+``last_idx`` is offset by P) and the encoder-decoder ZERO frames
+(``max(max_len // 4, 8)`` a slot; the static engine ``max(prompt // 4,
+8)``), whose encoder output then carries no request's content. An
+engine's counters live in the process metrics plane
 (``repro_torch.obs.REGISTRY``, scope ``serve``, ``paged`` or ``static``);
 ``EngineMetrics`` is the dict-style view. ``tracer=`` takes a
 ``repro_torch.obs.TraceRecorder``: the engine then records each request's
@@ -120,9 +125,28 @@ def prompt_bucket(plen: int, max_len: int) -> int:
 
 
 def _stream_prefix(cfg: ModelConfig) -> int:
-    """Non-text positions prepended to the decode stream (vlm patches; 0
-    for every family the port has, none of which has patches)."""
+    """Non-text positions prepended to the decode stream: the vlm's
+    patches (0 for every other family)."""
     return cfg.frontend_tokens if registry.get(cfg.family).has_patches else 0
+
+
+def _family_feed(cfg: ModelConfig, toks: np.ndarray, enc_len: int,
+                 device: torch.device) -> Dict[str, torch.Tensor]:
+    """Prefill feed of a (B, S) token block plus the family's extra
+    stream, as JAX's engines build it: ZERO frames (B, enc_len, d_model)
+    for the encoder-decoder, ZERO patches (B, frontend_tokens,
+    frontend_dim) for the vlm (requests carry tokens only)."""
+    feed = {"tokens": torch.as_tensor(toks, device=device)}
+    b = toks.shape[0]
+    t = registry.get(cfg.family)
+    if t.has_encoder:
+        feed["frames"] = torch.zeros((b, enc_len, cfg.d_model),
+                                     dtype=cfg.act_dtype, device=device)
+    if t.has_patches:
+        feed["patches"] = torch.zeros(
+            (b, cfg.frontend_tokens, cfg.frontend_dim), dtype=cfg.act_dtype,
+            device=device)
+    return feed
 
 
 def _check_token_family(cfg: ModelConfig) -> None:
@@ -182,6 +206,7 @@ class ServeEngine:
         self.eos_id = eos_id
         self.tracer = tracer
         self._ttag, self._annot = _tracer_hooks(tracer, self._kind)
+        self._enc_len = max(max_len // 4, 8)
         self._prefix = _stream_prefix(self.cfg)
 
         self._setup_compute()
@@ -204,9 +229,11 @@ class ServeEngine:
 
     def _setup_compute(self) -> None:
         """Step closures + device state (the paged engine overrides it)."""
-        self._slot_prefill = self.rt.slot_prefill_fn(self.max_len)
+        self._slot_prefill = self.rt.slot_prefill_fn(self.max_len,
+                                                     self._enc_len)
         self._decode = self.rt.decode_fn()
-        self._state = self.rt.decode_state(self.max_batch, self.max_len)
+        self._state = self.rt.decode_state(self.max_batch, self.max_len,
+                                           enc_len=self._enc_len)
 
     # -- submission -----------------------------------------------------------
     def add_request(self, prompt: List[int], max_new_tokens: int = 16,
@@ -279,7 +306,7 @@ class ServeEngine:
                                           self.max_len - self._prefix)),
                         np.int64)
         toks[0, :len(prompt)] = prompt
-        return {"tokens": torch.as_tensor(toks, device=self.device)}
+        return _family_feed(self.cfg, toks, self._enc_len, self.device)
 
     def _finish(self, slot: int) -> None:
         req = self._slot_req[slot]
@@ -496,7 +523,8 @@ class StaticServeEngine:
         toks = np.zeros((b, plen), np.int64)
         for i, r in enumerate(batch):
             toks[i, :len(r.prompt)] = r.prompt          # right-padded
-        state = self.rt.decode_state(b, self.max_len)
+        enc_len = max(plen // 4, 8)
+        state = self.rt.decode_state(b, self.max_len, enc_len=enc_len)
         # each row samples at its OWN last prompt position and decodes from
         # its own position counter: padded rows never read the pad tail
         last_idx = np.asarray([prefix + len(r.prompt) - 1 for r in batch],
@@ -505,7 +533,7 @@ class StaticServeEngine:
             for r in batch:
                 self.tracer.prefill_start(self._ttag, r.rid)
         req = PrefillRequest(
-            batch={"tokens": torch.as_tensor(toks, device=self.device)},
+            batch=_family_feed(self.cfg, toks, enc_len, self.device),
             last_idx=torch.as_tensor(last_idx, device=self.device))
         with self._annot("prefill"):
             logits, state = self._prefill(self.rt.params, req, state)
@@ -588,7 +616,8 @@ class PagedServeEngine(ServeEngine):
 
     Greedy tokens equal ``ServeEngine``'s; decode attention runs the paged
     decode kernel on the card. Decoder-family runtimes only: a family
-    without a paged surface (``ssm``, ``hybrid``) is refused up front.
+    without a paged surface (``encdec``, ``ssm``, ``hybrid``, ``vlm``) is
+    refused up front, as in JAX.
     """
 
     _kind = "paged"

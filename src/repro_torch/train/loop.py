@@ -1,9 +1,11 @@
 """The training loop (port of ``repro/train/loop.py``): deterministic data
-by (seed, step), so a resume replays exactly; checkpoints of the trainable
-tree and the optimizer state (``{"trainable", "opt"}`` with the data cursor
-as ``extra={"data_step": ...}``, JAX's layout) every ``ckpt_every`` steps
-and at the end; heartbeat and step-time straggler detection; and a serving
-runtime over the merged trained weights at the end.
+by (seed, step), so a resume replays exactly (the vlm's patches and the
+encoder-decoder's frames too: ``LMDataSource``'s ``frontend``); checkpoints
+of the trainable tree and the optimizer state (``{"trainable", "opt"}``
+with the data cursor as ``extra={"data_step": ...}``, JAX's layout) every
+``ckpt_every`` steps and at the end; heartbeat and step-time straggler
+detection; and a serving runtime over the merged trained weights at the
+end.
 
 On a mesh (``train(mesh=)``, one process per rank): the frozen params are
 the rank's shards (``ModelRuntime(..., mesh=)`` draws each weight whole
@@ -28,6 +30,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import peft as peft_lib
 from repro_torch.core.runtime import ModelRuntime
 from repro_torch.data import DataConfig, LMDataSource
+from repro_torch.data.synthetic import frontend_shape
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime import Heartbeat, StepTimer
 from repro_torch.train.steps import TrainStepConfig, build_train_step
@@ -65,7 +68,7 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
         trainable, frozen = params, {}
     opt_state = optim.init(tcfg.opt, trainable)
     step_fn = build_train_step(cfg, tcfg, mesh)
-    data = LMDataSource(dcfg)
+    data = LMDataSource(dcfg, frontend=frontend_shape(cfg, dcfg.seq_len))
     ckpt_kw = {}
     if mesh is not None:
         import torch.distributed as dist

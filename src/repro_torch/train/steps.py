@@ -82,6 +82,11 @@ class _MeshStep:
 
     def __init__(self, cfg: ModelConfig, mesh):
         from repro_torch.distrib import tp as tp_lib
+        t = api.family_ops(cfg)
+        if t.has_encoder or t.has_patches:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) does not train on a mesh yet: "
+                "the encdec / vlm mesh item of ROADMAP Queue 1")
         self.tp_lib = tp_lib
         self.cfg = cfg
         self.mesh = mesh
@@ -338,14 +343,15 @@ def build_prefill_step(cfg: ModelConfig, tp=None):
     return prefill_step
 
 
-def _decode_state_batch_axes(cfg: ModelConfig, max_len: int) -> Tree:
+def _decode_state_batch_axes(cfg: ModelConfig, max_len: int,
+                             enc_len: int = 0) -> Tree:
     """Per-leaf batch axis of the decode state, found by diffing the state's
-    shapes at batch 1 and 2 (built on the meta device, no memory): the
-    leaves put it at different axes (kv (L, B, S, K, D); ssm Mamba state
-    (L, B, ...); hybrid Mamba state (nsuper, per, B, ...))."""
-    fam = api.family_ops(cfg)
-    s1 = fam.init_decode_state(cfg, 1, max_len, "meta")
-    s2 = fam.init_decode_state(cfg, 2, max_len, "meta")
+    shapes at batch 1 and 2 (``api.abstract_decode_state``, no memory): the
+    leaves put it at different axes (kv (L, B, S, K, D); encdec enc_out (B,
+    F, D); ssm Mamba state (L, B, ...); hybrid Mamba state (nsuper, per, B,
+    ...))."""
+    s1 = api.abstract_decode_state(cfg, 1, max_len, enc_len)
+    s2 = api.abstract_decode_state(cfg, 2, max_len, enc_len)
 
     def axis(a, b):
         for i, (x, y) in enumerate(zip(a.shape, b.shape)):
@@ -357,15 +363,16 @@ def _decode_state_batch_axes(cfg: ModelConfig, max_len: int) -> Tree:
 
 
 def build_slot_prefill_step(cfg: ModelConfig, *, max_len: int,
-                            device: DeviceLike = "cuda", tp=None):
+                            enc_len: int = 0, device: DeviceLike = "cuda",
+                            tp=None):
     """Continuous-batching admission: prefill ONE request (batch 1) into a
     fresh state and copy every leaf of it into row ``slot`` of the engine's
     slot-array state, along that leaf's own batch axis (found as the JAX
-    package finds it). step(params, req, state, slot) -> (first_token int,
-    state)."""
+    package finds it; ``enc_len``: the encoder output's rows a slot).
+    step(params, req, state, slot) -> (first_token int, state)."""
     fam = api.family_ops(cfg)
     dev = resolve_device(device)
-    axes = _decode_state_batch_axes(cfg, max_len)
+    axes = _decode_state_batch_axes(cfg, max_len, enc_len)
     kw = _tp_kw(tp)
 
     def scatter(dst, src, ax, slot):
@@ -373,7 +380,8 @@ def build_slot_prefill_step(cfg: ModelConfig, *, max_len: int,
 
     @torch.inference_mode()
     def slot_prefill(params, req: peft_lib.PrefillRequest, state, slot: int):
-        sub = fam.init_decode_state(cfg, 1, max_len, dev, **kw)
+        sub = fam.init_decode_state(cfg, 1, max_len, dev, enc_len=enc_len,
+                                    **kw)
         logits, sub = fam.prefill(cfg, params, req, sub, **kw)
         first = int(torch.argmax(logits[0, -1]))
         tree_map(lambda d, s_, a: scatter(d, s_, a, slot), state, sub, axes)

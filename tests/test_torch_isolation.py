@@ -38,7 +38,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.image, repro_torch.serve.image, "
             "repro_torch.data.synthetic, repro_torch.configs.lipconvnet_15, "
             "repro_torch.sharding.pipeline, repro_torch.optim.compression, "
-            "repro_torch.distrib.tp, repro_torch.sharding.specs; "
+            "repro_torch.distrib.tp, repro_torch.sharding.specs, "
+            "repro_torch.models.encdec, repro_torch.models.encoder, "
+            "repro_torch.models.api, repro_torch.configs.seamless_m4t_medium, "
+            "repro_torch.configs.pixtral_12b; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')"
             " or m == 'repro' or m.startswith('repro.')]; "
@@ -165,7 +168,8 @@ def test_serve_mesh_and_meshed_runtime_raise_without_a_card(monkeypatch):
 
 
 SLICE16_ARCHS = ("gemma-7b", "granite-34b", "mistral-large-123b",
-                 "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
+                 "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
+                 "seamless-m4t-medium", "pixtral-12b")
 
 
 @pytest.mark.parametrize("arch", SLICE16_ARCHS)
@@ -212,3 +216,23 @@ def test_moe_on_a_mesh_raises_not_implemented(arch):
             steps.build_train_step(cfg, tcfg, mesh=mesh)
     assert tp_lib.model_shard(cfg, {"data": 1, "model": 1}) is None
     tp_lib.refuse_experts(get_smoke_config("gemma-7b"), 2, 2)   # dense: fine
+
+
+def test_encoder_classifier_and_frontends_raise_without_a_card(monkeypatch):
+    """The encoder classifier's initialiser, the encdec / vlm initialisers
+    and their synthetic batches default to the card as well."""
+    import torch
+    from repro_torch.config import get_smoke_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import encdec, encoder, transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = encoder.encoder_config()
+    for call in (lambda: encoder.init_encoder_classifier(cfg, 2),
+                 lambda: encdec.init_encdec(
+                     get_smoke_config("seamless-m4t-medium")),
+                 lambda: transformer.init_lm(get_smoke_config("pixtral-12b")),
+                 lambda: lm_batch(get_smoke_config("pixtral-12b"), 2, 16),
+                 lambda: lm_batch(get_smoke_config("seamless-m4t-medium"), 2,
+                                  16)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

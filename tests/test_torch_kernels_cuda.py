@@ -2024,3 +2024,123 @@ def test_expert_stack_rotation_and_grads_in_one_launch(cuda, case):
         gL, gR = gk.gs_fused_grads(*one)
         assert (gL[0] - dL[i]).abs().max() <= 1e-4 * max(1.0, dL[i].abs().max().item())
         assert (gR[0] - dR[i]).abs().max() <= 1e-4 * max(1.0, dR[i].abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder, vlm and classifier shapes (seamless-m4t-medium,
+# pixtral-12b, the RoBERTa-base-width classifier)
+# ---------------------------------------------------------------------------
+
+# (B, T, d, b, dtype) of a training step's weight stacks (rows: layers, two
+# of them here; T = d_out, d = d_in): seamless d 1024 (r = b = 32) and its
+# MLP wo (d 4096, r = 128); pixtral wq (d 5120, r = 160), attention wo (d
+# 4096), MLP wi (T 14336) and wo (d 14336, r = 448), patch_proj (one row,
+# d 1024); the classifier's GSOFT b = 8 in f32 (route 2): d 768 / 3072
+SLICE17_STACKS = [(2, 1024, 1024, 32, torch.bfloat16),
+                  (2, 4096, 1024, 32, torch.bfloat16),
+                  (2, 1024, 4096, 32, torch.bfloat16),
+                  (2, 4096, 5120, 32, torch.bfloat16),
+                  (2, 5120, 4096, 32, torch.bfloat16),
+                  (2, 14336, 5120, 32, torch.bfloat16),
+                  (2, 5120, 14336, 32, torch.bfloat16),
+                  (1, 5120, 1024, 32, torch.bfloat16),
+                  (2, 768, 768, 8, torch.float32),
+                  (2, 3072, 768, 8, torch.float32),
+                  (2, 768, 3072, 8, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLICE17_STACKS,
+                         ids=lambda c: "B%d-T%d-d%d-b%d-%s" % (
+                             c[:4] + (str(c[4])[6:],)))
+def test_slice17_stack_rotation_and_grads(cuda, case):
+    """``gs_fused`` and ``gs_fused_grads`` at the new families' training
+    shapes: one launch each over the rows, against the plain versions."""
+    B, T, d, b, dtype = case
+    rng = np.random.default_rng(B + T + d + b)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(T * d + b)
+    L, R = (_factors(rng, B, d // b, b).to(cuda, dtype) for _ in range(2))
+    x, dy = (torch.randn((B, T, d), generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    before = (gk.gs_fused.launches, gk.gs_fused_grads.launches)
+    y = gk.gs_fused(x, L, R)
+    dL, dR = gk.gs_fused_grads(x, dy, L, R)
+    torch.cuda.synchronize()
+    assert (gk.gs_fused.launches, gk.gs_fused_grads.launches) == (
+        before[0] + 1, before[1] + 1)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    want = gk.gs_fused_plain(x, L, R)
+    assert (y.float() - want.float()).abs().max().item() <= tol
+    wL, wR = gk.gs_fused_grads_plain(x, dy, L, R)
+    _assert_grads_close(dL, wL, "dL")
+    _assert_grads_close(dR, wR, "dR")
+
+
+# (B, T, r, bo, bi): the classifier's OFT b = 16 and BOFT b = 8 levels at
+# d 768 (wq..wo, MLP wi) and 3072 (MLP wo), f32, two layers as rows
+SLICE17_BDMM = [(2, 768, 48, 16, 16), (2, 3072, 48, 16, 16),
+                (2, 768, 192, 16, 16), (2, 768, 96, 8, 8),
+                (2, 3072, 96, 8, 8), (2, 768, 384, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLICE17_BDMM,
+                         ids=lambda c: "B%d-T%d-r%d-bo%d-bi%d" % c)
+def test_slice17_classifier_bdmm_and_dblocks(cuda, case):
+    bsz, t, r, bo, bi = case
+    rng = np.random.default_rng(bsz + t + r + bo)
+    x, blocks = _bdmm_inputs(rng, bsz, t, r, bo, bi, cuda, torch.float32)
+    y = bk.bdmm(x, blocks)
+    want = bk.bdmm_plain(x, blocks)
+    assert (y - want).abs().max().item() <= F32_TOL
+    dy = torch.from_numpy(rng.normal(size=(bsz, t, r * bo)).astype(
+        np.float32)).to(cuda)
+    _assert_grads_close(bk.bdmm_dblocks(dy, x, bo, bi),
+                        bk.bdmm_dblocks_plain(dy, x, bo, bi), "dblocks")
+
+
+# (T, d): pixtral's banked rotations a serving step reads by slot id:
+# decode rows at d 5120 (wq / wk / wv / wi / wg), 4096 (attention wo),
+# 14336 (MLP wo), and one request's 256 patches at d 1024 (patch_proj)
+SLICE17_BANK = [(1, 5120), (1, 4096), (1, 14336), (256, 1024), (16, 5120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", SLICE17_BANK, ids=lambda v: str(v))
+def test_slice17_pixtral_bank_rotation_and_int8(cuda, t, d):
+    """``gs_fused_T_bank`` (fp32 bank, bf16 x, slot 0 the identity) and
+    the fused int8 ``gs_q_matmul_bank`` at pixtral's widths."""
+    rng = np.random.default_rng(t + d)
+    Lb, Rb = (a.to(cuda) for a in _bank(rng, 4, d // 32, 32))
+    bsz = 4 if t == 1 else 1
+    x = torch.from_numpy(rng.normal(size=(bsz, t, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    ids = torch.tensor([1, 2, 0, 3][:bsz], device=cuda)
+    y = gk.gs_fused_T_bank(x, Lb, Rb, ids)
+    want = gk.gs_fused_T_bank_plain(x, Lb, Rb, ids)
+    assert (y.float() - want.float()).abs().max().item() <= BF16_TOL
+    n = 1024
+    q, s = (a.to(cuda) for a in _codes(rng, d, n))
+    y = qmk.gs_q_matmul_bank(x, Lb, Rb, ids, q, s)
+    want = qmk.gs_q_matmul_bank_plain(x, Lb, Rb, ids, q, s)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= GSQ_BF16_REL * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 5120, 131072), (4, 1024, 256208),
+                                  (256, 1024, 5120)],
+                         ids=lambda c: "M%d-K%d-N%d" % c)
+def test_slice17_q_matmul_heads_and_patch_proj(cuda, case):
+    """int8 ``q_matmul`` at pixtral's LM head (M = 4 decode rows),
+    seamless's (vocab 256208) and pixtral's patch_proj over 256 patches."""
+    m, k, n = case
+    rng = np.random.default_rng(m + k + n)
+    q, s = (a.to(cuda) for a in _codes(rng, k, n))
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    y = qmk.q_matmul(x, q, s)
+    want = qmk.q_matmul_plain(x, q, s)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= GSQ_BF16_REL * max(1.0, want.float().abs().max().item())

@@ -1,4 +1,4 @@
-"""Run phases 3h, 14, 15, 16, 17 and 18 of ``chip_smoke.py`` alone on one GPU,
+"""Run phases 3h, 14, 15, 16, 17, 18 and 19 of ``chip_smoke.py`` alone on one GPU,
 from this tree: the image lane's kernel shapes, static / streaming /
 traced serving of qwen2-72b (8 layers, bf16, and the f32 check at 2
 layers), lipconvnet-15 image serving per tenant (bf16, int8, the f32
@@ -9,9 +9,12 @@ on a (data x model) mesh of gloo ranks sharing the card, elastic restore,
 the compressed mean, GPipe, decode at data = 2), and the MoE family and
 the other dense decoders (``moe_layer`` card vs CPU, the expert-stacked
 rotations, qwen3-moe training and serving, gemma-7b, granite-34b and
-mistral-large-123b).
+mistral-large-123b), and the encoder-decoder, the vlm and the encoder
+classifier (seamless-m4t-medium trained and served merged, pixtral-12b
+served banked and int8 banked and trained, the classifier at
+RoBERTa-base's widths under four methods, the new kernel shapes).
 
-    python3 tools/lane_phases.py [--only 3h,14,15,16,17,18] [--seed N] [--out FILE]
+    python3 tools/lane_phases.py [--only 3h,14,15,16,17,18,19] [--seed N] [--out FILE]
 
 Each phase runs through the function ``chip_smoke.main()`` calls for it,
 gates, launcher runs and log included (a miss raises), after the kernels
@@ -48,6 +51,8 @@ PHASES = {
         cs.get_config("qwen2-72b"), cs.get_config("mamba2-130m"),
         cs.get_config("zamba2-2.7b"), seed, dev, gen)},
     "18": lambda gen, seed, dev: {"moe_and_decoders": cs.phase_18(
+        seed, dev, gen)},
+    "19": lambda gen, seed, dev: {"encdec_vlm_classifier": cs.phase_19(
         seed, dev, gen)},
 }
 
