@@ -255,7 +255,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    per-slice loop, its launches and time), tok/s, peak, idle share; the
    launcher (``launch/train.py``, 3 steps, its log with ``moe_aux``); f32
    gradients at 2 layers along three random directions; (d) qwen3-moe
-   full width, 12 layers, bf16: a paged engine over a GSOFT bank of the
+   full width, 8 layers, bf16: a paged engine over a GSOFT bank of the
    attention projections (3 tenants + base, 8 requests on 4 slots), a
    static engine on (c)'s adapter merged (the expert stacks through
    ``gs_fused``, one launch a stack chunk), tok/s and idle share; f32 at 2
@@ -293,9 +293,34 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    card vs CPU, 3 steps each (the loss falls, launches as designed); (d)
    the kernels at the new shapes against their plain versions, timed, with
    bounds and library yardsticks
-20. report — where the time went (build, set-up, timed runs, profiled
-   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15, 16, 17, 18 and 19 whole),
-   the card's name and power limit, one JSON line of kernels, then the
+20. full fine-tuning on a mesh and expert parallelism, as gloo ranks
+   sharing the card, each run held to one process — (a) gemma-7b at full
+   width (d 3072, 16 heads of 256, d_ff 24576, vocab 256000, tied
+   embeddings), 1 layer, f32, every param trained (8 x 64, 2
+   microbatches, 3 AdamW steps) on (2, 1), (1, 2) with and without
+   seq_parallel, and (2, 2): every rank's losses, grad norms and first
+   moments (its block of each leaf) against one process, no port kernel
+   launched; (b) qwen3-moe at full width, 2 layers, f32, GSOFT b = 32 on
+   every projection, its experts split over 'model' (64 a rank) at (1,
+   2) with and without seq_parallel and (2, 2), then with a ragged mask at
+   (2, 2), each on the one process's routing piece: every rank's own
+   first-step routings (experts and kept sets) equal one process's (later
+   steps' flips counted, with their margins) before its losses, grad
+   norms and first moments are held to it; one ``gs_fused`` + one ``gs_fused_grads`` launch per local expert
+   stack per microbatch and no expert byte gathered; served at tp = 2 (a
+   paged engine over a 3-tenant GSOFT bank of the attention projections,
+   8 requests on 4 slots): at 2 layers f32 the tokens equal tp = 1, at 4
+   layers bf16 the differing tokens are counted; (c) a rank's expert stacks
+   through ``gs_fused`` / ``gs_fused_grads`` (64 experts of a layer in
+   bf16, the 2 x 64 rows 20b trains in f32) and ``paged_decode`` at a
+   rank's heads against their plain versions, timed, with bounds; (d)
+   ``launch/train.py --mesh 1,2 --peft full`` (gemma-7b, 1 layer) and
+   ``launch/serve.py --arch qwen3-moe-30b-a3b --tp 2`` (4 layers, paged)
+   under torchrun, two ranks each over gloo, both at once. Its one-process
+   runs go before phase 17, and its mesh runs in 17c's gloo ranks
+21. report — where the time went (build, set-up, timed runs, profiled
+   runs, and phases 3g, 3h, 12, 12b, 12c, 14, 15, 16, 17, 18, 19 and 20
+   whole), the card's name and power limit, one JSON line of kernels, then the
    ``{"ok": true, ...}`` line
 
 Imports nothing of JAX: the port is ``src/repro_torch`` beside this file.
@@ -1523,13 +1548,15 @@ def quick_step_phase(cfg, seed: int, device, method: str) -> dict:
 
 
 @contextlib.contextmanager
-def routing_piece(record: list):
+def routing_piece(record: list, own: list = None):
     """``models.moe.route`` held to one routing piece: an empty ``record``
     fills with each call's routing, in call order; a filled one replays
     its experts, slots and kept set (the gates are recomputed from the
-    router's probabilities). Top-k and capacity are piecewise constant, so
-    the loss jumps where a choice flips; autograd differentiates the piece
-    the point lies on, which this holds the central differences to."""
+    router's probabilities), and ``own``, when given, receives the routing
+    each call would have taken. Top-k and capacity are piecewise constant,
+    so the loss jumps where a choice flips; autograd differentiates the
+    piece the point lies on, which this holds the central differences (18c)
+    and the mesh runs (20b) to."""
     orig = moe_lib.route
     replay = iter(list(record)) if record else None
 
@@ -1538,6 +1565,8 @@ def routing_piece(record: list):
         if replay is None:
             record.append(r)
             return r
+        if own is not None:
+            own.append(r)
         base = next(replay)
         gate = torch.gather(r.probs, -1, base.idx)
         gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -4136,31 +4165,6 @@ def _tp_rank(rank: int, world: int, port: int, seed: int, cfgs, device,
             dist.destroy_process_group()
 
 
-def _spawn_tp(world: int, seed: int, cfgs, device,
-              timeout: float = 600) -> list:
-    import socket
-    import torch.multiprocessing as mp
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    procs = [ctx.Process(target=_tp_rank,
-                         args=(r, world, port, seed, cfgs, device, queue))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    try:
-        got = dict(queue.get(timeout=timeout) for _ in procs)
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-    return [got[r] for r in range(world)]
-
-
 def tp_kernel_phase(full, gen, device) -> list:
     """16d's kernels against their plain versions at tp = 2's local shapes
     (bf16, timed in this process): ``q_matmul`` at the local N (wq, wk /
@@ -4279,10 +4283,8 @@ def phase_16(full, seed: int, device, gen) -> dict:
         "GB before the ranks start")
     log(f"tp = 1 reference lanes: {time.perf_counter() - t_ref:.1f} s")
     t_spawn = time.perf_counter()
-    ranks = _spawn_tp(2, seed, (cfg2, cfg8, cfgz), device)
-    errors = [r["error"] for r in ranks if "error" in r]
-    if errors:
-        raise AssertionError(f"tp = 2 rank failed:\n{errors[0]}")
+    ranks = _spawn_ranks(_tp_rank, 2, (seed, (cfg2, cfg8, cfgz), device),
+                         "16")
     log(f"tp = 2 ranks (gloo, one card): {time.perf_counter() - t_spawn:.1f} s")
     tp2 = {"local": ranks[0]["local"], "launches": {}}
     for lane in ("bank", "int8", "paged_int8", "hybrid"):
@@ -4702,57 +4704,58 @@ def _p17_decode(cfg, seed: int, device, mesh) -> dict:
     return dict(rows=int(mine.shape[0]), rel=rel, tol=DECODE_DP_REL)
 
 
-def _p17_rank(rank: int, world: int, port: int, seed: int, cfgs, device,
-              work: str, queue) -> None:
-    """One rank of 17c / 17d: ``world`` processes on the one card over
-    gloo (CUDA tensors staged through the host: a check of the split
-    training path, never a speed). ``work``: a directory holding the
-    one-process runs' first moments (``mu_qwen2.pt``, ``mu_zamba2.pt``) and
-    room for 17d's checkpoint."""
+def _p17_work(world: int, seed: int, cfgs, device, work: str) -> dict:
+    """17c / 17d on one rank of ``world`` (gloo ranks sharing the card:
+    CUDA tensors staged through the host, a check of the split training
+    path, never a speed). ``work``: a directory holding the one-process
+    runs' first moments (``mu_qwen2.pt``, ``mu_zamba2.pt``) and room for
+    17d's checkpoint."""
+    from repro_torch.launch.mesh import make_axes_mesh, make_mesh
+    qcfg, qsp, zcfg, bcfg = cfgs
+    kind = device.type
+    res = {}
+    mu_q = os.path.join(work, "mu_qwen2.pt")
+    if world == 4:
+        res["2x2"] = _mesh_train(qcfg, seed, device,
+                                 make_mesh(2, 2, device_type=kind),
+                                 ref_mu=mu_q)
+        return res
+    meshes = {k: make_mesh(*v, device_type=kind) for k, v in MESHES_2.items()}
+    pipe = make_axes_mesh((2,), ("pipe",), device_type=kind)
+    res["2x1"] = _mesh_train(qcfg, seed, device, meshes["2x1"], ref_mu=mu_q)
+    res["1x2"] = _mesh_train(qcfg, seed, device, meshes["1x2"], ref_mu=mu_q)
+    res["1x2_sp"] = _mesh_train(qsp, seed, device, meshes["1x2"], ref_mu=mu_q)
+    res["1x2_boft"] = _mesh_train(qcfg, seed, device, meshes["1x2"],
+                                  method="boft", n_steps=1)
+    res["zamba_1x2"] = _mesh_train(zcfg, seed, device, meshes["1x2"],
+                                   ref_mu=os.path.join(work, "mu_zamba2.pt"))
+    res["ckpt"] = _p17_ckpt(bcfg.with_overrides(num_layers=1), seed, device,
+                            meshes, os.path.join(work, "ckpt"))
+    res["psum"] = _p17_psum(seed, device, meshes["2x1"])
+    res["gpipe"] = _p17_gpipe(bcfg, seed, device, pipe)
+    res["decode"] = _p17_decode(qcfg, seed, device, meshes["2x1"])
+    return res
+
+
+def _mesh_rank(rank: int, world: int, port: int, seed: int, cfgs, device,
+               work, queue) -> None:
+    """One gloo rank of the mesh phases, which share their processes:
+    ``cfgs`` = (17's configs, 20's configs), ``work`` = (17's directory,
+    20's), either part None when it does not run; each part's seconds on
+    this rank come back beside its results (``seconds``)."""
     import traceback
 
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_axes_mesh, make_mesh
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port),
-                      PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     try:
-        torch.set_num_threads(2)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        dist.init_process_group("gloo")
-        qcfg, qsp, zcfg, bcfg = cfgs
-        kind = device.type
-        res = {}
-        mu_q = os.path.join(work, "mu_qwen2.pt")
-        if world == 4:
-            res["2x2"] = _mesh_train(qcfg, seed, device,
-                                     make_mesh(2, 2, device_type=kind),
-                                     ref_mu=mu_q)
-        else:
-            meshes = {k: make_mesh(*v, device_type=kind)
-                      for k, v in MESHES_2.items()}
-            pipe = make_axes_mesh((2,), ("pipe",), device_type=kind)
-            res["2x1"] = _mesh_train(qcfg, seed, device, meshes["2x1"],
-                                     ref_mu=mu_q)
-            res["1x2"] = _mesh_train(qcfg, seed, device, meshes["1x2"],
-                                     ref_mu=mu_q)
-            res["1x2_sp"] = _mesh_train(qsp, seed, device, meshes["1x2"],
-                                        ref_mu=mu_q)
-            res["1x2_boft"] = _mesh_train(qcfg, seed, device, meshes["1x2"],
-                                          method="boft", n_steps=1)
-            res["zamba_1x2"] = _mesh_train(
-                zcfg, seed, device, meshes["1x2"],
-                ref_mu=os.path.join(work, "mu_zamba2.pt"))
-            res["ckpt"] = _p17_ckpt(bcfg.with_overrides(num_layers=1), seed,
-                                    device, meshes,
-                                    os.path.join(work, "ckpt"))
-            res["psum"] = _p17_psum(seed, device, meshes["2x1"])
-            res["gpipe"] = _p17_gpipe(bcfg, seed, device, pipe)
-            res["decode"] = _p17_decode(qcfg, seed, device, meshes["2x1"])
+        _join_gloo(rank, world, port, device)
+        res, spent = {}, {}
+        for part, fn, c, w in (("17", _p17_work, cfgs[0], work[0]),
+                               ("20", _p20_work, cfgs[1], work[1])):
+            if c is not None:
+                t0 = time.perf_counter()
+                res.update(fn(world, seed, c, device, w))
+                spent[part] = time.perf_counter() - t0
+        res["seconds"] = spent
         queue.put((rank, res))
     except Exception:                                # noqa: BLE001
         queue.put((rank, {"error": traceback.format_exc()}))
@@ -4761,8 +4764,27 @@ def _p17_rank(rank: int, world: int, port: int, seed: int, cfgs, device,
             dist.destroy_process_group()
 
 
-def _spawn_p17(world: int, seed: int, cfgs, device, work: str,
-               timeout: float = 600) -> list:
+def _join_gloo(rank: int, world: int, port: int, device) -> None:
+    """Join a gloo group of ``world`` processes on this host as ``rank``,
+    on ``device`` (the ranks share the card), TF32 off, two host threads."""
+    import torch.distributed as dist
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port),
+                      PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo")
+
+
+def _spawn_ranks(target, world: int, args: tuple, phase: str,
+                 timeout: float = 600) -> list:
+    """``target(rank, world, port, *args, queue)`` in ``world`` spawned
+    processes; [rank 0's result, ...]. A rank that fails fails the phase;
+    every process is joined or killed before this returns."""
     import socket
     import torch.multiprocessing as mp
     s = socket.socket()
@@ -4771,8 +4793,8 @@ def _spawn_p17(world: int, seed: int, cfgs, device, work: str,
     s.close()
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=_p17_rank, args=(r, world, port, seed, cfgs,
-                                                 device, work, queue))
+    procs = [ctx.Process(target=target, args=(r, world, port) + tuple(args)
+                         + (queue,))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4785,7 +4807,7 @@ def _spawn_p17(world: int, seed: int, cfgs, device, work: str,
                 p.kill()
     errors = [v["error"] for v in got.values() if "error" in v]
     if errors:
-        raise AssertionError(f"phase 17 rank failed:\n{errors[0]}")
+        raise AssertionError(f"phase {phase} rank failed:\n{errors[0]}")
     return [got[r] for r in range(world)]
 
 
@@ -4797,10 +4819,13 @@ def _agree(name: str, got: list, want: list) -> float:
     return max(abs(a - b) for a, b in zip(got, want))
 
 
-def phase_17(full, mamba, zamba, seed: int, device, gen) -> dict:
+def phase_17(full, mamba, zamba, seed: int, device, gen, p20=None) -> dict:
     """17a ssd_bwd; 17b the Mamba2 families trained on the card; 17c
     training on (2, 1), (1, 2) with and without seq_parallel, and (2, 2);
-    17d elastic restore, the compressed mean, GPipe, decode at data = 2."""
+    17d elastic restore, the compressed mean, GPipe, decode at data = 2.
+    ``p20`` = (phase 20's rank configs, the directory of its one-process
+    runs): its mesh runs share 17c's processes, and their results come
+    back as ``p20_ranks`` (two ranks', four ranks')."""
     out = {}
     t_phase = time.perf_counter()
     out["ssd_bwd_cases"] = [check_ssd_bwd_case(*c, gen, device)
@@ -4866,8 +4891,17 @@ def phase_17(full, mamba, zamba, seed: int, device, gen) -> dict:
     with tempfile.TemporaryDirectory() as d:
         torch.save(ref_q.pop("mu"), os.path.join(d, "mu_qwen2.pt"))
         torch.save(ref_z.pop("mu"), os.path.join(d, "mu_zamba2.pt"))
-        ranks2 = _spawn_p17(2, seed, (qcfg, qsp, zcfg, bcfg), device, d)
-        ranks4 = _spawn_p17(4, seed, (qcfg, qsp, zcfg, bcfg), device, d)
+        cfgs = ((qcfg, qsp, zcfg, bcfg), p20[0] if p20 else None)
+        work = (d, p20[1] if p20 else None)
+        ranks2 = _spawn_ranks(_mesh_rank, 2, (seed, cfgs, device, work), "17")
+        ranks4 = _spawn_ranks(_mesh_rank, 4, (seed, cfgs, device, work), "17")
+    if p20:
+        out["p20_ranks"] = (ranks2, ranks4)
+        log(f"17c's ranks ran phase 20's mesh runs too: "
+            f"{[round(r['seconds']['20'], 1) for r in ranks2]} s on the two "
+            f"ranks, {[round(r['seconds']['20'], 1) for r in ranks4]} on the "
+            f"four (17's own {[round(r['seconds']['17'], 1) for r in ranks2]}"
+            f", {[round(r['seconds']['17'], 1) for r in ranks4]})")
     mesh_runs = {}
     for name, ranks, want in (("2x1", ranks2, ref_q), ("1x2", ranks2, ref_q),
                               ("1x2_sp", ranks2, ref_q),
@@ -4949,7 +4983,9 @@ MOE_AUX_ABS = 1e-5                  # 18a: the load-balance loss, card vs CPU
 # parameters, which with AdamW's two moments do not fit beside 61 GB of
 # bf16 weights
 MOE_TRAIN_LAYERS = 4
-MOE_SERVE_LAYERS = 12               # 18d: about 16 GB of bf16 weights, twice
+# 18d: about 11 GB of bf16 weights, twice; 12 layers took 69.5 s, and with
+# phase 20 (142.2 s alone) the script would pass 1100 s
+MOE_SERVE_LAYERS = 8
 MOE_STEPS = 3
 MOE_LR = 1e-2                       # one fixed batch, 3 steps: the loss falls
 STACK_SAMPLES = 3                   # 18b: slices held against the plain one
@@ -6063,6 +6099,567 @@ def phase_19(seed: int, device, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: full fine-tuning on a (data x model) mesh, and the MoE family
+# split over 'model' by its experts (expert parallelism), trained and
+# served: gloo ranks sharing the one card, each run held to one process
+# ---------------------------------------------------------------------------
+
+# 20a: gemma-7b at full width, 1 layer, f32: about 1.06 G params (4.25 GB),
+# whose step peaks at 36 GB for a whole replica (the params and moments,
+# old and new, the gradients and the embedding's temporaries), so the two
+# ranks of (2, 1) hold about 72 GB and the four of (2, 2) 4 x 18;
+# qwen2-72b's 1-layer state does not fit twice
+FT_LAYERS = 1
+# 20b: qwen3-moe at full width, 2 layers f32 to train (GSOFT b = 32 on
+# every projection, the expert stacks' adapters split with their experts),
+# 4 layers to serve in bf16 (8 requests on 4 slots, an attention bank),
+# where the partial sums round apart from the whole one's and greedy
+# tokens part after a while (at smoke widths on the CPU too), so the
+# differing tokens are counted; in f32 (CHECK_LAYERS) the tokens at tp = 2
+# must equal tp = 1's
+EP_LAYERS = 2
+EP_SERVE_LAYERS = 4
+NORM_REL = 1e-4                     # grad_norm: mesh vs one process, relative
+# 20b's ragged mask: each row's valid tokens of MESH_SEQ; at (2, 2) data
+# rank 1's rows of the first microbatch (rows 2, 3) hold none
+EP_RAGGED = (64, 12, 0, 0, 48, 28, 20, 64)
+LAUNCH_TIMEOUT = 300                # 20d: each launcher under torchrun, s
+
+
+@contextlib.contextmanager
+def counted_rows(calls: list):
+    """``kernels.ops.gs_diff_rows`` (the GS rotation of a weight stack, one
+    ``gs_fused`` launch forward and one ``gs_fused_grads`` backward) with
+    each call's row count appended to ``calls``."""
+    orig = ops.gs_diff_rows
+
+    def rows(L, R, x):
+        calls.append(int(x.shape[0]))
+        return orig(L, R, x)
+
+    ops.gs_diff_rows = rows
+    try:
+        yield
+    finally:
+        ops.gs_diff_rows = orig
+
+
+def _routing_gap(got: list, want: list, first: int) -> dict:
+    """A rank's own MoE routings ``got`` (each (experts, kept) of one
+    ``route`` call, in call order) against the one process's ``want``
+    (the same, with its router probabilities; the rank's rows): the
+    choices whose expert or kept flag differ, those among the first
+    ``first`` calls (the first step, where both sides start from the same
+    weights), and at each token holding one, the gap between its k-th and
+    (k+1)-th router probabilities (how near the tie was that flipped)."""
+    if len(got) != len(want):
+        return dict(calls=len(got), want_calls=len(want), differing=None,
+                    first_step_differing=None, margins=[])
+    differing, first_diff, margins = 0, 0, []
+    for n, ((gi, gkeep), (wi, wkeep, wp)) in enumerate(zip(got, want)):
+        bad = (gi != wi) | (gkeep != wkeep)
+        if bool(bad.any()):
+            differing += int(bad.sum())
+            first_diff += int(bad.sum()) if n < first else 0
+            top = wp[bad.any(-1)].topk(wi.shape[-1] + 1, dim=-1).values
+            margins += (top[:, -2] - top[:, -1]).tolist()
+    return dict(calls=len(got), differing=differing,
+                first_step_differing=first_diff, margins=sorted(margins)[:8])
+
+
+def _p20_train(cfg, seed: int, device, mesh=None, method: str = "full",
+               ragged: bool = False, ref=None) -> dict:
+    """MESH_STEPS AdamW steps (MESH_MICRO microbatches of the fixed
+    MESH_BATCH x MESH_SEQ batch; ``ragged``: EP_RAGGED's mask) of full
+    fine-tuning or of ``method`` (b = MESH_BLOCK, every projection), on
+    ``mesh`` or in one process: losses, grad norms, launches, the row
+    count of every GS stack rotation, the bytes gathered to rotate each
+    weight, local shapes, peak memory and wall. ``ref`` (a path: the
+    one-process run's first moments, each leaf's max |mu| and its MoE
+    routings): the run replays those routings on its rows, then each first
+    moment is held against the same block of the leaf, over the leaf's
+    max, and the routings the run would have taken against the replayed
+    ones. The one-process run returns those (on the host) as ``ref``
+    instead."""
+    from repro_torch.sharding import specs as shard_specs
+    pcfg = peft_lib.PEFTConfig(method=method, block_size=MESH_BLOCK)
+    ocfg = optim.OptimizerConfig(learning_rate=1e-3)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rt = ModelRuntime(cfg, seed=seed, device=device, mesh=mesh)
+    rules = None if mesh is None else shard_specs.ShardingRules(cfg, mesh)
+    p = rt.params
+    local = {"wq": tuple(p["layers"]["attn"]["wq"].shape),
+             "embed": tuple(p["embed"]["table"].shape)}
+    if "moe" in p["layers"]:
+        local["moe_wi"] = tuple(p["layers"]["moe"]["wi"].shape)
+    if pcfg.is_peft:
+        trainable = peft_lib.init_peft(pcfg, rt.param_shapes, device=device,
+                                       seed=seed)
+        spec = None if rules is None else rules.adapters_tree(trainable)
+        if rules is not None:       # an expert stack's adapters: its experts'
+            trainable = shard_specs.place(mesh, trainable, spec)
+        frozen = p
+    else:
+        spec = None if rules is None else rules.serve_params_tree(
+            rt.param_shapes)
+        trainable, frozen = p, {}
+    del rt, p
+    opt_state = optim.init(ocfg, trainable)
+    step = steps.build_train_step(cfg, steps.TrainStepConfig(
+        peft=pcfg, opt=ocfg, num_microbatches=MESH_MICRO), mesh)
+    batch = _fixed_batch(cfg, MESH_SEQ, MESH_BATCH, seed, device)
+    if ragged:
+        lens = torch.tensor(EP_RAGGED, device=device)
+        batch["mask"] = (torch.arange(MESH_SEQ, device=device)[None, :]
+                         < lens[:, None]).to(batch["mask"].dtype)
+    # the one process records its MoE routings; a mesh run replays them on
+    # its rows (one routing piece on both sides: past the first update,
+    # Adam's normalisation turns rounding-level gradient gaps into weight
+    # gaps of about the learning rate, which can flip near-tied choices)
+    # and keeps the routings it would have taken in ``own``
+    want, routes, own = None, [], []
+    if ref is not None:
+        want = torch.load(ref, map_location="cpu", mmap=True)
+        dp_rows = (lambda t: shard_specs.local_slice(   # noqa: E731
+            mesh, t, rules.batch_spec({"t": t}, t.shape[0])["t"]))
+        want["routing"] = [tuple(dp_rows(t) for t in r)
+                           for r in want["routing"]]
+        routes = [moe_lib.Routing(i.to(device), None, slot.to(device),
+                                  keep.to(device), None)
+                  for i, keep, slot, _ in want["routing"]]
+    losses, norms, rows = [], [], []
+    with counted_rows(rows), routing_piece(routes, own):
+        _reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(MESH_STEPS):
+            trainable, opt_state, m = step(frozen, trainable, opt_state,
+                                           batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    if want is None:
+        routes = [(r.idx.cpu(), r.keep.cpu(), r.slot.cpu(),
+                   r.probs.detach().cpu()) for r in routes]
+    own = [(r.idx.cpu(), r.keep.cpu()) for r in own]
+    gathered = dict(step.split.gather_bytes) if mesh is not None else {}
+    shard = step.split.shard if mesh is not None else None
+    # the share of the kept choices that land on this rank's experts (the
+    # expert load a rank carries; 1 / tp when it is even)
+    mine = None
+    if own and shard is not None and shard.experts_split:
+        e0, n = shard.experts
+        kept = [i[k] for i, k in own]
+        mine = (sum(int(((i >= e0) & (i < e0 + n)).sum()) for i in kept)
+                / max(1, sum(int(k.sum()) for _, k in own)))
+    mu = peft_lib.flatten_paths(opt_state["mu"])
+    del trainable, frozen, step, batch
+    opt_state.pop("nu")
+    out = dict(method=method, losses=losses, grad_norms=norms,
+               launches={k: v for k, v in launches.items() if v},
+               stack_rows=rows, gather_bytes=gathered, local=local,
+               wall_s=wall, routings=len(routes), local_choices=mine,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card
+               else None)
+    if want is not None:
+        if mu.keys() != want["mu"].keys():
+            raise AssertionError(f"first moments: leaves {sorted(mu)} vs "
+                                 f"{sorted(want['mu'])}")
+        flat = peft_lib.flatten_paths(spec)
+        out["mu_rel"] = {
+            k: float((v.float() - shard_specs.local_slice(
+                mesh, want["mu"][k], flat[k]).to(device).float()).abs().max())
+            / max(want["max"][k], 1e-30) for k, v in mu.items()}
+        out["routing"] = _routing_gap(
+            own, [(i, keep, p) for i, keep, _, p in want["routing"]],
+            len(own) // MESH_STEPS)
+        del want, routes
+    elif mesh is None:
+        out["ref"] = dict(mu={k: v.cpu() for k, v in mu.items()},
+                          max={k: float(v.abs().max()) for k, v in mu.items()},
+                          routing=routes)
+    del mu, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p20_serve(cfg, seed: int, device, mesh=None) -> dict:
+    """20b's serving: qwen3-moe (experts split over 'model' on ``mesh``)
+    through a paged engine over a GSOFT bank of the attention projections
+    (3 tenants + the base, 8 requests on 4 slots): tokens, launches,
+    slot-id launches, local shapes and wall."""
+    attn = peft_lib.PEFTConfig(method="gsoft", block_size=32,
+                               target_patterns=ATTN_TARGETS)
+    rt = ModelRuntime(cfg, seed=seed, device=device, mesh=mesh)
+    names = ["tenant_a", "tenant_b", "tenant_c"]
+    banked = rt.attach({n: perturbed_adapters(attn, rt.param_shapes,
+                                              seed + 1 + i, 0.05, device)
+                        for i, n in enumerate(names)}, attn)
+    work = _work(cfg, seed, names + [None])
+    eng = _paged(banked)
+    rids = [eng.add_request(p, max_new_tokens=n, adapter=a)
+            for p, a, n in work]
+    _reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    res = eng.run()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    p = rt.params["layers"]
+    out = dict(tokens=[list(res[r]) for r in rids], wall_s=wall,
+               launches={k: v for k, v in _launches().items() if v},
+               slot_launches=_slot_launches(),
+               local=dict(wq=tuple(p["attn"]["wq"].shape),
+                          moe_wi=tuple(p["moe"]["wi"].shape),
+                          moe_wo=tuple(p["moe"]["wo"].shape)))
+    del rt, banked, eng, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p20_work(world: int, seed: int, cfgs, device, work: str) -> dict:
+    """20a / 20b's mesh runs on one rank of ``world`` (gloo ranks sharing
+    the card: a check of the split paths, never a speed). ``work`` holds
+    the one-process runs' files (``ft.pt``, ``ep.pt``, ``ep_ragged.pt``)."""
+    from repro_torch.launch.mesh import make_mesh
+    gcfg, gsp, qcfg, qsp, scfg, scfg32 = cfgs
+    kind = device.type
+    ft, ep = os.path.join(work, "ft.pt"), os.path.join(work, "ep.pt")
+    res = {}
+    if world == 4:
+        m = make_mesh(2, 2, device_type=kind)
+        res["ft_2x2"] = _p20_train(gcfg, seed, device, m, ref=ft)
+        res["ep_2x2"] = _p20_train(qcfg, seed, device, m, "gsoft", ref=ep)
+        res["ep_2x2_ragged"] = _p20_train(
+            qcfg, seed, device, m, "gsoft", ragged=True,
+            ref=os.path.join(work, "ep_ragged.pt"))
+        return res
+    meshes = {k: make_mesh(*v, device_type=kind) for k, v in MESHES_2.items()}
+    for name, cfg, mesh in (("2x1", gcfg, "2x1"), ("1x2", gcfg, "1x2"),
+                            ("1x2_sp", gsp, "1x2")):
+        res[f"ft_{name}"] = _p20_train(cfg, seed, device, meshes[mesh],
+                                       ref=ft)
+    for name, cfg in (("1x2", qcfg), ("1x2_sp", qsp)):
+        res[f"ep_{name}"] = _p20_train(cfg, seed, device, meshes["1x2"],
+                                       "gsoft", ref=ep)
+    res["serve_tp2"] = _p20_serve(scfg, seed, device, meshes["1x2"])
+    res["serve_tp2_f32"] = _p20_serve(scfg32, seed, device, meshes["1x2"])
+    return res
+
+
+def ep_stack_cases(qwen3) -> list:
+    """(projection, rows, T, d, dtype) of a rank's expert stacks at tp =
+    2: one layer's E / 2 experts in bf16 (wi on route 1; wo, r = 24 < b,
+    on route 2), and the two-layer stacks 20b trains in f32."""
+    E, d, f = qwen3.moe_experts // 2, qwen3.d_model, qwen3.expert_d_ff
+    return [("wi", E, f, d, torch.bfloat16), ("wo", E, d, f, torch.bfloat16),
+            ("wi", EP_LAYERS * E, f, d, torch.float32),
+            ("wo", EP_LAYERS * E, d, f, torch.float32)]
+
+
+def _torchrun(module: str, argv: list) -> subprocess.Popen:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    module argv`` from the repo's root, in a session of its own (so every
+    process it starts can be stopped together)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", module] + list(argv),
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+
+
+def p20_launchers(seed: int) -> dict:
+    """20d: ``launch/train.py --mesh 1,2 --peft full`` (gemma-7b, 1 layer,
+    bf16) and ``launch/serve.py --arch qwen3-moe-30b-a3b --tp 2`` (4
+    layers, bf16, paged), each as two ranks under torchrun sharing the card
+    over gloo, both at once: exit 0 and their reports."""
+    import signal
+    runs = {
+        "train": ("repro_torch.launch.train",
+                  ["--arch", "gemma-7b", "--mesh", "1,2", "--peft", "full",
+                   "--backend", "gloo", "--steps", "2", "--batch", "4",
+                   "--seq", str(MESH_SEQ), "--microbatches", "2",
+                   "--warmup", "1", "--seed", str(seed), "--no-resume",
+                   "--set", f"num_layers={FT_LAYERS}"],
+                  ("final loss",)),
+        "serve": ("repro_torch.launch.serve",
+                  ["--arch", "qwen3-moe-30b-a3b", "--tp", "2", "--backend",
+                   "gloo", "--engine", "paged", "--requests", "8",
+                   "--prompt-len", "64", "--max-new", "8", "--set",
+                   f"num_layers={EP_SERVE_LAYERS}"],
+                  ("cluster: 1 replica(s), 8 requests",
+                   "[paged] served 8 requests")),
+    }
+    t0 = time.perf_counter()
+    procs = {k: _torchrun(m, a) for k, (m, a, _) in runs.items()}
+    out = {}
+    try:
+        for k, p in procs.items():
+            text, _ = p.communicate(timeout=max(
+                1.0, LAUNCH_TIMEOUT - (time.perf_counter() - t0)))
+            lines = [ln for ln in text.splitlines() if "socket.cpp" not in ln]
+            for ln in lines[-6:]:
+                log(f"  {k} launcher: {ln}")
+            if p.returncode != 0 or not all(m in text for m in runs[k][2]):
+                raise AssertionError(f"torchrun {runs[k][0]} returned "
+                                     f"{p.returncode}:\n" + "\n".join(
+                                         lines[-150:]))
+            out[k] = dict(argv=runs[k][1], rc=p.returncode, lines=lines)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    line = next(ln for ln in out["train"]["lines"] if "final loss" in ln)
+    out["train"]["final_loss"] = float(line.split()[2])
+    if not math.isfinite(out["train"]["final_loss"]):
+        raise AssertionError(f"launch/train.py --peft full: {line}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _p20_check(name: str, ranks: list, want: dict, kind: str) -> dict:
+    """The gates of one mesh run against the one-process run: the MoE
+    routings first (at the first step, where both sides start from the
+    same weights, every rank's own experts and kept sets equal the same
+    rows' of one process; later steps' flips are counted with their
+    margins, and every step runs on the one process's routing piece: top-k
+    is piecewise constant, so a flipped near-tie moves an expert's gradient
+    past any tolerance), then every rank's losses (MESH_REL), grad norms
+    (NORM_REL) and first moments leaf by leaf (MESH_MU_REL of the leaf's
+    max)."""
+    for i, r in enumerate(ranks):
+        g = r[name].get("routing")
+        if g is not None and g["first_step_differing"] != 0:
+            raise AssertionError(f"{kind} {name} rank {i}: the first step's "
+                                 f"routings differ from one process's ({g});"
+                                 f" the margins are the flipped tokens' k-th "
+                                 f"minus (k+1)-th router probabilities")
+    gaps = [_agree(f"{kind} {name} rank {i}", r[name]["losses"],
+                   want["losses"]) for i, r in enumerate(ranks)]
+    norm_rel = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r[name]["grad_norms"], want["grad_norms"]))
+    if not norm_rel <= NORM_REL:
+        raise AssertionError(f"{kind} {name}: grad norms "
+                             f"{[r[name]['grad_norms'] for r in ranks]} vs "
+                             f"{want['grad_norms']} (rel {norm_rel:.1e})")
+    mu_rel = max(max(r[name]["mu_rel"].values()) for r in ranks)
+    if not mu_rel <= MESH_MU_REL:
+        bad = {k: v for r in ranks for k, v in r[name]["mu_rel"].items()
+               if not v <= MESH_MU_REL}
+        raise AssertionError(f"{kind} {name}: first moments off the "
+                             f"one-process run's by more than {MESH_MU_REL} "
+                             f"of a leaf's max: {bad}")
+    return dict(losses=[r[name]["losses"] for r in ranks],
+                grad_norms=ranks[0][name]["grad_norms"], max_gap=max(gaps),
+                norm_rel=norm_rel, mu_rel=mu_rel,
+                mu_leaves=len(ranks[0][name]["mu_rel"]),
+                routing=[r[name].get("routing") for r in ranks],
+                wall_s=[r[name]["wall_s"] for r in ranks],
+                local=ranks[0][name]["local"],
+                peak_gb=[r[name]["peak_gb"] for r in ranks],
+                local_choices=[r[name]["local_choices"] for r in ranks],
+                launches=[r[name]["launches"] for r in ranks],
+                stack_rows=[r[name]["stack_rows"] for r in ranks],
+                gather_bytes=[r[name]["gather_bytes"] for r in ranks])
+
+
+def _ep_kernel_gates(name: str, run: dict, rows: int) -> None:
+    """20b's kernel gates on one run (a rank's or the one process's): one
+    stacked rotation (one ``gs_fused`` launch forward, one
+    ``gs_fused_grads`` backward) per local expert stack (``rows`` = layers
+    x local experts) per microbatch, a backward launch for every forward
+    one, and no byte gathered to rotate an expert stack."""
+    experts = sum(1 for n in run["stack_rows"] if n == rows)
+    want = 3 * MESH_MICRO * MESH_STEPS          # wi, wg, wo a microbatch
+    got = run["launches"]
+    moe_bytes = sum(v for k, v in run["gather_bytes"].items() if "/moe/" in k)
+    if not (experts == want and moe_bytes == 0
+            and got.get("gs_fused", 0) >= experts
+            and got.get("gs_fused") == got.get("gs_fused_grads")):
+        raise AssertionError(f"{name}: {experts} expert-stack rotations "
+                             f"({rows} rows; the design says {want}), launches"
+                             f" {got}, {moe_bytes} expert bytes gathered")
+
+
+def p20_prepare(seed: int, device, d: str) -> dict:
+    """Phase 20's configs and its one-process runs: gemma-7b's full
+    fine-tuning and qwen3-moe's GSOFT training (plain and ragged), their
+    first moments and routings saved into ``d`` for the ranks, their kernel
+    gates; qwen3-moe served at tp = 1 (bf16 and f32)."""
+    t_phase = time.perf_counter()
+    gemma, qwen3 = get_config("gemma-7b"), get_config("qwen3-moe-30b-a3b")
+    f32 = dict(dtype="f32", param_dtype="f32", remat="none")
+    gcfg = gemma.with_overrides(num_layers=FT_LAYERS, **f32)
+    qcfg = qwen3.with_overrides(num_layers=EP_LAYERS, **f32)
+    scfg = qwen3.with_overrides(num_layers=EP_SERVE_LAYERS)
+    scfg32 = qwen3.with_overrides(num_layers=CHECK_LAYERS, dtype="f32",
+                                  param_dtype="f32")
+    refs = {}
+    for name, cfg, method, ragged in (
+            ("ft", gcfg, "full", False), ("ep", qcfg, "gsoft", False),
+            ("ep_ragged", qcfg, "gsoft", True)):
+        r = refs[name] = _p20_train(cfg, seed, device, method=method,
+                                    ragged=ragged)
+        torch.save(r.pop("ref"), os.path.join(d, f"{name}.pt"))
+        gc.collect()
+    for name in ("ep", "ep_ragged"):
+        _ep_kernel_gates(f"20b one process {name}", refs[name],
+                         EP_LAYERS * qwen3.moe_experts)
+    if refs["ft"]["launches"]:
+        raise AssertionError(f"20a full fine-tuning launched the port's "
+                             f"kernels: {refs['ft']['launches']}")
+    serve1 = {"bf16": _p20_serve(scfg, seed, device),
+              "f32": _p20_serve(scfg32, seed, device)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = _PHASE_S["20 one-process runs"] = time.perf_counter() - t_phase
+    log(f"20 one process (peak GB "
+        f"{ {k: r['peak_gb'] for k, r in refs.items()} }): gemma-7b full FT "
+        f"losses {['%.5f' % v for v in refs['ft']['losses']]} (grad norms "
+        f"{['%.4e' % v for v in refs['ft']['grad_norms']]}); qwen3-moe "
+        f"GSOFT {['%.5f' % v for v in refs['ep']['losses']]}, ragged "
+        f"{['%.5f' % v for v in refs['ep_ragged']['losses']]} "
+        f"({refs['ep']['routings']} routings a run); tp = 1 serve bf16 "
+        f"{serve1['bf16']['wall_s']:.1f} s, launches "
+        f"{serve1['bf16']['launches']}")
+    return dict(cfgs=(gcfg, gcfg.with_overrides(seq_parallel=True), qcfg,
+                      qcfg.with_overrides(seq_parallel=True), scfg, scfg32),
+                refs=refs, serve1=serve1, experts=qwen3.moe_experts,
+                qwen3=qwen3, seconds=seconds)
+
+
+def phase_20(seed: int, device, gen, shared=None) -> dict:
+    """20a full fine-tuning of gemma-7b (full width, 1 layer, f32) on (2,
+    1), (1, 2) with and without seq_parallel and (2, 2), against one
+    process; 20b qwen3-moe (full width, 2 layers, f32, GSOFT b = 32 on
+    every projection) split over 'model' by its experts at (1, 2) with and
+    without seq_parallel and (2, 2), and with a ragged mask at (2, 2),
+    against one process (the routings first), then served at tp = 2 (4
+    layers bf16, 2 f32, an attention bank) against tp = 1; 20c a rank's
+    expert stacks through the GS kernels; 20d the launchers under
+    torchrun. ``shared`` = (``p20_prepare``'s result, the two and four
+    ranks' results) when phase 17's gloo ranks ran the mesh runs;
+    without it this phase prepares and spawns its own."""
+    out = {}
+    t_start, spent0 = time.perf_counter(), dict(_SPENT)
+    if shared is None:
+        with tempfile.TemporaryDirectory() as d:
+            prep = p20_prepare(seed, device, d)
+            t_phase = time.perf_counter()
+            args = (seed, (None, prep["cfgs"]), device, (None, d))
+            ranks2 = _spawn_ranks(_mesh_rank, 2, args, "20")
+            ranks4 = _spawn_ranks(_mesh_rank, 4, args, "20")
+            _PHASE_S["20 ranks"] = time.perf_counter() - t_phase
+    else:
+        prep, (ranks2, ranks4) = shared
+    # the mesh runs' seconds on each rank (in phase 17's processes when
+    # shared: its spawns' start-up is 17c's)
+    out["rank_seconds"] = [[r["seconds"]["20"] for r in ranks]
+                           for ranks in (ranks2, ranks4)]
+    refs, serve1, qwen3 = prep["refs"], prep["serve1"], prep["qwen3"]
+    rows = EP_LAYERS * prep["experts"]
+    runs = {}
+    for name, ranks in (("ft_2x1", ranks2), ("ft_1x2", ranks2),
+                        ("ft_1x2_sp", ranks2), ("ft_2x2", ranks4)):
+        runs[name] = _p20_check(name, ranks, refs["ft"], "20a")
+        if any(r[name]["launches"] for r in ranks):
+            raise AssertionError(f"20a {name}: full fine-tuning launched "
+                                 f"{[r[name]['launches'] for r in ranks]}")
+    for name, ranks, ref in (("ep_1x2", ranks2, "ep"),
+                             ("ep_1x2_sp", ranks2, "ep"),
+                             ("ep_2x2", ranks4, "ep"),
+                             ("ep_2x2_ragged", ranks4, "ep_ragged")):
+        runs[name] = _p20_check(name, ranks, refs[ref], "20b")
+        for i, r in enumerate(ranks):
+            _ep_kernel_gates(f"20b {name} rank {i}", r[name],
+                             rows // 2)
+    for name, run in runs.items():
+        log(f"{name}: losses {['%.5f' % v for v in run['losses'][0]]} (max "
+            f"gap {run['max_gap']:.1e}), grad norm rel {run['norm_rel']:.1e},"
+            f" first moments within {run['mu_rel']:.1e} of each leaf's max "
+            f"({run['mu_leaves']} leaves, every rank); local "
+            f"{run['local']}; launches rank 0 {run['launches'][0]}; "
+            f"routing rank 0 {run['routing'][0]}; wall "
+            f"{['%.1f' % w for w in run['wall_s']]} s; peak "
+            f"{run['peak_gb']} GB a rank; kept choices on a rank's own "
+            f"experts {run['local_choices']}")
+    sv = {"bf16": [r["serve_tp2"] for r in ranks2],
+          "f32": [r["serve_tp2_f32"] for r in ranks2]}
+    for dt, lane in sv.items():
+        for i, r in enumerate(lane):
+            check_slot_path(f"20b serve tp = 2 {dt} rank {i}", r["launches"],
+                            r["slot_launches"], ("gs_fused_T",))
+            if not r["launches"].get("paged_decode"):
+                raise AssertionError(f"20b serve {dt} rank {i}: "
+                                     f"{r['launches']}")
+            r["tokens_differing"] = sum(
+                a != b for ra, rb in zip(r["tokens"], serve1[dt]["tokens"])
+                for a, b in zip(ra, rb))
+    for i, r in enumerate(sv["f32"]):
+        if r["tokens"] != serve1["f32"]["tokens"]:
+            raise AssertionError(f"20b serve tp = 2 (f32) rank {i}: tokens "
+                                 f"differ from tp = 1: {r['tokens']} vs "
+                                 f"{serve1['f32']['tokens']}")
+    ntok = sum(len(t) for t in serve1["bf16"]["tokens"])
+    log(f"20b serve qwen3-moe at tp = 2 (experts a rank "
+        f"{sv['bf16'][0]['local']['moe_wi']}), paged, attention bank, 8 "
+        f"requests: f32 ({CHECK_LAYERS} layers) tokens equal tp = 1 on both "
+        f"ranks; bf16 ({EP_SERVE_LAYERS} layers) tokens differing "
+        f"{[r['tokens_differing'] for r in sv['bf16']]} of {ntok};"
+        f" launches bf16 {[r['launches'] for r in sv['bf16']]}, wall "
+        f"{['%.1f' % r['wall_s'] for r in sv['bf16']]} s (gloo)")
+    t_phase = time.perf_counter()
+    out["stack_cases"] = []
+    for proj, E, T, dd, dtype in ep_stack_cases(qwen3):
+        for kernel in ("gs_fused", "gs_fused_grads"):
+            c = check_stack_case(qwen3.name, proj, kernel, E, T, dd, 32,
+                                 dtype, gen, device, loop_too=False)
+            out["stack_cases"].append(c)
+            log(f"20c {kernel:14s} {proj} rows={E} T={T} d={dd} r={c['r']} "
+                f"{c['dtype']} {c['route']}: {c['ms']:.4f} ms, err vs plain "
+                f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}); plain "
+                f"{c['plain_ms']:.3f} lib {c['library_ms']:.4f} bound "
+                f"{c['bound_ms']:.4f} ({c['bound_by']})")
+    # paged decode at a rank's heads (the bank's rotations take whole rows,
+    # 18e's shapes)
+    local = qwen3.with_overrides(num_heads=qwen3.num_heads // 2,
+                                 num_kv_heads=qwen3.num_kv_heads // 2,
+                                 head_dim=qwen3.d_head)
+    c = out["paged_case"] = check_paged_case(local, PAGE_SIZE, "ctx144",
+                                             torch.bfloat16, gen, device)
+    log(f"20c paged_decode heads {local.num_heads}/{local.num_kv_heads} D="
+        f"{local.d_head} (a rank's at tp = 2): err {c['max_abs_err']:.2e} "
+        f"ms {c['ms']:.4f} plain {c['plain_ms']:.4f} lib "
+        f"{c['library_ms']:.4f} bound {c['bound_ms']:.5f} ({c['bound_by']})")
+    _PHASE_S["20c expert stacks"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    out["launchers"] = p20_launchers(seed)
+    _PHASE_S["20d launchers"] = time.perf_counter() - t_phase
+    out.update(single=refs, runs=runs, serve_tp1=serve1, serve_tp2=sv)
+    kinds = {k: _SPENT[k] - spent0[k] for k in ("timed", "profiled")}
+    kinds["total"] = time.perf_counter() - t_start
+    kinds["set-up"] = kinds["total"] - kinds["timed"] - kinds["profiled"]
+    if shared is not None:      # the one-process runs, the ranks' share
+        kinds["total"] += prep["seconds"] + sum(
+            max(t) for t in out["rank_seconds"])
+    out["spent"] = kinds
+    log(f"20 took {kinds['total']:.1f} s (one-process runs "
+        f"{prep['seconds']:.1f}, mesh runs a rank "
+        f"{[round(max(t), 1) for t in out['rank_seconds']]}): timed "
+        f"{kinds['timed']:.1f}, profiled {kinds['profiled']:.1f}")
+    return out
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -6568,8 +7165,13 @@ def main() -> int:
     p16 = phase_16(full, args.seed, device, gen)
 
     # 17. training: the Mamba2 families on the card (ssd_bwd), and on a
-    # (data x model) mesh as gloo ranks sharing the card
-    p17 = phase_17(full, mamba, zamba, args.seed, device, gen)
+    # (data x model) mesh as gloo ranks sharing the card; phase 20's mesh
+    # runs share those ranks (its one-process runs go first, their first
+    # moments in a temporary directory the ranks read)
+    with tempfile.TemporaryDirectory() as d20:
+        prep20 = p20_prepare(args.seed, device, d20)
+        p17 = phase_17(full, mamba, zamba, args.seed, device, gen,
+                       p20=(prep20["cfgs"], d20))
 
     # 18. the MoE family (qwen3-moe, phi-3.5-MoE's expert stacks) and the
     # other dense decoders (gemma-7b, granite-34b, mistral-large-123b)
@@ -6579,7 +7181,12 @@ def main() -> int:
     # and the encoder classifier
     p19 = phase_19(args.seed, device, gen)
 
-    # 20. report
+    # 20. full fine-tuning on a mesh (gemma-7b) and expert parallelism
+    # (qwen3-moe trained and served split over 'model'), gloo ranks
+    p20 = phase_20(args.seed, device, gen,
+                   shared=(prep20, p17.pop("p20_ranks")))
+
+    # 21. report
     by_path = {"serve": serve["launches"],
                "merge": {"gs_fused": merged["merge_launches"]},
                "train": train["launches"],
@@ -6625,7 +7232,13 @@ def main() -> int:
                **{f"train_classifier_{m}": {
                    k: v * P19_STEPS for k, v in
                    p19["classifier"][m]["launches_per_step"].items()}
-                  for m in CLS_METHODS}}
+                  for m in CLS_METHODS},
+               # 20: rank 0 of each expert-parallel run and of tp = 2
+               # serving (every rank's counts: mesh_train_launches)
+               **{f"train_{n}_rank0": r["launches"][0]
+                  for n, r in p20["runs"].items() if n.startswith("ep_")},
+               **{f"serve_moe_tp2_{dt}_rank0": lane[0]["launches"]
+                  for dt, lane in p20["serve_tp2"].items()}}
     main_case = {"gs_fused_T": ("gs_fused_T", 4, 1, full.d_model, 32,
                                 "bfloat16"),
                  "gs_fused": ("gs_fused", 1, full.d_ff, full.d_model, 32,
@@ -6766,9 +7379,11 @@ def main() -> int:
             k["launches_by_path"].update(
                 {f"train_{a}": r["launches_per_step"]["ssd"] * len(r["losses"])
                  for a, r in p17["train"].items()})
-        # training on the mesh (17c): each rank's launches at tp = 2's local
-        # shapes (GSOFT: (1, 2); bdmm: one BOFT step at (1, 2))
+        # training on the mesh (17c, 20): each rank's launches at tp = 2's
+        # local shapes (GSOFT: (1, 2); bdmm: one BOFT step at (1, 2); the
+        # expert stacks' rotations: 20b; full fine-tuning, 20a: none)
         lanes = {n: r["launches"] for n, r in p17["mesh"]["runs"].items()}
+        lanes.update({n: r["launches"] for n, r in p20["runs"].items()})
         mt = {lane: [r.get(k["name"], 0) for r in ranks]
               for lane, ranks in lanes.items()
               if any(r.get(k["name"], 0) for r in ranks)}
@@ -6814,6 +7429,14 @@ def main() -> int:
               for c in p19["kernel_cases"] if c["kernel"] == k["name"]]
         if ec:
             k["encdec_vlm_classifier_cases"] = ec
+        # a rank's expert stacks and paged decode heads at tp = 2 (20c)
+        pc = [{f: c.get(f) for f in stack_fields}
+              for c in p20["stack_cases"] if c["kernel"] == k["name"]]
+        if pc:
+            k["ep_stack_cases"] = pc
+        if k["name"] == "paged_decode":
+            k["ep_tp2_case"] = {f: p20["paged_case"].get(f)
+                                for f in case_fields}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     spent = dict(_SPENT, build=build_s, phases=dict(_PHASE_S),
@@ -6846,6 +7469,7 @@ def main() -> int:
                                    **p14, **p15, scale_out=p16,
                                    training=p17, moe_and_decoders=p18,
                                    encdec_vlm_classifier=p19,
+                                   mesh_ft_and_experts=p20,
                                    kernels=kernels), indent=1,
                               default=str))
     log(f"details: {out}")

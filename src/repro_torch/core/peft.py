@@ -157,11 +157,15 @@ def materialize_split(cfg: PEFTConfig, params: Tree,
                       specs: Mapping[str, Tuple], whole, local,
                       regather: bool = True) -> Tree:
     """``materialize_tree`` for a rank holding its shards of ``params`` and
-    the whole (replicated) adapters, differentiable w.r.t. the adapters.
-    ``specs[path]`` is a weight's spec (entries: an axis or None; its
-    leading layer dims are never split). An unsplit weight, or one split on
-    its output columns alone under an input-side method, is rotated where
-    it is. Any other split weight is rotated one layer slice at a time:
+    its adapters, differentiable w.r.t. the adapters. ``specs[path]`` is a
+    weight's spec (entries: an axis or None). The adapters of a weight
+    split on a batch dim (an expert stack split by experts: expert
+    parallelism) are the rank's rows of that dim, as the weight is; every
+    other weight's are whole. A weight split on batch dims only, and under
+    an input-side method also on its output columns, is rotated where it
+    is: one launch per local stack, nothing gathered (the batch dims are
+    the rotation's rows). Any other split weight is rotated one slice of
+    its batch dims at a time:
     ``whole((path, i), w, spec)`` gathers slice i's frozen weight, it is
     rotated and ``local(w, spec)`` cuts it back to the rank's block. With
     ``regather`` each slice is checkpointed under autograd, so only one
@@ -175,10 +179,12 @@ def materialize_split(cfg: PEFTConfig, params: Tree,
         if path not in adapters:
             return leaf
         spec = tuple(specs.get(path, ()))
-        split = [i for i, ax in enumerate(spec) if ax is not None]
-        if not split or (split == [leaf.dim() - 1]
-                         and cfg.method in INPUT_SIDE_METHODS):
-            # an input-side method reads only d_in (whole here) of its spec
+        split = {i for i, ax in enumerate(spec) if ax is not None}
+        in_place = set(range(leaf.dim() - 2))     # the batch dims
+        if cfg.method in INPUT_SIDE_METHODS:
+            # an input-side method reads only d_in of its spec
+            in_place.add(leaf.dim() - 1)
+        if split <= in_place:
             return materialize(spec_for(cfg, tuple(leaf.shape)),
                                adapters[path], leaf)
         return _rotate_slices(cfg, path, adapters[path], leaf, spec, whole,

@@ -41,7 +41,10 @@ replicated, its host allocation the same on every rank), and the step
 closures carry the rank's ``TPShard`` to the model code's collectives. A
 mesh that splits nothing (tp = 1) serves exactly as no mesh. The decoder,
 ``ssm`` and ``hybrid`` families split; the image family raises
-NotImplementedError for tp > 1.
+NotImplementedError for tp > 1. An MoE decoder's expert stacks split by
+experts where they divide (the rank holds its experts, ``TPShard.
+experts``), else by d_ff; an offline merge then rotates only the rank's
+experts, with their adapters.
 """
 from __future__ import annotations
 
@@ -172,16 +175,28 @@ class ModelRuntime:
         (``params`` None) or read from ``params``, merged with its adapter
         when ``adapters`` has one, then cut to this rank's slice before the
         next weight is touched."""
+        from repro_torch.sharding import specs as shard_specs
         keep, shapes = _placer(self.cfg, self.mesh, self.device)
+        rules = self._rules()
         merged = set()
 
         def take(path, leaf):
-            if adapters is not None and path in adapters:
-                leaf = peft_lib.materialize(
-                    peft_lib.spec_for(peft_cfg, tuple(leaf.shape)),
-                    adapters[path], leaf)
-                merged.add(path)
-            return keep(path, leaf)
+            if adapters is None or path not in adapters:
+                return keep(path, leaf)
+            merged.add(path)
+            ad = adapters[path]
+            if rules.expert_split(path):
+                # the rank's experts with their own adapters: cut first,
+                # then rotate the local stack
+                local = keep(path, leaf)
+                ad = shard_specs.place(
+                    self.mesh, ad, rules.adapters_tree({path: ad})[path],
+                    local.device)
+                return peft_lib.materialize(
+                    peft_lib.spec_for(peft_cfg, tuple(local.shape)), ad,
+                    local)
+            return keep(path, peft_lib.materialize(
+                peft_lib.spec_for(peft_cfg, tuple(leaf.shape)), ad, leaf))
 
         if params is None:
             local = self._ops.init_params(self.cfg, seed, self.device,

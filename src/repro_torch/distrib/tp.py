@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import copy
 import os
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -84,6 +84,16 @@ def init_world(backend: str, device: torch.device) -> None:
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
+
+
+def close_world() -> None:
+    """Leave the process group: a barrier (every rank is past its last
+    collective), then the group's teardown, so no rank's exit closes a
+    connection another rank still reads. A launcher calls it for a group
+    it started."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def serve_mesh(tp: int, dp: int = 1, *, device: DeviceLike = "cuda",
@@ -246,6 +256,21 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None
 
 
+class _GradShare(torch.autograd.Function):
+    """Identity forward; backward the gradient times ``scale`` (a rank's
+    share of a term every rank computes whole, whose gradients the ranks
+    sum)."""
+
+    @staticmethod
+    def forward(ctx, y, scale):
+        ctx.scale = scale
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 class _Scatter(torch.autograd.Function):
     """Reduce-scatter along ``dim`` forward (``reduce``), or the rank's
     slice of a replicated tensor; backward the all-gather."""
@@ -316,23 +341,43 @@ class TPShard:
     * vocab: embedding rows and LM-head columns split when the padded
       vocab divides (``vocab_split``);
     * Mamba2: the SSD heads and d_inner split when both divide
-      (``mamba_split``; ``models/ssm.py``).
+      (``mamba_split``; ``models/ssm.py``);
+    * MoE (expert parallelism): the expert stacks split by experts when E
+      divides (``experts_split``: the rank holds experts ``experts[0]``
+      up to ``experts[0] + experts[1]``), else by each expert's d_ff
+      (``expert_ff_split``), else replicate; ``models/moe.py`` routes
+      globally on every rank and runs the rank's part (``moe_split``).
 
     ``paged_attention`` is the paged-decode kernel behind
     ``head_shard_map``, wrapped once for the runtime.
+
+    A plain ``{axis: size}`` mapping for ``mesh`` gives rank 0's shard with
+    no process group: its local shapes and windows (a plan, as
+    ``ShardingRules`` reads a mapping), never its collectives.
     """
 
     def __init__(self, cfg: ModelConfig, mesh):
         rules = ShardingRules(cfg, mesh)
         self.mesh = mesh
         self.size = rules.tp
-        self.rank = mesh.get_local_rank("model")
-        self.group = mesh.get_group("model")
-        self.backend = dist.get_backend(self.group)
-        self.comm = Comm(self.group, self.size, self.rank)
+        if isinstance(mesh, Mapping):
+            self.rank, self.group, self.backend = 0, None, None
+            self.comm, self.src = None, 0
+        else:
+            self.rank = mesh.get_local_rank("model")
+            self.group = mesh.get_group("model")
+            self.backend = dist.get_backend(self.group)
+            self.comm = Comm(self.group, self.size, self.rank)
+            self.src = dist.get_global_rank(self.group, 0)
         self.seq_parallel = bool(cfg.seq_parallel)
         self.sp = False                 # set on the copy ``with_seq`` makes
-        self.src = dist.get_global_rank(self.group, 0)
+        self.experts_split = rules.experts_shardable
+        self.expert_ff_split = (rules.expert_ff_shardable
+                                and not self.experts_split)
+        self.moe_split = self.experts_split or self.expert_ff_split
+        E = cfg.moe_experts
+        n = E // self.size if self.experts_split else E
+        self.experts = (self.rank * n if self.experts_split else 0, n)
         self.heads_split = rules.attn_heads_shardable
         self.kv_split = rules.kv_heads_shardable
         self.ff_split = rules.ff_shardable
@@ -395,6 +440,15 @@ class TPShard:
             return y
         return _Reduce.apply(y, self.comm, True)
 
+    def grad_share(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` as it is, its gradient scaled to this rank's 1 / size
+        share: a term every rank computes whole (the MoE load-balance loss
+        of the global routing) inside a block whose gradients the ranks
+        sum."""
+        if self.size == 1:
+            return y
+        return _GradShare.apply(y, 1.0 / self.size)
+
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' ``x`` joined along ``dim`` in rank order (bits moved
         as they are); backward the rank's slice of the gradient."""
@@ -439,24 +493,11 @@ class TPShard:
         return k.index_select(k.dim() - 2, idx)
 
 
-def refuse_experts(cfg: ModelConfig, tp: int, dp: int = 1) -> None:
-    """An MoE config on a mesh that splits anything raises: serving or
-    training it over ranks needs expert parallelism (experts split over
-    'model', tokens routed between ranks), which is not ported; the dense
-    split rules would reach only the attention."""
-    if cfg.is_moe and max(tp, dp) > 1:
-        raise NotImplementedError(
-            f"{cfg.name} is an MoE config: running it on a mesh (tp={tp}, "
-            f"dp={dp}) needs expert parallelism, which is not ported yet")
-
-
 def model_shard(cfg: ModelConfig, mesh) -> Optional[TPShard]:
     """The runtime's ``TPShard``, or None when the mesh splits nothing
     (tp = 1: the model runs exactly as it does without a mesh). An MoE
-    config on a mesh of more than one rank raises NotImplementedError
-    (``refuse_experts``)."""
-    if mesh is not None:
-        refuse_experts(cfg, tp_size(mesh), dp_size(mesh))
+    config splits its experts over 'model' where they divide, else each
+    expert's d_ff, else runs its MoE layers replicated."""
     if mesh is None or tp_size(mesh) == 1:
         return None
     if cfg.family not in SPLIT_FAMILIES:

@@ -62,8 +62,14 @@ unless the bank is store-paged, which gets a fresh ``attach`` per replica;
 (started by ``torchrun``): every rank builds ``serve_mesh`` and its
 runtime, draws the same seeded requests, and rank 0 decides each
 streaming tick's admissions and broadcasts them; rank 0 alone prints.
-``--tp 1`` runs the degenerate mesh in one process. The decoder, ``ssm``
-and ``hybrid`` families split. ``--mesh D,N`` with D > 1 adds a 'data' axis:
+``--tp 1`` runs the degenerate mesh in one process (``--backend gloo``
+lets several ranks share one card, which NCCL refuses). The decoder,
+``ssm`` and ``hybrid`` families split; an MoE decoder (``--arch
+qwen3-moe-30b-a3b``) splits its experts over the ranks (expert
+parallelism: every rank routes every token, runs its own experts and the
+partial outputs are summed), with a bank on its attention projections
+only (a bank on the experts is refused, as in JAX). ``--mesh D,N`` with
+D > 1 adds a 'data' axis:
 each group of N ranks serves every request (a replica of the split
 model; the decode step's own batch split over 'data' is
 ``train.steps.local_rows`` / ``gather_rows`` around ``build_decode_step``). ``--tp`` with ``--mesh``
@@ -93,7 +99,7 @@ from repro_torch.config import get_config, get_smoke_config, parse_overrides
 from repro_torch.core import peft as peft_lib
 from repro_torch.core.runtime import ModelRuntime
 from repro_torch.distrib.cluster import EngineCluster, format_cluster_report
-from repro_torch.distrib.tp import SPLIT_FAMILIES, refuse_experts, serve_mesh
+from repro_torch.distrib.tp import SPLIT_FAMILIES, close_world, serve_mesh
 from repro_torch.models import registry
 from repro_torch.obs import SLOMonitor, TraceRecorder
 from repro_torch.quant import tree_bytes
@@ -240,6 +246,9 @@ def _parse(argv):
     ap.add_argument("--tp", type=int, default=0,
                     help="shorthand for --mesh 1,N: split the model over N "
                          "ranks at serve time")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend of --tp / --mesh (default: "
+                         "NCCL on cards, gloo on the CPU)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="run N engine replicas behind an EngineCluster "
                          "with adapter-affinity routing")
@@ -382,7 +391,6 @@ def _mesh(args, cfg):
         dp, tp = 1, args.tp
     else:
         dp, tp = (int(x) for x in args.mesh.split(","))
-    refuse_experts(cfg, tp, dp)
     t = registry.get(cfg.family)
     if (t.has_encoder or t.has_patches) and (tp > 1 or args.mesh):
         raise NotImplementedError(
@@ -393,7 +401,7 @@ def _mesh(args, cfg):
         raise NotImplementedError(
             f"tensor-parallel serving of the {cfg.family!r} family is not "
             f"ported (the {SPLIT_FAMILIES} families split)")
-    return serve_mesh(tp, dp, device=args.device)
+    return serve_mesh(tp, dp, device=args.device, backend=args.backend)
 
 
 def main(argv=None) -> int:
@@ -409,13 +417,17 @@ def main(argv=None) -> int:
         raise SystemExit(f"family {cfg.family!r} is stateless (no KV) — "
                          "it serves through the batched image engine "
                          "(--engine continuous, the default)")
+    started = not torch.distributed.is_initialized()
     mesh = _mesh(args, cfg)
     base_rt = ModelRuntime(cfg, device=args.device, mesh=mesh)
     # every rank of a split model serves; rank 0 alone prints
     quiet = base_rt.shard is not None and base_rt.shard.rank != 0
     with contextlib.redirect_stdout(io.StringIO()) if quiet else \
             contextlib.nullcontext():
-        return _serve(args, cfg, stateless, mesh, base_rt)
+        rc = _serve(args, cfg, stateless, mesh, base_rt)
+    if mesh is not None and started:
+        close_world()
+    return rc
 
 
 def _serve(args, cfg, stateless: bool, mesh, base_rt) -> int:

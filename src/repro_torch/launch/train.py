@@ -18,9 +18,12 @@ process per rank started by ``torchrun``:
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen2-72b --smoke --mesh 2,2 --microbatches 2 --device cpu
 
-(gloo on the CPU, NCCL on cards; ``--set seq_parallel=true`` splits the
-residual stream on the sequence). A world whose size is not the mesh's
-raises ValueError naming both; ``--mesh 1,1`` runs in one process.
+(gloo on the CPU, NCCL on cards; ``--backend gloo`` lets several ranks
+share one card, which NCCL refuses; ``--set seq_parallel=true`` splits
+the residual stream on the sequence). ``--peft full`` trains the rank's
+shards of the params; an MoE config (``--arch qwen3-moe-30b-a3b``) splits
+its experts over 'model'. A world whose size is not the mesh's raises
+ValueError naming both; ``--mesh 1,1`` runs in one process.
 """
 from __future__ import annotations
 
@@ -55,6 +58,9 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="e.g. 4,2 for (data, model), or 2,2,2 for (pod, "
                          "data, model); one process per rank (torchrun)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend of --mesh (default: NCCL on "
+                         "cards, gloo on the CPU)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--corpus", default=None)
@@ -67,7 +73,10 @@ def main(argv=None):
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.with_overrides(**parse_overrides(args.set))
-    mesh = _mesh(args.mesh, args.device) if args.mesh else None
+    import torch.distributed as dist
+    started = not dist.is_initialized()
+    mesh = (_mesh(args.mesh, args.device, args.backend) if args.mesh
+            else None)
 
     tcfg = TrainStepConfig(
         peft=peft_lib.PEFTConfig(method=args.peft, block_size=args.block_size,
@@ -91,6 +100,9 @@ def main(argv=None):
     if hist and (mesh is None or _rank0()):
         print(f"final loss {hist[-1]['loss']:.4f} "
               f"(from {hist[0]['loss']:.4f} @ step {hist[0]['step']})")
+    if mesh is not None and started:
+        from repro_torch.distrib.tp import close_world
+        close_world()
     return 0
 
 
@@ -99,9 +111,10 @@ def _rank0() -> bool:
     return dist.get_rank() == 0
 
 
-def _mesh(spec: str, device: str):
+def _mesh(spec: str, device: str, backend=None):
     """The mesh of ``--mesh D,M`` or ``P,D,M`` over this process group
-    (``torchrun``'s, or a world of one)."""
+    (``torchrun``'s, or a world of one), on ``backend`` (default: the
+    device's)."""
     from repro_torch.device import resolve_device
     from repro_torch.distrib.tp import default_backend, init_world
     from repro_torch.launch.mesh import make_mesh
@@ -110,7 +123,7 @@ def _mesh(spec: str, device: str):
         raise ValueError(f"--mesh takes D,M or P,D,M (sizes >= 1), not "
                          f"{spec!r}")
     dev = resolve_device(device)
-    init_world(default_backend(dev), dev)
+    init_world(backend or default_backend(dev), dev)
     pods, (data, model) = (dims[0], dims[1:]) if len(dims) == 3 else (1, dims)
     return make_mesh(data, model, pods=pods, device_type=dev.type)
 

@@ -26,6 +26,13 @@ expert buffer, the expert products as batched matmuls over E, and one
 index-add back, with the gates cast to the activation dtype as JAX's
 combine tensor holds them. The kept set, the slots and the dtypes are
 JAX's (``routing`` returns them for the tests).
+
+Expert parallelism (``moe_layer(..., tp=)``): JAX shards the expert input
+(``moe_expert_in``: E on 'model') and GSPMD turns the combine, which
+contracts E, into an all-reduce over 'model'; the tokens are replicated
+over 'model', so no token crosses a rank. The port does the same by hand:
+the global routing on every rank, the rank's experts (or d_ff columns),
+and one sum of the partial combines.
 """
 from __future__ import annotations
 
@@ -142,38 +149,75 @@ def _experts(p: Dict[str, torch.Tensor], xin: torch.Tensor,
 
 
 def _segment(p: Dict[str, torch.Tensor], xseg: torch.Tensor,
-             cfg: ModelConfig, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+             cfg: ModelConfig, cap: int,
+             experts: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One segment: (y fp32 (B, seg, d), aux). ``experts`` = (first, n):
+    the experts whose stacks ``p`` holds (all E, or a rank's window under
+    expert parallelism); choices routed elsewhere are left to their
+    ranks, so y is then this rank's part of the combine."""
     b, seg, d = xseg.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
+    e0, n = experts
     r = route(p["router"], xseg, cfg, cap)
     bi, si, ki = torch.nonzero(r.keep, as_tuple=True)
     e = r.idx[bi, si, ki]
-    dest = (e * b + bi) * cap + r.slot[bi, si, ki]       # row of (E, B, cap)
-    tok = bi * seg + si
-    xin = torch.zeros((E * b * cap, d), dtype=xseg.dtype, device=xseg.device)
-    xin = xin.index_copy(0, dest, xseg.reshape(b * seg, d)[tok])
-    out = _experts(p, xin.reshape(E, b * cap, d), cfg).reshape(E * b * cap, d)
-    # JAX's combine tensor holds the gates in the activation dtype; the
-    # products are summed in fp32 and rounded once
-    g = r.gate[bi, si, ki].to(xseg.dtype).to(torch.float32)
-    y = torch.zeros((b * seg, d), dtype=torch.float32, device=xseg.device)
-    y = y.index_add(0, tok, out[dest].to(torch.float32) * g[:, None])
+    g = r.gate[bi, si, ki]
     # Switch load-balance loss: E * mean_b sum_e f_e * P_e, f_e the kept
-    # share of the segment's seg * k choices
+    # share of the segment's seg * k choices (of the global routing)
     f = torch.zeros((b, E), dtype=torch.float32, device=xseg.device)
     f = f.index_put((bi, e), torch.ones_like(g, dtype=torch.float32),
                     accumulate=True) / float(seg * k)
     aux = E * torch.mean(torch.sum(f * r.probs.mean(dim=1), dim=-1))
-    return y.to(out.dtype).reshape(b, seg, d), aux
+    if n != E:
+        mine = (e >= e0) & (e < e0 + n)
+        bi, si, ki, e, g = bi[mine], si[mine], ki[mine], e[mine], g[mine]
+    dest = ((e - e0) * b + bi) * cap + r.slot[bi, si, ki]   # (n, B, cap) row
+    tok = bi * seg + si
+    xin = torch.zeros((n * b * cap, d), dtype=xseg.dtype, device=xseg.device)
+    xin = xin.index_copy(0, dest, xseg.reshape(b * seg, d)[tok])
+    out = _experts(p, xin.reshape(n, b * cap, d), cfg).reshape(n * b * cap, d)
+    # JAX's combine tensor holds the gates in the activation dtype; the
+    # products are summed in fp32 and rounded once
+    g = g.to(xseg.dtype).to(torch.float32)
+    y = torch.zeros((b * seg, d), dtype=torch.float32, device=xseg.device)
+    y = y.index_add(0, tok, out[dest].to(torch.float32) * g[:, None])
+    return y.reshape(b, seg, d), aux
 
 
 def moe_layer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-              segment: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+              segment: int = 2048, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux_loss fp32 scalar). p holds one
-    layer's slices: router (d, E), wi / wg (E, d, f_e), wo (E, f_e, d)."""
+    layer's slices: router (d, E), wi / wg (E, d, f_e), wo (E, f_e, d).
+
+    ``tp`` (a ``distrib.tp.TPShard``): p holds the rank's expert shards and
+    x its residual stream. Every rank routes the same whole sequence (under
+    ``seq_parallel`` ``tp.enter`` gathers it: segments and capacity are
+    the whole sequence's), so the kept set, the slots and ``lax.top_k``'s
+    ties are JAX's on every rank; the rank then runs only its own experts'
+    slots (``experts_split``) or every slot on its d_ff columns
+    (``expert_ff_split``), and its partial combine (fp32) is summed over
+    'model' by ``tp.leave`` (a reduce-scatter under ``seq_parallel``)
+    before the one rounding to the activation dtype. The load-balance loss
+    comes from the global routing, equal on every rank; its gradient is
+    each rank's 1 / tp share, as the router's is (the ranks' gradients of
+    the router are summed). Unsplit stacks run whole on every rank."""
+    split = tp is not None and tp.moe_split
+    if tp is not None:
+        x = tp.enter(x, split)
     b, s, d = x.shape
     seg = segment_len(s, segment)
     cap = _capacity(cfg, seg)
-    ys, auxs = zip(*(_segment(p, x[:, i:i + seg], cfg, cap)
+    experts = (tp.experts if tp is not None
+               else (0, cfg.moe_experts))
+    ys, auxs = zip(*(_segment(p, x[:, i:i + seg], cfg, cap, experts)
                      for i in range(0, s, seg)))
-    return torch.cat(ys, dim=1), torch.stack(auxs).mean()
+    y = torch.cat(ys, dim=1)
+    aux = torch.stack(auxs).mean()
+    dt = torch.promote_types(torch.promote_types(x.dtype, p["wi"].dtype),
+                             p["wo"].dtype)         # the expert products'
+    if tp is None:
+        return y.to(dt), aux
+    if split:
+        aux = tp.grad_share(aux)
+        return tp.leave(y, True).to(dt), aux
+    return tp.leave(y.to(dt), False), aux

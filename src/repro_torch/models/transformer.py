@@ -27,8 +27,9 @@ An MoE decoder holds {"moe": router (L, d, E), wi / wg (L, E, d, f_e), wo
 (L, E, f_e, d)} where a dense one holds {"mlp"}; its layers run
 ``models.moe.moe_layer`` (plain torch, as in JAX) and ``forward`` returns
 the mean over layers of its load-balance loss as ``moe_aux``. Experts are
-never rotated per request (a bank's ``rot_mlp`` does not reach them), and
-an MoE model does not split over ranks (expert parallelism is not ported).
+never rotated per request (a bank's ``rot_mlp`` does not reach them).
+Under ``tp`` the experts split over the ranks (``moe_layer``'s expert
+parallelism; each rank routes the whole, gathered sequence).
 
 Layer weights stay stacked (L, d_in, d_out) as in the JAX tree; the JAX
 ``lax.scan`` over layers is a Python loop over slices of the stacked
@@ -173,8 +174,8 @@ def _ffn(cfg: ModelConfig, lp, h: torch.Tensor, rot=None, tp=None):
     """The layer's MLP or MoE on the residual h (its norm first): (output,
     moe aux loss, or None for a dense MLP)."""
     hin = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    if "moe" in lp:      # never split: distrib.tp.model_shard refuses MoE
-        return moe_layer(lp["moe"], hin, cfg, segment=cfg.moe_segment)
+    if "moe" in lp:      # split by experts or by d_ff under tp
+        return moe_layer(lp["moe"], hin, cfg, segment=cfg.moe_segment, tp=tp)
     return apply_mlp(lp["mlp"], hin, cfg.mlp_type, rot=rot, tp=tp), None
 
 

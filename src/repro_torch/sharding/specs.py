@@ -26,9 +26,12 @@ the port splits them by hand in the model code, so ``make_sharder``'s
 callback cuts a WHOLE activation to the rank's block (the multi-
 controller form of a sharding constraint, for checks), ``opt_state_tree``
 places the optimizer state as JAX's ``train`` does (``mu`` / ``nu`` as the
-adapters, ``step`` replicated), and ``block_split`` says which adapted
-weights sit in a split block (their adapters' gradients are partial sums
-over 'model').
+trainable tree: the adapters, or the params under full fine-tuning;
+``step`` replicated), ``block_split`` says which weights sit in a split
+block (their replicated adapters' gradients are partial sums over
+'model'), ``grad_share`` says the same of every param under full
+fine-tuning, and ``expert_split`` which expert stacks split by experts
+(expert parallelism: their adapters split with them).
 """
 from __future__ import annotations
 
@@ -216,24 +219,36 @@ class ShardingRules:
                 for wpath, tree in adapters.items()}
 
 
-    # -- training: optimizer state, activations ------------------------------
-    def opt_state_tree(self, opt_state: Tree, adapters_spec: Tree) -> Tree:
-        """AdamW's state follows the adapters (``mu``, ``nu`` as
-        ``adapters_spec``, ``step`` replicated); any other optimizer's
-        state replicates, as JAX's ``train`` places it."""
+    # -- training: optimizer state, gradients, activations -------------------
+    def opt_state_tree(self, opt_state: Tree, trainable_spec: Tree) -> Tree:
+        """AdamW's state follows the trainable tree (``mu``, ``nu`` as
+        ``trainable_spec``: the adapters' specs under PEFT, the params'
+        under full fine-tuning; ``step`` replicated); any other
+        optimizer's state replicates, as JAX's ``train`` places it."""
         if set(opt_state) == {"mu", "nu", "step"}:
-            return {"mu": adapters_spec, "nu": adapters_spec, "step": ()}
+            return {"mu": trainable_spec, "nu": trainable_spec, "step": ()}
         return _map_paths(lambda _p, _l: (), opt_state)
+
+    def expert_split(self, path: str) -> bool:
+        """Is the weight at ``path`` an expert stack (layers, E, d_in,
+        d_out) split over 'model' by its experts (expert parallelism)? Its
+        adapters then split with it (``adapter_spec``), and a rank rotates
+        its own experts with its own adapters."""
+        return (self.tp > 1 and self.experts_shardable
+                and re.search(r"moe/(wi|wg|wo)$", path) is not None)
 
     def block_split(self, path: str) -> bool:
         """Does the weight at ``path`` sit in a block whose computation
         splits over 'model' (the MLP by d_ff, Mamba by heads, attention by
-        q heads)? Its adapter's gradient on a rank is then that rank's
-        share, summed over 'model' (also for a weight the block keeps
-        whole, such as Mamba's wb / wc or unsplit kv heads: each rank uses
-        only its part of its output)."""
+        q heads, an MoE layer by experts or by the experts' d_ff)? A
+        replicated weight read there (Mamba's wb / wc and conv, unsplit kv
+        heads, the MoE router) then gets on each rank only that rank's
+        share of its gradient, as does a replicated adapter of any weight
+        there: each rank uses only its part of the block's output."""
         if self.tp == 1:
             return False
+        if "/moe/" in path:
+            return self.experts_shardable or self.expert_ff_shardable
         if "/mlp/" in path:
             return self.ff_shardable
         if "/mamba/" in path:
@@ -241,6 +256,31 @@ class ShardingRules:
         if "/attn/" in path:
             return self.attn_heads_shardable
         return False
+
+    def grad_share(self, path: str, spec: Spec, seq_split: bool) -> bool:
+        """Full fine-tuning: is a rank's gradient of the param at ``path``
+        (placed under ``spec``) a share, to be summed over 'model', rather
+        than whole? What the port's split forward computes on a rank:
+
+        * a leaf split over 'model' holds its own block's whole gradient;
+        * a replicated leaf in a split block (``block_split``) holds a
+          share;
+        * with the sequence split (``seq_split``: ``seq_parallel`` and a
+          sequence that divides), the norms on the residual stream (before
+          each block and the final one) see only the rank's tokens and
+          hold shares. Everything else is whole: an unsplit block gathers
+          the sequence and takes back the whole gradient of its output
+          (``TPShard.leave``'s backward all-gathers it), the embedding
+          lookup likewise, and the LM head (split or not) sees the
+          gathered sequence; so tied embeddings are whole twice over;
+        * every other replicated leaf is whole: each rank computes the
+          same loss from the same replicated residual stream."""
+        if self.tp == 1 or "model" in tuple(spec):
+            return False
+        if seq_split and re.search(r"(^|/)(attn_norm|mlp_norm|norm|"
+                                   r"final_norm)$", path):
+            return True
+        return self.block_split(path)
 
     def act_spec(self, name: str) -> Optional[Spec]:
         """JAX's activation table: the spec of activation ``name``, None for

@@ -7,11 +7,15 @@ with the data cursor as ``extra={"data_step": ...}``, JAX's layout) every
 detection; and a serving runtime over the merged trained weights at the
 end.
 
-On a mesh (``train(mesh=)``, one process per rank): the frozen params are
-the rank's shards (``ModelRuntime(..., mesh=)`` draws each weight whole
-from the seed and keeps its slice), the adapters and the optimizer state
-whole on every rank (``adapters_tree`` / ``opt_state_tree``: replicated),
-each step takes the global batch and keeps the rank's rows
+On a mesh (``train(mesh=)``, one process per rank): the params are the
+rank's shards (``ModelRuntime(..., mesh=)`` draws each weight whole from
+the seed and keeps its slice). PEFT trains adapters whole on every rank,
+but for the expert stacks', which split with their experts
+(``adapters_tree``); full fine-tuning trains the rank's shards of the
+params (their specs ``serve_params_tree``'s, as JAX's loop gives the
+trainable tree ``params_tree``'s); the optimizer's moments follow the
+trainable tree and its step is replicated (``opt_state_tree``). Each step
+takes the global batch and keeps the rank's rows
 (``build_train_step(cfg, tcfg, mesh)``). A checkpoint gathers every leaf
 whole and global rank 0 writes it in JAX's layout; a resume restores it
 onto this mesh, whichever mesh saved it. Global rank 0 logs. The returned
@@ -66,19 +70,25 @@ def train(cfg: ModelConfig, tcfg: TrainStepConfig, dcfg: DataConfig,
                                                       adapters)
     if not tcfg.peft.is_peft:
         trainable, frozen = params, {}
-    opt_state = optim.init(tcfg.opt, trainable)
-    step_fn = build_train_step(cfg, tcfg, mesh)
-    data = LMDataSource(dcfg, frontend=frontend_shape(cfg, dcfg.seq_len))
     ckpt_kw = {}
     if mesh is not None:
         import torch.distributed as dist
-        from repro_torch.sharding.specs import ShardingRules
+        from repro_torch.sharding.specs import ShardingRules, place
         rules = ShardingRules(cfg, mesh)
-        t_sh = rules.adapters_tree(trainable)
-        ckpt_kw = dict(mesh=mesh, spec_tree={
-            "trainable": t_sh, "opt": rules.opt_state_tree(opt_state, t_sh)})
+        if tcfg.peft.is_peft:
+            # the expert stacks' adapters split with their experts
+            t_sh = rules.adapters_tree(trainable)
+            trainable = place(mesh, trainable, t_sh)
+        else:       # the params' shards, as the runtime placed them
+            t_sh = rules.serve_params_tree(rt0.param_shapes)
         if dist.get_rank() != 0:
             log_fn = _quiet
+    opt_state = optim.init(tcfg.opt, trainable)
+    if mesh is not None:
+        ckpt_kw = dict(mesh=mesh, spec_tree={
+            "trainable": t_sh, "opt": rules.opt_state_tree(opt_state, t_sh)})
+    step_fn = build_train_step(cfg, tcfg, mesh)
+    data = LMDataSource(dcfg, frontend=frontend_shape(cfg, dcfg.seq_len))
     start_step = 0
     mgr = None
     if loop.ckpt_dir:

@@ -12,21 +12,29 @@ On a mesh (``build_train_step(cfg, tcfg, mesh)``; one process per rank, as
 ``torchrun`` starts them) the step takes the GLOBAL batch, cuts it into
 microbatches as JAX's scan does, and keeps the rank's rows of each
 (``ShardingRules.batch_spec``: split over the data axes where they
-divide); ``frozen`` holds the rank's shards of the params and the adapters
-are whole on every rank (``adapter_spec``: replicated). The forward runs
-the split model (``distrib.tp.TPShard``, its collectives autograd-aware;
-``cfg.seq_parallel`` splits the residual stream on the sequence); a
-weight split over 'model' on its input rows is gathered one layer slice at
-a time, rotated and cut back (``core.peft.materialize_split``; under
+divide). PEFT: ``frozen`` holds the rank's shards of the params and the
+adapters are whole on every rank, but for an expert stack split by
+experts, whose adapters are the rank's experts' (``adapter_spec``). Full
+fine-tuning: the trainable tree is the rank's shards of the params. The
+forward runs the split model (``distrib.tp.TPShard``, its collectives
+autograd-aware; ``cfg.seq_parallel`` splits the residual stream on the
+sequence; an MoE layer runs the rank's experts, ``models.moe``). A weight
+split over 'model' on its input rows is gathered one layer slice at a
+time, rotated and cut back (``core.peft.materialize_split``; under
 ``cfg.remat == "full"`` the backward gathers each slice again rather than
-keeping it, under "none" a slice is gathered once a step). An adapter in
-a split block gets its rank's share of the gradient, so those gradients
-are summed over 'model'. A microbatch's loss is its masked mean over the
-GLOBAL microbatch's valid tokens, as GSPMD partitions JAX's step: each
-rank weights its rows' loss, metrics and gradients by its share of those
-tokens, and the sums over the data axes (pod x data) are the whole
-microbatch's, in fp32. The update then runs the same on every rank. Full
-fine-tuning on a mesh is not ported (NotImplementedError).
+keeping it, under "none" a slice is gathered once a step); a stack split
+by experts rotates in place, with no gather. A rank's gradient of a leaf
+is either whole or its share, summed over 'model' (``_MeshStep.share``:
+an adapter or a replicated param in a split block, the residual stream's
+norms under ``seq_parallel``; ``ShardingRules.grad_share``). A
+microbatch's loss is its masked mean over the GLOBAL microbatch's valid
+tokens, as GSPMD partitions JAX's step: each rank weights its rows' loss,
+metrics and gradients by its share of those tokens (the MoE load-balance
+term, a mean over rows, by its share of the rows), and the sums over the
+data axes (pod x data) are the whole microbatch's, in fp32. The update
+then runs the same on every rank, the gradient clip and ``grad_norm``
+from the global norm (``_MeshStep.sum_sq``: a split leaf's parts summed
+over 'model').
 
 The serving builders run under ``torch.inference_mode``. Greedy sampling is
 ``argmax`` (first index on ties, as ``jnp.argmax``). On a mesh with a data
@@ -47,6 +55,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import peft as peft_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
+from repro_torch.models.transformer import MOE_AUX_COEF
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.sharding import specs as shard_specs
 
@@ -80,7 +89,7 @@ class _MeshStep:
     the weights' specs, the rotation of its split weights, its rows of a
     batch's microbatches, and the gradient reductions."""
 
-    def __init__(self, cfg: ModelConfig, mesh):
+    def __init__(self, cfg: ModelConfig, mesh, peft: bool = True):
         from repro_torch.distrib import tp as tp_lib
         t = api.family_ops(cfg)
         if t.has_encoder or t.has_patches:
@@ -90,10 +99,15 @@ class _MeshStep:
         self.tp_lib = tp_lib
         self.cfg = cfg
         self.mesh = mesh
+        self.peft = peft
         self.rules = shard_specs.ShardingRules(cfg, mesh)
         self.shard = tp_lib.model_shard(cfg, mesh)
+        self.seq_split = False      # the last microbatches' sequence split
         self._specs: Dict[str, tuple] = {}
         self._kept: Optional[Dict[tuple, torch.Tensor]] = None
+        # bytes this rank received gathering frozen weights to rotate them,
+        # by weight path (an expert stack split by experts gathers none)
+        self.gather_bytes: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def one_step(self):
@@ -120,6 +134,8 @@ class _MeshStep:
             if self._kept is not None and key in self._kept:
                 return self._kept[key]
             out = shard_specs.gather_leaf(self.mesh, w.detach(), spec)
+            self.gather_bytes[key[0]] = self.gather_bytes.get(key[0], 0) + (
+                out.numel() - w.numel()) * out.element_size()
             if self._kept is not None:
                 self._kept[key] = out
             return out
@@ -135,31 +151,65 @@ class _MeshStep:
                                           regather=self.cfg.remat == "full")
 
     def microbatches(self, batch: Dict[str, torch.Tensor], n: int):
-        """[(the rank's rows of microbatch i, its weight)]: the global
-        batch cut into ``n`` microbatches first, then each split over the
-        data axes (whole on every rank where it does not divide). The
-        weight is the rank's share of the microbatch's valid tokens (a
-        masked mean's denominator), so the weighted sums over the data
-        axes are the global microbatch's mean."""
+        """[(the rank's rows of microbatch i, its token weight, its row
+        weight)]: the global batch cut into ``n`` microbatches first, then
+        each split over the data axes (whole on every rank where it does
+        not divide). The token weight is the rank's share of the
+        microbatch's valid tokens (a masked mean's denominator), so the
+        weighted sums over the data axes are the global microbatch's mean;
+        the row weight its share of the rows (the MoE load-balance loss is
+        a mean over rows, unmasked)."""
         mbs = _split_microbatches(batch, n)
         size = next(iter(batch.values())).shape[0] // n
         spec = self.rules.batch_spec(mbs[0], size)
         rows = [{k: shard_specs.local_slice(self.mesh, v, spec[k])
                  for k, v in mb.items()} for mb in mbs]
+        if self.shard is not None:
+            self.seq_split = self.shard.with_seq(
+                rows[0]["tokens"].shape[1]).sp
         n_dp = shard_specs.dp_size(self.mesh)
         if n_dp == 1 or size % n_dp:
-            return [(r, 1.0 / n_dp) for r in rows]
+            return [(r, 1.0 / n_dp, 1.0 / n_dp) for r in rows]
         counts = torch.stack([_valid_tokens(r) for r in rows])
         (total,) = self.tp_lib.dp_sum(self.mesh, [counts])
         weights = counts.clamp(min=1.0) / total.clamp(min=1.0)
-        return list(zip(rows, weights))
+        return [(r, w, 1.0 / n_dp) for r, w in zip(rows, weights)]
+
+    def _weight_path(self, path: str) -> str:
+        """The weight a trainable leaf belongs to: the leaf itself under
+        full fine-tuning, an adapter factor's weight under PEFT."""
+        return path.rsplit("/", 1)[0] if self.peft else path
+
+    def share(self, path: str, leaf) -> bool:
+        """Is the rank's gradient of this trainable leaf a share, summed
+        over 'model' (else it is whole)? PEFT: a replicated adapter in a
+        split block (an expert stack's adapters split with their experts:
+        whole); full fine-tuning: ``ShardingRules.grad_share``."""
+        if self.shard is None:
+            return False
+        w = self._weight_path(path)
+        if self.peft:
+            return (not self.rules.expert_split(w)
+                    and self.rules.block_split(w))
+        return self.rules.grad_share(w, self.spec(w, leaf), self.seq_split)
+
+    def split_leaf(self, path: str, leaf) -> bool:
+        """Does this trainable leaf hold only the rank's part over
+        'model' (an expert stack's adapter under PEFT, a split param under
+        full fine-tuning)?"""
+        if self.shard is None:
+            return False
+        w = self._weight_path(path)
+        if self.peft:
+            return self.rules.expert_split(w)
+        return "model" in self.spec(w, leaf)
 
     def reduce(self, grads, metrics):
-        """Sum the split blocks' adapter gradients over 'model', then every
+        """Sum the shares of the gradients over 'model', then every
         (weighted) gradient and metric over the data axes."""
         paths = peft_lib.flatten_paths(grads)
         if self.shard is not None:
-            part = [k for k in paths if self.rules.block_split(k)]
+            part = [k for k, v in paths.items() if self.share(k, v)]
             if part:
                 summed = _flat_reduce(self.shard.comm.all_reduce,
                                       [paths[k] for k in part])
@@ -173,6 +223,19 @@ class _MeshStep:
         mets = {k: v.reshape(()) for k, v in zip(names, both[len(keys):])}
         return _rebuild(grads, iter(out[k] for k in
                                     peft_lib.flatten_paths(grads))), mets
+
+    def sum_sq(self, grads) -> torch.Tensor:
+        """The reduced gradients' global sum of squares, the same on every
+        rank: each split leaf's part summed over 'model', each replicated
+        leaf once (JAX's ``global_norm`` over the whole tree)."""
+        sq = [(self.split_leaf(k, v), torch.sum(torch.square(
+                  v.to(torch.float32))))
+              for k, v in peft_lib.flatten_paths(grads).items()]
+        whole = sum(v for split, v in sq if not split)
+        part = sum(v for split, v in sq if split)
+        if torch.is_tensor(part):
+            part = self.shard.comm.all_reduce(part)
+        return whole + part
 
 
 def _valid_tokens(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -200,14 +263,21 @@ def build_grad_fn(cfg: ModelConfig, peft_cfg: peft_lib.PEFTConfig,
     """grad_fn(trainable, frozen, batch) -> (loss, metrics, grads): the
     loss and the gradients w.r.t. the trainable tree (same nesting), as one
     train step takes them. ``split``: a rank's mesh context (its share of
-    the gradients, before the step's reductions)."""
+    the gradients, before the step's reductions); there ``grad_fn(...,
+    aux_weight=a)`` differentiates (and returns as the loss) the loss with
+    its MoE load-balance term times ``a``: the rank's row weight over its
+    token weight, as the step weights the cross entropy by tokens and the
+    load-balance loss, a mean over rows, by rows."""
     tp = split.shard if split is not None else None
 
-    def grad_fn(trainable, frozen, mb):
+    def grad_fn(trainable, frozen, mb, aux_weight=1.0):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
         with torch.enable_grad():
             loss, metrics = api.loss_fn(
                 cfg, _params_of(peft_cfg, leaves, frozen, split), mb, tp)
+            if cfg.is_moe and aux_weight != 1.0:
+                loss = loss + (aux_weight - 1.0) * (MOE_AUX_COEF *
+                                                    metrics["moe_aux"])
             flat = tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat) if flat else []
         gtree = _rebuild(leaves, iter(grads))
@@ -226,30 +296,32 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, mesh=None):
     schedule = tcfg.schedule or optim.constant()
     split = None
     if mesh is not None:
-        if not tcfg.peft.is_peft:
-            raise NotImplementedError(
-                "full fine-tuning on a mesh is not ported (PEFT methods "
-                "train on a mesh)")
-        split = _MeshStep(cfg, mesh)
+        split = _MeshStep(cfg, mesh, peft=tcfg.peft.is_peft)
     grad_fn = build_grad_fn(cfg, tcfg.peft, split)
 
     def train_step(frozen: Tree, trainable: Tree, opt_state: Tree,
                    batch: Dict[str, torch.Tensor]):
+        sum_sq = None
         if split is not None:
             gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                   device=p.device), trainable)
             lacc = None
             with split.one_step():
-                for mb, w in split.microbatches(batch, n_micro):
-                    loss, metrics, g = grad_fn(trainable, frozen, mb)
+                for mb, w, w_row in split.microbatches(batch, n_micro):
+                    loss, metrics, g = grad_fn(trainable, frozen, mb,
+                                               w_row / w)
                     s = w / n_micro
                     gacc = tree_map(lambda a, b: a + b.to(torch.float32) * s,
                                     gacc, g)
+                    del g       # full fine-tuning: a whole tree of params'
                     lacc = loss * s if lacc is None else lacc + loss * s
             # JAX keeps the last microbatch's metrics and the mean loss
-            metrics = {k: v * w for k, v in metrics.items()}
+            metrics = {k: v * (w_row if k == "moe_aux" else w)
+                       for k, v in metrics.items()}
             metrics["loss"] = lacc
             grads, metrics = split.reduce(gacc, metrics)
+            del gacc
+            sum_sq = split.sum_sq
         elif n_micro > 1:
             gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                   device=p.device), trainable)
@@ -258,6 +330,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, mesh=None):
                 loss, metrics, g = grad_fn(trainable, frozen, mb)
                 gacc = tree_map(lambda a, b: a + b.to(torch.float32) / n_micro,
                                 gacc, g)
+                del g
                 lacc = (loss / n_micro if lacc is None
                         else lacc + loss / n_micro)
             grads = gacc
@@ -267,7 +340,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainStepConfig, mesh=None):
         lr_scale = schedule(opt_state["step"])
         with torch.no_grad():
             new_trainable, new_opt, om = optim.update(
-                tcfg.opt, grads, opt_state, trainable, lr_scale)
+                tcfg.opt, grads, opt_state, trainable, lr_scale, sum_sq)
         metrics = dict(metrics)
         metrics.update(om)
         return new_trainable, new_opt, metrics
@@ -289,7 +362,8 @@ def build_eval_step(cfg: ModelConfig, tcfg: TrainStepConfig, mesh=None):
     mesh the rank's rows and shards, the metrics averaged over the data
     axes."""
     peft_cfg = tcfg.peft
-    split = _MeshStep(cfg, mesh) if mesh is not None else None
+    split = (_MeshStep(cfg, mesh, peft=peft_cfg.is_peft)
+             if mesh is not None else None)
     tp = split.shard if split is not None else None
 
     @torch.no_grad()
@@ -297,9 +371,13 @@ def build_eval_step(cfg: ModelConfig, tcfg: TrainStepConfig, mesh=None):
         params = _params_of(peft_cfg, trainable, frozen, split)
         if split is None:
             return api.loss_fn(cfg, params, batch, tp)[1]
-        ((mb, w),) = split.microbatches(batch, 1)
+        ((mb, w, w_row),) = split.microbatches(batch, 1)
         _, metrics = api.loss_fn(cfg, params, mb, tp)
-        return split.reduce({}, {k: v * w for k, v in metrics.items()})[1]
+        if cfg.is_moe:      # the loss's load-balance term is a row mean
+            metrics["loss"] = metrics["loss"] + (w_row / w - 1.0) * (
+                MOE_AUX_COEF * metrics["moe_aux"])
+        return split.reduce({}, {k: v * (w_row if k == "moe_aux" else w)
+                                 for k, v in metrics.items()})[1]
 
     return eval_step
 

@@ -193,29 +193,49 @@ def test_decoder_and_moe_entry_points_raise_without_a_card(monkeypatch,
 
 @pytest.mark.parametrize("arch", ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"))
 def test_moe_on_a_mesh_raises_not_implemented(arch):
-    """An MoE config under ``--tp 2``, ``--mesh`` or a split mesh needs
-    expert parallelism: NotImplementedError naming it, before any process
-    group starts (the launcher) or any weight is placed."""
+    """An MoE config under ``--tp 2``, ``--mesh`` or a split mesh gets its
+    experts split (expert parallelism): the launcher's MoE refusal is
+    gone (in one process it stops at the world size, naming both sizes),
+    ``model_shard`` builds a ``TPShard`` holding rank 0's experts (half of
+    E, or every expert on half its d_ff where E does not divide) and
+    ``build_train_step`` a step over it, PEFT and full fine-tuning; a
+    data-only mesh splits nothing. A bank on the experts stays refused."""
+    import torch
     from repro_torch import optim
     from repro_torch.config import get_smoke_config
     from repro_torch.core import peft
     from repro_torch.distrib import tp as tp_lib
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.sharding.specs import ShardingRules
     from repro_torch.train import steps
-    for flags in (["--tp", "2"], ["--mesh", "2,1"], ["--mesh", "1,4"]):
-        with pytest.raises(NotImplementedError, match="expert parallelism"):
+    for flags, n in ((["--tp", "2"], 2), (["--mesh", "2,1"], 2),
+                     (["--mesh", "1,4"], 4)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks"):
             launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu"]
                               + flags)
     cfg = get_smoke_config(arch)
-    tcfg = steps.TrainStepConfig(peft=peft.PEFTConfig(block_size=8),
-                                 opt=optim.OptimizerConfig())
-    for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
-        with pytest.raises(NotImplementedError, match="expert parallelism"):
-            tp_lib.model_shard(cfg, mesh)
-        with pytest.raises(NotImplementedError, match="expert parallelism"):
-            steps.build_train_step(cfg, tcfg, mesh=mesh)
-    assert tp_lib.model_shard(cfg, {"data": 1, "model": 1}) is None
-    tp_lib.refuse_experts(get_smoke_config("gemma-7b"), 2, 2)   # dense: fine
+    E, fe = cfg.moe_experts, cfg.expert_d_ff
+    for method in ("gsoft", "full"):
+        tcfg = steps.TrainStepConfig(peft=peft.PEFTConfig(method=method,
+                                                          block_size=8),
+                                     opt=optim.OptimizerConfig())
+        for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 1}):
+            shard = tp_lib.model_shard(cfg, mesh)
+            step = steps.build_train_step(cfg, tcfg, mesh=mesh)
+            if mesh["model"] == 1:
+                assert shard is None and step.split.shard is None
+                continue
+            for s in (shard, step.split.shard):
+                assert s.experts_split and s.experts == (0, E // 2)
+            assert ShardingRules(cfg, mesh).param_spec(
+                "layers/moe/wi", (1, E, 1, fe)) == (None, "model", None, None)
+    odd = cfg.with_overrides(moe_experts=E - 1)     # E does not divide 2
+    shard = tp_lib.model_shard(odd, {"data": 1, "model": 2})
+    assert shard.expert_ff_split and shard.experts == (0, E - 1)
+    with pytest.raises(ValueError, match="MoE experts"):
+        peft.bank_specs(peft.PEFTConfig(method="gsoft", block_size=8),
+                        {"layers": {"moe": {"wi": torch.zeros(2, E, 64,
+                                                               32)}}})
 
 
 def test_encoder_classifier_and_frontends_raise_without_a_card(monkeypatch):

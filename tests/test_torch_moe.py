@@ -298,3 +298,97 @@ def test_stacked_gsoft_equals_jax_vmap_and_chunks_by_layer(monkeypatch):
     calls.clear()
     assert torch.equal(tad.materialize(spec, tp, torch.from_numpy(W)), whole)
     assert calls == {"gs_fused": 3}          # never below one layer
+
+
+class _Rank:
+    """What ``moe_layer(..., tp=)`` reads of a ``distrib.tp.TPShard``, for
+    one simulated rank of ``size`` with no process group: the collectives
+    are the identity, so the layer returns this rank's partial combine."""
+
+    def __init__(self, rank, size, E, by_experts):
+        self.moe_split = True
+        n = E // size if by_experts else E
+        self.experts = (rank * n if by_experts else 0, n)
+
+    def enter(self, x, split=True):
+        return x
+
+    def leave(self, y, split=True):
+        return y
+
+    def grad_share(self, y):
+        return y
+
+
+def _rank_layer(p, rank, size, by_experts):
+    """Rank ``rank``'s shards of one layer: its experts, or every
+    expert's ``rank``-th window of d_ff (wi / wg columns, wo rows)."""
+    if by_experts:
+        n = p["wi"].shape[0] // size
+        return {k: (v if k == "router" else v[rank * n:(rank + 1) * n])
+                for k, v in p.items()}
+    f = p["wi"].shape[-1] // size
+    cols = slice(rank * f, (rank + 1) * f)
+    return {k: (v if k == "router" else v[:, cols] if k == "wo"
+                else v[..., cols]) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("by_experts, E, size", [(True, 8, 2), (True, 8, 4),
+                                                 (False, 6, 4)],
+                         ids=["experts_tp2", "experts_tp4", "d_ff_tp4"])
+def test_partial_combines_sum_to_the_layer(by_experts, E, size):
+    """Split by experts or by each expert's d_ff: every simulated rank
+    routes the whole input and returns its partial combine (fp32); their
+    sum equals ``moe_layer``'s output within 1e-6 (the summation order
+    alone), with drops and two segments, and every rank's load-balance
+    loss is the layer's exactly."""
+    cfg = convert.config_from_jax(dataclasses.replace(
+        jax_smoke_config(ARCH), moe_experts=E, capacity_factor=0.75))
+    rng = np.random.default_rng(11 + E + size)
+    p = {k: torch.from_numpy(v) for k, v in _layer(cfg, rng, False).items()}
+    x = torch.from_numpy(rng.normal(size=(3, 32, cfg.d_model))
+                         .astype(np.float32))
+    want, aux = tmoe.moe_layer(p, x, cfg, segment=16)
+    parts = [tmoe.moe_layer(_rank_layer(p, r, size, by_experts), x, cfg,
+                            segment=16, tp=_Rank(r, size, E, by_experts))
+             for r in range(size)]
+    got = sum(y.to(torch.float64) for y, _ in parts)
+    _close(got.numpy(), want.numpy(), 1e-6, "sum of the partial combines")
+    assert all(torch.equal(a, aux) for _, a in parts)
+    assert int((~tmoe.routing(p, x, cfg, segment=16).keep).sum()) > 0
+    if by_experts:      # a rank's combine holds only its experts' tokens
+        assert all(float(y.abs().sum()) > 0 for y, _ in parts)
+
+
+def test_split_expert_stack_rotates_in_place(monkeypatch):
+    """``materialize_split`` on a rank's expert stack split by experts
+    (spec (None, 'model', None, None)) and its own rows of the adapters:
+    one ``gs_diff_rows`` call for the local stack, no slice gathered (0
+    bytes), and bit for bit the rank's experts of the whole stack's
+    rotation."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(5)
+    W = torch.from_numpy(rng.normal(size=(2, 8, 32, 24)).astype(np.float32))
+    pcfg = tpeft.PEFTConfig(method="gsoft", block_size=8)
+    spec = tpeft.spec_for(pcfg, tuple(W.shape))
+    ad = {k: v + 0.1 * torch.from_numpy(rng.normal(size=v.shape)
+                                        .astype(np.float32))
+          for k, v in tad.init_adapter(spec, torch.Generator(),
+                                       device="cpu").items()}
+    whole = tad.materialize(spec, ad, W)
+    calls, gathered = [], []
+    rows = ops.gs_diff_rows
+    monkeypatch.setattr(ops, "gs_diff_rows", lambda L, R, x: (
+        calls.append(tuple(x.shape)), rows(L, R, x))[1])
+    for rank in range(2):
+        mine = slice(4 * rank, 4 * rank + 4)
+        calls.clear()
+        got = tpeft.materialize_split(
+            pcfg, {"moe": {"wi": W[:, mine]}},
+            {"moe/wi": {k: v[:, mine] for k, v in ad.items()}},
+            {"moe/wi": (None, "model", None, None)},
+            lambda key, w, s: gathered.append(w.numel()) or w,
+            lambda w, s: w)
+        assert len(calls) == 1 and calls[0][0] == 2 * 4
+        assert torch.equal(got["moe"]["wi"], whole[:, mine])
+    assert sum(gathered) == 0

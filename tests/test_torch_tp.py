@@ -8,11 +8,15 @@ JAX's own TP. tests/test_torch_tp4.py runs tp = 4.
 One spawn of two ranks serves a mixed-method eager bank, the same tenants
 store-paged, int8 banked with JAX's codes (contiguous and paged), int8
 quantized on the mesh, int8 restored from checkpoints leaf by leaf, an
-offline merge placed weight by weight, and streaming arrivals. Greedy tokens are compared
+offline merge placed weight by weight, and streaming arrivals; then
+qwen3-moe with its experts split over the ranks (an attention bank through
+the contiguous and paged engines, one decode step's logits, a merge of
+every projection, the launcher's ``--tp 2``). Greedy tokens are compared
 exactly (f32 on both sides). Each rank's params, bank stacks and KV are
 checked to be its local slice, so a silently replicated weight fails. The
 launcher's refusals run in this process.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -57,7 +61,57 @@ def refs():
                      adapters=gb, n=6, seed=3, ckpt=True),
         "merge": dict(params=params, n=4, seed=2, merge=True),
     }
+    moe_want, moe_payload = _moe_refs()
+    want.update(moe_want)
+    payload.update(moe_payload)
     return want, payload
+
+
+MOE = "qwen3-moe-30b-a3b"
+ATTN = (r".*/attn/(wq|wk|wv|wo)$",)   # a bank refuses the expert stacks
+MOE_BANK = {"e0": "gsoft", "e1": "gsoft", "e2": "gsoft"}
+
+
+def _moe_refs():
+    """qwen3-moe (smoke: 8 experts, 4 a rank at tp = 2): JAX's one-device
+    tokens from a 3-tenant GSOFT bank on the attention projections, and
+    JAX's ``build_decode_step`` logits of one step of 8 rows."""
+    import jax
+    import jax.numpy as jnp
+    from repro.config import get_smoke_config as jax_smoke_config
+    from repro.core import peft as jpeft
+    from repro.core.runtime import ModelRuntime as JaxRuntime
+    from repro.models import api as japi
+    from repro.train.steps import build_decode_step as jax_decode_step
+    from repro_torch import convert
+    from repro_torch.core import peft as tpeft
+    jcfg = jax_smoke_config(MOE)
+    jrt = JaxRuntime(jcfg, key=jax.random.PRNGKey(0))
+    params = R.np_tree(jrt.params)
+    tcfgs = {n: tpeft.PEFTConfig(method=m, block_size=8, target_patterns=ATTN)
+             for n, m in MOE_BANK.items()}
+    ads = tlaunch.make_demo_adapters(
+        list(MOE_BANK), convert.params_from_numpy(params, "cpu"), tcfgs,
+        torch.device("cpu"), scale=0.3)
+    ads = {n: {p: {k: v.numpy() for k, v in e.items()} for p, e in t.items()}
+           for n, t in ads.items()}
+    jcfgs = {n: jpeft.PEFTConfig(method=m, block_size=8, target_patterns=ATTN)
+             for n, m in MOE_BANK.items()}
+    toks = R.jax_tokens(jrt.attach(ads, jcfgs), MOE_BANK, 6, 4)
+    _, logits, _ = jax_decode_step(jcfg)(
+        jrt.params, None, jnp.arange(1, 9, dtype=jnp.int32)[:, None],
+        japi.init_decode_state(jcfg, 8, 16), jnp.asarray(0, jnp.int32))
+    case = dict(arch=MOE, params=params, methods=MOE_BANK, adapters=ads,
+                targets=ATTN, n=6, seed=4)
+    return ({"moe": toks, "moe_paged": toks,
+             "moe_probe": np.asarray(logits, np.float32)},
+            {"moe": dict(case, probe=True),
+             "moe_paged": dict(case, paged=True),
+             "moe_merge": dict(arch=MOE, params=params, n=4, seed=2,
+                               merge=True),
+             "moe_launch": dict(argv=["--arch", MOE, "--smoke", "--tp", "2",
+                                      "--engine", "paged", "--device",
+                                      "cpu"])})
 
 
 @pytest.fixture(scope="module")
@@ -165,3 +219,49 @@ def test_split_gsoft_bank_counts_the_gathered_blocks(tp2):
     for r in tp2:
         for case in ("bank", "store", "int8", "paged"):
             assert r[case]["bank_gather_bytes"] > 0, case
+
+
+@pytest.mark.parametrize("case", ["moe", "moe_paged"])
+def test_moe_split_by_experts_serves_jax_tokens(refs, tp2, case):
+    """qwen3-moe at tp = 2, its 8 experts 4 a rank (routing on every rank,
+    the partial combines summed), serving a 3-tenant GSOFT bank on the
+    attention projections through the contiguous and the paged engine:
+    both ranks give JAX's one-device greedy tokens exactly (f32), and
+    each holds its half of the experts."""
+    want = refs[0]["moe"]
+    assert [r[case]["tokens"] for r in tp2] == [want, want]
+    from repro_torch.config import get_smoke_config
+    cfg = get_smoke_config(MOE)
+    for r in tp2:
+        assert r[case]["local"]["moe_wi"][1:] == (
+            cfg.moe_experts // 2, cfg.d_model, cfg.expert_d_ff)
+
+
+def test_moe_decode_at_tp2_matches_jax(refs, tp2):
+    """One decode step of 8 rows at tp = 2: logits within ``decode_cell``'s
+    5e-2 of JAX's single-device ``build_decode_step`` and its greedy
+    tokens exactly."""
+    want = refs[0]["moe_probe"]
+    for r in tp2:
+        got = r["moe"]["probe"]
+        np.testing.assert_allclose(got["logits"], want, rtol=5e-2, atol=5e-2)
+        assert np.array_equal(got["tokens"], want[:, -1].argmax(-1))
+
+
+def test_moe_offline_merge_on_the_mesh_equals_the_whole_merge(tp2):
+    """A GSOFT adapter on every projection, the expert stacks included,
+    merged under tp = 2: each rank rotates its own experts with their
+    adapters and serves the unsplit merge's greedy tokens exactly."""
+    for r in tp2:
+        for how in ("seed", "tree"):
+            whole, split = r["moe_merge"][how]
+            assert split == whole and len(whole) == 4
+
+
+def test_launcher_serves_moe_split_over_two_ranks(tp2):
+    """``launch/serve.py --arch qwen3-moe-30b-a3b --smoke --tp 2 --engine
+    paged`` in both ranks (the mesh joins their process group): every
+    request served, rank 0 alone prints the report."""
+    a, b = tp2[0]["moe_launch"], tp2[1]["moe_launch"]
+    assert a["rc"] == b["rc"] == 0
+    assert "cluster: 1 replica(s), 8 requests" in a["out"] and not b["out"]

@@ -54,7 +54,8 @@ def _local_shapes(rt, state_key, state):
     p = rt.params
     q = lambda t: tuple((t.q if hasattr(t, "q") else t).shape)  # noqa: E731
     out = {k: q(p["layers"]["attn"][k]) for k in ("wq", "wk", "wo")}
-    out.update({f"mlp_{k}": q(p["layers"]["mlp"][k]) for k in ("wi", "wo")})
+    ffn = "moe" if "moe" in p["layers"] else "mlp"
+    out.update({f"{ffn}_{k}": q(p["layers"][ffn][k]) for k in ("wi", "wo")})
     out["embed"] = q(p["embed"]["table"])
     out["lm_head"] = q(p["lm_head"]["w"])
     out["kv"] = tuple(state[state_key]["k"].shape)
@@ -133,6 +134,31 @@ def _merge_case(spec, cfg, mesh):
     return out
 
 
+def _probe(rt, cfg):
+    """One decode step of 8 rows from position 0 (tokens 1..8): logits
+    and greedy tokens, as JAX's ``build_decode_step`` gives them."""
+    from repro_torch.models import api
+    from repro_torch.train.steps import build_decode_step
+    tokens = torch.arange(1, 9, dtype=torch.int64)[:, None]
+    state = api.family_ops(cfg).init_decode_state(cfg, 8, 16, "cpu",
+                                                  tp=rt.shard)
+    tok, logits, _ = build_decode_step(cfg, tp=rt.shard)(
+        rt.params, None, tokens, state, torch.tensor(0))
+    return {"logits": logits.float().numpy(), "tokens": tok[:, 0].numpy()}
+
+
+def _launch(spec):
+    """The serve launcher in this rank (the process group is up: the
+    launcher's mesh joins it); rank 0's report."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as launch_serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(spec["argv"])
+    return {"rc": rc, "out": buf.getvalue()}
+
+
 def _case(name, spec, mesh, rank):
     from repro_torch import convert, quant
     from repro_torch.config import get_smoke_config
@@ -142,6 +168,8 @@ def _case(name, spec, mesh, rank):
     from repro_torch.serve.engine import PagedServeEngine, ServeEngine
 
     cfg = get_smoke_config(spec.get("arch", "qwen2-72b"))
+    if spec.get("argv"):
+        return _launch(spec)
     if spec.get("merge"):
         return _merge_case(spec, cfg, mesh)
     out = {}
@@ -159,12 +187,17 @@ def _case(name, spec, mesh, rank):
             quant.QuantConfig(mode="int8"))
         rt = rt.quantized("int8")
         out["codes_equal"] = _codes_equal(rt, whole, cfg, mesh)
-    cfgs = {n: tpeft.PEFTConfig(method=m, block_size=8)
+    targets = spec.get("targets")
+    cfgs = {n: tpeft.PEFTConfig(method=m, block_size=8,
+                                **({"target_patterns": targets}
+                                   if targets else {}))
             for n, m in spec["methods"].items()}
+    if spec.get("probe"):       # one decode step of 8 rows, no bank
+        out["probe"] = _probe(rt, cfg)
     if cfgs:
         ads = convert.adapters_from_numpy(spec["adapters"], "cpu")
         rt = rt.attach(ads, cfgs, hbm_budget=spec.get("budget"))
-        if "gsoft" in spec["methods"].values():
+        if "gsoft" in spec["methods"].values() and not targets:
             out["bank"] = _bank_shapes(rt)
     names = list(cfgs)
     reqs = _requests(names, spec["n"], spec["seed"])

@@ -1,4 +1,4 @@
-"""Run phases 3h, 14, 15, 16, 17, 18 and 19 of ``chip_smoke.py`` alone on one GPU,
+"""Run phases 3h, 14, 15, 16, 17, 18, 19 and 20 of ``chip_smoke.py`` alone on one GPU,
 from this tree: the image lane's kernel shapes, static / streaming /
 traced serving of qwen2-72b (8 layers, bf16, and the f32 check at 2
 layers), lipconvnet-15 image serving per tenant (bf16, int8, the f32
@@ -12,9 +12,13 @@ rotations, qwen3-moe training and serving, gemma-7b, granite-34b and
 mistral-large-123b), and the encoder-decoder, the vlm and the encoder
 classifier (seamless-m4t-medium trained and served merged, pixtral-12b
 served banked and int8 banked and trained, the classifier at
-RoBERTa-base's widths under four methods, the new kernel shapes).
+RoBERTa-base's widths under four methods, the new kernel shapes), and
+full fine-tuning on a mesh and expert parallelism (gemma-7b's every param
+trained and qwen3-moe's experts split over 'model', gloo ranks sharing the
+card against one process; qwen3-moe served at tp = 2; a rank's expert
+stacks through the GS kernels; the launchers under torchrun).
 
-    python3 tools/lane_phases.py [--only 3h,14,15,16,17,18,19] [--seed N] [--out FILE]
+    python3 tools/lane_phases.py [--only 3h,14,15,16,17,18,19,20] [--seed N] [--out FILE]
 
 Each phase runs through the function ``chip_smoke.main()`` calls for it,
 gates, launcher runs and log included (a miss raises), after the kernels
@@ -53,6 +57,8 @@ PHASES = {
     "18": lambda gen, seed, dev: {"moe_and_decoders": cs.phase_18(
         seed, dev, gen)},
     "19": lambda gen, seed, dev: {"encdec_vlm_classifier": cs.phase_19(
+        seed, dev, gen)},
+    "20": lambda gen, seed, dev: {"mesh_ft_and_experts": cs.phase_20(
         seed, dev, gen)},
 }
 
